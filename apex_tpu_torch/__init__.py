@@ -1,0 +1,16 @@
+"""apex_tpu_torch — the PyTorch/CUDA port of apex_tpu for the NVIDIA H100.
+
+A package beside ``apex_tpu`` that mirrors its module paths
+(``apex_tpu_torch/models/gpt.py`` is the counterpart of
+``apex_tpu/models/gpt.py``, and so on). It imports PyTorch, numpy and the
+standard library only: never JAX, never ``apex_tpu``. Plain tensor code is
+PyTorch; each Pallas kernel of the JAX package on the ported path is a
+hand-written CUDA kernel for ``sm_90a`` under ``csrc/``, built at first
+use (:mod:`apex_tpu_torch._kernels`).
+
+This slice serves GPT end to end: :mod:`apex_tpu_torch.models` and
+:mod:`apex_tpu_torch.serving`. Public entry points default to
+``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,95 @@
+"""Weight bridge between the JAX package's GPT pytree and the port.
+
+``params_from_jax`` turns the ``GPTModel.init`` pytree of the JAX package,
+with its leaves converted to numpy arrays, into a state dict for
+:class:`apex_tpu_torch.models.gpt.GPTModel`; ``params_to_numpy`` is the
+inverse. The JAX layers are stacked ``(L, ...)`` and its tensor-parallel
+weights keep a leading shard dim of 1 at tp=1 (qkv weight ``(L, 1, 3h,
+h)``); the port's layers are a ``ModuleList`` with plain ``(out, in)``
+weights. Values pass bit for bit: bf16 leaves go through a ``uint16``
+view, since ``torch.from_numpy`` refuses numpy's bf16 extension dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax", "params_to_numpy"]
+
+_LINEARS = ("qkv", "proj", "fc1", "fc2")
+_NORMS = ("ln1", "ln2")
+
+
+def _to_torch(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        raw = np.array(arr.view(np.uint16))   # a writable copy of the bits
+        return torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _to_numpy(t: torch.Tensor):
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().copy()
+
+
+def _shard0(arr, what: str):
+    if arr.shape[0] != 1:
+        raise ValueError(f"{what}: leading shard dim {arr.shape[0]}; the "
+                         "port runs tp=1")
+    return arr[0]
+
+
+def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
+    """State dict (CPU tensors) from the JAX ``GPTModel.init`` pytree with
+    numpy leaves. ``cfg`` gives ``num_layers``."""
+    sd: Dict[str, torch.Tensor] = {
+        "embedding.word.weight": _to_torch(_shard0(
+            tree["embedding"]["word"]["weight"], "embedding.word.weight")),
+        "embedding.position": _to_torch(tree["embedding"]["position"]),
+        "final_ln.weight": _to_torch(tree["final_ln"]["weight"]),
+        "final_ln.bias": _to_torch(tree["final_ln"]["bias"]),
+    }
+    layers = tree["layers"]
+    for i in range(cfg.num_layers):
+        for name in _NORMS:
+            for leaf in ("weight", "bias"):
+                sd[f"layers.{i}.{name}.{leaf}"] = _to_torch(
+                    layers[name][leaf][i])
+        for name in _LINEARS:
+            for leaf in ("weight", "bias"):
+                sd[f"layers.{i}.{name}.{leaf}"] = _to_torch(_shard0(
+                    layers[name][leaf][i], f"layers.{name}.{leaf}"))
+    return sd
+
+
+def params_to_numpy(state_dict, cfg) -> dict:
+    """The JAX pytree layout (numpy leaves, layers stacked, shard dim 1)
+    from a port state dict. bf16 leaves come back as their raw ``uint16``
+    bits (view them as numpy's bf16 extension dtype, which the port does
+    not import, to hand them to JAX)."""
+    def get(name):
+        return _to_numpy(state_dict[name])
+
+    L = cfg.num_layers
+    layers: dict = {}
+    for name in _NORMS:
+        layers[name] = {leaf: np.stack([get(f"layers.{i}.{name}.{leaf}")
+                                        for i in range(L)])
+                        for leaf in ("weight", "bias")}
+    for name in _LINEARS:
+        layers[name] = {leaf: np.stack([get(f"layers.{i}.{name}.{leaf}")[None]
+                                        for i in range(L)])
+                        for leaf in ("weight", "bias")}
+    return {
+        "embedding": {"word": {"weight": get("embedding.word.weight")[None]},
+                      "position": get("embedding.position")},
+        "layers": layers,
+        "final_ln": {"weight": get("final_ln.weight"),
+                     "bias": get("final_ln.bias")},
+    }

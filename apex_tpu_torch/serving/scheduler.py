@@ -1,0 +1,241 @@
+"""Continuous slot batching: admit into freed slots, retire mid-flight.
+
+Counterpart of ``SlotScheduler`` in ``apex_tpu/serving/scheduler.py``. The
+decode step always steps all ``max_seqs`` slots; between steps the host
+admits queued requests into whatever slots just freed and retires whatever
+finished (eos, length, or cache capacity), so a sequence holds a slot for
+exactly its own lifetime.
+
+Every request carries a
+:class:`~apex_tpu_torch.observability.reqtrace.RequestRecord` stamped with
+one ``time.perf_counter()`` per transition, so completions report measured
+``queue_wait_ms``/``ttft_ms``/``tpot_ms``/``e2e_ms``, and each step emits
+the ``serve/*`` counters, gauges and latency histograms into a
+:class:`~apex_tpu_torch.observability.registry.MetricsRegistry`.
+
+The resilience knobs (bounded queue, deadlines, cancel, quarantine, drain,
+brownout, fault plans), speculative decoding and paged admission come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from apex_tpu_torch.observability.registry import get_registry
+from apex_tpu_torch.observability.reqtrace import (LATENCY_BUCKETS_MS,
+                                                   RequestRecord)
+
+__all__ = ["Request", "Completion", "SlotScheduler"]
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. ``temperature`` <= 0 is greedy;
+    ``eos_token`` (optional) stops generation early; ``max_new_tokens``
+    always bounds it."""
+    prompt: Sequence[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    eos_token: Optional[int] = None
+    request_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    """A finished request: the generated tokens (prompt excluded), why
+    generation stopped (``"eos"`` | ``"length"`` | ``"capacity"``), and
+    the measured latencies (``tpot_ms`` is None for single-token
+    requests)."""
+    request_id: int
+    tokens: List[int]
+    finish_reason: str
+    queue_wait_ms: Optional[float] = None
+    ttft_ms: Optional[float] = None
+    tpot_ms: Optional[float] = None
+    e2e_ms: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Active:
+    request: Request
+    generated: List[int]
+    position: int            # prompt_len + len(generated), vs cache capacity
+    record: RequestRecord
+
+
+class SlotScheduler:
+    """Drive with :meth:`submit` + :meth:`step` (one decode step per
+    call), or :meth:`run` for a closed batch. ``registry`` defaults to
+    the process-wide one."""
+
+    def __init__(self, engine, registry=None):
+        self.engine = engine
+        self._reg = registry if registry is not None else get_registry()
+        self.queue: collections.deque = collections.deque()
+        self.free: List[int] = list(range(engine.max_seqs))[::-1]
+        self.active: Dict[int, _Active] = {}
+        self.completed: List[Completion] = []
+        self.steps = 0              # decode steps executed
+        self._tokens = np.zeros(engine.max_seqs, np.int64)
+        self._temps = np.zeros(engine.max_seqs, np.float32)
+        self._next_id = 0
+        self._in_flight_ids = set()
+        self._tok_count = 0
+        self._tok_t0: Optional[float] = None
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, request: Request) -> int:
+        """Enqueue ``request`` and return its id. A malformed request
+        raises here, never mid-step."""
+        if len(request.prompt) == 0:
+            raise ValueError("empty prompt")
+        if len(request.prompt) > self.engine.prefill_len:
+            raise ValueError(
+                f"prompt length {len(request.prompt)} exceeds the "
+                f"engine's prefill window {self.engine.prefill_len}")
+        if request.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got "
+                f"{request.max_new_tokens} (the prefill always samples "
+                "one token)")
+        if (request.request_id is not None
+                and request.request_id in self._in_flight_ids):
+            raise ValueError(
+                f"request_id {request.request_id} is already in flight")
+        if request.request_id is None:
+            request.request_id = self._next_id
+        self._next_id = max(self._next_id, request.request_id) + 1
+        self._in_flight_ids.add(request.request_id)
+        record = RequestRecord(request_id=request.request_id,
+                               prompt_len=len(request.prompt),
+                               submit_t=time.perf_counter())
+        self.queue.append((request, record))
+        return request.request_id
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue) + len(self.active)
+
+    # -- the loop -----------------------------------------------------------
+
+    def _retire(self, slot: int, reason: str, now: float) -> None:
+        st = self.active.pop(slot)
+        self.engine.release_slot(slot)
+        self.free.append(slot)
+        self._in_flight_ids.discard(st.request.request_id)
+        rec = st.record
+        rec.retire_t = now
+        rec.finish_reason = reason
+        rec.generated = len(st.generated)
+        self.completed.append(Completion(
+            st.request.request_id, st.generated, reason,
+            queue_wait_ms=rec.queue_wait_ms, ttft_ms=rec.ttft_ms,
+            tpot_ms=rec.tpot_ms, e2e_ms=rec.e2e_ms))
+        self._reg.counter("serve/retired").inc()
+        for name, value in (("serve/queue_wait_ms", rec.queue_wait_ms),
+                            ("serve/ttft_ms", rec.ttft_ms),
+                            ("serve/tpot_ms", rec.tpot_ms),
+                            ("serve/e2e_ms", rec.e2e_ms)):
+            if value is not None:
+                self._reg.histogram(name, LATENCY_BUCKETS_MS).observe(value)
+
+    def _finish_reason(self, st: _Active, tok: int) -> Optional[str]:
+        req = st.request
+        if req.eos_token is not None and tok == req.eos_token:
+            return "eos"
+        if len(st.generated) >= req.max_new_tokens:
+            return "length"
+        if st.position >= self.engine.max_len:
+            return "capacity"
+        return None
+
+    def _record(self, tok: int, st: _Active, slot: int, now: float) -> None:
+        st.generated.append(tok)
+        st.position += 1
+        self._tokens[slot] = tok
+        self._tok_count += 1
+        st.record.last_token_t = now
+        reason = self._finish_reason(st, tok)
+        if reason is not None:
+            self._retire(slot, reason, now)
+
+    def _admit(self) -> int:
+        admitted = 0
+        while self.queue and self.free:
+            req, rec = self.queue.popleft()
+            slot = self.free.pop()
+            rec.admit_t = time.perf_counter()
+            rec.slot = slot
+            first = self.engine.prefill(req.prompt, slot, req.temperature)
+            # prefill() syncs on the sampled token: this stamp is the
+            # honest first-token time
+            rec.first_token_t = time.perf_counter()
+            st = _Active(req, [], len(req.prompt), rec)
+            self.active[slot] = st
+            self._temps[slot] = req.temperature
+            self._reg.counter("serve/admitted").inc()
+            self._reg.counter("serve/prefill_tokens").inc(len(req.prompt))
+            admitted += 1
+            # the prefill sampled the first token: the request may even
+            # complete here (max_new_tokens == 1)
+            self._record(first, st, slot, rec.first_token_t)
+        return admitted
+
+    def step(self) -> int:
+        """Admit whatever fits, then run ONE decode step for the whole
+        slot grid (skipped when nothing is active). Returns the number of
+        tokens generated, prefill first tokens included."""
+        if self._tok_t0 is None:
+            self._tok_t0 = time.perf_counter()
+        before = self._tok_count
+        self._admit()
+        if self.active:
+            # a slot at capacity retires before the step: its append would
+            # be dropped, so one more step would decode against a hole
+            now = time.perf_counter()
+            for slot in list(self.active):
+                if self.active[slot].position >= self.engine.max_len:
+                    self._retire(slot, "capacity", now)
+        if self.active:
+            mask = np.zeros(self.engine.max_seqs, np.bool_)
+            mask[list(self.active)] = True
+            nxt = self.engine.decode(self._tokens, self._temps, mask)
+            self.steps += 1
+            self._reg.counter("serve/decode_steps").inc()
+            # one stamp for the whole grid's tick (decode() synced on the
+            # fetched tokens)
+            now = time.perf_counter()
+            for slot in list(self.active):
+                self._record(int(nxt[slot]), self.active[slot], slot, now)
+        generated = self._tok_count - before
+        self._reg.counter("serve/generated_tokens").inc(generated)
+        self._reg.gauge("serve/queue_depth").set(len(self.queue))
+        self._reg.gauge("serve/active_slots").set(len(self.active))
+        elapsed = time.perf_counter() - self._tok_t0
+        if elapsed > 0:
+            self._reg.gauge("serve/tokens_per_sec").set(
+                self._tok_count / elapsed)
+        return generated
+
+    def run(self, requests: Sequence[Request],
+            max_steps: Optional[int] = None) -> Dict[int, Completion]:
+        """Submit ``requests``, loop :meth:`step` until all complete (or
+        ``max_steps``), and return ``{request_id: Completion}`` for the
+        completions of this run."""
+        n0 = len(self.completed)
+        for req in requests:
+            self.submit(req)
+        steps = 0
+        while self.pending:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return {c.request_id: c for c in self.completed[n0:]}
