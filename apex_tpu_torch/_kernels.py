@@ -11,8 +11,14 @@ imported: the CPU tests import every module of the package.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the launch reported an error, and adds one to its entry of
-:data:`LAUNCHES` (and nowhere else). Inference only: inputs that require
-grad raise ``NotImplementedError`` until the backward kernels land.
+:data:`LAUNCHES` (and nowhere else). The wrappers know nothing of autograd:
+:class:`apex_tpu_torch.ops.flash_attention` wraps the three flash kernels
+in a ``torch.autograd.Function`` whose forward runs with grad disabled.
+
+Attention dropout is keyed by ``seed``, the int32 bit pattern of the
+reference's ``dropout_seed``; the kernels hash it with the global (batch-head,
+row, col) of each score (``csrc/common.cuh``), so the mask equals
+:func:`apex_tpu_torch.ops.flash_attention.dropout_keep_mask` bit for bit.
 """
 
 from __future__ import annotations
@@ -30,12 +36,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
-           "decode_attention", "SOURCES"]
+           "flash_bwd_dq", "flash_bwd_dkv", "decode_attention", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -44,7 +50,8 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "decode_attention": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -107,9 +114,14 @@ def _compile(lib_path: Path) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.apex_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, F, P]
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    drop = [I, U, I, F]  # on, seed, thresh, inv_keep
+    lib.apex_flash_fwd.argtypes = [P] * 5 + [I] * 6 + [F] + drop + [P]
     lib.apex_flash_fwd.restype = I
+    lib.apex_flash_bwd_dq.argtypes = [P] * 7 + [I] * 6 + [F] + drop + [P]
+    lib.apex_flash_bwd_dq.restype = I
+    lib.apex_flash_bwd_dkv.argtypes = [P] * 8 + [I] * 6 + [F] + drop + [P]
+    lib.apex_flash_bwd_dkv.restype = I
     lib.apex_decode_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, F, P]
     lib.apex_decode_attention.restype = I
@@ -149,34 +161,51 @@ def _check_common(name: str, tensors, device) -> None:
         _require(t.device == device,
                  f"{name}: every input must be on {device}, got {t.device}")
         _require(t.is_contiguous(), f"{name}: inputs must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name} is inference-only: the backward kernels (and the "
-                "autograd Function around them) land with the training "
-                "slice")
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, scale: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
-    dtype, d in {64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``."""
-    _check_common("flash_fwd", (q, k, v), q.device)
+def _check_attention(name: str, q, k, v) -> Tuple[int, int, int, int]:
+    """Shape and dtype checks shared by the three flash kernels; returns
+    ``(n, sq, sk, d)``."""
     _require(q.dim() == 3 and k.dim() == 3 and v.dim() == 3,
-             "flash_fwd: q, k, v must be rank 3 (n, s, d)")
+             f"{name}: q, k, v must be rank 3 (n, s, d)")
     n, sq, d = q.shape
     sk = k.shape[1]
     _require(tuple(k.shape) == (n, sk, d) and tuple(v.shape) == (n, sk, d),
-             f"flash_fwd: k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+             f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
              f"match q {tuple(q.shape)}")
     _require(q.dtype in (torch.float32, torch.bfloat16)
              and k.dtype == q.dtype and v.dtype == q.dtype,
-             f"flash_fwd: q/k/v must share one dtype of bf16/fp32, got "
+             f"{name}: q/k/v must share one dtype of bf16/fp32, got "
              f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_fwd: head dim {d} is not one of {_HEAD_DIMS}")
-    _require(n > 0 and sq > 0, "flash_fwd: empty batch or query")
+            f"{name}: head dim {d} is not one of {_HEAD_DIMS}")
+    _require(n > 0 and sq > 0, f"{name}: empty batch or query")
+    return n, sq, sk, d
+
+
+def _dropout_args(dropout_rate: float, seed: Optional[int]):
+    """``(on, seed bits, thresh, inv_keep)`` of ``csrc/common.cuh``'s
+    ``Dropout``: the reference's ``int(rate * 2**24)`` threshold and the
+    int32 bit pattern of the seed."""
+    rate = float(dropout_rate)
+    if rate == 0.0:
+        return 0, 0, 0, 1.0
+    _require(0.0 < rate < 1.0, f"dropout rate {rate} outside [0, 1)")
+    _require(seed is not None, "dropout_rate > 0 requires a seed")
+    return 1, int(seed) & 0xFFFFFFFF, int(rate * (1 << 24)), 1.0 / (1.0 - rate)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float, dropout_rate: float = 0.0,
+              seed: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
+    dtype, d in {64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``, with
+    attention dropout at ``dropout_rate`` keyed by ``seed``."""
+    _check_common("flash_fwd", (q, k, v), q.device)
+    n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
+    drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     out = torch.empty_like(q)
     lse = torch.empty((n, sq), dtype=torch.float32, device=q.device)
@@ -185,10 +214,69 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal),
-            float(scale), stream)
+            float(scale), *drop, stream)
     _check_launch("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     return out, lse
+
+
+def _check_bwd(name: str, q, k, v, do, lse, delta) -> Tuple[int, int, int,
+                                                            int]:
+    _check_common(name, (q, k, v, do, lse, delta), q.device)
+    n, sq, sk, d = _check_attention(name, q, k, v)
+    _require(tuple(do.shape) == (n, sq, d) and do.dtype == q.dtype,
+             f"{name}: do {tuple(do.shape)} {do.dtype} does not match q")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        _require(tuple(t.shape) == (n, sq) and t.dtype == torch.float32,
+                 f"{name}: {what} must be (n, sq) fp32, got "
+                 f"{tuple(t.shape)} {t.dtype}")
+    return n, sq, sk, d
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool, scale: float, dropout_rate: float = 0.0,
+                 seed: Optional[int] = None) -> torch.Tensor:
+    """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v`` and ``do``
+    as for :func:`flash_fwd`, the forward's ``lse (n, sq)`` and ``delta =
+    rowsum(do * out) (n, sq)``, both fp32."""
+    n, sq, sk, d = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
+    drop = _dropout_args(dropout_rate, seed)
+    lib, _ = build()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.apex_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, sq, sk, d,
+            _DTYPE_CODE[q.dtype], int(causal), float(scale), *drop, stream)
+    _check_launch("flash_bwd_dq", err)
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool, scale: float, dropout_rate: float = 0.0,
+                  seed: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)``, each ``(n, sk, d)`` in k's dtype, from the inputs of
+    :func:`flash_bwd_dq`."""
+    n, sq, sk, d = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
+    drop = _dropout_args(dropout_rate, seed)
+    lib, _ = build()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.apex_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
+            *drop, stream)
+    _check_launch("flash_bwd_dkv", err)
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,8 +24,10 @@
 // row (an exact no-op: they would leave (m, l, acc) unchanged), and each
 // K/V byte is read from HBM once per q tile. Like the TPU kernel, the
 // probabilities are rounded to the value dtype before the P V product and
-// masked entries are zeroed explicitly. Tensor cores (mma.sync / wgmma) and
-// TMA staging are left for a later, faster version.
+// masked entries are zeroed explicitly. Dropout hashes the global (bh, row,
+// col) of each score a lane owns, so the mask does not depend on the tiling.
+// Tensor cores (mma.sync / wgmma) and TMA staging are left for a later,
+// faster version.
 
 #include "common.cuh"
 
@@ -37,11 +39,6 @@ constexpr int kBK = 32;        // keys per k/v tile: one per lane
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBQ / kWarps;
 
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 template <int D>
 constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D);
@@ -52,7 +49,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int causal,
-                 float scale) {
+                 float scale, Dropout dr) {
   constexpr int kDPL = D / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* qs = smem;                     // kBQ x D
@@ -68,6 +65,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + static_cast<size_t>(bh) * sq * D;
   const T* kb = k + static_cast<size_t>(bh) * sk * D;
   const T* vb = v + static_cast<size_t>(bh) * sk * D;
+  const uint32_t bh_key = dropout_bh_key(dr, bh);
 
   for (int i = tid; i < kBQ * D; i += kWarps * 32) {
     const int r = i / D;
@@ -122,7 +120,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[rr] - m_new);
       l[rr] = l[rr] * corr + warp_sum(p);
       m[rr] = m_new;
-      const float pr = round_to(p, static_cast<const T*>(nullptr));
+      float pd = p;
+      if (dr.on)
+        pd = dropout_keep(bh_key, row, col, dr.thresh) ? p * dr.inv_keep : 0.f;
+      const float pr = round_to<T>(pd);
 #pragma unroll
       for (int dd = 0; dd < kDPL; ++dd) acc[rr][dd] *= corr;
 #pragma unroll 8
@@ -154,7 +155,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int n, int sq, int sk, int causal, float scale,
-                   cudaStream_t stream) {
+                   Dropout dr, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -164,30 +165,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, causal, scale);
+      sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace apex_port
 
-// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16. Returns the
-// cudaError_t of the launch (0 on success).
+// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16. Dropout is on
+// iff `dropout`; then `seed`, `thresh` and `inv_keep` are as in
+// common.cuh::Dropout. Returns the cudaError_t of the launch (0 on success).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int n, int sq, int sk,
                               int d, int dtype, int causal, float scale,
-                              void* stream) {
+                              int dropout, unsigned seed, int thresh,
+                              float inv_keep, void* stream) {
   using namespace apex_port;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dr{dropout, seed, thresh, inv_keep};
   if (dtype == kFloat32 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, n, sq, sk, causal, scale, st);
+    return launch<float, 64>(q, k, v, o, lse, n, sq, sk, causal, scale, dr,
+                             st);
   if (dtype == kFloat32 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, n, sq, sk, causal, scale, st);
+    return launch<float, 128>(q, k, v, o, lse, n, sq, sk, causal, scale, dr,
+                              st);
   if (dtype == kBFloat16 && d == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, lse, n, sq, sk, causal,
-                                     scale, st);
+                                     scale, dr, st);
   if (dtype == kBFloat16 && d == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, lse, n, sq, sk, causal,
-                                      scale, st);
+                                      scale, dr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-"""GPT for the port: dense forward, KV-cached prefill and decode.
+"""GPT for the port: dense forward, LM loss, KV-cached prefill and decode.
 
 Counterpart of ``apex_tpu/models/gpt.py`` (pre-LN GPT-2 style, learned
 positions, tied output embedding) as an ``nn.Module`` whose parameter names
@@ -15,13 +15,24 @@ and then cast; the tied head casts the word embedding to the activation
 dtype and returns fp32 logits; gelu is the tanh approximation.
 
 Attention runs :func:`~apex_tpu_torch.ops.flash_attention.flash_attention`
-in the dense forward and prefill and
+in the dense forward and prefill (differentiable: the flash forward and
+backward kernels) and
 :func:`~apex_tpu_torch.ops.flash_attention.decode_attention` in decode;
 ``GPTConfig.use_kernel`` is passed to both (``None``: the CUDA kernels on
 the card, the plain versions on the CPU).
 
-Out of scope for this slice: dropout, remat, sequence parallelism, the
-loss, the paged and speculative legs and the pipeline split.
+Training: every parameter is trainable, and :meth:`GPTModel.loss` is the
+reference's LM loss (softmax cross-entropy with ``padding_idx=None``, mean
+or masked mean). A ``torch.Generator`` passed to :meth:`GPTModel.forward`
+or :meth:`GPTModel.loss` turns on train-mode dropout, the reference's
+layout: embedding and hidden dropout at ``hidden_dropout``
+(:func:`~apex_tpu_torch.ops.dropout.dropout`), and attention dropout at
+``attention_dropout`` inside the flash kernels, seeded per layer by ints
+drawn from the generator in ``[0, 2**31 - 1)``. The serving legs run
+under ``torch.no_grad`` (:mod:`apex_tpu_torch.serving.engine`).
+
+Out of scope for this slice: remat, sequence parallelism, tp > 1, the
+paged and speculative legs and the pipeline split.
 """
 
 from __future__ import annotations
@@ -36,8 +47,10 @@ from torch import nn
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.normalization import fused_layer_norm_affine
+from apex_tpu_torch.ops.dropout import dropout
 from apex_tpu_torch.ops.flash_attention import (decode_attention,
                                                 flash_attention)
+from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     init_method_normal)
@@ -60,6 +73,10 @@ class GPTConfig:
     layernorm_epsilon: float = 1e-5
     # the reference's ``use_flash``: None = the kernels iff on CUDA
     use_kernel: Optional[bool] = None
+    # train-mode dropout rates (0.0 = off), applied only when a generator
+    # is passed to forward/loss
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
 
     @property
     def ffn(self) -> int:
@@ -73,10 +90,8 @@ class GPTConfig:
 class _Norm(nn.Module):
     def __init__(self, h: int, dtype, device):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(h, dtype=dtype, device=device),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(h, dtype=dtype, device=device),
-                                 requires_grad=False)
+        self.weight = nn.Parameter(torch.ones(h, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(h, dtype=dtype, device=device))
 
     def init(self) -> None:
         with torch.no_grad():
@@ -113,7 +128,7 @@ class _Embedding(nn.Module):
             params_dtype=cfg.params_dtype, device=device)
         self.position = nn.Parameter(torch.empty(
             cfg.max_position_embeddings, cfg.hidden_size,
-            dtype=cfg.params_dtype, device=device), requires_grad=False)
+            dtype=cfg.params_dtype, device=device))
 
 
 class GPTModel(nn.Module):
@@ -173,13 +188,15 @@ class GPTModel(nn.Module):
                           3 * cfg.head_dim)
         return qkv.split(cfg.head_dim, dim=-1)
 
-    def _attention(self, lp: _Layer, x: torch.Tensor,
+    def _attention(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
                    collect_kv: bool = False):
         b, s, _ = x.shape
         qkv, _ = lp.qkv(x)
         q, k, v = (t.transpose(1, 2) for t in self._split_heads(qkv))
+        rate = self.cfg.attention_dropout if attn_seed is not None else 0.0
         ctx = flash_attention(q, k, v, causal=True,
-                              use_kernel=self.cfg.use_kernel)
+                              use_kernel=self.cfg.use_kernel,
+                              dropout_rate=rate, dropout_seed=attn_seed)
         ctx = ctx.transpose(1, 2).reshape(b, s, -1)
         out, _ = lp.proj(ctx)
         if collect_kv:
@@ -193,25 +210,46 @@ class GPTModel(nn.Module):
         out, _ = lp.fc2(h)
         return out
 
-    def _layer(self, lp: _Layer, x: torch.Tensor, collect_kv: bool = False):
-        a = self._attention(lp, self._ln(lp.ln1, x), collect_kv=collect_kv)
+    def _layer(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
+               generator: Optional[torch.Generator] = None,
+               collect_kv: bool = False):
+        rate = self.cfg.hidden_dropout
+        a = self._attention(lp, self._ln(lp.ln1, x), attn_seed,
+                            collect_kv=collect_kv)
         if collect_kv:
             a, kv = a
-        x = x + a
-        x = x + self._mlp(lp, self._ln(lp.ln2, x))
+        x = x + dropout(a, rate, generator)
+        x = x + dropout(self._mlp(lp, self._ln(lp.ln2, x)), rate, generator)
         return (x, kv) if collect_kv else x
 
     # -- dense forward ------------------------------------------------------
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Word plus position embedding, summed in fp32 and cast; with a
+        ``generator``, embedding dropout at the hidden rate."""
         h = self.embedding.word(tokens)
         pos = self.embedding.position[: tokens.shape[1]]
-        return (h + pos).to(self.cfg.compute_dtype)
+        h = (h + pos).to(self.cfg.compute_dtype)
+        return dropout(h, self.cfg.hidden_dropout, generator)
 
-    def transform(self, x: torch.Tensor) -> torch.Tensor:
-        """The layer stack and the final LayerNorm."""
-        for lp in self.layers:
-            x = self._layer(lp, x)
+    def transform(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        """The layer stack and the final LayerNorm. With a ``generator``
+        and a non-zero dropout rate: train-mode dropout, one attention seed
+        per layer drawn first (the reference's ``_layer_rngs``), then the
+        hidden masks layer by layer."""
+        cfg = self.cfg
+        if cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0:
+            generator = None
+        seeds = [None] * len(self.layers)
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 31 - 1, (len(self.layers),),
+                                  generator=generator,
+                                  device=generator.device).tolist()
+        for lp, seed in zip(self.layers, seeds):
+            x = self._layer(lp, x, seed, generator)
         return self._ln(self.final_ln, x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -222,9 +260,11 @@ class GPTModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor, kv_cache=None, slot=None,
                 prompt_len=None, last_logit_only: bool = False,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """Without ``kv_cache``: the dense forward, logits
-        ``(b, s, vocab)``. With a
+        ``(b, s, vocab)``, in train mode (dropout) when a ``generator`` is
+        given. With a
         :class:`~apex_tpu_torch.serving.cache.KVCache`:
 
         - **prefill** (``slot`` given): ``tokens (1, P)``, the causal
@@ -244,11 +284,28 @@ class GPTModel(nn.Module):
         The cache is updated in place (the port's counterpart of the
         reference's donated cache) and returned for API parity."""
         if kv_cache is None:
-            return self.logits(self.transform(self.embed(tokens)))
+            return self.logits(self.transform(self.embed(tokens, generator),
+                                              generator))
         if slot is not None:
             return self._prefill_forward(tokens, kv_cache, slot, prompt_len,
                                          last_logit_only)
         return self._decode_forward(tokens, kv_cache, active)
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             loss_mask: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """LM loss, an fp32 scalar: the mean per-token softmax
+        cross-entropy of the logits against ``targets`` (every token id
+        counts: ``padding_idx=None``), or its ``loss_mask``-weighted mean.
+        A ``generator`` turns on train-mode dropout."""
+        logits = self(tokens, generator=generator)
+        per_tok = softmax_cross_entropy_loss(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+            padding_idx=None, half_to_float=True).reshape(targets.shape)
+        if loss_mask is not None:
+            mask = loss_mask.to(per_tok.dtype)
+            return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return per_tok.mean()
 
     # -- serving: KV-cached prefill/decode ----------------------------------
 

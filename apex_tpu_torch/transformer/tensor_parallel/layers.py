@@ -5,8 +5,12 @@ rank the layers are plain linear and embedding modules; they keep the
 reference's parameter names and its mixed-dtype rule so the weight bridge
 maps one to one: the product ``x @ w.T`` accumulates in fp32 (bf16
 activations against fp32 weights are exact in fp32), the result is cast to
-the activation dtype, and the bias is added after that cast. tp > 1
-raises: sharded layers come with the multi-GPU slice.
+the activation dtype, and the bias is added after that cast. Parameters
+are trainable; autograd carries the grads back through the same casts
+(fp32 products, then the cast to the parameter's dtype). The layers live on
+``device``, by default the card (``"cuda"``, which raises when there is
+none: pass ``device="cpu"`` for the plain CPU path). tp > 1 raises:
+sharded layers come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from apex_tpu_torch._device import resolve_device
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "init_method_normal"]
@@ -54,12 +60,12 @@ class _Linear(nn.Module):
         self.input_size = input_size
         self.output_size = output_size
         self.init_method = init_method or init_method_normal(0.02)
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
-            output_size, input_size, dtype=params_dtype, device=device),
-            requires_grad=False)
+            output_size, input_size, dtype=params_dtype, device=device))
         self.bias = (nn.Parameter(torch.zeros(
-            output_size, dtype=params_dtype, device=device),
-            requires_grad=False) if bias else None)
+            output_size, dtype=params_dtype, device=device))
+            if bias else None)
 
     def init(self, generator: torch.Generator) -> None:
         self.init_method(self.weight, generator)
@@ -82,7 +88,7 @@ class ColumnParallelLinear(_Linear):
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
                  init_method: Optional[Callable] = None,
                  params_dtype=torch.float32, world_size: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(input_size, output_size, bias, init_method,
                          params_dtype, world_size, device)
 
@@ -94,7 +100,7 @@ class RowParallelLinear(_Linear):
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
                  init_method: Optional[Callable] = None,
                  params_dtype=torch.float32, world_size: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(input_size, output_size, bias, init_method,
                          params_dtype, world_size, device)
 
@@ -105,7 +111,7 @@ class VocabParallelEmbedding(nn.Module):
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  init_method: Optional[Callable] = None,
                  params_dtype=torch.float32, world_size: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         _require_tp1(world_size)
         self.num_embeddings = num_embeddings
@@ -113,7 +119,7 @@ class VocabParallelEmbedding(nn.Module):
         self.init_method = init_method or init_method_normal(0.02)
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, dtype=params_dtype,
-            device=device), requires_grad=False)
+            device=resolve_device(device)))
 
     def init(self, generator: torch.Generator) -> None:
         self.init_method(self.weight, generator)

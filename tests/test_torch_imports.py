@@ -42,7 +42,12 @@ def test_port_has_the_slice_modules():
                 "apex_tpu_torch/ops/flash_attention.py",
                 "apex_tpu_torch/serving/engine.py",
                 "apex_tpu_torch/csrc/flash_fwd.cu",
-                "apex_tpu_torch/csrc/decode_attention.cu"):
+                "apex_tpu_torch/csrc/decode_attention.cu",
+                "apex_tpu_torch/csrc/flash_bwd.cu",
+                "apex_tpu_torch/ops/xentropy.py",
+                "apex_tpu_torch/ops/dropout.py",
+                "apex_tpu_torch/optimizers/fused_adam.py",
+                "apex_tpu_torch/amp/scaler.py"):
         assert (REPO / rel).is_file(), rel
 
 
@@ -56,6 +61,10 @@ def test_import_with_jax_blocked():
         "from apex_tpu_torch.models import GPTConfig, GPTModel\n"
         "from apex_tpu_torch.serving import ServingEngine, SlotScheduler\n"
         "from apex_tpu_torch.ops import flash_attention, decode_attention\n"
+        "from apex_tpu_torch.ops import softmax_cross_entropy_loss, dropout\n"
+        "from apex_tpu_torch.optimizers import FusedAdam\n"
+        "from apex_tpu_torch.amp import DynamicLossScale, all_finite\n"
+        "from apex_tpu_torch.normalization import fused_layer_norm_affine\n"
         "from apex_tpu_torch.observability import get_registry\n"
         "assert _kernels._LIB is None, 'a kernel was built at import'\n"
         "assert 'triton' not in sys.modules\n"
@@ -98,7 +107,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.decode_attention(q, q, q, torch.zeros(2, dtype=torch.int32),
                                   None, None, 0.125)
-    assert _kernels.LAUNCHES == {"flash_fwd": 0, "decode_attention": 0}
+    rows = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.125)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.125, 0.1, 3)
+    assert _kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                 "flash_bwd_dkv": 0, "decode_attention": 0}
 
 
 def test_source_key_tracks_sources():
@@ -108,7 +123,30 @@ def test_source_key_tracks_sources():
 
 
 def test_dropout_raises_until_training_slice():
+    """The training contract that replaced the inference-only raise:
+    attention dropout runs once it has a seed, a rate without one raises,
+    and a bias on the kernel path raises."""
     from apex_tpu_torch.ops import flash_attention
     q = torch.zeros(1, 1, 8, 16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         flash_attention(q, q, q, dropout_rate=0.1)
+    out = flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=0)
+    assert out.shape == q.shape
+    with pytest.raises(NotImplementedError, match="bias"):
+        flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8),
+                        use_kernel=True)
+
+
+def test_tp_layers_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    for make in (lambda **kw: ColumnParallelLinear(4, 8, **kw),
+                 lambda **kw: RowParallelLinear(4, 8, **kw),
+                 lambda **kw: VocabParallelEmbedding(16, 4, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+        layer = make(device="cpu")
+        assert all(p.requires_grad and p.device.type == "cpu"
+                   for p in layer.parameters())
