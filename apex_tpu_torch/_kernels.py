@@ -36,12 +36,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv", "decode_attention", "SOURCES"]
+           "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+           "paged_decode_attention", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
+           "paged_decode_attention.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -51,7 +53,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "decode_attention": 0}
+                            "flash_bwd_dkv": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -125,6 +128,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apex_decode_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, F, P]
     lib.apex_decode_attention.restype = I
+    lib.apex_paged_decode_attention.argtypes = [P] * 9 + [I] * 8 + [F, P]
+    lib.apex_paged_decode_attention.restype = I
     return lib
 
 
@@ -328,4 +333,72 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream)
     _check_launch("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
+    return out, lse
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           k_scale: Optional[torch.Tensor],
+                           v_scale: Optional[torch.Tensor], scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q (n, q_len, d)`` bf16/fp32 with ``n = slots * heads`` over the
+    block pools ``k_pool``/``v_pool`` ``(num_blocks, heads, block_size,
+    d)`` (bf16, fp32, or int8 with ``(num_blocks, heads, block_size)`` fp32
+    scales), slot ``s`` reading logical position ``t`` from pool block
+    ``tables[s, t // block_size]`` below its cursor ``lengths[s]``
+    (``tables (slots, n_table)``, ``lengths (slots,)``, both int32) ->
+    ``(out (n, q_len, d) in q.dtype, lse (n, q_len))``. Table entries at or
+    past ``ceil(lengths[s] / block_size)`` are never read."""
+    name = "paged_decode_attention"
+    quantized = k_pool.dtype == torch.int8
+    scales = (k_scale, v_scale) if quantized else ()
+    _check_common(name, (q, k_pool, v_pool, tables, lengths, *scales),
+                  q.device)
+    _require(q.dim() == 3 and k_pool.dim() == 4 and tables.dim() == 2,
+             f"{name}: q must be rank 3 (n, q_len, d), the pools rank 4 "
+             "and the tables rank 2")
+    n, q_len, d = q.shape
+    num_blocks, heads, block_size, dp = k_pool.shape
+    slots, n_table = tables.shape
+    _require(tuple(v_pool.shape) == tuple(k_pool.shape) and dp == d
+             and n == slots * heads,
+             f"{name}: pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+             f"and tables {tuple(tables.shape)} do not match q "
+             f"{tuple(q.shape)}")
+    _require(q.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: q dtype {q.dtype} is not bf16/fp32")
+    _require(k_pool.dtype in _DTYPE_CODE and v_pool.dtype == k_pool.dtype,
+             f"{name}: pool dtypes {k_pool.dtype}/{v_pool.dtype}")
+    _require(tables.dtype == torch.int32 and lengths.dtype == torch.int32
+             and tuple(lengths.shape) == (slots,),
+             f"{name}: tables must be (slots, n) int32 and lengths (slots,) "
+             "int32")
+    if quantized:
+        _require(all(s is not None and s.dtype == torch.float32
+                     and tuple(s.shape) == (num_blocks, heads, block_size)
+                     for s in (k_scale, v_scale)),
+                 f"{name}: int8 pools need (num_blocks, heads, block_size) "
+                 "fp32 scales")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name}: head dim {d} is not one of {_HEAD_DIMS}")
+    _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+             f"{name}: pool rows must be 16-byte aligned")
+    _require(n > 0 and q_len > 0 and n_table > 0 and block_size > 0,
+             f"{name}: empty batch, query, table or block")
+    lib, _ = build()
+    out = torch.empty_like(q)
+    lse = torch.empty((n, q_len), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.apex_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None, tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), n, heads,
+            q_len, block_size, n_table, d, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pool.dtype], float(scale), stream)
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
     return out, lse

@@ -16,10 +16,12 @@ dtype and returns fp32 logits; gelu is the tanh approximation.
 
 Attention runs :func:`~apex_tpu_torch.ops.flash_attention.flash_attention`
 in the dense forward and prefill (differentiable: the flash forward and
-backward kernels) and
-:func:`~apex_tpu_torch.ops.flash_attention.decode_attention` in decode;
-``GPTConfig.use_kernel`` is passed to both (``None``: the CUDA kernels on
-the card, the plain versions on the CPU).
+backward kernels),
+:func:`~apex_tpu_torch.ops.flash_attention.decode_attention` in decode
+over a dense cache and
+:func:`~apex_tpu_torch.ops.flash_attention.paged_decode_attention` in
+decode over a paged one; ``GPTConfig.use_kernel`` is passed to all three
+(``None``: the CUDA kernels on the card, the plain versions on the CPU).
 
 Training: every parameter is trainable, and :meth:`GPTModel.loss` is the
 reference's LM loss (softmax cross-entropy with ``padding_idx=None``, mean
@@ -31,8 +33,11 @@ layout: embedding and hidden dropout at ``hidden_dropout``
 drawn from the generator in ``[0, 2**31 - 1)``. The serving legs run
 under ``torch.no_grad`` (:mod:`apex_tpu_torch.serving.engine`).
 
-Out of scope for this slice: remat, sequence parallelism, tp > 1, the
-paged and speculative legs and the pipeline split.
+Serving runs over a dense :class:`~apex_tpu_torch.serving.cache.KVCache`
+or a paged :class:`~apex_tpu_torch.serving.cache.PagedKVCache` (the
+reference's paged legs: prefill into pool blocks, decode through block
+tables with copy-on-write first). Still to come: the speculative verify
+leg, remat, sequence parallelism, tp > 1 and the pipeline split.
 """
 
 from __future__ import annotations
@@ -49,8 +54,10 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 from apex_tpu_torch.ops.dropout import dropout
 from apex_tpu_torch.ops.flash_attention import (decode_attention,
-                                                flash_attention)
+                                                flash_attention,
+                                                paged_decode_attention)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.serving.cache import PagedKVCache
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     init_method_normal)
@@ -261,7 +268,10 @@ class GPTModel(nn.Module):
     def forward(self, tokens: torch.Tensor, kv_cache=None, slot=None,
                 prompt_len=None, last_logit_only: bool = False,
                 active: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                block_row=None, block_tables=None, lengths=None,
+                append_block_ids=None, append_offsets=None, cow_src=None,
+                cow_dst=None):
         """Without ``kv_cache``: the dense forward, logits
         ``(b, s, vocab)``, in train mode (dropout) when a ``generator`` is
         given. With a
@@ -281,11 +291,28 @@ class GPTModel(nn.Module):
           index the position embedding. Returns ``(logits (max_seqs,
           vocab), cache)``.
 
+        With a :class:`~apex_tpu_torch.serving.cache.PagedKVCache` the
+        same two legs run over the block pool: **paged prefill**
+        (``block_row`` given, ``(P // block_size,)``, null-padded) writes
+        the prompt's K/V into those pool blocks; **paged decode** first
+        copies the copy-on-write pairs ``cow_src -> cow_dst`` (if given),
+        reads each slot's context through ``block_tables``/``lengths``
+        (host-side cursors, which also index the position embedding) and
+        appends the new token at ``append_block_ids``/``append_offsets``.
+
         The cache is updated in place (the port's counterpart of the
         reference's donated cache) and returned for API parity."""
         if kv_cache is None:
             return self.logits(self.transform(self.embed(tokens, generator),
                                               generator))
+        if isinstance(kv_cache, PagedKVCache):
+            if block_row is not None:
+                return self._paged_prefill_forward(
+                    tokens, kv_cache, block_row, prompt_len,
+                    last_logit_only)
+            return self._paged_decode_forward(
+                tokens, kv_cache, block_tables, lengths, append_block_ids,
+                append_offsets, cow_src, cow_dst)
         if slot is not None:
             return self._prefill_forward(tokens, kv_cache, slot, prompt_len,
                                          last_logit_only)
@@ -309,15 +336,14 @@ class GPTModel(nn.Module):
 
     # -- serving: KV-cached prefill/decode ----------------------------------
 
-    def _prefill_forward(self, tokens, cache, slot, prompt_len,
-                         last_logit_only: bool = False):
+    def _prefill_kv(self, tokens, prompt_len, last_logit_only: bool):
+        """The prefill's causal forward over ``tokens (1, P)``: returns
+        ``(logits, k, v, prompt_len)`` with every layer's K/V stacked
+        ``(L, H, P, D)`` for the cache write."""
         b, P = tokens.shape
         if b != 1:
             raise ValueError(f"prefill is per-request: tokens must be "
                              f"(1, P), got {tuple(tokens.shape)}")
-        if P > cache.max_len:
-            raise ValueError(f"prompt window {P} exceeds cache max_len "
-                             f"{cache.max_len}")
         if prompt_len is None:
             prompt_len = P
         # a cursor past the written window would make every later decode
@@ -336,50 +362,109 @@ class GPTModel(nn.Module):
         if last_logit_only:
             # the head is per-position: slice the hidden row first
             x = x[:, prompt_len - 1: prompt_len]
-        logits = self.logits(x)
-        cache.write_prompt(torch.stack(ks), torch.stack(vs), slot,
-                           prompt_len)
+        return self.logits(x), torch.stack(ks), torch.stack(vs), prompt_len
+
+    def _prefill_forward(self, tokens, cache, slot, prompt_len,
+                         last_logit_only: bool = False):
+        if tokens.shape[-1] > cache.max_len:
+            raise ValueError(f"prompt window {tokens.shape[-1]} exceeds "
+                             f"cache max_len {cache.max_len}")
+        logits, k, v, prompt_len = self._prefill_kv(tokens, prompt_len,
+                                                    last_logit_only)
+        cache.write_prompt(k, v, slot, prompt_len)
         return logits, cache
 
-    def _decode_layer(self, lp: _Layer, x: torch.Tensor, layer_cache,
-                      lengths: torch.Tensor):
-        """One layer of the decode step: ``x (S, 1, hidden)``,
-        ``layer_cache`` this layer's ``(ck, cv, ksc, vsc)``. Returns
-        ``(x, (k_new, v_new))`` with the new token's K/V ``(S, H, D)``,
-        appended by the caller after the stack (the cache is read-only
-        inside it)."""
-        h = self._ln(lp.ln1, x)
-        qkv, _ = lp.qkv(h)                                  # (S, 1, 3*hidden)
-        q, k_new, v_new = self._split_heads(qkv[:, 0])      # (S, H, D)
-        ck, cv, ksc, vsc = layer_cache
-        ctx = decode_attention(q, ck, cv, lengths, k_new=k_new, v_new=v_new,
-                               k_scale=ksc, v_scale=vsc,
-                               use_kernel=self.cfg.use_kernel)
-        out, _ = lp.proj(ctx.reshape(ctx.shape[0], 1, -1))
-        x = x + out
-        x = x + self._mlp(lp, self._ln(lp.ln2, x))
-        return x, (k_new, v_new)
+    def _paged_prefill_forward(self, tokens, cache, block_row, prompt_len,
+                               last_logit_only: bool = False):
+        if tokens.shape[-1] % cache.block_size != 0:
+            raise ValueError(f"paged prefill window {tokens.shape[-1]} must "
+                             f"be a multiple of block_size "
+                             f"{cache.block_size}")
+        logits, k, v, _ = self._prefill_kv(tokens, prompt_len,
+                                           last_logit_only)
+        # null block_row entries absorb the padding
+        cache.write_prompt_blocks(k, v, block_row)
+        return logits, cache
 
-    def _decode_forward(self, tokens, cache, active=None):
+    def _decode_embed(self, tokens, positions: torch.Tensor) -> torch.Tensor:
+        """Word embedding of ``tokens (S, 1)`` plus the position embedding
+        at ``positions (S,)``, clipped to the position table."""
         cfg = self.cfg
         if tokens.dim() != 2 or tokens.shape[1] != 1:
             raise ValueError(f"decode tokens must be (max_seqs, 1), got "
                              f"{tuple(tokens.shape)}")
         h = self.embedding.word(tokens)
         pos = self.embedding.position[
-            cache.lengths.long().clamp(0, cfg.max_position_embeddings - 1)]
-        x = (h + pos[:, None]).to(cfg.compute_dtype)
+            positions.long().clamp(0, cfg.max_position_embeddings - 1)]
+        return (h + pos[:, None]).to(cfg.compute_dtype)
+
+    def _decode_layer(self, lp: _Layer, x: torch.Tensor, attend):
+        """One layer of the decode step: ``x (S, 1, hidden)``; ``attend(q,
+        k_new, v_new)`` is the cache read with the current token folded
+        in, all ``(S, H, D)``. Returns ``(x, (k_new, v_new))``, appended by
+        the caller after the stack (the cache is read-only inside it)."""
+        h = self._ln(lp.ln1, x)
+        qkv, _ = lp.qkv(h)                                  # (S, 1, 3*hidden)
+        q, k_new, v_new = self._split_heads(qkv[:, 0])      # (S, H, D)
+        ctx = attend(q, k_new, v_new)
+        out, _ = lp.proj(ctx.reshape(ctx.shape[0], 1, -1))
+        x = x + out
+        x = x + self._mlp(lp, self._ln(lp.ln2, x))
+        return x, (k_new, v_new)
+
+    def _decode_stack(self, x: torch.Tensor, attend_layer):
+        """The layer stack and head of a decode step; ``attend_layer(i)``
+        gives layer ``i``'s ``attend``. Returns ``(logits (S, vocab),
+        k_new, v_new)``, the new K/V stacked ``(L, S, H, D)``."""
         k_all, v_all = [], []
         for i, lp in enumerate(self.layers):
-            layer_cache = (cache.k[i], cache.v[i],
-                           cache.k_scale[i] if cache.quantized else None,
-                           cache.v_scale[i] if cache.quantized else None)
-            x, (k_new, v_new) = self._decode_layer(lp, x, layer_cache,
-                                                   cache.lengths)
+            x, (k_new, v_new) = self._decode_layer(lp, x, attend_layer(i))
             k_all.append(k_new)
             v_all.append(v_new)
         x = self._ln(self.final_ln, x)
-        logits = self.logits(x)[:, 0]
+        return self.logits(x)[:, 0], torch.stack(k_all), torch.stack(v_all)
+
+    def _decode_forward(self, tokens, cache, active=None):
+        x = self._decode_embed(tokens, cache.lengths)
+
+        def attend_layer(i):
+            ksc = cache.k_scale[i] if cache.quantized else None
+            vsc = cache.v_scale[i] if cache.quantized else None
+            return lambda q, k_new, v_new: decode_attention(
+                q, cache.k[i], cache.v[i], cache.lengths, k_new=k_new,
+                v_new=v_new, k_scale=ksc, v_scale=vsc,
+                use_kernel=self.cfg.use_kernel)
+
+        logits, k_new, v_new = self._decode_stack(x, attend_layer)
         # only `active` slots advance their cursor (see KVCache.append)
-        cache.append(torch.stack(k_all), torch.stack(v_all), active)
+        cache.append(k_new, v_new, active)
+        return logits, cache
+
+    def _paged_decode_forward(self, tokens, cache, block_tables, lengths,
+                              block_ids, offsets, cow_src=None,
+                              cow_dst=None):
+        if block_tables is None or lengths is None or block_ids is None \
+                or offsets is None:
+            raise ValueError("paged decode needs block_tables, lengths, "
+                             "append_block_ids and append_offsets")
+        dev = cache.k.device
+        tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                 device=dev)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        # copy-on-write first: a pending shared block becomes private
+        # before this step reads or writes it
+        if cow_src is not None:
+            cache.cow_copy(cow_src, cow_dst)
+        x = self._decode_embed(tokens, lengths)
+
+        def attend_layer(i):
+            ksc = cache.k_scale[i] if cache.quantized else None
+            vsc = cache.v_scale[i] if cache.quantized else None
+            return lambda q, k_new, v_new: paged_decode_attention(
+                q, cache.k[i], cache.v[i], tables, lengths, k_new=k_new,
+                v_new=v_new, k_scale=ksc, v_scale=vsc,
+                use_kernel=self.cfg.use_kernel)
+
+        logits, k_new, v_new = self._decode_stack(x, attend_layer)
+        cache.append(k_new, v_new, block_ids, offsets)
         return logits, cache

@@ -1,6 +1,6 @@
 """Flash attention and KV-cache decode attention for the H100.
 
-Counterpart of ``apex_tpu/ops/flash_attention.py``. Four hand-written CUDA
+Counterpart of ``apex_tpu/ops/flash_attention.py``. Five hand-written CUDA
 kernels (``apex_tpu_torch/csrc/``, built and launched by
 :mod:`apex_tpu_torch._kernels`) replace the Pallas kernels the serving and
 training paths run:
@@ -14,11 +14,15 @@ training paths run:
 - ``decode_attention`` replaces ``_decode_kernel``: ``q_len`` query rows
   per slot and head against a dense cache, masked by the per-slot write
   cursor, with optional int8 dequantization; it returns the output and the
-  prefix logsumexp (``-inf`` on empty rows).
+  prefix logsumexp (``-inf`` on empty rows);
+- ``paged_decode_attention`` replaces ``_paged_decode_kernel``: the same
+  over a global block pool, each slot's positions found through its block
+  table (the paged serving engine's decode step).
 
 Beside each kernel sits its plain PyTorch version (:func:`_flash_fwd_plain`,
 :func:`_flash_bwd_dq_plain`, :func:`_flash_bwd_dkv_plain`,
-:func:`_decode_plain`), which takes the same inputs in the same layout.
+:func:`_decode_plain`, :func:`_paged_decode_plain`), which takes the same
+inputs in the same layout.
 :func:`flash_attention` is differentiable through :class:`_FlashAttention`,
 the counterpart of the reference's ``custom_vjp`` (``_make_flash``): the
 three flash kernels on the card, their plain versions on the CPU.
@@ -45,7 +49,7 @@ import torch
 from apex_tpu_torch import _kernels
 
 __all__ = ["flash_attention", "mha_reference", "decode_attention",
-           "dropout_keep_mask", "NEG_INF"]
+           "paged_decode_attention", "dropout_keep_mask", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -441,12 +445,138 @@ def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
     else:
         out3, lse3 = _decode_plain(q3, k3, v3, lengths_bh, ksc, vsc,
                                    float(softmax_scale))
-    out = out3.reshape(b, h, q_len, d)
-    lse = lse3.reshape(b, h, q_len)
-    if multi:
+    return _decode_result(out3, lse3, q, k_new, v_new, float(softmax_scale))
+
+
+def _decode_result(out3, lse3, q, k_new, v_new, scale: float):
+    """A decode kernel's ``(out (b*h, q_len, d), lse (b*h, q_len))`` in
+    ``q``'s shape, with the current token folded in for rank-3 ``q``."""
+    out = out3.reshape(*q.shape[:2], -1, q.shape[-1])
+    if q.dim() == 4:
         return out
-    out, lse = out[:, :, 0], lse[:, :, 0]
+    out, lse = out[:, :, 0], lse3.reshape(*q.shape[:2], -1)[:, :, 0]
     if k_new is not None:
-        out = _merge_current(out, lse, q, k_new, v_new,
-                             float(softmax_scale), q.dtype)
+        out = _merge_current(out, lse, q, k_new, v_new, scale, q.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention: plain version and public API
+# ---------------------------------------------------------------------------
+
+def _paged_decode_plain(q, k_pool, v_pool, tables, lengths, k_scale=None,
+                        v_scale=None, softmax_scale: Optional[float] = None):
+    """The function the ``paged_decode_attention`` kernel computes, on its
+    layout: ``q (b*h, q_len, d)``, pools ``(num_blocks, h, block_size,
+    d)``, ``tables (b, n_table)``, ``lengths (b,)`` -> ``out (b*h, q_len,
+    d)`` in q's dtype and ``lse (b*h, q_len)`` fp32, as the reference's
+    fallback computes it: the table-mapped blocks gathered into the dense
+    layout, then :func:`_decode_plain`. Table entries at or past
+    ``ceil(lengths / block_size)`` may name any block, or none: they are
+    read as block 0, and every gathered position at or past the cursor is
+    zeroed (keys, values and scales), so NaN or inf there never reaches
+    ``p @ v``."""
+    b, n_table = tables.shape
+    _, h, bs, _ = k_pool.shape
+    T = n_table * bs
+    dev = k_pool.device
+    lengths = lengths.to(device=dev, dtype=torch.int64).clamp(0, T)
+    live = torch.arange(n_table, device=dev)[None, :] * bs < lengths[:, None]
+    tab = torch.where(live, tables.to(device=dev, dtype=torch.int64), 0)
+    valid = (torch.arange(T, device=dev)[None, :] < lengths[:, None]
+             ).repeat_interleave(h, dim=0)                     # (b*h, T)
+
+    def gather(pool):
+        # (num_blocks, h, bs, ...) -> (b*h, T, ...), zero past the cursor
+        g = pool[tab].transpose(1, 2).reshape(b * h, T, *pool.shape[3:])
+        mask = valid.view(b * h, T, *([1] * (g.dim() - 2)))
+        return torch.where(mask, g, torch.zeros((), dtype=g.dtype,
+                                                device=dev))
+
+    quantized = k_pool.dtype == torch.int8
+    return _decode_plain(
+        q, gather(k_pool), gather(v_pool), lengths.repeat_interleave(h),
+        gather(k_scale) if quantized else None,
+        gather(v_scale) if quantized else None, softmax_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           k_new=None, v_new=None, k_scale=None,
+                           v_scale=None,
+                           softmax_scale: Optional[float] = None,
+                           use_kernel: Optional[bool] = None):
+    """Attention of ``q`` over a paged KV cache: a global block pool, each
+    slot's positions found through its block table and masked by its
+    cursor. Counterpart of the reference's ``paged_decode_attention``.
+
+    The reference's ``supports_paged`` (``block_size % 128 == 0`` on a
+    TPU) is a tiling rule of the Pallas kernel and is not carried over:
+    the CUDA kernel takes any ``block_size >= 1``. ``mean_context`` only
+    priced the Pallas kernel's cost estimate and has no counterpart.
+
+    Args:
+      q: ``(b, h, d)`` (one row per slot) or ``(b, h, q_len, d)``; every
+        row attends the same cached prefix.
+      k_pool, v_pool: ``(num_blocks, h, block_size, d)`` pools
+        (bf16/fp32, or int8 with ``k_scale``/``v_scale``). Only the
+        blocks a slot's table names below its cursor are read for it.
+      block_tables: ``(b, n_blocks_per_slot)`` int, pool indices of each
+        slot's logical blocks in order. Entries at or past
+        ``ceil(lengths / block_size)`` are never read.
+      lengths: ``(b,)`` int, each slot's cursor (the current token is not
+        in the pool: pass it as ``k_new``/``v_new``).
+      k_new, v_new: ``(b, h, d)``, the current token's key and value,
+        folded in by :func:`_merge_current` (rank-3 ``q`` only; the
+        rank-4 draft merge lands with the speculative slice).
+      k_scale, v_scale: ``(num_blocks, h, block_size)`` fp32 pooled
+        dequantization scales, required iff the pools are int8.
+
+    Returns ``q``'s shape in ``q.dtype``.
+    """
+    multi = q.dim() == 4
+    if multi:
+        b, h, q_len, d = q.shape
+    else:
+        b, h, d = q.shape
+        q_len = 1
+    if k_pool.dim() != 4:
+        raise ValueError(f"pools must be (num_blocks, h, block_size, d), "
+                         f"got {tuple(k_pool.shape)}")
+    nb_pool, hp, block_size, dp = k_pool.shape
+    if tuple(v_pool.shape) != tuple(k_pool.shape) or hp != h or dp != d:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be (b, n_blocks_per_slot), "
+                         f"got {tuple(block_tables.shape)}")
+    quantized = k_pool.dtype == torch.int8
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError("int8 pools need k_scale/v_scale")
+    if quantized and not all(
+            tuple(s.shape) == (nb_pool, h, block_size)
+            and s.dtype == torch.float32 for s in (k_scale, v_scale)):
+        raise ValueError("int8 pools need (num_blocks, h, block_size) fp32 "
+                         "k_scale/v_scale")
+    if multi and k_new is not None:
+        raise NotImplementedError(
+            "the multi-row k_new merge (speculative verify) lands with the "
+            "speculative slice")
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    dev = k_pool.device
+    tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                             device=dev).contiguous()
+    lens = torch.as_tensor(lengths, dtype=torch.int32,
+                           device=dev).contiguous()
+    q3 = q.reshape(b * h, q_len, d)
+    ksc = k_scale if quantized else None
+    vsc = v_scale if quantized else None
+    if _use_kernel(use_kernel, q):
+        out3, lse3 = _kernels.paged_decode_attention(
+            q3.contiguous(), k_pool, v_pool, tables, lens, ksc, vsc,
+            float(softmax_scale))
+    else:
+        out3, lse3 = _paged_decode_plain(q3, k_pool, v_pool, tables, lens,
+                                         ksc, vsc, float(softmax_scale))
+    return _decode_result(out3, lse3, q, k_new, v_new, float(softmax_scale))

@@ -1,8 +1,8 @@
-"""Prefill and decode steps over an in-place KV cache.
+"""Prefill and decode steps over an in-place KV cache, dense or paged.
 
-Counterpart of the dense ``ServingEngine`` in ``apex_tpu/serving/engine.py``.
-The engine owns the cache and the two steps a serving process runs
-forever:
+Counterpart of ``ServingEngine`` and ``PagedServingEngine`` in
+``apex_tpu/serving/engine.py``. The engine owns the cache and the two
+steps a serving process runs forever:
 
 - **prefill**: one request's prompt, right-padded to ``(1, prefill_len)``,
   through the causal forward (the ``flash_fwd`` kernel on the card); its
@@ -12,10 +12,18 @@ forever:
   ``decode_attention`` kernel; K/V appended at each slot's cursor, next
   tokens sampled.
 
-The JAX engine compiles both steps ahead of time and donates the cache.
-This one runs eagerly and writes the cache in place (see
-:mod:`apex_tpu_torch.serving.cache`). ``quarantine``, ``speculate_k`` and
-the paged engine come with later slices.
+:class:`PagedServingEngine` runs the same two steps over a global block
+pool (:class:`~apex_tpu_torch.serving.cache.PagedKVCache`) whose host-side
+bookkeeping is a :class:`~apex_tpu_torch.serving.cache.BlockAllocator`:
+decode attention through block tables (the ``paged_decode_attention``
+kernel on the card), prefix sharing with copy-on-write, and admission
+that the pool's free blocks bound.
+
+The JAX engines compile their steps ahead of time and donate the cache.
+These run eagerly and write the cache in place (see
+:mod:`apex_tpu_torch.serving.cache`). ``quarantine`` and ``speculate_k``
+(on both engines) and the paged engine's ``mean_context`` come with later
+slices.
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.serving.cache import KVCache, cache_bytes_per_slot
+from apex_tpu_torch.serving.cache import (AdmitPlan, BlockAllocator, KVCache,
+                                          PagedKVCache, cache_bytes_per_slot,
+                                          paged_block_bytes)
 from apex_tpu_torch.serving.sampling import sample_tokens
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "PagedServingEngine"]
 
 
 class ServingEngine:
@@ -74,16 +84,20 @@ class ServingEngine:
         self.prefill_len = int(prefill_len)
         self.top_k = int(top_k)
         self.swaps = 0
-        self.cache = KVCache.create(
-            cfg.num_layers, self.max_seqs, cfg.num_attention_heads,
-            self.max_len, cfg.head_dim, dtype=cache_dtype,
-            device=self.device)
+        self.cache = self._create_cache(cache_dtype)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(rng_seed))
 
+    def _create_cache(self, cache_dtype):
+        cfg = self.model.cfg
+        return KVCache.create(
+            cfg.num_layers, self.max_seqs, cfg.num_attention_heads,
+            self.max_len, cfg.head_dim, dtype=cache_dtype,
+            device=self.device)
+
     # -- stepping -----------------------------------------------------------
 
-    def pad_prompt(self, prompt: Sequence[int]) -> torch.Tensor:
+    def _check_prompt(self, prompt: Sequence[int]) -> None:
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if len(prompt) > self.prefill_len:
@@ -91,6 +105,9 @@ class ServingEngine:
                 f"prompt length {len(prompt)} exceeds the prefill window "
                 f"{self.prefill_len} (pick a larger prefill_len at engine "
                 "construction)")
+
+    def pad_prompt(self, prompt: Sequence[int]) -> torch.Tensor:
+        self._check_prompt(prompt)
         padded = np.zeros((1, self.prefill_len), np.int64)
         padded[0, : len(prompt)] = np.asarray(prompt, np.int64)
         return torch.from_numpy(padded).to(self.device)
@@ -183,3 +200,193 @@ class ServingEngine:
         return cache_bytes_per_slot(cfg.num_layers, cfg.num_attention_heads,
                                     self.max_len, cfg.head_dim,
                                     self.cache.k.dtype)
+
+
+class PagedServingEngine(ServingEngine):
+    """The paged engine: the dense engine's call contract over a global
+    block pool, so a slot holds ``ceil(context / block_size)`` blocks
+    instead of ``max_len`` positions, and an admission whose prompt prefix
+    is already pooled shares those blocks and skips their prefill
+    (copy-on-write; ``serve/ttft_prefix_ms`` tracks it). Host state (block
+    tables, cursors, refcounts, the prefix index) lives in
+    :attr:`allocator`; it is copied to the device as plain arguments of
+    each step.
+
+    Args beyond :class:`ServingEngine`'s:
+      num_blocks: pool size in blocks, including the reserved null block 0
+        (``num_blocks - 1`` are allocatable). Size it with
+        :meth:`suggest_pool_blocks`.
+      block_size: tokens per block, any size >= 1; ``prefill_len`` must be
+        a multiple of it (the prefill writes whole blocks).
+      prefix_suffix_cap: the longest un-shared prompt tail (tokens) served
+        through per-token decode steps on a prefix hit; a hit whose tail
+        is longer takes the cold prefill. Default: ``block_size``.
+
+    ``quarantine``, ``speculate_k`` and ``mean_context`` (which only
+    priced the TPU kernel's cost estimate) have no counterpart yet.
+    """
+
+    def __init__(self, model, params: Optional[Mapping] = None, *,
+                 max_seqs: int, max_len: int, prefill_len: int,
+                 num_blocks: int, block_size: int,
+                 cache_dtype=torch.bfloat16, top_k: int = 0,
+                 rng_seed: int = 0,
+                 prefix_suffix_cap: Optional[int] = None, device="cuda"):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if prefill_len % block_size != 0:
+            raise ValueError(
+                f"prefill_len {prefill_len} must be a multiple of "
+                f"block_size {block_size} (the prefill writes whole pool "
+                "blocks)")
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        self.prefix_suffix_cap = int(block_size if prefix_suffix_cap
+                                     is None else prefix_suffix_cap)
+        self.last_admit: Optional[AdmitPlan] = None
+        self.last_failed: list = []
+        super().__init__(model, params, max_seqs=max_seqs, max_len=max_len,
+                         prefill_len=prefill_len, cache_dtype=cache_dtype,
+                         top_k=top_k, rng_seed=rng_seed, device=device)
+        self.prefill_blocks = self.prefill_len // self.block_size
+        self.allocator = BlockAllocator(
+            self.num_blocks, self.block_size,
+            -(-self.max_len // self.block_size), self.max_seqs)
+
+    def _create_cache(self, cache_dtype):
+        cfg = self.model.cfg
+        return PagedKVCache.create(
+            cfg.num_layers, self.num_blocks, cfg.num_attention_heads,
+            self.block_size, cfg.head_dim, dtype=cache_dtype,
+            device=self.device)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        # a fresh host copy: the allocator mutates its arrays in place
+        return torch.from_numpy(np.array(arr)).to(self.device)
+
+    # -- admission ----------------------------------------------------------
+
+    def can_admit(self, prompt: Sequence[int]) -> bool:
+        """Whether the pool can take ``prompt`` now (conservative: assumes
+        a cold admission; a prefix hit needs fewer blocks)."""
+        return (self.allocator.free_blocks
+                >= self.allocator.blocks_for(len(prompt)))
+
+    def prefill_logits(self, prompt: Sequence[int],
+                       slot: int) -> torch.Tensor:
+        """Admit ``prompt`` into ``slot`` and return the logits at its last
+        position, ``(vocab,)`` fp32. Two paths, chosen by the allocator's
+        prefix index:
+
+        - **cold**: allocate blocks, run the prefill into them, register
+          the prompt's full blocks for later sharing;
+        - **prefix hit** (tail within ``prefix_suffix_cap``): map the
+          shared blocks, skip their prefill, and run only the un-shared
+          tail through the decode step one token at a time, this slot
+          alone active; the last step's logits are the result.
+
+        Raises :class:`~apex_tpu_torch.serving.cache.PoolExhausted` when
+        the blocks are not there (the scheduler queues on that). Sets
+        :attr:`last_admit` to the allocator's plan."""
+        self._check_slot(slot)
+        self._check_prompt(prompt)
+        prompt = [int(t) for t in prompt]
+        shared = self.allocator.lookup(prompt)
+        covered = min(len(shared) * self.block_size, len(prompt) - 1)
+        share = bool(shared) and (len(prompt) - covered
+                                  <= self.prefix_suffix_cap)
+        plan = self.allocator.admit(slot, prompt, self.prefill_blocks,
+                                    share=share)
+        self.last_admit = plan
+        if plan.prefill:
+            with torch.no_grad():
+                logits, _ = self.model.forward(
+                    self.pad_prompt(prompt), kv_cache=self.cache,
+                    block_row=plan.block_row, prompt_len=len(prompt),
+                    last_logit_only=True)
+            # index the freshly written full blocks for later admissions
+            self.allocator.register_prefix(slot, prompt)
+            return logits[0, 0]
+        active = np.zeros(self.max_seqs, np.bool_)
+        active[slot] = True
+        tokens = np.zeros(self.max_seqs, np.int64)
+        for t in plan.suffix:
+            tokens[slot] = t
+            logits = self.decode_logits(tokens, active)
+        return logits[slot]
+
+    # -- stepping -----------------------------------------------------------
+
+    def decode_logits(self, tokens: np.ndarray,
+                      active: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One decode step for every slot, ``(max_seqs, vocab)`` fp32
+        logits. The block bookkeeping happens here: pending copy-on-writes
+        are resolved (the device copies the block before it is read or
+        written), cursors that crossed a block boundary get a fresh block,
+        and slots the exhausted pool could not serve land in
+        :attr:`last_failed`: their append goes to the null block and the
+        scheduler retires them."""
+        if active is None:
+            active = np.ones(self.max_seqs, np.bool_)
+        active = np.asarray(active, bool)
+        alloc = self.allocator
+        step = alloc.prepare_step(list(np.flatnonzero(active)))
+        self.last_failed = list(step.failed)
+        ok = active.copy()
+        ok[step.failed] = False
+        block_ids, offsets = alloc.append_targets(ok)
+        pending = np.flatnonzero(step.cow_dst)
+        toks = torch.as_tensor(np.asarray(tokens, np.int64),
+                               device=self.device).reshape(self.max_seqs, 1)
+        with torch.no_grad():
+            logits, _ = self.model.forward(
+                toks, kv_cache=self.cache,
+                block_tables=self._to_device(alloc.tables),
+                lengths=self._to_device(alloc.lengths),
+                append_block_ids=self._to_device(block_ids),
+                append_offsets=self._to_device(offsets),
+                cow_src=(self._to_device(step.cow_src[pending])
+                         if pending.size else None),
+                cow_dst=(self._to_device(step.cow_dst[pending])
+                         if pending.size else None))
+        alloc.advance(list(np.flatnonzero(ok)))
+        return logits
+
+    def release_slot(self, slot: int) -> None:
+        """Retire ``slot``: drop its block references on the host (shared
+        blocks survive for their other readers and for the prefix cache)
+        and scrub the null block on the device."""
+        self._check_slot(slot)
+        self.allocator.release(int(slot))
+        with torch.no_grad():
+            self.cache.scrub_null_block()
+
+    # -- capacity -----------------------------------------------------------
+
+    def block_bytes(self) -> int:
+        cfg = self.model.cfg
+        return paged_block_bytes(cfg.num_layers, cfg.num_attention_heads,
+                                 self.block_size, cfg.head_dim,
+                                 self.cache.k.dtype)
+
+    def suggest_pool_blocks(self, hbm_bytes: int, mean_len: float,
+                            reserve_fraction: float = 0.1) -> int:
+        """Pool blocks that fit ``hbm_bytes``: a ``reserve_fraction``
+        margin and the parameter bytes (the reference's estimate of the
+        step's non-cache footprint where no memory analysis is at hand)
+        held back, the rest divided by the bytes of one block. A pool of
+        ``B`` blocks sustains about ``B * block_size / mean_len``
+        sequences (:meth:`suggest_max_seqs_for_pool`)."""
+        if mean_len <= 0:
+            raise ValueError(f"mean_len must be positive, got {mean_len}")
+        overhead = sum(t.numel() * t.element_size()
+                       for t in self.model.state_dict().values())
+        avail = int(hbm_bytes * (1.0 - reserve_fraction)) - overhead
+        return max(0, avail // self.block_bytes())
+
+    def suggest_max_seqs_for_pool(self, num_blocks: int,
+                                  mean_len: float) -> int:
+        """Concurrent sequences a ``num_blocks`` pool sustains at the
+        observed ``mean_len``."""
+        per_seq = max(1, -(-int(mean_len) // self.block_size))
+        return max(0, (num_blocks - 1) // per_seq)

@@ -13,9 +13,17 @@ one ``time.perf_counter()`` per transition, so completions report measured
 the ``serve/*`` counters, gauges and latency histograms into a
 :class:`~apex_tpu_torch.observability.registry.MetricsRegistry`.
 
-The resilience knobs (bounded queue, deadlines, cancel, quarantine, drain,
-brownout, fault plans), speculative decoding and paged admission come with
-later slices.
+With a paged engine (one with an ``allocator``) admission follows the
+block pool: :meth:`SlotScheduler.submit` returns a typed
+:class:`~apex_tpu_torch.serving.resilience.Rejection` for a prompt that
+could never fit the pool, a request the pool cannot take yet waits at the
+head of the queue, prefix hits are counted, a slot the pool could not give
+a block retires ``"capacity"``, and each step sets the pool gauges. The
+dense engine's behaviour is unchanged.
+
+The other resilience knobs (bounded queue, deadlines, cancel, quarantine,
+drain, brownout, fault plans) and speculative decoding come with later
+slices.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import numpy as np
 from apex_tpu_torch.observability.registry import get_registry
 from apex_tpu_torch.observability.reqtrace import (LATENCY_BUCKETS_MS,
                                                    RequestRecord)
+from apex_tpu_torch.serving.cache import PoolExhausted
+from apex_tpu_torch.serving.resilience import Rejection
 
 __all__ = ["Request", "Completion", "SlotScheduler"]
 
@@ -88,11 +98,14 @@ class SlotScheduler:
         self._in_flight_ids = set()
         self._tok_count = 0
         self._tok_t0: Optional[float] = None
+        self._cow_seen = 0
 
     # -- submission ---------------------------------------------------------
 
-    def submit(self, request: Request) -> int:
-        """Enqueue ``request`` and return its id. A malformed request
+    def submit(self, request: Request):
+        """Enqueue ``request`` and return its id, or a
+        :class:`~apex_tpu_torch.serving.resilience.Rejection` when a paged
+        engine's pool could never hold its prompt. A malformed request
         raises here, never mid-step."""
         if len(request.prompt) == 0:
             raise ValueError("empty prompt")
@@ -109,6 +122,18 @@ class SlotScheduler:
                 and request.request_id in self._in_flight_ids):
             raise ValueError(
                 f"request_id {request.request_id} is already in flight")
+        alloc = getattr(self.engine, "allocator", None)
+        if alloc is not None:
+            # a prompt that could never fit the whole pool is refused here
+            # (queued, it would block the head forever); blocks held by
+            # in-flight sequences only make it wait in the queue
+            need = alloc.blocks_for(len(request.prompt))
+            if need > alloc.num_blocks - 1:
+                self._reg.counter("serve/rejected").inc()
+                return Rejection(
+                    "pool_exhausted", request.request_id,
+                    f"prompt needs {need} blocks but the pool only has "
+                    f"{alloc.num_blocks - 1} allocatable")
         if request.request_id is None:
             request.request_id = self._next_id
         self._next_id = max(self._next_id, request.request_id) + 1
@@ -170,10 +195,25 @@ class SlotScheduler:
         admitted = 0
         while self.queue and self.free:
             req, rec = self.queue.popleft()
+            if (hasattr(self.engine, "can_admit")
+                    and not self.engine.can_admit(req.prompt)):
+                # block-pool pressure: in-flight sequences hold the blocks;
+                # wait at the head for retirements to free them
+                self.queue.appendleft((req, rec))
+                break
             slot = self.free.pop()
             rec.admit_t = time.perf_counter()
             rec.slot = slot
-            first = self.engine.prefill(req.prompt, slot, req.temperature)
+            try:
+                first = self.engine.prefill(req.prompt, slot,
+                                            req.temperature)
+            except PoolExhausted:
+                # can_admit is conservative, but the shared path's COW
+                # block can still miss under pressure: requeue (the
+                # allocator rolled its partial allocation back)
+                self.free.append(slot)
+                self.queue.appendleft((req, rec))
+                break
             # prefill() syncs on the sampled token: this stamp is the
             # honest first-token time
             rec.first_token_t = time.perf_counter()
@@ -182,6 +222,16 @@ class SlotScheduler:
             self._temps[slot] = req.temperature
             self._reg.counter("serve/admitted").inc()
             self._reg.counter("serve/prefill_tokens").inc(len(req.prompt))
+            plan = getattr(self.engine, "last_admit", None)
+            if plan is not None and not plan.prefill:
+                # a prefix-shared admission: the shared span skipped its
+                # prefill; serve/ttft_prefix_ms is the admission's time
+                self._reg.counter("serve/prefix_hits").inc()
+                self._reg.counter("serve/prefix_hit_tokens").inc(
+                    plan.shared_tokens)
+                self._reg.histogram("serve/ttft_prefix_ms",
+                                    LATENCY_BUCKETS_MS).observe(
+                    (rec.first_token_t - rec.admit_t) * 1e3)
             admitted += 1
             # the prefill sampled the first token: the request may even
             # complete here (max_new_tokens == 1)
@@ -214,10 +264,31 @@ class SlotScheduler:
             now = time.perf_counter()
             for slot in list(self.active):
                 self._record(int(nxt[slot]), self.active[slot], slot, now)
+            # paged engines: a slot the exhausted pool could not give a
+            # block retires "capacity". Its token is valid (the current
+            # token is merged in flight) but its KV was dropped, so one
+            # more step would decode against a hole
+            for slot in getattr(self.engine, "last_failed", ()):
+                if slot in self.active:
+                    self._retire(slot, "capacity", now)
         generated = self._tok_count - before
         self._reg.counter("serve/generated_tokens").inc(generated)
         self._reg.gauge("serve/queue_depth").set(len(self.queue))
         self._reg.gauge("serve/active_slots").set(len(self.active))
+        alloc = getattr(self.engine, "allocator", None)
+        if alloc is not None:
+            # used and utilization beside free: free alone cannot tell
+            # fragmentation from load (block 0 is the null block)
+            capacity = alloc.num_blocks - 1
+            used = capacity - alloc.free_blocks
+            self._reg.gauge("serve/pool_blocks_free").set(alloc.free_blocks)
+            self._reg.gauge("serve/pool_blocks_used").set(used)
+            self._reg.gauge("serve/pool_utilization").set(
+                used / capacity if capacity else 0.0)
+            if alloc.cow_copies > self._cow_seen:
+                self._reg.counter("serve/blocks_cow_copied").inc(
+                    alloc.cow_copies - self._cow_seen)
+                self._cow_seen = alloc.cow_copies
         elapsed = time.perf_counter() - self._tok_t0
         if elapsed > 0:
             self._reg.gauge("serve/tokens_per_sec").set(

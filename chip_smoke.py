@@ -17,9 +17,16 @@ non-zero and prints no result. Phases, each fatal on failure:
    causal, bf16) and at ragged, cross, non-causal, fp32 d 128, fully masked
    and dropout 0.1 cases, and the dropout mask read back from the kernel
    bit for bit; ``decode_attention`` at the serving path's shapes and at
-   int8 and multi-row cases. Kernel, plain and library (SDPA forward, and
-   SDPA backward for the dQ/dK/dV pair: yardsticks only, the port never
-   calls SDPA) device times under ``torch.profiler``, beside the bound;
+   int8 and multi-row cases; ``paged_decode_attention`` at the paged
+   serving path's shape (tables a random permutation of the pool), with an
+   int8 pool, 5 q rows, fp32 d 128 with 16-token blocks, 48-token blocks,
+   and a poison case (every block no cursor covers filled with NaN, every
+   table entry past the cursors pointing nowhere: the output must not
+   change by a bit). Kernel, plain and library (SDPA forward, and SDPA
+   backward for the dQ/dK/dV pair: yardsticks only, the port never calls
+   SDPA; no PyTorch call reads a block table, so the paged kernel is timed
+   beside the dense decode kernel instead) device times under
+   ``torch.profiler``, beside the bound;
 4. GPT-small (vocab 32768, hidden 768, 12 layers, 12 heads, 1024
    positions; random weights from a seed) served at full width: a
    ``ServingEngine`` (8 slots, max_len 1024, prefill window 128, bf16
@@ -29,7 +36,19 @@ non-zero and prints no result. Phases, each fatal on failure:
    times per prefill and ``decode_attention`` 12 times per decode step.
    Then prefill and decode-step times, and a teacher-forced check of the
    kernel path's logits against the plain path's on the card;
-5. GPT-small trained at full width, the twin of
+5. the same model served by a ``PagedServingEngine`` (the JAX bench's
+   ``gpt_decode_paged`` configuration: 8 slots, max_len 1024, prefill
+   window 128, 128-token blocks, 65 pool blocks, bf16 pool) under a
+   ``SlotScheduler``: the 16 requests above plus 4 greedy ones that repeat
+   one 128-token prompt, so three admissions share its block and copy it
+   on write. ``paged_decode_attention`` must run 12 times per decode step
+   (prefix-hit tail steps included), ``flash_fwd`` 12 times per cold
+   prefill, ``decode_attention`` never; at least 3 prefix hits and 3
+   copies; every block back in the pool after the run. Then cold and
+   prefix-hit prefill times, decode-step times and device-busy profiles
+   beside the dense engine's, and teacher-forced logits of the paged kernel
+   path against the paged plain path and the dense engine;
+6. GPT-small trained at full width, the twin of
    ``bench.py::_gpt_train_step`` (batch 8 x 1024 tokens, bf16 compute,
    ``FusedAdam(lr=1e-4)``, ``DynamicLossScale(init_scale=2**12)``): launch
    counts reset around each step, which must launch ``flash_fwd``,
@@ -38,7 +57,7 @@ non-zero and prints no result. Phases, each fatal on failure:
    from the same state dict, whose losses and step-0 grads must agree;
    then one step of each path with train-mode dropout (hidden and
    attention, 0.1, a generator on the card), which must agree too;
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -94,11 +113,16 @@ TRAIN_DROPOUT = 0.1
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
-            "decode_attention": "apex_tpu/ops/flash_attention.py:1021"}
+            "decode_attention": "apex_tpu/ops/flash_attention.py:1021",
+            "paged_decode_attention": "apex_tpu/ops/flash_attention.py:1384"}
 
 PROMPT_LENS = [1, 128, 17, 64, 100, 5, 33, 128, 77, 2, 90, 45, 120, 9, 60,
                127]
 NEW_TOKENS = 32
+# the JAX bench's BENCH_DECODE_CONFIGS["gpt_decode_paged"] (bench.py:943)
+PAGED = dict(max_seqs=8, max_len=1024, prefill_len=128, block_size=128,
+             num_blocks=65)
+SHARED_REPEATS = 4     # greedy requests repeating one 128-token prompt
 
 
 def fail(msg: str) -> None:
@@ -360,6 +384,134 @@ def check_decode(torch, fa, cache_mod, kern, card: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
+    """``paged_decode_attention`` against ``_paged_decode_plain`` on the
+    card, the poison case bit for bit, and timing at the paged serving
+    path's shape beside the dense decode kernel at the same live
+    context."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cpu_gen = torch.Generator().manual_seed(4)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def tables_for(num_blocks, slots, n_table):
+        # each slot's blocks scattered through the pool, never block 0
+        perm = torch.randperm(num_blocks - 1, generator=cpu_gen) + 1
+        return perm[: slots * n_table].view(slots, n_table).to(
+            device="cuda", dtype=torch.int32)
+
+    def lens(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    S, H, bs, n_table, d = 8, 12, PAGED["block_size"], 8, 64
+    nb = PAGED["num_blocks"]
+    path_lengths = lens([0, 1, 513, 1024, 7, 300, 1000, 64])
+    path_tables = tables_for(nb, S, n_table)
+    kq, ks = cache_mod._quantize(rand((nb, H, bs, d)))
+    vq, vs = cache_mod._quantize(rand((nb, H, bs, d)))
+    path = ("paged path (8 slots x 12 heads, 8 blocks of 128, d64) bf16",
+            rand((S * H, 1, d), torch.bfloat16),
+            rand((nb, H, bs, d), torch.bfloat16),
+            rand((nb, H, bs, d), torch.bfloat16), None, None, path_tables,
+            path_lengths)
+    cases = [
+        path,
+        ("int8 pool with scales, bf16 q", rand((S * H, 1, d), torch.bfloat16),
+         kq, vq, ks, vs, path_tables, path_lengths),
+        ("q_len=5 bf16", rand((S * H, 5, d), torch.bfloat16), *path[2:]),
+        ("fp32 d128, 16-token blocks", rand((16, 1, 128)),
+         rand((65, 4, 16, 128)), rand((65, 4, 16, 128)), None, None,
+         tables_for(65, 4, 16), lens([0, 3, 77, 256])),
+        ("48-token blocks, q_len=3 bf16", rand((16, 3, d), torch.bfloat16),
+         rand((25, 4, 48, d), torch.bfloat16),
+         rand((25, 4, 48, d), torch.bfloat16), None, None,
+         tables_for(25, 4, 6), lens([0, 47, 48, 288])),
+    ]
+    worst = 0.0
+    for name, q, kp, vp, ksc, vsc, tables, lengths in cases:
+        scale = q.shape[-1] ** -0.5
+        out_k, lse_k = kern.paged_decode_attention(q, kp, vp, tables,
+                                                   lengths, ksc, vsc, scale)
+        out_p, lse_p = fa._paged_decode_plain(q, kp, vp, tables, lengths,
+                                              ksc, vsc, scale)
+        torch.cuda.synchronize()
+        tol = tol_for(torch, q.dtype)
+        err, share = close(torch, [(out_k, out_p)], tol)
+        check(share <= 1, f"paged_decode_attention {name}: out err "
+                          f"{err:.3g}, {share:.3g} x the limit {tol}")
+        lerr = compare_lse(torch, lse_k, lse_p, TOL_LSE,
+                           f"paged_decode_attention {name}")
+        empty = (lengths == 0).repeat_interleave(q.shape[0] // len(lengths))
+        check(bool((out_k[empty] == 0).all())
+              and bool((lse_k[empty] == float("-inf")).all()),
+              "paged_decode_attention: empty rows are not 0 / -inf")
+        print(f"paged_decode_attention {name}: max_abs_err out {err:.3g}, "
+              f"{share:.3g} x the limit {tol}; lse {lerr:.3g} "
+              f"(tol {TOL_LSE})")
+        if q.shape[1] == 1 and kp.dtype == torch.bfloat16:
+            worst = max(worst, err)
+
+    # poison: NaN in every block no cursor covers, and every table entry
+    # past ceil(len / bs) naming no block at all: not a bit may change
+    _, q, kp, vp, _, _, tables, lengths = path
+    scale = d ** -0.5
+    clean = kern.paged_decode_attention(q, kp, vp, tables, lengths, None,
+                                        None, scale)
+    live = (torch.arange(n_table, device="cuda")[None, :] * bs
+            < lengths[:, None])
+    covered = torch.zeros(nb, dtype=torch.bool, device="cuda")
+    covered[tables[live].long()] = True
+    kn, vn = kp.clone(), vp.clone()
+    kn[~covered] = float("nan")
+    vn[~covered] = float("nan")
+    garbage = torch.where(live, tables, torch.full_like(tables, 1 << 30))
+    poisoned = kern.paged_decode_attention(q, kn, vn, garbage, lengths, None,
+                                           None, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(poisoned[0], clean[0])
+          and torch.equal(poisoned[1], clean[1]),
+          "paged_decode_attention: output changed when unread blocks hold "
+          "NaN and unread table entries name no block")
+    print(f"paged_decode_attention poison: {int((~covered).sum())} uncovered "
+          f"blocks NaN, {int((~live).sum())} table entries past the cursors "
+          f"2**30: output and lse equal bit for bit")
+    del kn, vn
+
+    # timing: every slot at the full 1024 positions (8 blocks of 128)
+    q = rand((S * H, 1, d), torch.bfloat16)
+    kp = rand((nb, H, bs, d), torch.bfloat16)
+    vp = rand((nb, H, bs, d), torch.bfloat16)
+    full = lens([n_table * bs] * S)
+    ms = device_ms(torch, lambda: kern.paged_decode_attention(
+        q, kp, vp, path_tables, full, None, None, scale))
+    plain_ms = device_ms(torch, lambda: fa._paged_decode_plain(
+        q, kp, vp, path_tables, full, None, None, scale))
+    # the dense kernel over the same live context: the table's price
+    kd = rand((S * H, n_table * bs, d), torch.bfloat16)
+    vd = rand((S * H, n_table * bs, d), torch.bfloat16)
+    full_bh = full.repeat_interleave(H)
+    dense_ms = device_ms(torch, lambda: kern.decode_attention(
+        q, kd, vd, full_bh, None, None, scale))
+    del kd, vd
+    live = int(full.sum()) * H         # (position, head) rows read
+    table_bytes = S * n_table * 4      # the live table entries
+    nbytes = 2 * live * d * 2 + nbytes_of(q, q, full) + S * H * 4 + \
+        table_bytes
+    ops = 2 * 2 * live * d
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"paged_decode_attention path timing (8 slots x 1024, 128-token "
+          f"blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"none (no PyTorch call reads a block table); dense "
+          f"decode_attention at the same live context {dense_ms:.4f} ms; "
+          f"bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB) [{card}]")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": REPLACES["paged_decode_attention"],
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def check_flash_train(torch, fa, kern, card: str):
     """flash_fwd with dropout, flash_bwd_dq and flash_bwd_dkv against their
     plain versions: the training shape and the edge cases; the dropout
@@ -559,6 +711,8 @@ def serve(torch, kern, card: str):
     check(launches["decode_attention"] == L * sched.steps,
           f"decode_attention launches {launches['decode_attention']} != "
           f"{L} x {sched.steps} decode steps")
+    check(launches["paged_decode_attention"] == 0,
+          "the dense engine launched paged_decode_attention")
     tokens = sum(len(c.tokens) for c in done.values())
     print(f"serving: {len(done)} requests, {sched.steps} decode steps, "
           f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
@@ -574,6 +728,7 @@ def serve(torch, kern, card: str):
     decode_ms = 1e3 * _host_time(torch, lambda: eng.decode_logits(toks), 20)
     print(f"serving: prefill (128 tokens) {prefill_ms:.3f} ms, decode step "
           f"(8 slots) {decode_ms:.3f} ms [{card}]")
+    times = {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
     profile_step(torch, "prefill (128 tokens)",
                  lambda: eng.prefill_logits(window, 0), card)
     profile_step(torch, "decode step (8 slots)",
@@ -602,6 +757,205 @@ def serve(torch, kern, card: str):
                                f"{TOL_LOGITS}")
     print(f"serving: teacher-forced logits kernel vs plain, prefill + 4 "
           f"decode steps: max_abs_err {worst:.4g} (tol {TOL_LOGITS})")
+    return launches, times
+
+
+def serve_paged(torch, kern, card: str, dense_times: dict):
+    """GPT-small served by a ``PagedServingEngine`` at the JAX bench's
+    ``gpt_decode_paged`` configuration (see the module docstring): launch
+    counts, prefix hits and copies on write under the scheduler, then step
+    times beside the dense engine's and teacher-forced logits. Returns the
+    launch counts of the scheduler run."""
+    import numpy as np
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.observability import MetricsRegistry
+    from apex_tpu_torch.serving import (PagedServingEngine, Request,
+                                        ServingEngine, SlotScheduler)
+
+    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
+                    num_attention_heads=12, max_position_embeddings=1024)
+    model = GPTModel(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    L = cfg.num_layers
+
+    def engine(m):
+        return PagedServingEngine(m, cache_dtype=torch.bfloat16, rng_seed=0,
+                                  device="cuda", **PAGED)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    shared = rng.randint(0, cfg.vocab_size, size=PAGED["prefill_len"]
+                         ).tolist()
+    requests = [Request(prompt=p, max_new_tokens=NEW_TOKENS,
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                for i, p in enumerate(prompts)]
+    requests += [Request(prompt=shared, max_new_tokens=NEW_TOKENS)
+                 for _ in range(SHARED_REPEATS)]
+    eng = engine(model)
+    # count the engine's decode steps, prefix-hit tail steps included
+    calls = [0]
+    decode_logits = eng.decode_logits
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return decode_logits(*args, **kw)
+
+    eng.decode_logits = counted
+    reg = MetricsRegistry()
+    sched = SlotScheduler(eng, registry=reg)
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    del eng.decode_logits
+    check(len(done) == len(requests), f"paged: {len(done)} of "
+                                      f"{len(requests)} requests completed")
+    for c in done.values():
+        check(len(c.tokens) == NEW_TOKENS and c.finish_reason == "length",
+              f"paged request {c.request_id}: {len(c.tokens)} tokens, "
+              f"{c.finish_reason}")
+        check(all(0 <= t < cfg.vocab_size for t in c.tokens),
+              f"paged request {c.request_id}: token outside the vocab")
+    hits = int(reg.counter("serve/prefix_hits").value)
+    cows = int(reg.counter("serve/blocks_cow_copied").value)
+    cold = len(requests) - hits
+    check(launches["paged_decode_attention"] == L * calls[0],
+          f"paged_decode_attention launches "
+          f"{launches['paged_decode_attention']} != {L} x {calls[0]} "
+          "decode steps")
+    check(launches["flash_fwd"] == L * cold,
+          f"paged: flash_fwd launches {launches['flash_fwd']} != {L} x "
+          f"{cold} cold prefills")
+    check(launches["decode_attention"] == 0,
+          "the paged engine launched decode_attention")
+    check(hits >= SHARED_REPEATS - 1 and cows >= SHARED_REPEATS - 1,
+          f"paged: {hits} prefix hits and {cows} copies on write, want >= "
+          f"{SHARED_REPEATS - 1} each")
+    check(eng.allocator.free_blocks == PAGED["num_blocks"] - 1,
+          f"paged: {eng.allocator.free_blocks} blocks free after the run")
+    # the shared prompt's greedy streams, hit or cold (the hits decode the
+    # last prompt position, the cold prefill computed it in the prefill)
+    streams = {tuple(done[len(prompts) + i].tokens)
+               for i in range(SHARED_REPEATS)}
+    tokens = sum(len(c.tokens) for c in done.values())
+    shared_tokens = int(reg.counter("serve/prefix_hit_tokens").value)
+    ttft_prefix = reg.histogram("serve/ttft_prefix_ms")
+    admit_ms = ttft_prefix.sum / max(1, ttft_prefix.count)
+    print(f"paged serving: {len(done)} requests, {sched.steps} scheduler "
+          f"decode steps + {calls[0] - sched.steps} prefix-hit tail steps, "
+          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+          f"{hits} prefix hits ({shared_tokens} shared tokens, admission "
+          f"{admit_ms:.3f} ms mean), {cows} copies on write, {len(streams)} "
+          f"distinct stream(s) among the {SHARED_REPEATS} repeats; launches "
+          f"{launches} [{card}]")
+
+    # step times at the bench's throughput state (a fresh pool, every slot
+    # cold-prefilled with its own 128-token prompt, then one decode step),
+    # in turns with a dense engine at the same state, since the host's
+    # speed drifts between phases
+    eng = engine(model)
+    den = ServingEngine(model, max_seqs=PAGED["max_seqs"],
+                        max_len=PAGED["max_len"],
+                        prefill_len=PAGED["prefill_len"],
+                        cache_dtype=torch.bfloat16, rng_seed=0, device="cuda")
+    fresh = iter([rng.randint(0, cfg.vocab_size, size=PAGED["prefill_len"]
+                              ).tolist() for _ in range(30)])
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    eng.prefill_logits(shared, 1)          # registers the shared block
+    prefill = {"cold": [], "hit": [], "dense_prefill": []}
+    for _ in range(10):
+        p = next(fresh)
+        prefill["cold"].append(timed(lambda: eng.prefill_logits(p, 0)))
+        check(eng.last_admit.prefill, "paged: a distinct prompt hit")
+        prefill["hit"].append(timed(lambda: eng.prefill_logits(shared, 2)))
+        check(not eng.last_admit.prefill, "paged: the shared prompt missed")
+        prefill["dense_prefill"].append(timed(
+            lambda: den.prefill_logits(p, 0)))
+        eng.release_slot(0)
+        eng.release_slot(2)
+    eng.release_slot(1)
+    for slot in range(eng.max_seqs):
+        p = next(fresh)
+        eng.prefill_logits(p, slot)
+        den.prefill_logits(p, slot)
+    toks = np.zeros(eng.max_seqs, np.int64)
+    eng.decode_logits(toks)
+    den.decode_logits(toks)
+    decode = {"paged": [], "dense_decode": []}
+    for rep in range(4):                   # paged, dense, dense, paged, ...
+        for what in (("paged", "dense_decode") if rep % 2 == 0 else
+                     ("dense_decode", "paged")):
+            e = eng if what == "paged" else den
+            decode[what].append(1e3 * _host_time(
+                torch, lambda: e.decode_logits(toks), 5))
+    med = {k: float(np.median(v)) for k, v in {**prefill, **decode}.items()}
+    print(f"paged serving, in turns with a dense engine at the same state: "
+          f"prefill (128 tokens) cold {med['cold']:.3f} ms, prefix hit (127 "
+          f"shared, 1 decoded with copy on write) {med['hit']:.3f} ms, dense "
+          f"{med['dense_prefill']:.3f} ms (medians of 10); decode step (8 "
+          f"slots) paged {med['paged']:.3f} ms, dense "
+          f"{med['dense_decode']:.3f} ms "
+          f"(medians of 4 means of 5); the dense phase read prefill "
+          f"{dense_times['prefill_ms']:.3f} ms, decode step "
+          f"{dense_times['decode_ms']:.3f} ms [{card}]")
+    del den
+    profile_step(torch, "paged decode step (8 slots)",
+                 lambda: eng.decode_logits(toks), card)
+
+    def release_and_prefill():
+        eng.release_slot(0)
+        eng.prefill_logits(next(fresh), 0)
+
+    profile_step(torch, "paged release + cold prefill (128 tokens)",
+                 release_and_prefill, card)
+    del eng
+
+    # teacher-forced: the paged kernel path against the paged plain path
+    # and against the dense engine
+    plain = GPTModel(dataclasses.replace(cfg, use_kernel=False),
+                     device="cuda")
+    plain.load_state_dict(model.state_dict())
+    ek, ep = engine(model), engine(plain)
+    ed = ServingEngine(model, max_seqs=PAGED["max_seqs"],
+                       max_len=PAGED["max_len"],
+                       prefill_len=PAGED["prefill_len"],
+                       cache_dtype=torch.bfloat16, rng_seed=0, device="cuda")
+    worst = {"plain": 0.0, "dense": 0.0}
+    for slot in range(ek.max_seqs):
+        p = prompts[slot]
+        lk = ek.prefill_logits(p, slot)
+        check(bool(torch.isfinite(lk).all()) and lk.shape ==
+              (cfg.vocab_size,), "paged prefill logits not finite/shaped")
+        for what, other in (("plain", ep), ("dense", ed)):
+            worst[what] = max(worst[what],
+                              max_err(torch, lk, other.prefill_logits(p,
+                                                                      slot)))
+        toks[slot] = int(lk.argmax())
+    for _ in range(4):
+        lk = ek.decode_logits(toks)
+        check(bool(torch.isfinite(lk).all()) and lk.shape ==
+              (ek.max_seqs, cfg.vocab_size), "paged decode logits not finite")
+        for what, other in (("plain", ep), ("dense", ed)):
+            worst[what] = max(worst[what],
+                              max_err(torch, lk, other.decode_logits(toks)))
+        toks = lk.argmax(dim=-1).cpu().numpy()
+    for what, err in worst.items():
+        check(err <= TOL_LOGITS, f"paged teacher-forced logits vs {what} "
+                                 f"{err:.3g} > {TOL_LOGITS}")
+    print(f"paged serving: teacher-forced logits, prefill + 4 decode steps: "
+          f"kernel vs plain path max_abs_err {worst['plain']:.4g}, vs the "
+          f"dense engine {worst['dense']:.4g} (tol {TOL_LOGITS})")
     return launches
 
 
@@ -672,8 +1026,9 @@ def train(torch, kern, card: str):
         for name in flash:
             check(counts[name] == L, f"{what}: {name} launched "
                                      f"{counts[name]} times, not {L}")
-        check(counts["decode_attention"] == 0,
-              f"{what} launched decode_attention")
+        check(counts["decode_attention"] == 0
+              and counts["paged_decode_attention"] == 0,
+              f"{what} launched a decode kernel")
 
     step = trainer(True)
     launches = {name: 0 for name in kern.LAUNCHES}
@@ -841,13 +1196,16 @@ def main() -> None:
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"],
                                  prefill_row["max_abs_err"])
     rows = [fwd_row, check_decode(torch, fa, cache_mod, kern, card), dq_row,
-            dkv_row]
-    serving = serve(torch, kern, card)
+            dkv_row, check_paged(torch, fa, cache_mod, kern, card)]
+    serving, dense_times = serve(torch, kern, card)
+    paged = serve_paged(torch, kern, card, dense_times)
     training = train(torch, kern, card)
-    print(f"launches on the main paths: serving {serving}, training "
-          f"({TRAIN_STEPS} steps, then one with dropout) {training}")
+    print(f"launches on the main paths: serving {serving}, paged serving "
+          f"{paged}, training ({TRAIN_STEPS} steps, then one with dropout) "
+          f"{training}")
     for row in rows:
-        row["launches"] = serving[row["name"]] + training[row["name"]]
+        row["launches"] = sum(path[row["name"]]
+                              for path in (serving, paged, training))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

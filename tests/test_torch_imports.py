@@ -44,6 +44,8 @@ def test_port_has_the_slice_modules():
                 "apex_tpu_torch/csrc/flash_fwd.cu",
                 "apex_tpu_torch/csrc/decode_attention.cu",
                 "apex_tpu_torch/csrc/flash_bwd.cu",
+                "apex_tpu_torch/csrc/paged_decode_attention.cu",
+                "apex_tpu_torch/serving/resilience.py",
                 "apex_tpu_torch/ops/xentropy.py",
                 "apex_tpu_torch/ops/dropout.py",
                 "apex_tpu_torch/optimizers/fused_adam.py",
@@ -60,7 +62,9 @@ def test_import_with_jax_blocked():
         "from apex_tpu_torch import _kernels, _bridge\n"
         "from apex_tpu_torch.models import GPTConfig, GPTModel\n"
         "from apex_tpu_torch.serving import ServingEngine, SlotScheduler\n"
+        "from apex_tpu_torch.serving import PagedServingEngine, Rejection\n"
         "from apex_tpu_torch.ops import flash_attention, decode_attention\n"
+        "from apex_tpu_torch.ops import paged_decode_attention\n"
         "from apex_tpu_torch.ops import softmax_cross_entropy_loss, dropout\n"
         "from apex_tpu_torch.optimizers import FusedAdam\n"
         "from apex_tpu_torch.amp import DynamicLossScale, all_finite\n"
@@ -80,23 +84,35 @@ def test_cuda_default_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from apex_tpu_torch.models import GPTConfig, GPTModel
-    from apex_tpu_torch.serving import KVCache
+    from apex_tpu_torch.serving import (KVCache, PagedKVCache,
+                                        PagedServingEngine)
     cfg = GPTConfig(vocab_size=16, hidden_size=16, num_layers=1,
                     num_attention_heads=2, max_position_embeddings=8)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         GPTModel(cfg)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         KVCache.create(1, 1, 1, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PagedKVCache.create(1, 4, 1, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PagedServingEngine(GPTModel(cfg, device="cpu"), max_seqs=1,
+                           max_len=8, prefill_len=4, num_blocks=4,
+                           block_size=4)
 
 
 def test_use_kernel_true_on_cpu_raises():
-    from apex_tpu_torch.ops import decode_attention, flash_attention
+    from apex_tpu_torch.ops import (decode_attention, flash_attention,
+                                    paged_decode_attention)
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         flash_attention(q, q, q, use_kernel=True)
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         decode_attention(q[:, :, 0], q, q, torch.zeros(1, dtype=torch.int32),
                          use_kernel=True)
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        paged_decode_attention(q[:, :, 0], q.expand(3, 1, 8, 64), q.expand(
+            3, 1, 8, 64), torch.zeros(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), use_kernel=True)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -112,8 +128,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _kernels.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.125)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.125, 0.1, 3)
+    pool = torch.zeros(4, 2, 16, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.paged_decode_attention(
+            q[:, :1], pool, pool, torch.zeros(1, 3, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), None, None, 0.125)
     assert _kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0, "decode_attention": 0}
+                                 "flash_bwd_dkv": 0, "decode_attention": 0,
+                                 "paged_decode_attention": 0}
 
 
 def test_source_key_tracks_sources():
