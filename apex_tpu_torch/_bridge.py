@@ -1,13 +1,17 @@
-"""Weight bridge between the JAX package's GPT pytree and the port.
+"""Weight bridge between the JAX package's GPT and BERT pytrees and the
+port.
 
-``params_from_jax`` turns the ``GPTModel.init`` pytree of the JAX package,
-with its leaves converted to numpy arrays, into a state dict for
-:class:`apex_tpu_torch.models.gpt.GPTModel`; ``params_to_numpy`` is the
+``params_from_jax`` turns the ``GPTModel.init`` or ``BertModel.init``
+pytree of the JAX package, with its leaves converted to numpy arrays, into
+a state dict for :class:`apex_tpu_torch.models.gpt.GPTModel` or
+:class:`apex_tpu_torch.models.bert.BertModel`; ``params_to_numpy`` is the
 inverse. The JAX layers are stacked ``(L, ...)`` and its tensor-parallel
 weights keep a leading shard dim of 1 at tp=1 (qkv weight ``(L, 1, 3h,
-h)``); the port's layers are a ``ModuleList`` with plain ``(out, in)``
-weights. Values pass bit for bit: bf16 leaves go through a ``uint16``
-view, since ``torch.from_numpy`` refuses numpy's bf16 extension dtype.
+h)``, the MLM output bias ``(1, vocab)``); the port's layers are a
+``ModuleList`` with plain ``(out, in)`` weights. A BERT tree is told from a
+GPT one by its token-type table (``embedding.tokentype``). Values pass bit
+for bit: bf16 leaves go through a ``uint16`` view, since
+``torch.from_numpy`` refuses numpy's bf16 extension dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ __all__ = ["params_from_jax", "params_to_numpy"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
+_LEAVES = ("weight", "bias")
+# BERT's dense parameter groups beyond GPT's, by their pytree path
+_BERT_DENSE = (("pooler",), ("lm_head", "dense"), ("lm_head", "ln"),
+               ("binary_head",))
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -46,8 +54,9 @@ def _shard0(arr, what: str):
 
 
 def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
-    """State dict (CPU tensors) from the JAX ``GPTModel.init`` pytree with
-    numpy leaves. ``cfg`` gives ``num_layers``."""
+    """State dict (CPU tensors) from the JAX ``GPTModel.init`` or
+    ``BertModel.init`` pytree with numpy leaves. ``cfg`` gives
+    ``num_layers``."""
     sd: Dict[str, torch.Tensor] = {
         "embedding.word.weight": _to_torch(_shard0(
             tree["embedding"]["word"]["weight"], "embedding.word.weight")),
@@ -65,7 +74,24 @@ def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
             for leaf in ("weight", "bias"):
                 sd[f"layers.{i}.{name}.{leaf}"] = _to_torch(_shard0(
                     layers[name][leaf][i], f"layers.{name}.{leaf}"))
+    if "tokentype" in tree["embedding"]:
+        sd["embedding.tokentype"] = _to_torch(tree["embedding"]["tokentype"])
+        for path in _BERT_DENSE:
+            node = _get(tree, path)
+            if node is not None:
+                for leaf in _LEAVES:
+                    sd[".".join(path + (leaf,))] = _to_torch(node[leaf])
+        sd["lm_head.bias"] = _to_torch(_shard0(tree["lm_head"]["bias"],
+                                               "lm_head.bias"))
     return sd
+
+
+def _get(tree: dict, path):
+    for key in path:
+        if key not in tree:
+            return None
+        tree = tree[key]
+    return tree
 
 
 def params_to_numpy(state_dict, cfg) -> dict:
@@ -86,10 +112,22 @@ def params_to_numpy(state_dict, cfg) -> dict:
         layers[name] = {leaf: np.stack([get(f"layers.{i}.{name}.{leaf}")[None]
                                         for i in range(L)])
                         for leaf in ("weight", "bias")}
-    return {
+    tree = {
         "embedding": {"word": {"weight": get("embedding.word.weight")[None]},
                       "position": get("embedding.position")},
         "layers": layers,
         "final_ln": {"weight": get("final_ln.weight"),
                      "bias": get("final_ln.bias")},
     }
+    if "embedding.tokentype" in state_dict:
+        tree["embedding"]["tokentype"] = get("embedding.tokentype")
+        for path in _BERT_DENSE:
+            if ".".join(path + ("weight",)) not in state_dict:
+                continue
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            for leaf in _LEAVES:
+                node[leaf] = get(".".join(path + (leaf,)))
+        tree["lm_head"]["bias"] = get("lm_head.bias")[None]
+    return tree

@@ -19,6 +19,13 @@ Attention dropout is keyed by ``seed``, the int32 bit pattern of the
 reference's ``dropout_seed``; the kernels hash it with the global (batch-head,
 row, col) of each score (``csrc/common.cuh``), so the mask equals
 :func:`apex_tpu_torch.ops.flash_attention.dropout_keep_mask` bit for bit.
+The flash kernels take an optional fp32 score bias ``(bb, hb, sqb, sk)``,
+each of ``bb``, ``hb``, ``sqb`` 1 or full, kept broadcast: the wrapper
+passes its element strides, 0 on a broadcast dim.
+
+``ln_fwd`` and ``ln_bwd`` (``csrc/layer_norm.cu``) are the LayerNorm and
+RMSNorm kernels; :mod:`apex_tpu_torch.normalization.fused_layer_norm`
+wraps them in its ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -37,13 +44,13 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
-           "paged_decode_attention", "SOURCES"]
+           "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "paged_decode_attention.cu")
+           "paged_decode_attention.cu", "layer_norm.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -51,10 +58,13 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
+# csrc/layer_norm.cu: widths taken
+_LN_MAX_H = 65536
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ln_fwd": 0,
+                            "ln_bwd": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -119,17 +129,25 @@ def _compile(lib_path: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     drop = [I, U, I, F]  # on, seed, thresh, inv_keep
-    lib.apex_flash_fwd.argtypes = [P] * 5 + [I] * 6 + [F] + drop + [P]
+    bias = [P, I, I, I, I]  # pointer, heads, strides of batch, head, row
+    lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + drop
+                                   + [P])
     lib.apex_flash_fwd.restype = I
-    lib.apex_flash_bwd_dq.argtypes = [P] * 7 + [I] * 6 + [F] + drop + [P]
+    lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + drop
+                                      + [P])
     lib.apex_flash_bwd_dq.restype = I
-    lib.apex_flash_bwd_dkv.argtypes = [P] * 8 + [I] * 6 + [F] + drop + [P]
+    lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias + drop
+                                       + [P])
     lib.apex_flash_bwd_dkv.restype = I
     lib.apex_decode_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, F, P]
     lib.apex_decode_attention.restype = I
     lib.apex_paged_decode_attention.argtypes = [P] * 9 + [I] * 8 + [F, P]
     lib.apex_paged_decode_attention.restype = I
+    lib.apex_ln_fwd.argtypes = [P] * 6 + [I] * 5 + [F, I, P]
+    lib.apex_ln_fwd.restype = I
+    lib.apex_ln_bwd.argtypes = [P] * 10 + [I] * 7 + [P]
+    lib.apex_ln_bwd.restype = I
     return lib
 
 
@@ -201,15 +219,44 @@ def _dropout_args(dropout_rate: float, seed: Optional[int]):
     return 1, int(seed) & 0xFFFFFFFF, int(rate * (1 << 24)), 1.0 / (1.0 - rate)
 
 
+def _bias_args(name: str, bias: Optional[torch.Tensor], n: int, sq: int,
+               sk: int) -> Tuple:
+    """``(pointer, heads, batch stride, head stride, row stride)`` of the
+    flash kernels' broadcast score bias ``(bb, hb, sqb, sk)`` fp32 over the
+    ``n`` flattened batch-heads (``csrc/common.cuh::ScoreBias``); a null
+    pointer without one."""
+    if bias is None:
+        return None, 1, 0, 0, 0
+    _require(bias.dim() == 4 and bias.dtype == torch.float32,
+             f"{name}: bias must be rank 4 fp32, got {tuple(bias.shape)} "
+             f"{bias.dtype}")
+    bb, hb, sqb, skb = bias.shape
+    _require(skb == sk and sqb in (1, sq),
+             f"{name}: bias {tuple(bias.shape)} does not match sq {sq}, "
+             f"sk {sk}")
+    heads = hb if hb > 1 else (n // bb if bb > 1 else 1)
+    _require(bb * heads == n if bb > 1 else n % heads == 0,
+             f"{name}: bias {tuple(bias.shape)} does not split {n} "
+             "batch-heads")
+    return (bias.data_ptr(), heads,
+            hb * sqb * sk if bb > 1 else 0,
+            sqb * sk if hb > 1 else 0,
+            sk if sqb > 1 else 0)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float, dropout_rate: float = 0.0,
-              seed: Optional[int] = None
+              seed: Optional[int] = None,
+              bias: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
     dtype, d in {64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``, with
-    attention dropout at ``dropout_rate`` keyed by ``seed``."""
-    _check_common("flash_fwd", (q, k, v), q.device)
+    attention dropout at ``dropout_rate`` keyed by ``seed`` and the score
+    bias ``bias`` (see :func:`_bias_args`) added after the scale."""
+    extra = () if bias is None else (bias,)
+    _check_common("flash_fwd", (q, k, v, *extra), q.device)
     n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
+    bias_args = _bias_args("flash_fwd", bias, n, sq, sk)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     out = torch.empty_like(q)
@@ -219,15 +266,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal),
-            float(scale), *drop, stream)
+            float(scale), *bias_args, *drop, stream)
     _check_launch("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
-def _check_bwd(name: str, q, k, v, do, lse, delta) -> Tuple[int, int, int,
-                                                            int]:
-    _check_common(name, (q, k, v, do, lse, delta), q.device)
+def _check_bwd(name: str, q, k, v, do, lse, delta, bias) -> Tuple:
+    """The backward kernels' checks; returns ``(n, sq, sk, d, bias
+    arguments)``."""
+    extra = () if bias is None else (bias,)
+    _check_common(name, (q, k, v, do, lse, delta, *extra), q.device)
     n, sq, sk, d = _check_attention(name, q, k, v)
     _require(tuple(do.shape) == (n, sq, d) and do.dtype == q.dtype,
              f"{name}: do {tuple(do.shape)} {do.dtype} does not match q")
@@ -235,17 +284,19 @@ def _check_bwd(name: str, q, k, v, do, lse, delta) -> Tuple[int, int, int,
         _require(tuple(t.shape) == (n, sq) and t.dtype == torch.float32,
                  f"{name}: {what} must be (n, sq) fp32, got "
                  f"{tuple(t.shape)} {t.dtype}")
-    return n, sq, sk, d
+    return n, sq, sk, d, _bias_args(name, bias, n, sq, sk)
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool, scale: float, dropout_rate: float = 0.0,
-                 seed: Optional[int] = None) -> torch.Tensor:
-    """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v`` and ``do``
-    as for :func:`flash_fwd`, the forward's ``lse (n, sq)`` and ``delta =
-    rowsum(do * out) (n, sq)``, both fp32."""
-    n, sq, sk, d = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
+                 seed: Optional[int] = None,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v``, ``bias``
+    and ``do`` as for :func:`flash_fwd`, the forward's ``lse (n, sq)`` and
+    ``delta = rowsum(do * out) (n, sq)``, both fp32."""
+    n, sq, sk, d, bias_args = _check_bwd("flash_bwd_dq", q, k, v, do, lse,
+                                         delta, bias)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     dq = torch.empty_like(q)
@@ -254,7 +305,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, sq, sk, d,
-            _DTYPE_CODE[q.dtype], int(causal), float(scale), *drop, stream)
+            _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
+            *drop, stream)
     _check_launch("flash_bwd_dq", err)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -263,11 +315,13 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool, scale: float, dropout_rate: float = 0.0,
-                  seed: Optional[int] = None
+                  seed: Optional[int] = None,
+                  bias: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)``, each ``(n, sk, d)`` in k's dtype, from the inputs of
     :func:`flash_bwd_dq`."""
-    n, sq, sk, d = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
+    n, sq, sk, d, bias_args = _check_bwd("flash_bwd_dkv", q, k, v, do, lse,
+                                         delta, bias)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     dk = torch.empty_like(k)
@@ -278,7 +332,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
-            *drop, stream)
+            *bias_args, *drop, stream)
     _check_launch("flash_bwd_dkv", err)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
@@ -402,3 +456,123 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check_launch(name, err)
     LAUNCHES[name] += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm / RMSNorm (csrc/layer_norm.cu)
+# ---------------------------------------------------------------------------
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_rows(name: str, x2d: torch.Tensor) -> Tuple[int, int]:
+    _require(x2d.dim() == 2 and x2d.dtype in _FLOATS,
+             f"{name}: x must be (n, h) fp32 or bf16, got "
+             f"{tuple(x2d.shape)} {x2d.dtype}")
+    n, h = x2d.shape
+    if h % 8 or not 8 <= h <= _LN_MAX_H:
+        raise NotImplementedError(
+            f"{name}: hidden size {h} is not a multiple of 8 in [8, "
+            f"{_LN_MAX_H}]")
+    _require(n > 0, f"{name}: no rows")
+    _require(x2d.data_ptr() % 16 == 0, f"{name}: x must be 16-byte aligned")
+    return n, h
+
+
+def _check_params(name: str, h: int, *params) -> torch.dtype:
+    """The affine parameters' common dtype (checks shape, dtype,
+    alignment); ``None`` entries are absent parameters."""
+    given = [p for p in params if p is not None]
+    dtypes = {p.dtype for p in given}
+    _require(len(dtypes) <= 1 and dtypes <= set(_FLOATS),
+             f"{name}: weight and bias must share one dtype of fp32/bf16, "
+             f"got {sorted(map(str, dtypes))}")
+    for p in given:
+        _require(tuple(p.shape) == (h,) and p.data_ptr() % 16 == 0,
+                 f"{name}: parameters must be ({h},) and 16-byte aligned, "
+                 f"got {tuple(p.shape)}")
+    return dtypes.pop() if dtypes else None
+
+
+def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
+           bias: Optional[torch.Tensor], eps: float, rms: bool,
+           out_dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm (or RMSNorm with ``rms``) of the rows of ``x2d (n, h)``,
+    fp32 or bf16, ``h`` a multiple of 8 up to 65536, with the optional
+    ``weight``/``bias (h,)`` (fp32 or bf16, one dtype) -> ``(out (n, h) in
+    out_dtype, mean (n, 1), invvar (n, 1))``, the statistics fp32 (mean 0
+    for RMSNorm). ``out_dtype`` is x's or the weight's."""
+    name = "ln_fwd"
+    params = tuple(p for p in (weight, bias) if p is not None)
+    _check_common(name, (x2d, *params), x2d.device)
+    n, h = _check_rows(name, x2d)
+    w_dtype = _check_params(name, h, weight, bias) or x2d.dtype
+    _require(out_dtype in (x2d.dtype, w_dtype),
+             f"{name}: out_dtype {out_dtype} is neither x's {x2d.dtype} "
+             f"nor the weight's {w_dtype}")
+    lib, _ = build()
+    dev = x2d.device
+    out = torch.empty((n, h), dtype=out_dtype, device=dev)
+    mean = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    invvar = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_ln_fwd(
+            x2d.data_ptr(), None if weight is None else weight.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            mean.data_ptr(), invvar.data_ptr(), n, h,
+            _DTYPE_CODE[x2d.dtype], _DTYPE_CODE[w_dtype],
+            _DTYPE_CODE[out_dtype], float(eps), int(rms), stream)
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
+    return out, mean, invvar
+
+
+def ln_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+           invvar: torch.Tensor, weight: Optional[torch.Tensor], rms: bool,
+           has_bias: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                      Optional[torch.Tensor]]:
+    """The backward of :func:`ln_fwd` from the output cotangent ``dy2d (n,
+    h)`` (fp32 or bf16), the forward's input and statistics and its
+    weight -> ``(dx (n, h) in x's dtype, dweight, dbias)``. ``dweight``
+    (with a weight) and ``dbias`` (with ``has_bias``) are summed over the
+    rows in fp32, partial rows per block then a column sum in a second
+    launch, and come back in the weight's dtype (fp32 without one)."""
+    name = "ln_bwd"
+    params = () if weight is None else (weight,)
+    _check_common(name, (dy2d, x2d, mean, invvar, *params), x2d.device)
+    n, h = _check_rows(name, x2d)
+    _require(tuple(dy2d.shape) == (n, h) and dy2d.dtype in _FLOATS
+             and dy2d.data_ptr() % 16 == 0,
+             f"{name}: dy must be ({n}, {h}) fp32/bf16 and 16-byte "
+             f"aligned, got {tuple(dy2d.shape)} {dy2d.dtype}")
+    for t, what in ((mean, "mean"), (invvar, "invvar")):
+        _require(tuple(t.shape) == (n, 1) and t.dtype == torch.float32,
+                 f"{name}: {what} must be ({n}, 1) fp32, got "
+                 f"{tuple(t.shape)} {t.dtype}")
+    w_dtype = _check_params(name, h, weight) or torch.float32
+    lib, _ = build()
+    dev = x2d.device
+    # scratch for the partial rows of at most two blocks an SM; the C entry
+    # point picks the grid within that and sums only the rows it wrote
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_ctas = min(n, 2 * sms)
+    dx = torch.empty_like(x2d)
+    part = torch.empty((2, max_ctas, h), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, h), dtype=torch.float32, device=dev)
+    want_g, want_b = weight is not None, bool(has_bias)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_ln_bwd(
+            dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(),
+            invvar.data_ptr(), weight.data_ptr() if want_g else None,
+            dx.data_ptr(), part[0].data_ptr() if want_g else None,
+            part[1].data_ptr() if want_b else None, sums[0].data_ptr(),
+            sums[1].data_ptr(), n, h, max_ctas, _DTYPE_CODE[x2d.dtype],
+            _DTYPE_CODE[dy2d.dtype], _DTYPE_CODE[w_dtype], int(rms), stream)
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
+    return (dx, sums[0].to(w_dtype) if want_g else None,
+            sums[1].to(w_dtype) if want_b else None)

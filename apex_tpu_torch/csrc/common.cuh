@@ -53,6 +53,25 @@ struct Vec16 {
   }
 };
 
+// An additive fp32 score bias of shape (bb, hb, sqb, sk), each of bb, hb and
+// sqb 1 or full, as the reference's _bias_spec takes it: kept broadcast in
+// memory and read through element strides that are 0 on a broadcast dim
+// (keys are contiguous). The flattened batch-head index bh splits into
+// (bh / heads, bh % heads). A null `p` means no bias.
+struct ScoreBias {
+  const float* p;
+  int heads;
+  int sb, sh, sr;  // element strides of batch, head and query row
+};
+
+// the bias row of (bh, row): index it with the key position
+__device__ __forceinline__ const float* bias_row(const ScoreBias& b, int bh,
+                                                 int row) {
+  return b.p + static_cast<size_t>(bh / b.heads) * b.sb +
+         static_cast<size_t>(bh % b.heads) * b.sh +
+         static_cast<size_t>(row) * b.sr;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));

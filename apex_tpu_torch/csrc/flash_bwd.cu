@@ -5,8 +5,9 @@
 // ::_bwd_dkv_kernel (both launched by _bwd_pallas). Given q (n, sq, d),
 // k/v (n, sk, d), the output cotangent do (n, sq, d), the forward's
 // per-row logsumexp lse (n, sq) (+inf on rows with no visible key) and
-// delta = rowsum(do * out) (n, sq), both fp32, they recompute
-//   p      = exp(scale * q k^T - lse), masked entries zeroed explicitly,
+// delta = rowsum(do * out) (n, sq), both fp32, and the forward's optional
+// fp32 score bias (common.cuh::ScoreBias), they recompute
+//   p      = exp(scale * q k^T [+ bias] - lse), masked entries zeroed,
 //   dp     = do v^T,
 //   p_eff  = keep * p / (1 - rate),   dp_eff = keep * dp / (1 - rate),
 //   ds     = p * (dp_eff - delta)     (the undropped p, as the reference),
@@ -42,6 +43,10 @@
 // dq and dkv stay two kernels, as on the TPU: the fused FlashAttention-2 form
 // would add dq with atomics, in an order that changes from run to run. Each
 // k/v byte is read once per q tile and each q/do byte once per kv tile.
+// The score bias is read where each score is formed, at the global
+// (b, h, row, col) the forward read: lanes read consecutive keys of one row
+// in dq, one key of consecutive rows in dkv (a single broadcast load when
+// the bias is a (b, 1, 1, sk) padding mask, a row stride apart otherwise).
 // Tensor cores (mma.sync / wgmma) and TMA staging are left for a later,
 // faster version.
 
@@ -91,7 +96,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, int causal, float scale, Dropout dr) {
+                    int sq, int sk, int causal, float scale, ScoreBias bias,
+                    Dropout dr) {
   constexpr int kDPL = D / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* qs = smem;                      // kRows x D
@@ -141,7 +147,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // both conditions are uniform across the warp
       if (row >= sq) continue;
       if (causal && j0 > row + offset) continue;
-      const float s = dot<D>(qs + r * D, kr) * scale;
+      float s = dot<D>(qs + r * D, kr) * scale;
+      // the same global (b, h, row, col) entry as the forward and dkv read
+      if (bias.p != nullptr && col < sk) s += bias_row(bias, bh, row)[col];
       float dp = dot<D>(dos + r * D, vr);
       const bool valid = col < sk && (!causal || col <= row + offset);
       // a fully masked row has lse = +inf: exp(s - inf) == 0, never NaN
@@ -184,7 +192,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, int causal,
-                     float scale, Dropout dr) {
+                     float scale, ScoreBias bias, Dropout dr) {
   constexpr int kDPL = D / 32;
   extern __shared__ float smem[];
   float* ks = smem;                      // kRows x D
@@ -240,7 +248,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // both conditions are uniform across the warp
       if (col >= sk) continue;
       if (causal && col > i0 + kTile - 1 + offset) continue;
-      const float s = dot<D>(qr, ks + c * D) * scale;
+      float s = dot<D>(qr, ks + c * D) * scale;
+      if (bias.p != nullptr && row < sq) s += bias_row(bias, bh, row)[col];
       float dp = dot<D>(dor, vs + c * D);
       const bool valid = row < sq && (!causal || col <= row + offset);
       const float p = valid ? expf(s - row_lse) : 0.f;
@@ -294,6 +303,7 @@ struct BwdArgs {
   void *dq, *dk, *dv;
   int n, sq, sk, causal;
   float scale;
+  ScoreBias bias;
   Dropout dr;
 };
 
@@ -309,7 +319,7 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.sq, a.sk, a.causal, a.scale, a.dr);
+      static_cast<T*>(a.dq), a.sq, a.sk, a.causal, a.scale, a.bias, a.dr);
   return cudaGetLastError();
 }
 
@@ -326,7 +336,7 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.causal,
-      a.scale, a.dr);
+      a.scale, a.bias, a.dr);
   return cudaGetLastError();
 }
 
@@ -349,17 +359,21 @@ int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
 }  // namespace apex_port
 
 // C entry points, bound with ctypes. dtype: 0 fp32, 1 bf16 (q, k, v, do and
-// the outputs share it; lse and delta are fp32). Dropout as in
+// the outputs share it; lse and delta are fp32). The bias and dropout as in
 // apex_flash_fwd. Each returns the cudaError_t of its launch (0 on success).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int n, int sq,
                                  int sk, int d, int dtype, int causal,
-                                 float scale, int dropout, unsigned seed,
-                                 int thresh, float inv_keep, void* stream) {
+                                 float scale, const void* bias, int heads,
+                                 int sb, int sh, int sr, int dropout,
+                                 unsigned seed, int thresh, float inv_keep,
+                                 void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, n, sq, sk,
-                  causal, scale, Dropout{dropout, seed, thresh, inv_keep}};
+                  causal, scale,
+                  ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
+                  Dropout{dropout, seed, thresh, inv_keep}};
   return dispatch<true>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -367,10 +381,14 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int n,
                                   int sq, int sk, int d, int dtype, int causal,
-                                  float scale, int dropout, unsigned seed,
-                                  int thresh, float inv_keep, void* stream) {
+                                  float scale, const void* bias, int heads,
+                                  int sb, int sh, int sr, int dropout,
+                                  unsigned seed, int thresh, float inv_keep,
+                                  void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, n, sq, sk,
-                  causal, scale, Dropout{dropout, seed, thresh, inv_keep}};
+                  causal, scale,
+                  ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
+                  Dropout{dropout, seed, thresh, inv_keep}};
   return dispatch<false>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,12 @@
 // flash_fwd: blockwise online-softmax attention forward for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/ops/flash_attention.py::_fwd_kernel (launched by
-// _fwd_pallas). Computes O = softmax(scale * Q K^T [+ causal mask]) V and
-// the per-row logsumexp, +inf on rows with no visible key, over
-// q (n, sq, d), k/v (n, sk, d) in bf16 or fp32, d in {64, 128}.
+// _fwd_pallas). Computes O = softmax(scale * Q K^T [+ bias] [+ causal mask])
+// V and the per-row logsumexp, +inf on rows with no visible key, over
+// q (n, sq, d), k/v (n, sk, d) in bf16 or fp32, d in {64, 128}, with an
+// optional broadcast fp32 score bias (common.cuh::ScoreBias) added after
+// the scale and before the causal mask, as the TPU kernel adds it. A bias
+// value is a finite score: only the masks make a row fully masked.
 //
 // What bounds it on the H100: at the serving prefill shape (n = 12 heads,
 // sq = sk = 128, d = 64, causal) the function moves ~0.8 MB (q, k, v, o,
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int causal,
-                 float scale, Dropout dr) {
+                 float scale, ScoreBias bias, Dropout dr) {
   constexpr int kDPL = D / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* qs = smem;                     // kBQ x D
@@ -111,6 +114,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 16
       for (int c = 0; c < D; ++c) s = fmaf(qr[c], kr[c], s);
       s *= scale;
+      if (bias.p != nullptr && col < sk) s += bias_row(bias, bh, row)[col];
       const bool valid = col < sk && (!causal || col <= row + offset);
       s = valid ? s : kNegInf;
       const float m_new = fmaxf(m[rr], warp_max(s));
@@ -155,7 +159,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int n, int sq, int sk, int causal, float scale,
-                   Dropout dr, cudaStream_t stream) {
+                   ScoreBias bias, Dropout dr, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -165,35 +169,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, causal, scale, dr);
+      sq, sk, causal, scale, bias, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace apex_port
 
-// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16. Dropout is on
-// iff `dropout`; then `seed`, `thresh` and `inv_keep` are as in
-// common.cuh::Dropout. Returns the cudaError_t of the launch (0 on success).
+// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16. `bias` is null
+// or an fp32 bias read as common.cuh::ScoreBias with `heads` and the
+// strides `sb`, `sh`, `sr`. Dropout is on iff `dropout`; then `seed`,
+// `thresh` and `inv_keep` are as in common.cuh::Dropout. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int n, int sq, int sk,
                               int d, int dtype, int causal, float scale,
-                              int dropout, unsigned seed, int thresh,
+                              const void* bias, int heads, int sb, int sh,
+                              int sr, int dropout, unsigned seed, int thresh,
                               float inv_keep, void* stream) {
   using namespace apex_port;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ScoreBias bi{static_cast<const float*>(bias), heads, sb, sh, sr};
   const Dropout dr{dropout, seed, thresh, inv_keep};
   if (dtype == kFloat32 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, n, sq, sk, causal, scale, dr,
-                             st);
+    return launch<float, 64>(q, k, v, o, lse, n, sq, sk, causal, scale, bi,
+                             dr, st);
   if (dtype == kFloat32 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, n, sq, sk, causal, scale, dr,
-                              st);
+    return launch<float, 128>(q, k, v, o, lse, n, sq, sk, causal, scale, bi,
+                              dr, st);
   if (dtype == kBFloat16 && d == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, lse, n, sq, sk, causal,
-                                     scale, dr, st);
+                                     scale, bi, dr, st);
   if (dtype == kBFloat16 && d == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, lse, n, sq, sk, causal,
-                                      scale, dr, st);
+                                      scale, bi, dr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

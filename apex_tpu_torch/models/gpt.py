@@ -20,8 +20,11 @@ backward kernels),
 :func:`~apex_tpu_torch.ops.flash_attention.decode_attention` in decode
 over a dense cache and
 :func:`~apex_tpu_torch.ops.flash_attention.paged_decode_attention` in
-decode over a paged one; ``GPTConfig.use_kernel`` is passed to all three
-(``None``: the CUDA kernels on the card, the plain versions on the CPU).
+decode over a paged one; every LayerNorm runs
+:func:`~apex_tpu_torch.normalization.fused_layer_norm_affine` (the
+``ln_fwd``/``ln_bwd`` kernels). ``GPTConfig.use_kernel`` is passed to all
+of them (``None``: the CUDA kernels on the card, the plain versions on the
+CPU; ``False`` keeps the whole model on the plain versions).
 
 Training: every parameter is trainable, and :meth:`GPTModel.loss` is the
 reference's LM loss (softmax cross-entropy with ``padding_idx=None``, mean
@@ -147,6 +150,10 @@ class GPTModel(nn.Module):
     of the dense forward; :meth:`forward` with a ``kv_cache`` runs the
     serving legs."""
 
+    # the layer stack's attention mask: causal here; an encoder subclass
+    # (BERT) sets False and passes a padding bias to transform()
+    causal = True
+
     def __init__(self, config: GPTConfig, device="cuda"):
         super().__init__()
         cfg = config
@@ -184,7 +191,8 @@ class GPTModel(nn.Module):
         # bf16 activations, fp32 LN params -> params cast, bf16 out
         return fused_layer_norm_affine(
             x, p.weight.to(x.dtype), p.bias.to(x.dtype),
-            self.cfg.hidden_size, eps=self.cfg.layernorm_epsilon)
+            self.cfg.hidden_size, eps=self.cfg.layernorm_epsilon,
+            use_kernel=self.cfg.use_kernel)
 
     def _split_heads(self, qkv: torch.Tensor):
         """``(..., 3*hidden)`` -> q, k, v ``(..., heads, head_dim)``. The
@@ -196,12 +204,12 @@ class GPTModel(nn.Module):
         return qkv.split(cfg.head_dim, dim=-1)
 
     def _attention(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
-                   collect_kv: bool = False):
+                   collect_kv: bool = False, bias=None):
         b, s, _ = x.shape
         qkv, _ = lp.qkv(x)
         q, k, v = (t.transpose(1, 2) for t in self._split_heads(qkv))
         rate = self.cfg.attention_dropout if attn_seed is not None else 0.0
-        ctx = flash_attention(q, k, v, causal=True,
+        ctx = flash_attention(q, k, v, bias=bias, causal=self.causal,
                               use_kernel=self.cfg.use_kernel,
                               dropout_rate=rate, dropout_seed=attn_seed)
         ctx = ctx.transpose(1, 2).reshape(b, s, -1)
@@ -219,10 +227,10 @@ class GPTModel(nn.Module):
 
     def _layer(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
                generator: Optional[torch.Generator] = None,
-               collect_kv: bool = False):
+               collect_kv: bool = False, bias=None):
         rate = self.cfg.hidden_dropout
         a = self._attention(lp, self._ln(lp.ln1, x), attn_seed,
-                            collect_kv=collect_kv)
+                            collect_kv=collect_kv, bias=bias)
         if collect_kv:
             a, kv = a
         x = x + dropout(a, rate, generator)
@@ -241,12 +249,13 @@ class GPTModel(nn.Module):
         return dropout(h, self.cfg.hidden_dropout, generator)
 
     def transform(self, x: torch.Tensor,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
-        """The layer stack and the final LayerNorm. With a ``generator``
-        and a non-zero dropout rate: train-mode dropout, one attention seed
-        per layer drawn first (the reference's ``_layer_rngs``), then the
-        hidden masks layer by layer."""
+                  generator: Optional[torch.Generator] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer stack and the final LayerNorm, every layer's
+        attention taking the additive score ``bias`` (if any). With a
+        ``generator`` and a non-zero dropout rate: train-mode dropout, one
+        attention seed per layer drawn first (the reference's
+        ``_layer_rngs``), then the hidden masks layer by layer."""
         cfg = self.cfg
         if cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0:
             generator = None
@@ -256,7 +265,7 @@ class GPTModel(nn.Module):
                                   generator=generator,
                                   device=generator.device).tolist()
         for lp, seed in zip(self.layers, seeds):
-            x = self._layer(lp, x, seed, generator)
+            x = self._layer(lp, x, seed, generator, bias=bias)
         return self._ln(self.final_ln, x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,7 +334,15 @@ class GPTModel(nn.Module):
         cross-entropy of the logits against ``targets`` (every token id
         counts: ``padding_idx=None``), or its ``loss_mask``-weighted mean.
         A ``generator`` turns on train-mode dropout."""
-        logits = self(tokens, generator=generator)
+        return self._lm_loss(self(tokens, generator=generator), targets,
+                             loss_mask)
+
+    @staticmethod
+    def _lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+                 loss_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Per-token softmax cross-entropy of ``logits`` against
+        ``targets`` (``padding_idx=None``), fp32, averaged over the tokens
+        or over ``loss_mask``'s weight."""
         per_tok = softmax_cross_entropy_loss(
             logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
             padding_idx=None, half_to_float=True).reshape(targets.shape)

@@ -6,8 +6,9 @@ kernels (``apex_tpu_torch/csrc/``, built and launched by
 training paths run:
 
 - ``flash_fwd`` replaces ``_fwd_kernel``: blockwise online-softmax
-  attention forward with optional in-kernel dropout, returning the output
-  and the per-row logsumexp (``+inf`` on fully masked rows);
+  attention forward with an optional broadcast additive score bias and
+  in-kernel dropout, returning the output and the per-row logsumexp
+  (``+inf`` on fully masked rows);
 - ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``: the backward, probabilities recomputed from the
   saved logsumexp and the dropout mask regenerated from its counters;
@@ -35,8 +36,8 @@ Kernel selection follows the reference's ``use_pallas`` contract as
 ``use_kernel``: ``None`` runs the kernel iff the tensors lie on a CUDA
 device, ``True`` on CPU tensors raises, ``False`` runs the plain version.
 On CUDA there is no shape-based fallback: the kernels mask ragged lengths
-themselves, and whatever they do not take (an additive bias, segment ids,
-a head dim other than 64/128) raises.
+themselves, and whatever they do not take (a learned bias's gradient,
+segment ids, a head dim other than 64/128) raises.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch import _kernels
+from apex_tpu_torch._device import use_kernel_for
 
 __all__ = ["flash_attention", "mha_reference", "decode_attention",
            "paged_decode_attention", "dropout_keep_mask", "NEG_INF"]
@@ -58,16 +60,6 @@ _MIX1 = 0x85EBCA6B
 _MIX2 = 0xC2B2AE35
 _GOLD = 0x9E3779B1
 _U32 = 0xFFFFFFFF
-
-
-def _use_kernel(use_kernel: Optional[bool], x: torch.Tensor) -> bool:
-    if use_kernel is None:
-        return x.is_cuda
-    if use_kernel and not x.is_cuda:
-        raise ValueError(
-            "use_kernel=True needs CUDA tensors: the kernels run only on "
-            f"the card, got a tensor on {x.device}")
-    return bool(use_kernel)
 
 
 def _norm_segment_ids(segment_ids, sq: int, sk: int):
@@ -181,15 +173,47 @@ def _causal_valid(sq: int, sk: int, device) -> torch.Tensor:
     return col <= row + (sk - sq)
 
 
+def _norm_bias(bias, b: int, h: int, sq: int, sk: int) -> torch.Tensor:
+    """``bias`` broadcastable to ``(b, h, sq, sk)`` as the kernels take
+    it, the reference's normalization: fp32, rank 4, each dim 1 or full, a
+    keys dim of 1 expanded to ``sk``; the rest stays broadcast.
+    Differentiable, so a gradient reaches the caller's bias."""
+    bias4 = bias.float()
+    if bias4.dim() > 4:
+        raise ValueError(f"bias rank {bias4.dim()} > 4")
+    while bias4.dim() < 4:
+        bias4 = bias4[None]
+    for ax, (dim, full) in enumerate(zip(bias4.shape, (b, h, sq, sk))):
+        if dim not in (1, full):
+            raise ValueError(f"bias dim {ax} is {dim}; must be 1 or {full}")
+    if bias4.shape[3] == 1 and sk > 1:
+        bias4 = bias4.expand(*bias4.shape[:3], sk)
+    return bias4.contiguous()
+
+
+def _add_bias(s: torch.Tensor, bias) -> torch.Tensor:
+    """Scores ``s (n, sq, sk)`` over flattened batch-heads plus the
+    broadcast bias ``(bb, hb, sqb, sk)`` (or ``s`` itself without one):
+    the batch-head index splits as the kernels split it."""
+    if bias is None:
+        return s
+    n = s.shape[0]
+    bb, hb = bias.shape[:2]
+    heads = hb if hb > 1 else (n // bb if bb > 1 else n)
+    return (s.view(n // heads, heads, *s.shape[1:]) + bias).view(s.shape)
+
+
 def _flash_fwd_plain(q, k, v, causal: bool, scale: float,
-                     dropout_rate: float = 0.0, seed=None):
+                     dropout_rate: float = 0.0, seed=None, bias=None):
     """The function ``flash_fwd`` computes, on the kernel's layout:
-    ``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` -> ``out (n, sq, d)`` in
-    q's dtype and ``lse (n, sq)`` fp32, ``+inf`` on fully masked rows. The
-    normalizer sums the undropped probabilities; dropout then acts on the
-    normalized ones."""
+    ``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` and the optional score
+    bias (see :func:`_add_bias`) -> ``out (n, sq, d)`` in q's dtype and
+    ``lse (n, sq)`` fp32, ``+inf`` on fully masked rows. The bias is added
+    after the scale and before the causal mask. The normalizer sums the
+    undropped probabilities; dropout then acts on the normalized ones."""
     n, sq, sk = q.shape[0], q.shape[-2], k.shape[-2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = _add_bias(s, bias)
     valid = None
     if causal:
         valid = _causal_valid(sq, sk, s.device)
@@ -212,13 +236,14 @@ def _flash_fwd_plain(q, k, v, causal: bool, scale: float,
 
 
 def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
-                    dropout_rate: float, seed):
+                    dropout_rate: float, seed, bias=None):
     """The backward kernels' shared recompute (the reference's
-    ``_recompute_p_ds``): ``p = exp(s - lse)`` with masked entries zeroed,
-    ``p_eff`` (dropped, rescaled) for dV and ``ds = p * (dp_eff - delta)``
-    with the undropped ``p``."""
+    ``_recompute_p_ds``): ``p = exp(s + bias - lse)`` with masked entries
+    zeroed, ``p_eff`` (dropped, rescaled) for dV and ``ds = p * (dp_eff -
+    delta)`` with the undropped ``p``."""
     n, sq, sk = q.shape[0], q.shape[-2], k.shape[-2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = _add_bias(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                  * scale, bias)
     # lse = +inf on fully masked rows: exp(s - inf) == 0
     p = torch.exp(s - lse[..., None])
     if causal:
@@ -234,22 +259,23 @@ def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 
 def _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None, bias=None):
     """The function ``flash_bwd_dq`` computes: ``dq (n, sq, d)`` in q's
     dtype, with ``ds`` rounded to k's dtype before the ``dS K`` product."""
     _, ds = _recompute_p_ds(q, k, v, do, lse, delta, causal, scale,
-                            dropout_rate, seed)
+                            dropout_rate, seed, bias)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
     return dq.to(q.dtype)
 
 
 def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
-                         scale: float, dropout_rate: float = 0.0, seed=None):
+                         scale: float, dropout_rate: float = 0.0, seed=None,
+                         bias=None):
     """The function ``flash_bwd_dkv`` computes: ``(dk, dv)``, each ``(n,
     sk, d)`` in k's dtype, with ``p_eff`` rounded to do's dtype and ``ds``
     to q's before the products."""
     p_eff, ds = _recompute_p_ds(q, k, v, do, lse, delta, causal, scale,
-                                dropout_rate, seed)
+                                dropout_rate, seed, bias)
     dv = torch.matmul(p_eff.to(do.dtype).float().transpose(-1, -2),
                       do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
@@ -259,36 +285,39 @@ def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp`` around the flash kernels, on the
-    kernels' ``(n, s, d)`` layout: the forward saves ``q, k, v, out, lse``;
-    the backward takes ``delta = rowsum(do * out)`` from the saved (rounded)
-    output, in fp32 outside any kernel as the reference does, then runs dQ
-    and dKV. ``use_kernel`` picks the kernels or their plain versions."""
+    kernels' ``(n, s, d)`` layout: the forward saves ``q, k, v, out, lse``
+    (and the score bias); the backward takes ``delta = rowsum(do * out)``
+    from the saved (rounded) output, in fp32 outside any kernel as the
+    reference does, then runs dQ and dKV. The bias ``(bb, hb, sqb, sk)``
+    (or None) is a non-learned one: its gradient is zero, as the
+    reference's without ``bias_requires_grad``. ``use_kernel`` picks the
+    kernels or their plain versions."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal: bool, scale: float,
+    def forward(ctx, q3, k3, v3, bias4, causal: bool, scale: float,
                 dropout_rate: float, seed, use_kernel: bool):
         fwd = _kernels.flash_fwd if use_kernel else _flash_fwd_plain
-        out, lse = fwd(q3, k3, v3, causal, scale, dropout_rate, seed)
-        ctx.save_for_backward(q3, k3, v3, out, lse)
+        out, lse = fwd(q3, k3, v3, causal, scale, dropout_rate, seed,
+                       bias=bias4)
+        ctx.save_for_backward(q3, k3, v3, out, lse, bias4)
         ctx.args = (causal, scale, dropout_rate, seed)
         ctx.use_kernel = use_kernel
         return out
 
     @staticmethod
     def backward(ctx, do3):
-        q3, k3, v3, out, lse = ctx.saved_tensors
+        q3, k3, v3, out, lse, bias4 = ctx.saved_tensors
         do3 = do3.to(q3.dtype).contiguous()
         delta = (do3.float() * out.float()).sum(dim=-1)
+        args = (q3, k3, v3, do3, lse, delta, *ctx.args)
         if ctx.use_kernel:
-            dq = _kernels.flash_bwd_dq(q3, k3, v3, do3, lse, delta,
-                                       *ctx.args)
-            dk, dv = _kernels.flash_bwd_dkv(q3, k3, v3, do3, lse, delta,
-                                            *ctx.args)
+            dq = _kernels.flash_bwd_dq(*args, bias=bias4)
+            dk, dv = _kernels.flash_bwd_dkv(*args, bias=bias4)
         else:
-            dq = _flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, *ctx.args)
-            dk, dv = _flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta,
-                                          *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+            dq = _flash_bwd_dq_plain(*args, bias=bias4)
+            dk, dv = _flash_bwd_dkv_plain(*args, bias=bias4)
+        dbias = torch.zeros_like(bias4) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False,
@@ -299,18 +328,23 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
                     segment_ids=None):
     """Fused attention over ``(b, h, s, d)`` tensors, differentiable.
 
-    Without ``bias`` and ``segment_ids`` this is :class:`_FlashAttention`:
-    the ``flash_fwd``/``flash_bwd_dq``/``flash_bwd_dkv`` kernels on CUDA
-    tensors, their plain versions on the CPU (or with ``use_kernel=False``).
-    ``dropout_rate``/``dropout_seed``: in-kernel attention dropout, keyed by
-    the int seed (its int32 bit pattern); a rate without a seed raises.
+    This is :class:`_FlashAttention`: the ``flash_fwd``/``flash_bwd_dq``/
+    ``flash_bwd_dkv`` kernels on CUDA tensors, their plain versions on the
+    CPU (or with ``use_kernel=False``). ``dropout_rate``/``dropout_seed``:
+    in-kernel attention dropout, keyed by the int seed (its int32 bit
+    pattern); a rate without a seed raises.
 
-    ``bias`` and ``segment_ids`` run on the plain path only in this slice
-    (:func:`mha_reference`, autograd through plain ops) and raise on the
-    kernel path: the learned-bias backward is the dbias kernel's (queue B6
-    of ``ROADMAP.md``), segment ids come with the packed long-context path.
-    As in the reference, ``bias`` gets zero gradient unless
-    ``bias_requires_grad``."""
+    ``bias``: an additive score bias broadcastable to ``(b, h, sq, sk)``
+    (a ``-10000`` padding mask ``(b, 1, 1, sk)``, a relative-position
+    table ``(1, h, sq, sk)``), added after the scale and before the causal
+    mask. The kernels read it broadcast, in fp32. As in the reference it
+    gets a zero gradient unless ``bias_requires_grad``.
+
+    Still to come on the card (ROADMAP queue A item 4), raising there: a
+    learned bias (``bias_requires_grad=True``, whose gradient is the dbias
+    kernel's, queue B6) and ``segment_ids`` (the packed long-context
+    path). On the CPU both run :func:`mha_reference`, autograd through
+    plain ops."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -320,25 +354,28 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
-    if bias is not None or segment_ids is not None:
+    learned = bias is not None and bias_requires_grad
+    if learned or segment_ids is not None:
         if use_kernel or (use_kernel is None and q.is_cuda):
             raise NotImplementedError(
-                "the flash kernels take no bias or segment_ids yet: the "
-                "learned-bias backward is the dbias kernel's slice (ROADMAP "
-                "queue B6) and segment ids come with the packed long-context "
-                "path; pass use_kernel=False for the plain path")
+                "the flash kernels take no learned bias (bias_requires_grad"
+                "=True: its gradient is the dbias kernel's, ROADMAP queue "
+                "B6) and no segment_ids (the packed long-context path) yet:"
+                " both come with ROADMAP queue A item 4; pass "
+                "use_kernel=False for the plain path")
         if bias is not None and not bias_requires_grad:
             bias = bias.detach()
         return mha_reference(q, k, v, bias, causal, softmax_scale,
                              dropout_rate=dropout_rate,
                              dropout_seed=dropout_seed,
                              segment_ids=segment_ids)
-    kernel = _use_kernel(use_kernel, q)
+    kernel = use_kernel_for(use_kernel, q)
     seed = None if dropout_seed is None else int(dropout_seed)
+    bias4 = None if bias is None else _norm_bias(bias, b, h, sq, sk)
     out = _FlashAttention.apply(
         q.reshape(b * h, sq, d).contiguous(),
         k.reshape(b * h, sk, d).contiguous(),
-        v.reshape(b * h, sk, d).contiguous(), bool(causal),
+        v.reshape(b * h, sk, d).contiguous(), bias4, bool(causal),
         float(softmax_scale), float(dropout_rate), seed, kernel)
     return out.reshape(b, h, sq, d)
 
@@ -438,7 +475,7 @@ def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
     v3 = v.reshape(b * h, T, d)
     ksc = k_scale.reshape(b * h, T) if quantized else None
     vsc = v_scale.reshape(b * h, T) if quantized else None
-    if _use_kernel(use_kernel, q):
+    if use_kernel_for(use_kernel, q):
         out3, lse3 = _kernels.decode_attention(
             q3.contiguous(), k3, v3, lengths_bh, ksc, vsc,
             float(softmax_scale))
@@ -572,7 +609,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     q3 = q.reshape(b * h, q_len, d)
     ksc = k_scale if quantized else None
     vsc = v_scale if quantized else None
-    if _use_kernel(use_kernel, q):
+    if use_kernel_for(use_kernel, q):
         out3, lse3 = _kernels.paged_decode_attention(
             q3.contiguous(), k_pool, v_pool, tables, lens, ksc, vsc,
             float(softmax_scale))

@@ -10,7 +10,9 @@ non-zero and prints no result. Phases, each fatal on failure:
 2. build the CUDA kernels, timed;
 3. each kernel against its plain PyTorch version on the card, element by
    element and by relative norm, with the max abs error and the share of
-   the limit used (the limits are stated and derived below the imports):
+   the limit used (the limits are stated and derived below the imports;
+   the LayerNorm kernels and the flash kernels with a score bias follow
+   the list below):
    ``flash_fwd`` at the serving prefill
    shape; ``flash_fwd`` with dropout, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` at the training shape (96 x 1024 x 1024, d 64,
@@ -26,7 +28,17 @@ non-zero and prints no result. Phases, each fatal on failure:
    backward for the dQ/dK/dV pair: yardsticks only, the port never calls
    SDPA; no PyTorch call reads a block table, so the paged kernel is timed
    beside the dense decode kernel instead) device times under
-   ``torch.profiler``, beside the bound;
+   ``torch.profiler``, beside the bound. ``ln_fwd`` and ``ln_bwd`` at the
+   path shape (8192 x 768: bf16 with bf16 affine parameters, fp32, mixed,
+   RMSNorm, no affine), at 1024 x 16384 and at 1001 rows of the widths
+   just past each kernel template's reach (264, 1032, 4104) and of 8, in
+   bf16 and fp32, dweight/dbias within a stated fp32 relative norm and a
+   second ``ln_bwd`` equal bit for bit, timed
+   beside ``F.layer_norm``, ``aten.native_layer_norm_backward`` and
+   ``F.rms_norm``; the three flash kernels with a ``(16, 1, 1, 512)``
+   padding bias and a ``(1, 12, 512, 512)`` bias at BERT's attention shape
+   (192 x 512 x 512, d 64, non-causal, bf16) and at causal, dropout and
+   fp32 cases, timed at BERT's shape beside SDPA with a float mask;
 4. GPT-small (vocab 32768, hidden 768, 12 layers, 12 heads, 1024
    positions; random weights from a seed) served at full width: a
    ``ServingEngine`` (8 slots, max_len 1024, prefill window 128, bf16
@@ -56,8 +68,22 @@ non-zero and prints no result. Phases, each fatal on failure:
    tokens/s, each step's loss, a profile of one step; then the plain path
    from the same state dict, whose losses and step-0 grads must agree;
    then one step of each path with train-mode dropout (hidden and
-   attention, 0.1, a generator on the card), which must agree too;
-7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+   attention, 0.1, a generator on the card), which must agree too. Every
+   GPT pass (prefill, decode step, training forward) must launch
+   ``ln_fwd`` 25 times, and every training backward ``ln_bwd`` 25 times;
+7. BERT-base pretraining at full width (google-research/bert's
+   ``uncased_L-12_H-768_A-12``: vocab 30522, hidden 768, 12 layers, 12
+   heads, ffn 3072, 512 positions, 2 token types, eps 1e-12; random
+   weights from a seed): 16 sequences of 512 positions with lengths drawn
+   in 256-512 and the padding mask as the attention bias, token types, a
+   0.15 MLM loss mask and sentence-order labels, ``BertModel.loss`` with
+   every head, ``FusedAdam(lr=1e-4)``, ``DynamicLossScale(init_scale=
+   2**12)``, no dropout: 4 steps, each launching ``flash_fwd``,
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` 12 times and ``ln_fwd`` and
+   ``ln_bwd`` 26 times; step time, tokens/s, peak memory, a profile; then
+   3 steps of the plain path, which must launch nothing and agree on the
+   losses and step 0's grads;
+8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -80,16 +106,18 @@ BF16_OPS_PER_S = 989e12
 # they differ by one bf16 ulp (at most 2**-7 of the value) where their
 # fp32 sums fall on two sides of a rounding point; the backward kernels'
 # fp32 sums differ by summation order only (under 1e-7 here). flash_fwd's
-# also differ by the rounding of each probability to bf16 (unit roundoff
-# 2**-9) before the P V product: the kernel rounds the unnormalized ones
-# (as the TPU kernel does), the plain version the normalized ones, so
-# their sums differ by at most 2**-8 * sum_j p_j |v_j|, the plain version
+# also differ by the rounding of each probability to bf16 before the P V
+# product: the kernel rounds the unnormalized ones (as the TPU kernel
+# does), the plain version the normalized ones. bf16 keeps 8 significant
+# bits, so a rounding moves a value by at most 2**-8 of it (half its ulp
+# of up to 2**-7), each version's sum by at most 2**-8 * sum_j p_j |v_j|,
+# and the two apart by at most 2**-7 * sum_j p_j |v_j|: the plain version
 # run on |v| in fp32, which the check adds to atol element by element
 # (``fwd_slack``). fp32 outputs: summation order only. Every lse: fp32,
 # absolute.
 BF16_TOL = (1e-3, 2 ** -7, 1e-2)     # (atol, rtol, relative norm)
 FP32_TOL = (1e-5, 1e-5, 1e-5)
-FWD_P_ROUNDING = 1.05 * 2 ** -8      # 5% over 2**-8 for fp32 summation
+FWD_P_ROUNDING = 1.05 * 2 ** -7      # 5% over 2**-7 for fp32 summation
 TOL_LSE = 1e-4
 # teacher-forced GPT-small logits, kernel path vs plain path: bf16
 # activations whose attention outputs differ by a few ulps per layer,
@@ -115,6 +143,44 @@ REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
             "decode_attention": "apex_tpu/ops/flash_attention.py:1021",
             "paged_decode_attention": "apex_tpu/ops/flash_attention.py:1384"}
+
+# LayerNorm kernels: the path shape (tokens x hidden of the BERT and GPT
+# training steps), one wide-row shape (one block per row) and BERT's eps.
+# dweight/dbias in fp32 are sums over the 8192 rows in different orders:
+# |kernel - plain| <= 1e-4 + 1e-5 |plain| per element (sums of ~90, near-0
+# sums keep the terms' absolute rounding) and 1e-5 relative norm
+LN_PATH = (8192, 768)
+LN_WIDE = (1024, 16384)
+# widths just past each kernel template's reach (csrc/layer_norm.cu: 8, 32
+# and 128 values a lane, the warp kernels' limits of 1024 and 4096), whose
+# last columns a template sized from h / 32 rounded down would leave out,
+# and the narrowest width taken; 1001 rows leave a partial block of rows
+LN_EDGE_ROWS = 1001
+LN_EDGE_WIDTHS = (8, 264, 1032, 4104)
+LN_EPS = 1e-12
+LN_PARAM_GRAD_TOL = (1e-4, 1e-5, 1e-5)
+LN_COPIES = 6              # input sets the timing rotates through
+LN_PER_GPT_PASS = 25       # ln1 and ln2 in 12 layers, the final LN
+LN_PER_BERT_PASS = 26      # and the MLM head's LN
+
+# BERT-base pretraining (google-research/bert uncased_L-12_H-768_A-12):
+# 16 sequences of 512 positions, lengths drawn in 256-512. Kernel path vs
+# plain path from one state dict: step 0's loss (~11.2) within 1e-3 and its
+# grads within 2e-2 relative norm per leaf, GPT's limits (the same bf16
+# attention outputs an ulp apart through 12 layers; the LayerNorm kernels
+# round where their twins do). The later steps' losses within 1e-2: with
+# no warmup, Adam's first steps move every element by ~lr whatever its
+# grad's size, so grads at rounding level move apart by up to 2 lr, and
+# the loss swings by over a nat a step (11.17, 12.29, 12.93 on the card,
+# both paths). Set after the first full run read 2.0e-4, 4.4e-3 and
+# 2.5e-3.
+BERT_BH = (16, 12)
+BERT_ATTN = (192, 512, 512, 64)
+BERT_LENGTHS = (256, 512)
+BERT_STEPS = 4
+BERT_COMPARE_STEPS = 3
+TOL_BERT_LOSS = (1e-3, 1e-2)          # step 0, later steps
+TOL_BERT_GRAD = 2e-2
 
 PROMPT_LENS = [1, 128, 17, 64, 100, 5, 33, 128, 77, 2, 90, 45, 120, 9, 60,
                127]
@@ -186,13 +252,14 @@ def close(torch, pairs, tol, slack=None) -> tuple:
     return err, share
 
 
-def fwd_slack(torch, fa, q, k, v, causal, scale, rate=0.0, seed=None):
+def fwd_slack(torch, fa, q, k, v, causal, scale, rate=0.0, seed=None,
+              bias=None):
     """``flash_fwd``'s extra element-wise slack on bf16 outputs:
     ``FWD_P_ROUNDING * sum_j p_j |v_j|`` (see the tolerances above)."""
     if v.dtype != torch.bfloat16:
         return None
     pv, _ = fa._flash_fwd_plain(q.float(), k.float(), v.abs().float(),
-                                causal, scale, rate, seed)
+                                causal, scale, rate, seed, bias=bias)
     return FWD_P_ROUNDING * pv
 
 
@@ -662,6 +729,284 @@ def check_flash_train(torch, fa, kern, card: str):
     return rows
 
 
+def check_layer_norm(torch, ln, kern, card: str):
+    """``ln_fwd`` and ``ln_bwd`` against their plain twins, element by
+    element: at the path shape (8192 x 768) in bf16 with bf16 affine
+    parameters (GPT's and BERT's case), fp32, mixed (bf16 x, fp32
+    parameters, fp32 out), RMSNorm and no affine; and at one wide row,
+    1024 x 16384 (one block per row); and at ``LN_EDGE_WIDTHS``, the widths
+    just past each template's reach, in bf16 and fp32 (dweight/dbias within
+    their limits at 1001 rows). A second ``ln_bwd`` must repeat the
+    first bit for bit. Timing at the path shape beside the bound and the
+    library calls. Returns the rows of the two kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+
+    n, h = LN_PATH
+    cases = [  # (name, n, h, x dtype, w dtype or None, has bias, rms, out)
+        ("path (8192 x 768) bf16, bf16 affine", n, h, bf16, bf16, True,
+         False, bf16),
+        ("8192 x 768 fp32", n, h, f32, f32, True, False, f32),
+        ("mixed: bf16 x, fp32 affine, fp32 out", n, h, bf16, f32, True,
+         False, f32),
+        ("RMSNorm bf16, bf16 weight", n, h, bf16, bf16, False, True, bf16),
+        ("no affine bf16", n, h, bf16, None, False, False, bf16),
+        ("wide rows 1024 x 16384 bf16, bf16 affine", *LN_WIDE, bf16, bf16,
+         True, False, bf16),
+        ("wide rows 1024 x 16384 fp32 RMSNorm", *LN_WIDE, f32, f32, False,
+         True, f32),
+    ]
+    for width in LN_EDGE_WIDTHS:
+        cases += [(f"edge {LN_EDGE_ROWS} x {width} bf16, bf16 affine",
+                   LN_EDGE_ROWS, width, bf16, bf16, True, False, bf16),
+                  (f"edge {LN_EDGE_ROWS} x {width} fp32", LN_EDGE_ROWS, width,
+                   f32, f32, True, False, f32)]
+    worst = {"ln_fwd": 0.0, "ln_bwd": 0.0}
+    for name, rows, width, xdt, wdt, has_b, rms, odt in cases:
+        x = rand((rows, width), xdt, 2.0, 0.5)
+        w = rand((width,), wdt) if wdt is not None else None
+        b = rand((width,), wdt) if has_b else None
+        out_k, mean_k, inv_k = kern.ln_fwd(x, w, b, LN_EPS, rms, odt)
+        out_p, mean_p, inv_p = ln._ln_fwd_plain(x, w, b, LN_EPS, rms, odt)
+        torch.cuda.synchronize()
+        tol = tol_for(torch, odt)
+        err_f, share = close(torch, [(out_k, out_p)], tol)
+        check(share <= 1, f"ln_fwd {name}: out err {err_f:.3g}, {share:.3g}"
+                          f" x the limit {tol}")
+        s_err, s_share = close(torch, [(mean_k, mean_p), (inv_k, inv_p)],
+                               FP32_TOL)
+        check(s_share <= 1, f"ln_fwd {name}: mean/invvar err {s_err:.3g}, "
+                            f"{s_share:.3g} x the limit {FP32_TOL}")
+        # the backward on identical inputs: the plain forward's statistics
+        dy = rand((rows, width), odt)
+        args = (dy, x, mean_p, inv_p, w, rms, has_b)
+        dx_k, dw_k, db_k = kern.ln_bwd(*args)
+        again = kern.ln_bwd(*args)
+        dx_p, dw_p, db_p = ln._ln_bwd_plain(*args)
+        torch.cuda.synchronize()
+        check(all((a is None and c is None) or torch.equal(a, c)
+                  for a, c in zip((dx_k, dw_k, db_k), again)),
+              f"ln_bwd {name}: a second launch differs")
+        err_x, share_x = close(torch, [(dx_k, dx_p)], tol_for(torch, xdt))
+        pairs = [(g, r) for g, r in ((dw_k, dw_p), (db_k, db_p))
+                 if r is not None]
+        err_w, share_w = 0.0, 0.0
+        if pairs:
+            err_w, share_w = close(torch, pairs, (
+                LN_PARAM_GRAD_TOL if wdt == f32 else BF16_TOL))
+        check(share_x <= 1 and share_w <= 1,
+              f"ln_bwd {name}: dx err {err_x:.3g} ({share_x:.3g} x the "
+              f"limit), dweight/dbias err {err_w:.3g} ({share_w:.3g} x)")
+        print(f"layer_norm {name}: max_abs_err, share of the limit: fwd out "
+              f"{err_f:.3g}, {share:.3g}; stats {s_err:.3g}; bwd dx "
+              f"{err_x:.3g}, {share_x:.3g}; dweight/dbias {err_w:.3g}, "
+              f"{share_w:.3g}; a second ln_bwd equal bit for bit")
+        if (rows, width, xdt, rms) == (n, h, bf16, False) and wdt == bf16:
+            worst["ln_fwd"] = err_f
+            worst["ln_bwd"] = max(err_x, err_w)
+        del x, dy, out_k, out_p, dx_k, dx_p, again
+
+    # timing at the path shape: bf16 x, bf16 affine, bf16 out. Each call
+    # takes the next of LN_COPIES sets of rows (75 MB and more in all, over
+    # the 50 MB L2), so it reads them from device memory, as a training
+    # step's LayerNorm finds its input after the layer's other passes
+    w, b, rms_w = rand((h,), bf16), rand((h,), bf16), rand((h,), bf16)
+    sets = []
+    for _ in range(LN_COPIES):
+        x = rand((n, h), bf16, 2.0, 0.5)
+        _, mean, inv = kern.ln_fwd(x, w, b, LN_EPS, False, bf16)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], w, b,
+                                                           LN_EPS)
+        sets.append((x, rand((n, h), bf16), mean, inv, lmean, lrstd))
+
+    def rotating(fn):
+        turn = [0]
+
+        def call():
+            turn[0] += 1
+            return fn(*sets[turn[0] % LN_COPIES])
+        return call
+
+    fwd = {"kernel": lambda x, *_: kern.ln_fwd(x, w, b, LN_EPS, False,
+                                               bf16),
+           "plain": lambda x, *_: ln._ln_fwd_plain(x, w, b, LN_EPS, False,
+                                                   bf16),
+           "library": lambda x, *_: torch.nn.functional.layer_norm(
+               x, (h,), w, b, LN_EPS)}
+    bwd = {"kernel": lambda x, dy, mean, inv, *_: kern.ln_bwd(
+               dy, x, mean, inv, w, False, True),
+           "plain": lambda x, dy, mean, inv, *_: ln._ln_bwd_plain(
+               dy, x, mean, inv, w, False, True),
+           "library": lambda x, dy, _m, _i, lmean, lrstd:
+               torch.ops.aten.native_layer_norm_backward(
+                   dy, x, [h], lmean, lrstd, w, b, [True, True, True])}
+    rms = {"kernel": lambda x, *_: kern.ln_fwd(x, rms_w, None, LN_EPS, True,
+                                               bf16),
+           "plain": lambda x, *_: ln._ln_fwd_plain(x, rms_w, None, LN_EPS,
+                                                   True, bf16),
+           "library": lambda x, *_: torch.nn.functional.rms_norm(
+               x, (h,), rms_w, LN_EPS)}
+    times = {kname: {k: device_ms(torch, rotating(fn), iters=4 * LN_COPIES,
+                                  show=f"{kname} {k}" if k == "kernel"
+                                  else "")
+                     for k, fn in fns.items()}
+             for kname, fns in (("ln_fwd", fwd), ("ln_bwd", bwd),
+                                ("rms", rms))}
+    rms_times = times.pop("rms")
+    x, dy = sets[0][:2]
+    stats = 2 * n * 4                      # mean and invvar, fp32
+    work = {  # bytes (inputs read once, outputs written once), operations
+        "ln_fwd": (nbytes_of(x, w, b, x) + stats, 8 * n * h),
+        "ln_bwd": (nbytes_of(dy, x, x, w, w, b) + stats, 12 * n * h)}
+    rows = []
+    library = {"ln_fwd": "F.layer_norm",
+               "ln_bwd": "aten.native_layer_norm_backward"}
+    for kname, src in (("ln_fwd", "normalization/_pallas.py:116"),
+                       ("ln_bwd", "normalization/_pallas.py:129")):
+        b_ms, b_by = bound(*work[kname])
+        t = times[kname]
+        print(f"{kname} path timing (8192 x 768, bf16, bf16 affine, inputs "
+              f"not in L2): kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library "
+              f"{t['library']:.4f} ms ({library[kname]}), bound "
+              f"{b_ms:.5f} ms ({b_by}; {work[kname][0] / 1e6:.1f} MB) "
+              f"[{card}]")
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "apex_tpu_torch/csrc/layer_norm.cu",
+                     "replaces": f"apex_tpu/{src}",
+                     "max_abs_err": worst[kname], "ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": t["library"]})
+    print(f"ln_fwd RMSNorm path timing (8192 x 768 bf16, bf16 weight): "
+          f"kernel {rms_times['kernel']:.4f} ms, plain "
+          f"{rms_times['plain']:.4f} ms, F.rms_norm "
+          f"{rms_times['library']:.4f} ms [{card}]")
+    return rows
+
+
+def check_flash_bias(torch, fa, kern, card: str) -> None:
+    """The three flash kernels with a score bias against their plain
+    versions, under the limits of the unbiased checks: BERT's shape (16 x
+    12 heads, 512, d 64, non-causal, bf16) with its ``(16, 1, 1, 512)``
+    padding bias and with a ``(1, 12, 512, 512)`` bias, then causal,
+    dropout, fp32 and full-shape cases; timing at BERT's shape with the
+    padding bias beside SDPA with the same float mask."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cpu_gen = torch.Generator().manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def padding(b, s):
+        lengths = torch.randint(s // 2, s + 1, (b,), generator=cpu_gen)
+        keep = torch.arange(s)[None, :] < lengths[:, None]
+        return torch.where(keep, 0.0, -10000.0)[:, None, None, :].to(
+            "cuda")
+
+    (b, h), (n, s, _, d) = BERT_BH, BERT_ATTN
+    cases = [  # (name, b, h, sq, sk, d, causal, dtype, rate, bias)
+        ("BERT path (16x12, 512, d64) padding bias non-causal bf16", b, h,
+         s, s, d, False, bf16, 0.0, padding(b, s)),
+        ("BERT shape, (1, 12, 512, 512) bias non-causal bf16", b, h, s, s,
+         d, False, bf16, 0.0, rand((1, h, s, s))),
+        ("padding bias causal, dropout 0.1 bf16", 4, 12, 256, 256, 64, True,
+         bf16, TRAIN_DROPOUT, padding(4, 256)),
+        ("(b, h, sq, sk) bias cross sq=64 < sk=200 causal fp32", 2, 3, 64,
+         200, 64, True, f32, 0.0, rand((2, 3, 64, 200))),
+        ("(b, 1, sq, sk) bias fp32 d128, dropout 0.1", 2, 2, 96, 160, 128,
+         False, f32, TRAIN_DROPOUT, rand((2, 1, 96, 160))),
+    ]
+    for name, bb, hh, sq, sk, dd, causal, dt, rate, bias in cases:
+        nn_ = bb * hh
+        q, k, v = (rand((nn_, t, dd), dt) for t in (sq, sk, sk))
+        do = rand((nn_, sq, dd), dt)
+        scale = dd ** -0.5
+        seed = 777 if rate else None
+        tol = tol_for(torch, dt)
+        out_k, lse_k = kern.flash_fwd(q, k, v, causal, scale, rate, seed,
+                                      bias=bias)
+        out_p, lse_p = fa._flash_fwd_plain(q, k, v, causal, scale, rate,
+                                           seed, bias=bias)
+        torch.cuda.synchronize()
+        errs = {"flash_fwd": close(torch, [(out_k, out_p)], tol, fwd_slack(
+            torch, fa, q, k, v, causal, scale, rate, seed, bias))}
+        compare_lse(torch, lse_k, lse_p, TOL_LSE, f"flash_fwd {name}")
+        check(bool(torch.isfinite(lse_k).all()),
+              f"flash_fwd {name}: a biased row took lse +inf")
+        delta = (do.float() * out_p.float()).sum(dim=-1)
+        args = (q, k, v, do, lse_p, delta, causal, scale, rate, seed)
+        dq_k = kern.flash_bwd_dq(*args, bias=bias)
+        dk_k, dv_k = kern.flash_bwd_dkv(*args, bias=bias)
+        dq_p = fa._flash_bwd_dq_plain(*args, bias=bias)
+        dk_p, dv_p = fa._flash_bwd_dkv_plain(*args, bias=bias)
+        torch.cuda.synchronize()
+        errs["flash_bwd_dq"] = close(torch, [(dq_k, dq_p)], tol)
+        errs["flash_bwd_dkv"] = close(torch, [(dk_k, dk_p), (dv_k, dv_p)],
+                                      tol)
+        for kname, (err, share) in errs.items():
+            check(share <= 1, f"{kname} {name}: err {err:.3g}, {share:.3g} "
+                              f"x the limit {tol}")
+        print(f"flash bias {name}: max_abs_err, share of the limit {tol}: "
+              + ", ".join(f"{kname[6:]} {err:.3g}, {share:.3g}"
+                          for kname, (err, share) in errs.items()))
+        del q, k, v, do, out_k, out_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+
+    # timing at BERT's shape with its padding bias
+    bias = padding(b, s)
+    q, k, v, do = (rand((n, s, d), bf16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = kern.flash_fwd(q, k, v, False, scale, bias=bias)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, False, scale)
+    kernel = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, False, scale,
+                                                  bias=bias),
+              "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args, bias=bias),
+              "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args, bias=bias)}
+    plain_fn = {"flash_fwd": lambda: fa._flash_fwd_plain(q, k, v, False,
+                                                         scale, bias=bias),
+                "flash_bwd_dq": lambda: fa._flash_bwd_dq_plain(*args,
+                                                               bias=bias),
+                "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_plain(
+                    *args, bias=bias)}
+    ms = {name: device_ms(torch, fn, iters=10) for name, fn in kernel.items()}
+    plain = {name: device_ms(torch, fn, iters=5)
+             for name, fn in plain_fn.items()}
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    mask = bias.to(bf16)
+    lib_fwd = device_ms(torch, lambda: torch.nn.functional
+                        .scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=mask),
+                        show="SDPA forward with a float mask")
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=mask)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do4, retain_graph=True),
+        show="SDPA backward with a float mask")
+    del qg, kg, vg, sdpa_out
+    pairs = n * s * s                  # every (row, col) pair is visible
+    tile, row_bytes = nbytes_of(q), n * s * 4
+    work = {"flash_fwd": (4 * tile + row_bytes + nbytes_of(bias),
+                          2 * 2 * pairs * d),
+            "flash_bwd_dq": (5 * tile + 2 * row_bytes + nbytes_of(bias),
+                             3 * 2 * pairs * d),
+            "flash_bwd_dkv": (6 * tile + 2 * row_bytes + nbytes_of(bias),
+                              4 * 2 * pairs * d)}
+    for kname in kernel:
+        b_ms, b_by = bound(*work[kname])
+        lib = lib_fwd if kname == "flash_fwd" else lib_bwd
+        print(f"{kname} BERT-shape timing with the padding bias (192 x 512 x "
+              f"512, d64, non-causal bf16): kernel {ms[kname]:.4f} ms, plain "
+              f"{plain[kname]:.4f} ms, SDPA with a float attn_mask "
+              f"{'fwd' if kname == 'flash_fwd' else 'bwd (dq+dk+dv)'} "
+              f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}; "
+              f"{work[kname][1] / 1e9:.2f} GFLOP) [{card}]")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: GPT-small serving
 # ---------------------------------------------------------------------------
@@ -713,6 +1058,11 @@ def serve(torch, kern, card: str):
           f"{L} x {sched.steps} decode steps")
     check(launches["paged_decode_attention"] == 0,
           "the dense engine launched paged_decode_attention")
+    passes = len(requests) + sched.steps
+    check(launches["ln_fwd"] == LN_PER_GPT_PASS * passes
+          and launches["ln_bwd"] == 0,
+          f"ln_fwd/ln_bwd launches {launches['ln_fwd']}/"
+          f"{launches['ln_bwd']} != {LN_PER_GPT_PASS} x {passes} passes / 0")
     tokens = sum(len(c.tokens) for c in done.values())
     print(f"serving: {len(done)} requests, {sched.steps} decode steps, "
           f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
@@ -832,6 +1182,11 @@ def serve_paged(torch, kern, card: str, dense_times: dict):
           f"{cold} cold prefills")
     check(launches["decode_attention"] == 0,
           "the paged engine launched decode_attention")
+    passes = cold + calls[0]
+    check(launches["ln_fwd"] == LN_PER_GPT_PASS * passes
+          and launches["ln_bwd"] == 0,
+          f"paged: ln_fwd/ln_bwd launches {launches['ln_fwd']}/"
+          f"{launches['ln_bwd']} != {LN_PER_GPT_PASS} x {passes} passes / 0")
     check(hits >= SHARED_REPEATS - 1 and cows >= SHARED_REPEATS - 1,
           f"paged: {hits} prefix hits and {cows} copies on write, want >= "
           f"{SHARED_REPEATS - 1} each")
@@ -1026,6 +1381,10 @@ def train(torch, kern, card: str):
         for name in flash:
             check(counts[name] == L, f"{what}: {name} launched "
                                      f"{counts[name]} times, not {L}")
+        for name in ("ln_fwd", "ln_bwd"):
+            check(counts[name] == LN_PER_GPT_PASS,
+                  f"{what}: {name} launched {counts[name]} times, not "
+                  f"{LN_PER_GPT_PASS}")
         check(counts["decode_attention"] == 0
               and counts["paged_decode_attention"] == 0,
               f"{what} launched a decode kernel")
@@ -1131,6 +1490,156 @@ def train(torch, kern, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: BERT-base pretraining
+# ---------------------------------------------------------------------------
+
+def bert_batch(torch, cfg):
+    """BERT's pretraining batch from ``np.random.RandomState(0)``: 16
+    sequences of 512 positions, each row's length drawn in 256-512 (the
+    attention mask 0 past it), token types 0 up to a drawn split point and
+    1 after it, tokens and MLM labels over the vocab, a Bernoulli 0.15 loss
+    mask over the real tokens, and 0/1 sentence-order labels."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    b, s = BERT_BH[0], BERT_ATTN[1]
+    lengths = rng.randint(BERT_LENGTHS[0], BERT_LENGTHS[1] + 1, b)
+    pos = np.arange(s)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.int64)
+    split = rng.randint(1, lengths)
+    types = (pos >= split[:, None]).astype(np.int64) * mask
+    tokens = rng.randint(0, cfg.vocab_size, (b, s))
+    labels = rng.randint(0, cfg.vocab_size, (b, s))
+    loss_mask = ((rng.rand(b, s) < 0.15) & (mask > 0)).astype(np.float32)
+    binary = rng.randint(0, 2, b)
+    batch = dict(tokens=tokens, lm_labels=labels, loss_mask=loss_mask,
+                 token_types=types, attention_mask=mask,
+                 binary_labels=binary)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def train_bert(torch, kern, card: str):
+    """BERT-base pretraining steps at full width (see the constants):
+    ``BertModel.loss`` with every head, backward of the scaled loss,
+    unscale, ``all_finite``, ``DynamicLossScale.update``, ``FusedAdam.step``
+    with the skip, no dropout. Each step must launch each flash kernel once
+    per layer (non-causal, with the padding bias) and each LayerNorm kernel
+    26 times; then the plain path from the same state dict must launch
+    nothing and agree on the losses and step 0's grads. Returns the launch
+    counts of the kernel path's steps."""
+    from apex_tpu_torch.amp import DynamicLossScale, all_finite
+    from apex_tpu_torch.models import BertConfig, BertModel
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = BertConfig(vocab_size=30522, hidden_size=768, num_layers=12,
+                     num_attention_heads=12, ffn_hidden_size=3072,
+                     max_position_embeddings=512, num_token_types=2,
+                     layernorm_epsilon=1e-12, add_pooler=True,
+                     add_binary_head=True)
+    batch = bert_batch(torch, cfg)
+    real = int(batch["attention_mask"].sum())
+    init = BertModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+
+    def trainer(use_kernel: bool):
+        model = BertModel(dataclasses.replace(cfg, use_kernel=use_kernel),
+                          device="cuda")
+        model.load_state_dict(init_state)
+        params = dict(model.named_parameters())
+        opt = FusedAdam(lr=1e-4)
+        opt_state = opt.init(params)
+        scaler = DynamicLossScale(init_scale=2.0 ** 12)
+        carry = {"ls": scaler.init(device="cuda")}
+
+        def step():
+            ls = carry["ls"]
+            for p in params.values():
+                p.grad = None
+            loss = model.loss(**batch)
+            (loss * ls.loss_scale).backward()
+            grads = scaler.unscale(ls, {n: p.grad for n, p in params.items()})
+            finite = all_finite(grads)
+            carry["ls"] = scaler.update(ls, finite)
+            opt.step(grads, opt_state, params, grads_finite=finite)
+            return loss.detach(), finite, grads
+
+        return step
+
+    L = cfg.num_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "ln_fwd": LN_PER_BERT_PASS, "ln_bwd": LN_PER_BERT_PASS,
+            "decode_attention": 0, "paged_decode_attention": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = trainer(True)
+    launches = {name: 0 for name in kern.LAUNCHES}
+    losses, times = [], []
+    for i in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        loss, finite, grads = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(kern.LAUNCHES)
+        check(counts == want, f"BERT step {i}: launches {counts}, want "
+                              f"{want}")
+        check(bool(finite) and bool(torch.isfinite(loss)),
+              f"BERT step {i}: loss {float(loss)} or grads not finite")
+        for name, n in counts.items():
+            launches[name] += n
+        losses.append(float(loss))
+        if i == 0:
+            grads0 = grads
+        del grads
+        print(f"bert step {i}: loss {losses[-1]:.6f}, {1e3 * times[-1]:.3f} "
+              f"ms (host clock, synchronized), launches {counts} [{card}]")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_n = BERT_BH[0] * BERT_ATTN[1]
+    print(f"bert: BERT-base (batch {BERT_BH[0]} x seq {BERT_ATTN[1]}, "
+          f"{real} real tokens, bf16 compute, fp32 params), median step "
+          f"{1e3 * steady:.3f} ms after the first ({1e3 * times[0]:.3f} ms), "
+          f"{tokens_n / steady:.1f} tokens/s ({real / steady:.1f} real), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB [{card}]")
+    profile_step(torch, "BERT train step (16 x 512 tokens)", step, card,
+                 iters=2, top=12)
+    del step
+    torch.cuda.empty_cache()
+
+    plain = trainer(False)
+    kern.reset_launches()
+    diffs = []
+    for i in range(BERT_COMPARE_STEPS):
+        loss, finite, grads = plain()
+        check(bool(finite) and bool(torch.isfinite(loss)),
+              f"plain BERT step {i}: loss or grads not finite")
+        diffs.append(abs(float(loss) - losses[i]))
+        print(f"bert step {i}: plain-path loss {float(loss):.6f}, kernel "
+              f"path {losses[i]:.6f}, |diff| {diffs[-1]:.3g}")
+        if i == 0:
+            g_err, g_leaf = grad_rel(torch, grads0, grads)
+        del grads
+    del plain, grads0
+    torch.cuda.empty_cache()
+    check(sum(kern.LAUNCHES.values()) == 0,
+          "the plain BERT path launched kernels")
+    for i, err in enumerate(diffs):
+        tol = TOL_BERT_LOSS[min(i, 1)]
+        check(err <= tol, f"BERT step {i} loss kernel vs plain {err:.3g} > "
+                          f"{tol}")
+    check(g_err <= TOL_BERT_GRAD, f"BERT step 0 grads kernel vs plain: "
+                                  f"{g_leaf} {g_err:.3g} > {TOL_BERT_GRAD}")
+    print(f"bert: losses kernel path vs plain path over "
+          f"{BERT_COMPARE_STEPS} steps: |diff| "
+          f"{', '.join(f'{e:.4g}' for e in diffs)} (tol {TOL_BERT_LOSS[0]} "
+          f"at step 0, {TOL_BERT_LOSS[1]} after); step 0's unscaled grads, "
+          f"worst leaf {g_leaf}: ||kernel - plain|| / ||plain|| {g_err:.4g} "
+          f"(tol {TOL_BERT_GRAD})")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
                  top: int = 8) -> None:
     """Device busy time of ``fn`` under ``torch.profiler`` against its host
@@ -1179,6 +1688,8 @@ def main() -> None:
     from apex_tpu_torch import _kernels as kern
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     cache_mod = importlib.import_module("apex_tpu_torch.serving.cache")
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1186,7 +1697,8 @@ def main() -> None:
     print(f"device: {card}")
 
     _, build_s = kern.build()
-    print(f"build: kernels built in {build_s:.1f} s ({', '.join(kern.SOURCES)})")
+    print(f"build: kernels built in {build_s:.1f} s "
+          f"({', '.join(kern.SOURCES)})")
 
     print(f"kernel vs plain: limits (atol, rtol, relative norm) bf16 "
           f"{BF16_TOL}, fp32 {FP32_TOL}, flash_fwd's bf16 atol plus "
@@ -1197,15 +1709,18 @@ def main() -> None:
                                  prefill_row["max_abs_err"])
     rows = [fwd_row, check_decode(torch, fa, cache_mod, kern, card), dq_row,
             dkv_row, check_paged(torch, fa, cache_mod, kern, card)]
+    rows += check_layer_norm(torch, ln, kern, card)
+    check_flash_bias(torch, fa, kern, card)
     serving, dense_times = serve(torch, kern, card)
     paged = serve_paged(torch, kern, card, dense_times)
     training = train(torch, kern, card)
+    bert = train_bert(torch, kern, card)
     print(f"launches on the main paths: serving {serving}, paged serving "
           f"{paged}, training ({TRAIN_STEPS} steps, then one with dropout) "
-          f"{training}")
+          f"{training}, BERT training ({BERT_STEPS} steps) {bert}")
     for row in rows:
         row["launches"] = sum(path[row["name"]]
-                              for path in (serving, paged, training))
+                              for path in (serving, paged, training, bert))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -138,7 +138,7 @@ def test_bias_and_segments_raise_on_the_kernel_path():
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(NotImplementedError, match="dbias"):
         pfa.flash_attention(q, q, q, bias=torch.zeros(1, 1, 1, 8),
-                            use_kernel=True)
+                            use_kernel=True, bias_requires_grad=True)
     with pytest.raises(NotImplementedError, match="segment"):
         pfa.flash_attention(q, q, q, segment_ids=torch.zeros(1, 8),
                             use_kernel=True)

@@ -135,7 +135,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, dtype=torch.int32), None, None, 0.125)
     assert _kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "decode_attention": 0,
-                                 "paged_decode_attention": 0}
+                                 "paged_decode_attention": 0, "ln_fwd": 0,
+                                 "ln_bwd": 0}
 
 
 def test_source_key_tracks_sources():
@@ -156,7 +157,7 @@ def test_dropout_raises_until_training_slice():
     assert out.shape == q.shape
     with pytest.raises(NotImplementedError, match="bias"):
         flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8),
-                        use_kernel=True)
+                        use_kernel=True, bias_requires_grad=True)
 
 
 def test_tp_layers_default_to_the_card_and_raise_without_one():
@@ -172,3 +173,38 @@ def test_tp_layers_default_to_the_card_and_raise_without_one():
         layer = make(device="cpu")
         assert all(p.requires_grad and p.device.type == "cpu"
                    for p in layer.parameters())
+
+
+def test_port_has_the_bert_slice_modules():
+    for rel in ("apex_tpu_torch/models/bert.py",
+                "apex_tpu_torch/csrc/layer_norm.cu",
+                "apex_tpu_torch/normalization/fused_layer_norm.py"):
+        assert (REPO / rel).is_file(), rel
+    from apex_tpu_torch import _kernels
+    assert "layer_norm.cu" in _kernels.SOURCES
+    assert {"ln_fwd", "ln_bwd"} <= set(_kernels.LAUNCHES)
+
+
+def test_bert_and_norm_modules_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'apex_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from apex_tpu_torch.models import BertConfig, BertModel\n"
+        "from apex_tpu_torch.models.bert import BertModel as B2\n"
+        "from apex_tpu_torch.normalization import (\n"
+        "    FusedLayerNorm, FusedRMSNorm, MixedFusedLayerNorm,\n"
+        "    MixedFusedRMSNorm, fused_layer_norm, fused_rms_norm,\n"
+        "    fused_rms_norm_affine, mixed_dtype_fused_layer_norm_affine,\n"
+        "    mixed_dtype_fused_rms_norm_affine)\n"
+        "from apex_tpu_torch._kernels import ln_fwd, ln_bwd\n"
+        "from apex_tpu_torch import _kernels\n"
+        "assert _kernels._LIB is None, 'a kernel was built at import'\n"
+        "assert not any(m.startswith('jax') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
