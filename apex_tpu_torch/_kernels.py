@@ -12,7 +12,7 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the launch reported an error, and adds one to its entry of
 :data:`LAUNCHES` (and nowhere else). The wrappers know nothing of autograd:
-:class:`apex_tpu_torch.ops.flash_attention` wraps the three flash kernels
+:class:`apex_tpu_torch.ops.flash_attention` wraps the four flash kernels
 in a ``torch.autograd.Function`` whose forward runs with grad disabled.
 
 Attention dropout is keyed by ``seed``, the int32 bit pattern of the
@@ -21,7 +21,10 @@ row, col) of each score (``csrc/common.cuh``), so the mask equals
 :func:`apex_tpu_torch.ops.flash_attention.dropout_keep_mask` bit for bit.
 The flash kernels take an optional fp32 score bias ``(bb, hb, sqb, sk)``,
 each of ``bb``, ``hb``, ``sqb`` 1 or full, kept broadcast: the wrapper
-passes its element strides, 0 on a broadcast dim.
+passes its element strides, 0 on a broadcast dim. They take optional
+packed-sequence segment ids, int32 ``(b, sq)`` and ``(b, sk)``, one row
+per batch of ``n / b`` heads. ``flash_dbias`` sums a learned bias's score
+cotangent over its broadcast dims.
 
 ``ln_fwd`` and ``ln_bwd`` (``csrc/layer_norm.cu``) are the LayerNorm and
 RMSNorm kernels; :mod:`apex_tpu_torch.normalization.fused_layer_norm`
@@ -43,26 +46,30 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+           "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias", "decode_attention",
            "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "paged_decode_attention.cu", "layer_norm.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu",
+           "decode_attention.cu", "paged_decode_attention.cu",
+           "layer_norm.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+# head dims of the flash kernels, and of the two decode kernels
+_HEAD_DIMS = (32, 64, 128)
+_DECODE_HEAD_DIMS = (64, 128)
 # csrc/layer_norm.cu: widths taken
 _LN_MAX_H = 65536
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "decode_attention": 0,
+                            "flash_bwd_dkv": 0, "flash_dbias": 0,
+                            "decode_attention": 0,
                             "paged_decode_attention": 0, "ln_fwd": 0,
                             "ln_bwd": 0}
 
@@ -130,15 +137,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     drop = [I, U, I, F]  # on, seed, thresh, inv_keep
     bias = [P, I, I, I, I]  # pointer, heads, strides of batch, head, row
-    lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + drop
-                                   + [P])
+    seg = [P, P, I]  # q ids, kv ids, heads per id row
+    lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + seg
+                                   + drop + [P])
     lib.apex_flash_fwd.restype = I
-    lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + drop
-                                      + [P])
+    lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
+                                      + drop + [P])
     lib.apex_flash_bwd_dq.restype = I
-    lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias + drop
-                                       + [P])
+    lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias
+                                       + seg + drop + [P])
     lib.apex_flash_bwd_dkv.restype = I
+    # ... + kept slices, batch-heads each reduces, their two strides, and
+    # whether the bias has full query rows
+    lib.apex_flash_dbias.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
+                                     + [I] * 5 + drop + [P])
+    lib.apex_flash_dbias.restype = I
     lib.apex_decode_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, F, P]
     lib.apex_decode_attention.restype = I
@@ -244,19 +257,50 @@ def _bias_args(name: str, bias: Optional[torch.Tensor], n: int, sq: int,
             sk if sqb > 1 else 0)
 
 
+def _seg_args(name: str, segments, n: int, sq: int, sk: int) -> Tuple:
+    """``(q ids, kv ids, heads)`` of ``csrc/common.cuh::Segments`` from
+    ``segments = (q_ids (b, sq), kv_ids (b, sk))`` int32, ``b`` dividing
+    the ``n`` batch-heads; null pointers without them."""
+    if segments is None:
+        return None, None, 1
+    q_ids, kv_ids = segments
+    _require(q_ids.dim() == 2 and kv_ids.dim() == 2
+             and q_ids.dtype == torch.int32 and kv_ids.dtype == torch.int32,
+             f"{name}: segment ids must be rank 2 int32, got "
+             f"{q_ids.dtype} {tuple(q_ids.shape)}, {kv_ids.dtype} "
+             f"{tuple(kv_ids.shape)}")
+    b = q_ids.shape[0]
+    _require(tuple(q_ids.shape) == (b, sq) and tuple(kv_ids.shape) == (b, sk)
+             and b > 0 and n % b == 0,
+             f"{name}: segment ids {tuple(q_ids.shape)}/"
+             f"{tuple(kv_ids.shape)} do not match {n} batch-heads of sq "
+             f"{sq}, sk {sk}")
+    return q_ids.data_ptr(), kv_ids.data_ptr(), n // b
+
+
+def _extras(bias, segments) -> Tuple:
+    """The optional tensors a flash kernel reads, for the common checks."""
+    return ((() if bias is None else (bias,))
+            + (() if segments is None else tuple(segments)))
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float, dropout_rate: float = 0.0,
               seed: Optional[int] = None,
-              bias: Optional[torch.Tensor] = None
+              bias: Optional[torch.Tensor] = None,
+              segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
-    dtype, d in {64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``, with
-    attention dropout at ``dropout_rate`` keyed by ``seed`` and the score
-    bias ``bias`` (see :func:`_bias_args`) added after the scale."""
-    extra = () if bias is None else (bias,)
-    _check_common("flash_fwd", (q, k, v, *extra), q.device)
+    dtype, d in {32, 64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``,
+    with attention dropout at ``dropout_rate`` keyed by ``seed``, the score
+    bias ``bias`` (see :func:`_bias_args`) added after the scale, and the
+    segment ids ``segments`` (see :func:`_seg_args`) masking scores whose
+    ids differ."""
+    _check_common("flash_fwd", (q, k, v, *_extras(bias, segments)),
+                  q.device)
     n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
     bias_args = _bias_args("flash_fwd", bias, n, sq, sk)
+    seg_args = _seg_args("flash_fwd", segments, n, sq, sk)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     out = torch.empty_like(q)
@@ -266,17 +310,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal),
-            float(scale), *bias_args, *drop, stream)
+            float(scale), *bias_args, *seg_args, *drop, stream)
     _check_launch("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
-def _check_bwd(name: str, q, k, v, do, lse, delta, bias) -> Tuple:
+def _check_bwd(name: str, q, k, v, do, lse, delta, bias,
+               segments) -> Tuple:
     """The backward kernels' checks; returns ``(n, sq, sk, d, bias
-    arguments)``."""
-    extra = () if bias is None else (bias,)
-    _check_common(name, (q, k, v, do, lse, delta, *extra), q.device)
+    arguments, segment-id arguments)``."""
+    _check_common(name, (q, k, v, do, lse, delta, *_extras(bias, segments)),
+                  q.device)
     n, sq, sk, d = _check_attention(name, q, k, v)
     _require(tuple(do.shape) == (n, sq, d) and do.dtype == q.dtype,
              f"{name}: do {tuple(do.shape)} {do.dtype} does not match q")
@@ -284,19 +329,22 @@ def _check_bwd(name: str, q, k, v, do, lse, delta, bias) -> Tuple:
         _require(tuple(t.shape) == (n, sq) and t.dtype == torch.float32,
                  f"{name}: {what} must be (n, sq) fp32, got "
                  f"{tuple(t.shape)} {t.dtype}")
-    return n, sq, sk, d, _bias_args(name, bias, n, sq, sk)
+    return (n, sq, sk, d, _bias_args(name, bias, n, sq, sk),
+            _seg_args(name, segments, n, sq, sk))
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool, scale: float, dropout_rate: float = 0.0,
                  seed: Optional[int] = None,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v``, ``bias``
-    and ``do`` as for :func:`flash_fwd`, the forward's ``lse (n, sq)`` and
-    ``delta = rowsum(do * out) (n, sq)``, both fp32."""
-    n, sq, sk, d, bias_args = _check_bwd("flash_bwd_dq", q, k, v, do, lse,
-                                         delta, bias)
+                 bias: Optional[torch.Tensor] = None,
+                 segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v``, ``bias``,
+    ``segments`` and ``do`` as for :func:`flash_fwd`, the forward's ``lse
+    (n, sq)`` and ``delta = rowsum(do * out) (n, sq)``, both fp32."""
+    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+        "flash_bwd_dq", q, k, v, do, lse, delta, bias, segments)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     dq = torch.empty_like(q)
@@ -306,7 +354,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, sq, sk, d,
             _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
-            *drop, stream)
+            *seg_args, *drop, stream)
     _check_launch("flash_bwd_dq", err)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -316,12 +364,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool, scale: float, dropout_rate: float = 0.0,
                   seed: Optional[int] = None,
-                  bias: Optional[torch.Tensor] = None
+                  bias: Optional[torch.Tensor] = None,
+                  segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)``, each ``(n, sk, d)`` in k's dtype, from the inputs of
     :func:`flash_bwd_dq`."""
-    n, sq, sk, d, bias_args = _check_bwd("flash_bwd_dkv", q, k, v, do, lse,
-                                         delta, bias)
+    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+        "flash_bwd_dkv", q, k, v, do, lse, delta, bias, segments)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     dk = torch.empty_like(k)
@@ -332,10 +381,61 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
-            *bias_args, *drop, stream)
+            *bias_args, *seg_args, *drop, stream)
     _check_launch("flash_bwd_dkv", err)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def _dbias_split(bias: torch.Tensor, n: int) -> Tuple[int, int, int, int]:
+    """``(kept, reduced, g_stride, r_stride)``: the bias's ``kept = bb x
+    hb`` slices each sum the score cotangent of ``reduced = n / kept``
+    batch-heads, slice ``g``'s ``r``-th being ``g * g_stride + r *
+    r_stride`` (the reference's ``_dbias_pallas.bh_of``)."""
+    bb, hb = bias.shape[:2]
+    kept = bb * hb
+    reduced = n // kept
+    if bb > 1 and hb > 1:
+        return kept, reduced, 1, 0
+    if hb > 1:                 # broadcast over batch: r walks the batches
+        return kept, reduced, 1, hb
+    if bb > 1:                 # broadcast over heads: r walks the heads
+        return kept, reduced, reduced, 1
+    return kept, reduced, 0, 1
+
+
+def flash_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                causal: bool, scale: float, dropout_rate: float = 0.0,
+                seed: Optional[int] = None,
+                bias: Optional[torch.Tensor] = None,
+                segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """The learned bias's gradient, ``dbias`` of ``bias``'s shape ``(bb,
+    hb, sqb, sk)`` fp32: the score cotangent ``ds = p * (dp_eff -
+    delta)`` (undropped ``p``, unrounded) of the inputs of
+    :func:`flash_bwd_dq`, summed over the bias's broadcast dims in a fixed
+    order (a repeat is equal bit for bit)."""
+    name = "flash_dbias"
+    _require(bias is not None, f"{name}: needs the bias whose gradient it "
+                               "is")
+    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+        name, q, k, v, do, lse, delta, bias, segments)
+    kept, reduced, g_stride, r_stride = _dbias_split(bias, n)
+    drop = _dropout_args(dropout_rate, seed)
+    lib, _ = build()
+    db = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.apex_flash_dbias(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), db.data_ptr(), n, sq, sk, d,
+            _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
+            *seg_args, kept, reduced, g_stride, r_stride,
+            int(bias.shape[2] > 1), *drop, stream)
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
+    return db
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -367,9 +467,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      and tuple(s.shape) == (n, T) for s in (k_scale,
                                                             v_scale)),
                  "decode_attention: int8 caches need (n, T) fp32 scales")
-    if d not in _HEAD_DIMS:
+    if d not in _DECODE_HEAD_DIMS:
         raise NotImplementedError(
-            f"decode_attention: head dim {d} is not one of {_HEAD_DIMS}")
+            f"decode_attention: head dim {d} is not one of "
+            f"{_DECODE_HEAD_DIMS}")
     _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
              "decode_attention: cache rows must be 16-byte aligned")
     _require(n > 0 and q_len > 0, "decode_attention: empty batch or query")
@@ -434,9 +535,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      for s in (k_scale, v_scale)),
                  f"{name}: int8 pools need (num_blocks, heads, block_size) "
                  "fp32 scales")
-    if d not in _HEAD_DIMS:
+    if d not in _DECODE_HEAD_DIMS:
         raise NotImplementedError(
-            f"{name}: head dim {d} is not one of {_HEAD_DIMS}")
+            f"{name}: head dim {d} is not one of {_DECODE_HEAD_DIMS}")
     _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
              f"{name}: pool rows must be 16-byte aligned")
     _require(n > 0 and q_len > 0 and n_table > 0 and block_size > 0,

@@ -72,6 +72,24 @@ __device__ __forceinline__ const float* bias_row(const ScoreBias& b, int bh,
          static_cast<size_t>(row) * b.sr;
 }
 
+// Packed-sequence segment ids (the reference's segment_ids, there carried as
+// fp32 and here compared as int32, exactly): the query ids (b, sq) and key
+// ids (b, sk), one row per batch shared by its `heads` heads, so a flattened
+// batch-head bh reads row bh / heads. A score is visible only where its two
+// ids are equal. A null `q` means no ids; the kernels then take a template
+// branch that reads and compares nothing.
+struct Segments {
+  const int* q;
+  const int* kv;
+  int heads;
+};
+
+// the id row of batch-head bh in a (b, len) id array
+__device__ __forceinline__ const int* seg_row(const int* ids, int heads,
+                                              int bh, int len) {
+  return ids + static_cast<size_t>(bh / heads) * len;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));

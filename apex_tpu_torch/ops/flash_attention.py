@@ -1,17 +1,20 @@
 """Flash attention and KV-cache decode attention for the H100.
 
-Counterpart of ``apex_tpu/ops/flash_attention.py``. Five hand-written CUDA
+Counterpart of ``apex_tpu/ops/flash_attention.py``. Six hand-written CUDA
 kernels (``apex_tpu_torch/csrc/``, built and launched by
 :mod:`apex_tpu_torch._kernels`) replace the Pallas kernels the serving and
 training paths run:
 
 - ``flash_fwd`` replaces ``_fwd_kernel``: blockwise online-softmax
-  attention forward with an optional broadcast additive score bias and
-  in-kernel dropout, returning the output and the per-row logsumexp
-  (``+inf`` on fully masked rows);
+  attention forward with an optional broadcast additive score bias,
+  packed-sequence segment ids and in-kernel dropout, returning the output
+  and the per-row logsumexp (``+inf`` on fully masked rows);
 - ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``: the backward, probabilities recomputed from the
   saved logsumexp and the dropout mask regenerated from its counters;
+- ``flash_dbias`` replaces ``_dbias_kernel``: a learned bias's gradient,
+  the score cotangent summed over the bias's broadcast dims into a
+  bias-shaped output (O(|bias|) memory, never the score matrix);
 - ``decode_attention`` replaces ``_decode_kernel``: ``q_len`` query rows
   per slot and head against a dense cache, masked by the per-slot write
   cursor, with optional int8 dequantization; it returns the output and the
@@ -22,22 +25,26 @@ training paths run:
 
 Beside each kernel sits its plain PyTorch version (:func:`_flash_fwd_plain`,
 :func:`_flash_bwd_dq_plain`, :func:`_flash_bwd_dkv_plain`,
-:func:`_decode_plain`, :func:`_paged_decode_plain`), which takes the same
-inputs in the same layout.
-:func:`flash_attention` is differentiable through :class:`_FlashAttention`,
-the counterpart of the reference's ``custom_vjp`` (``_make_flash``): the
-three flash kernels on the card, their plain versions on the CPU.
+:func:`_flash_dbias_plain`, :func:`_decode_plain`,
+:func:`_paged_decode_plain`), which takes the same inputs in the same
+layout. :func:`flash_attention` is differentiable through
+:class:`_FlashAttention`, the counterpart of the reference's
+``custom_vjp`` (``_make_flash``): the four flash kernels on the card,
+their plain versions on the CPU.
 
 Attention dropout is the reference's counter hash (``_mix32``,
 ``_keep_mask``), bit for bit: :func:`dropout_keep_mask` gives the mask the
 kernels generate, keyed only by the global ``(seed, batch-head, row, col)``.
+Segment ids are compared as int32, exactly: the reference's Pallas path
+carries them as fp32, which merges ids past 2**24, while its
+``mha_reference`` compares them exactly, as the port does everywhere.
 
 Kernel selection follows the reference's ``use_pallas`` contract as
 ``use_kernel``: ``None`` runs the kernel iff the tensors lie on a CUDA
 device, ``True`` on CPU tensors raises, ``False`` runs the plain version.
 On CUDA there is no shape-based fallback: the kernels mask ragged lengths
-themselves, and whatever they do not take (a learned bias's gradient,
-segment ids, a head dim other than 64/128) raises.
+themselves, and whatever they do not take (a head dim other than
+32/64/128) raises.
 """
 
 from __future__ import annotations
@@ -62,8 +69,32 @@ _GOLD = 0x9E3779B1
 _U32 = 0xFFFFFFFF
 
 
-def _norm_segment_ids(segment_ids, sq: int, sk: int):
-    """Accept ``ids (b, s)`` (self-attention) or ``(q_ids, kv_ids)``."""
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def _int32_ids(ids, device) -> torch.Tensor:
+    """Segment ids as a contiguous int32 tensor on ``device``. Ids outside
+    int32, and float ids that are not whole numbers, raise."""
+    ids = torch.as_tensor(ids, device=device)
+    if ids.dtype == torch.int32:
+        return ids.contiguous()
+    if ids.dtype == torch.bool or ids.is_complex():
+        raise ValueError(f"segment ids must be integers, got {ids.dtype}")
+    if ids.numel():
+        lo, hi = ids.min(), ids.max()
+        if lo < _INT32[0] or hi > _INT32[1]:
+            raise ValueError(
+                f"segment ids in [{lo.item()}, {hi.item()}] lie outside "
+                "int32")
+        if ids.is_floating_point() and bool((ids != ids.round()).any()):
+            raise ValueError("segment ids must be whole numbers")
+    return ids.to(torch.int32).contiguous()
+
+
+def _norm_segment_ids(segment_ids, sq: int, sk: int, device=None):
+    """Accept ``ids (b, s)`` (self-attention) or ``(q_ids, kv_ids)``;
+    returns both as int32 tensors on ``device`` (the ids' own without
+    one)."""
     if isinstance(segment_ids, (tuple, list)):
         q_ids, kv_ids = segment_ids
     else:
@@ -71,6 +102,7 @@ def _norm_segment_ids(segment_ids, sq: int, sk: int):
             raise ValueError(
                 "cross-attention needs segment_ids=(q_ids, kv_ids)")
         q_ids = kv_ids = segment_ids
+    q_ids, kv_ids = (_int32_ids(x, device) for x in (q_ids, kv_ids))
     if q_ids.shape[-1] != sq or kv_ids.shape[-1] != sk:
         raise ValueError(
             f"segment id lengths {q_ids.shape[-1]}/{kv_ids.shape[-1]} do "
@@ -145,7 +177,7 @@ def mha_reference(q, k, v, bias=None, causal: bool = False,
         s = torch.where(col[None, None, None, :] < lengths[:, None, None, None],
                         s, NEG_INF)
     if segment_ids is not None:
-        q_ids, kv_ids = _norm_segment_ids(segment_ids, sq, sk)
+        q_ids, kv_ids = _norm_segment_ids(segment_ids, sq, sk, s.device)
         same = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
         s = torch.where(same, s, NEG_INF)
     if causal:
@@ -173,6 +205,22 @@ def _causal_valid(sq: int, sk: int, device) -> torch.Tensor:
     return col <= row + (sk - sq)
 
 
+def _visible(n: int, sq: int, sk: int, causal: bool, segments, device):
+    """The visible scores of ``n`` flattened batch-heads: a bool mask
+    broadcastable to ``(n, sq, sk)``, or None when every score is. The
+    causal mask (``col <= row + sk - sq``) and, with ``segments = (q_ids
+    (b, sq), kv_ids (b, sk))`` int32, equal ids, batch ``bh // (n // b)``
+    indexing the ids as the kernels index them."""
+    valid = _causal_valid(sq, sk, device) if causal else None
+    if segments is not None:
+        q_ids, kv_ids = segments
+        b = q_ids.shape[0]
+        same = (q_ids[:, None, :, None] == kv_ids[:, None, None, :]).expand(
+            b, n // b, sq, sk).reshape(n, sq, sk)
+        valid = same if valid is None else same & valid
+    return valid
+
+
 def _norm_bias(bias, b: int, h: int, sq: int, sk: int) -> torch.Tensor:
     """``bias`` broadcastable to ``(b, h, sq, sk)`` as the kernels take
     it, the reference's normalization: fp32, rank 4, each dim 1 or full, a
@@ -191,6 +239,13 @@ def _norm_bias(bias, b: int, h: int, sq: int, sk: int) -> torch.Tensor:
     return bias4.contiguous()
 
 
+def _bias_heads(bias, n: int) -> int:
+    """How the kernels split a flattened batch-head index for the bias
+    ``(bb, hb, sqb, sk)``: into ``(bh // heads, bh % heads)``."""
+    bb, hb = bias.shape[:2]
+    return hb if hb > 1 else (n // bb if bb > 1 else n)
+
+
 def _add_bias(s: torch.Tensor, bias) -> torch.Tensor:
     """Scores ``s (n, sq, sk)`` over flattened batch-heads plus the
     broadcast bias ``(bb, hb, sqb, sk)`` (or ``s`` itself without one):
@@ -198,25 +253,25 @@ def _add_bias(s: torch.Tensor, bias) -> torch.Tensor:
     if bias is None:
         return s
     n = s.shape[0]
-    bb, hb = bias.shape[:2]
-    heads = hb if hb > 1 else (n // bb if bb > 1 else n)
+    heads = _bias_heads(bias, n)
     return (s.view(n // heads, heads, *s.shape[1:]) + bias).view(s.shape)
 
 
 def _flash_fwd_plain(q, k, v, causal: bool, scale: float,
-                     dropout_rate: float = 0.0, seed=None, bias=None):
+                     dropout_rate: float = 0.0, seed=None, bias=None,
+                     segments=None):
     """The function ``flash_fwd`` computes, on the kernel's layout:
-    ``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` and the optional score
-    bias (see :func:`_add_bias`) -> ``out (n, sq, d)`` in q's dtype and
-    ``lse (n, sq)`` fp32, ``+inf`` on fully masked rows. The bias is added
-    after the scale and before the causal mask. The normalizer sums the
-    undropped probabilities; dropout then acts on the normalized ones."""
+    ``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)``, the optional score bias
+    (see :func:`_add_bias`) and segment ids (see :func:`_visible`) ->
+    ``out (n, sq, d)`` in q's dtype and ``lse (n, sq)`` fp32, ``+inf`` on
+    fully masked rows. The bias is added after the scale and before the
+    masks. The normalizer sums the undropped probabilities; dropout then
+    acts on the normalized ones."""
     n, sq, sk = q.shape[0], q.shape[-2], k.shape[-2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = _add_bias(s, bias)
-    valid = None
-    if causal:
-        valid = _causal_valid(sq, sk, s.device)
+    valid = _visible(n, sq, sk, causal, segments, s.device)
+    if valid is not None:
         s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -236,7 +291,7 @@ def _flash_fwd_plain(q, k, v, causal: bool, scale: float,
 
 
 def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
-                    dropout_rate: float, seed, bias=None):
+                    dropout_rate: float, seed, bias=None, segments=None):
     """The backward kernels' shared recompute (the reference's
     ``_recompute_p_ds``): ``p = exp(s + bias - lse)`` with masked entries
     zeroed, ``p_eff`` (dropped, rescaled) for dV and ``ds = p * (dp_eff -
@@ -246,8 +301,9 @@ def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
                   * scale, bias)
     # lse = +inf on fully masked rows: exp(s - inf) == 0
     p = torch.exp(s - lse[..., None])
-    if causal:
-        p = torch.where(_causal_valid(sq, sk, s.device), p, 0.0)
+    valid = _visible(n, sq, sk, causal, segments, s.device)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     p_eff = p
     if dropout_rate > 0.0:
@@ -259,23 +315,24 @@ def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 
 def _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
-                        dropout_rate: float = 0.0, seed=None, bias=None):
+                        dropout_rate: float = 0.0, seed=None, bias=None,
+                        segments=None):
     """The function ``flash_bwd_dq`` computes: ``dq (n, sq, d)`` in q's
     dtype, with ``ds`` rounded to k's dtype before the ``dS K`` product."""
     _, ds = _recompute_p_ds(q, k, v, do, lse, delta, causal, scale,
-                            dropout_rate, seed, bias)
+                            dropout_rate, seed, bias, segments)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
     return dq.to(q.dtype)
 
 
 def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
                          scale: float, dropout_rate: float = 0.0, seed=None,
-                         bias=None):
+                         bias=None, segments=None):
     """The function ``flash_bwd_dkv`` computes: ``(dk, dv)``, each ``(n,
     sk, d)`` in k's dtype, with ``p_eff`` rounded to do's dtype and ``ds``
     to q's before the products."""
     p_eff, ds = _recompute_p_ds(q, k, v, do, lse, delta, causal, scale,
-                                dropout_rate, seed, bias)
+                                dropout_rate, seed, bias, segments)
     dv = torch.matmul(p_eff.to(do.dtype).float().transpose(-1, -2),
                       do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
@@ -283,41 +340,73 @@ def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _flash_dbias_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+                       dropout_rate: float = 0.0, seed=None, bias=None,
+                       segments=None):
+    """The function ``flash_dbias`` computes (the reference's
+    ``_dbias_kernel``): the score cotangent ``ds`` of
+    :func:`_recompute_p_ds`, unrounded fp32, summed over the broadcast dims
+    of ``bias (bb, hb, sqb, sk)`` into a tensor of its shape, fp32."""
+    if bias is None:
+        raise ValueError("flash_dbias needs the bias whose gradient it is")
+    _, ds = _recompute_p_ds(q, k, v, do, lse, delta, causal, scale,
+                            dropout_rate, seed, bias, segments)
+    n = ds.shape[0]
+    heads = _bias_heads(bias, n)
+    ds4 = ds.view(n // heads, heads, *ds.shape[1:])
+    dims = [ax for ax in range(3)
+            if bias.shape[ax] == 1 and ds4.shape[ax] > 1]
+    return ds4.sum(dim=dims, keepdim=True) if dims else ds4
+
+
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp`` around the flash kernels, on the
     kernels' ``(n, s, d)`` layout: the forward saves ``q, k, v, out, lse``
-    (and the score bias); the backward takes ``delta = rowsum(do * out)``
-    from the saved (rounded) output, in fp32 outside any kernel as the
-    reference does, then runs dQ and dKV. The bias ``(bb, hb, sqb, sk)``
-    (or None) is a non-learned one: its gradient is zero, as the
-    reference's without ``bias_requires_grad``. ``use_kernel`` picks the
-    kernels or their plain versions."""
+    (with the score bias and the segment ids); the backward takes ``delta
+    = rowsum(do * out)`` from the saved (rounded) output, in fp32 outside
+    any kernel as the reference does, then runs dQ and dKV, and, for a
+    learned bias (``need_dbias``), dbias. The bias ``(bb, hb, sqb, sk)``
+    (or None) otherwise takes a zero gradient, as the reference's without
+    ``bias_requires_grad``. The segment ids ``(b, sq)``/``(b, sk)`` int32
+    (or None) take none. ``use_kernel`` picks the kernels or their plain
+    versions."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, bias4, causal: bool, scale: float,
-                dropout_rate: float, seed, use_kernel: bool):
+    def forward(ctx, q3, k3, v3, bias4, q_ids, kv_ids, causal: bool,
+                scale: float, dropout_rate: float, seed, use_kernel: bool,
+                need_dbias: bool):
+        segments = None if q_ids is None else (q_ids, kv_ids)
         fwd = _kernels.flash_fwd if use_kernel else _flash_fwd_plain
         out, lse = fwd(q3, k3, v3, causal, scale, dropout_rate, seed,
-                       bias=bias4)
-        ctx.save_for_backward(q3, k3, v3, out, lse, bias4)
+                       bias=bias4, segments=segments)
+        ctx.save_for_backward(q3, k3, v3, out, lse, bias4, q_ids, kv_ids)
         ctx.args = (causal, scale, dropout_rate, seed)
         ctx.use_kernel = use_kernel
+        ctx.need_dbias = need_dbias
         return out
 
     @staticmethod
     def backward(ctx, do3):
-        q3, k3, v3, out, lse, bias4 = ctx.saved_tensors
+        q3, k3, v3, out, lse, bias4, q_ids, kv_ids = ctx.saved_tensors
+        segments = None if q_ids is None else (q_ids, kv_ids)
         do3 = do3.to(q3.dtype).contiguous()
         delta = (do3.float() * out.float()).sum(dim=-1)
         args = (q3, k3, v3, do3, lse, delta, *ctx.args)
+        kw = dict(bias=bias4, segments=segments)
         if ctx.use_kernel:
-            dq = _kernels.flash_bwd_dq(*args, bias=bias4)
-            dk, dv = _kernels.flash_bwd_dkv(*args, bias=bias4)
+            dq = _kernels.flash_bwd_dq(*args, **kw)
+            dk, dv = _kernels.flash_bwd_dkv(*args, **kw)
         else:
-            dq = _flash_bwd_dq_plain(*args, bias=bias4)
-            dk, dv = _flash_bwd_dkv_plain(*args, bias=bias4)
-        dbias = torch.zeros_like(bias4) if ctx.needs_input_grad[3] else None
-        return dq, dk, dv, dbias, None, None, None, None, None
+            dq = _flash_bwd_dq_plain(*args, **kw)
+            dk, dv = _flash_bwd_dkv_plain(*args, **kw)
+        dbias = None
+        if ctx.needs_input_grad[3]:
+            if ctx.need_dbias:
+                dbias = (_kernels.flash_dbias if ctx.use_kernel
+                         else _flash_dbias_plain)(*args, **kw)
+            else:
+                dbias = torch.zeros_like(bias4)
+        return (dq, dk, dv, dbias) + (None,) * 8
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False,
@@ -329,22 +418,26 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
     """Fused attention over ``(b, h, s, d)`` tensors, differentiable.
 
     This is :class:`_FlashAttention`: the ``flash_fwd``/``flash_bwd_dq``/
-    ``flash_bwd_dkv`` kernels on CUDA tensors, their plain versions on the
-    CPU (or with ``use_kernel=False``). ``dropout_rate``/``dropout_seed``:
-    in-kernel attention dropout, keyed by the int seed (its int32 bit
-    pattern); a rate without a seed raises.
+    ``flash_bwd_dkv`` (and, for a learned bias, ``flash_dbias``) kernels on
+    CUDA tensors, their plain versions on the CPU (or with
+    ``use_kernel=False``). ``dropout_rate``/``dropout_seed``: in-kernel
+    attention dropout, keyed by the int seed (its int32 bit pattern); a
+    rate without a seed raises.
 
     ``bias``: an additive score bias broadcastable to ``(b, h, sq, sk)``
     (a ``-10000`` padding mask ``(b, 1, 1, sk)``, a relative-position
-    table ``(1, h, sq, sk)``), added after the scale and before the causal
-    mask. The kernels read it broadcast, in fp32. As in the reference it
-    gets a zero gradient unless ``bias_requires_grad``.
+    table ``(1, h, sq, sk)``, an ALiBi row ``(1, h, 1, sk)``), added after
+    the scale and before the masks. The kernels read it broadcast, in
+    fp32. As in the reference it gets a zero gradient unless
+    ``bias_requires_grad``; with it, the gradient is the score cotangent
+    summed over the bias's broadcast dims (``flash_dbias``), and reaches
+    the caller's tensor through the rank and keys-dim normalization.
 
-    Still to come on the card (ROADMAP queue A item 4), raising there: a
-    learned bias (``bias_requires_grad=True``, whose gradient is the dbias
-    kernel's, queue B6) and ``segment_ids`` (the packed long-context
-    path). On the CPU both run :func:`mha_reference`, autograd through
-    plain ops."""
+    ``segment_ids``: packed-sequence attention, ``ids (b, s)`` for
+    self-attention or a ``(q_ids, kv_ids)`` pair; a score is visible only
+    where the two ids are equal (with ``causal``, packed causal LM
+    batches). Ids are compared as int32, exactly; ids outside int32 raise.
+    A query row whose id no key shares gets out 0."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -354,29 +447,19 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
-    learned = bias is not None and bias_requires_grad
-    if learned or segment_ids is not None:
-        if use_kernel or (use_kernel is None and q.is_cuda):
-            raise NotImplementedError(
-                "the flash kernels take no learned bias (bias_requires_grad"
-                "=True: its gradient is the dbias kernel's, ROADMAP queue "
-                "B6) and no segment_ids (the packed long-context path) yet:"
-                " both come with ROADMAP queue A item 4; pass "
-                "use_kernel=False for the plain path")
-        if bias is not None and not bias_requires_grad:
-            bias = bias.detach()
-        return mha_reference(q, k, v, bias, causal, softmax_scale,
-                             dropout_rate=dropout_rate,
-                             dropout_seed=dropout_seed,
-                             segment_ids=segment_ids)
     kernel = use_kernel_for(use_kernel, q)
     seed = None if dropout_seed is None else int(dropout_seed)
     bias4 = None if bias is None else _norm_bias(bias, b, h, sq, sk)
+    q_ids = kv_ids = None
+    if segment_ids is not None:
+        q_ids, kv_ids = _norm_segment_ids(segment_ids, sq, sk, q.device)
+        q_ids, kv_ids = q_ids.reshape(b, sq), kv_ids.reshape(b, sk)
     out = _FlashAttention.apply(
         q.reshape(b * h, sq, d).contiguous(),
         k.reshape(b * h, sk, d).contiguous(),
-        v.reshape(b * h, sk, d).contiguous(), bias4, bool(causal),
-        float(softmax_scale), float(dropout_rate), seed, kernel)
+        v.reshape(b * h, sk, d).contiguous(), bias4, q_ids, kv_ids,
+        bool(causal), float(softmax_scale), float(dropout_rate), seed,
+        kernel, bool(bias_requires_grad))
     return out.reshape(b, h, sq, d)
 
 

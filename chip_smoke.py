@@ -38,7 +38,13 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``F.rms_norm``; the three flash kernels with a ``(16, 1, 1, 512)``
    padding bias and a ``(1, 12, 512, 512)`` bias at BERT's attention shape
    (192 x 512 x 512, d 64, non-causal, bf16) and at causal, dropout and
-   fp32 cases, timed at BERT's shape beside SDPA with a float mask;
+   fp32 cases, timed at BERT's shape beside SDPA with a float mask; the
+   flash kernels with segment ids (self-attention ids, a pair at sq < sk
+   with a query id no key carries, ids with a padding bias, causal and
+   dropout 0.1; d 32, 64, 128, bf16 and fp32) and
+   ``examples/long_context.py``'s packed call; ``flash_dbias`` at six
+   bias shapes of ``(2, 12, 512, 512)``, with and without causal, dropout
+   0.3 and ids, and ragged, each launch repeated bit for bit;
 4. GPT-small (vocab 32768, hidden 768, 12 layers, 12 heads, 1024
    positions; random weights from a seed) served at full width: a
    ``ServingEngine`` (8 slots, max_len 1024, prefill window 128, bf16
@@ -83,7 +89,23 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``ln_bwd`` 26 times; step time, tokens/s, peak memory, a profile; then
    3 steps of the plain path, which must launch nothing and agree on the
    losses and step 0's grads;
-8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+8. long-context attention at ``bench.py::bench_flash_long``'s shape (8 x
+   12 heads, 4096 positions, d 64, bf16, causal; q, k, v and dy from
+   ``RandomState(0)``) with four packed documents a row (segment ids, the
+   cut points drawn from the same stream) and a learned ALiBi row bias
+   ``slope_h * j`` whose slopes start at ALiBi's ``2**(-8 (i + 1) / 12)``:
+   the four flash kernels against their plain versions batch by batch, and
+   ``flash_dbias`` at a ``(1, 12, 4096, 4096)`` table; kernel, plain and
+   library times (SDPA causal, with the packed mask as a boolean mask, and
+   its backward with a float mask's gradient) beside the bounds over the
+   pairs the ids leave visible; then 3 steps of ``flash_attention(bias=,
+   bias_requires_grad=True, segment_ids=, causal=True)``, the loss
+   ``sum(out * dy)``, backward and ``FusedAdam(lr=1e-2)`` on the slopes,
+   each launching ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and
+   ``flash_dbias`` once; step time and a profile; the plain path batch by
+   batch, whose loss, dQ/dK/dV, slopes' grads and slopes must agree; and
+   ``bench_flash_long``'s own call (no bias, no ids), timed;
+9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -119,6 +141,9 @@ BF16_TOL = (1e-3, 2 ** -7, 1e-2)     # (atol, rtol, relative norm)
 FP32_TOL = (1e-5, 1e-5, 1e-5)
 FWD_P_ROUNDING = 1.05 * 2 ** -7      # 5% over 2**-7 for fp32 summation
 TOL_LSE = 1e-4
+# plus two fp32 ulps of the value where the bias makes lse large (the
+# long-context ALiBi row reaches ~2580, where one ulp is 2.4e-4)
+TOL_LSE_REL = 2 ** -22
 # teacher-forced GPT-small logits, kernel path vs plain path: bf16
 # activations whose attention outputs differ by a few ulps per layer,
 # carried through 12 residual layers and the tied head (|logit| ~ 1)
@@ -141,6 +166,7 @@ TRAIN_DROPOUT = 0.1
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
+            "flash_dbias": "apex_tpu/ops/flash_attention.py:370",
             "decode_attention": "apex_tpu/ops/flash_attention.py:1021",
             "paged_decode_attention": "apex_tpu/ops/flash_attention.py:1384"}
 
@@ -181,6 +207,50 @@ BERT_STEPS = 4
 BERT_COMPARE_STEPS = 3
 TOL_BERT_LOSS = (1e-3, 1e-2)          # step 0, later steps
 TOL_BERT_GRAD = 2e-2
+
+# flash_dbias: (b, h, s) of its checks at the bias shapes of
+# tests/test_flash_attention.py:133-139 and (b, 1, 1, sk). Its fp32 output
+# sums up to R x sq (32768 on the long-context path) fp32 score cotangents,
+# which kernel and twin each compute from the same inputs (dot products
+# that differ by summation order, ~1e-7 relative) and add in different
+# orders: |kernel - plain| <= 1e-5 max|plain| + 1e-5 |plain| element by
+# element and 1e-5 relative norm (the first chip run read at most 2.2e-7
+# of max|plain| and 1.2e-7 relative norm at 2 x 3 x 128 x 128)
+DBIAS_BH_S = (2, 12, 512)
+# which of (batch, heads, query rows) each bias holds in full: (1, h, sq,
+# sk), (b, h, sq, sk), (1, 1, sq, sk), (b, 1, sq, sk), (1, h, 1, sk), (b, 1,
+# 1, sk)
+DBIAS_SHAPES = ((False, True, True), (True, True, True), (False, False, True),
+                (True, False, True), (False, True, False),
+                (True, False, False))
+DBIAS_TOL = (1e-5, 1e-5, 1e-5)   # (atol as a share of max|plain|, ...)
+
+# the long-context path: bench.py::bench_flash_long's shape (8 x 12 heads,
+# 4096 positions, d 64, bf16, causal) with 4 packed documents a row and a
+# learned ALiBi row bias whose slopes FusedAdam trains for 3 steps
+LONG_SHAPE = (8, 12, 4096, 64)
+LONG_DOCS = 4
+LONG_STEPS = 3
+LONG_LR = 1e-2
+# kernel path vs plain path (batch by batch), bf16, the plain path from
+# the kernel path's slopes at each step: the loss sum(out * dy) over 25.2 M
+# terms, whose bf16 outputs differ by roundings of either sign, so the
+# difference grows as the square root of the count: ~1e-6 of
+# sum |out * dy| expected, 1e-5 allowed; dQ/dK/dV by relative norm as the
+# kernel checks' bf16 limit (1e-2).
+# The slopes' grad sum_j j * dbias[h, j] is not held in bf16: per row,
+# sum_j ds equals the rounding error of delta = rowsum(do * out) taken from
+# the bf16 output, and the row bias weights it by j (up to 4095), so the
+# roundings of the two paths' outputs alone move it by as much as its
+# value (the first chip run read 0.52 of its norm apart, signs flipped).
+# The same path in fp32, whose outputs round 2**16 times finer, holds it:
+# the loss within 1e-6 of sum |out * dy|, dQ/dK/dV 1e-4 and the slopes'
+# grad 1e-3 by relative norm (sums of 3.3e8 visible scores in other
+# orders), the slopes after each step within 1e-4 (Adam moves a slope by
+# ~lr = 1e-2 a step, times the grads' relative difference)
+TOL_LONG_LOSS = 1e-5
+TOL_LONG_DQKV = 1e-2
+LONG_TOL_FP32 = {"loss": 1e-6, "dqkv": 1e-4, "grad": 1e-3, "slopes": 1e-4}
 
 PROMPT_LENS = [1, 128, 17, 64, 100, 5, 33, 128, 77, 2, 90, 45, 120, 9, 60,
                127]
@@ -263,14 +333,18 @@ def fwd_slack(torch, fa, q, k, v, causal, scale, rate=0.0, seed=None,
     return FWD_P_ROUNDING * pv
 
 
-def compare_lse(torch, lse_k, lse_p, tol: float, what: str) -> float:
+def compare_lse(torch, lse_k, lse_p, tol: float, what: str,
+                rel: float = 0.0) -> float:
+    """Max abs lse error; each finite row within ``tol + rel * |lse|``."""
     inf_k, inf_p = torch.isinf(lse_k), torch.isinf(lse_p)
     check(bool((inf_k == inf_p).all()), f"{what}: infinite lse rows differ")
     check(bool((lse_k[inf_k] == lse_p[inf_p]).all()),
           f"{what}: infinite lse signs differ")
     fin = ~inf_k
     err = max_err(torch, lse_k[fin], lse_p[fin])
-    check(err <= tol, f"{what}: lse err {err:.3g} > {tol}")
+    limit = tol + rel * lse_p[fin].abs()
+    check(bool(((lse_k[fin] - lse_p[fin]).abs() <= limit).all()),
+          f"{what}: lse err {err:.3g} over {tol} + {rel} |lse|")
     return err
 
 
@@ -297,7 +371,32 @@ def device_ms(torch, fn, iters: int = 10, show: str = "") -> float:
     if show:
         print(f"{show} ran: " + "; ".join(
             f"{key[:60]} {t / 1e3 / iters:.4f} ms" for t, key in kernels[:4]))
+    if not kernels:
+        # the profiler now and then records no kernel at all in a window
+        # (seen on an H100 in this script, never when the same calls were
+        # profiled alone): time with CUDA events instead, and say so
+        ms = event_ms(torch, fn, iters)
+        print(f"{show or 'device_ms'}: torch.profiler recorded no device "
+              f"time; CUDA events read {ms:.4f} ms a call")
+        return ms
     return sum(t for t, _ in kernels) / 1e3 / iters
+
+
+def event_ms(torch, fn, iters: int = 3) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``iters``
+    back-to-back calls, after one warm-up. For the long-context shape,
+    whose kernels run for tens of ms (host dispatch is noise there), and
+    where ``torch.profiler`` inside this script returned no device time
+    for them (alone on the card it agreed with these events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -1008,6 +1107,232 @@ def check_flash_bias(torch, fa, kern, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): segment ids in the flash kernels, and the dbias kernel
+# ---------------------------------------------------------------------------
+
+def packed_ids(torch, rng, b: int, s: int, docs: int):
+    """``(b, s)`` int32 segment ids on the card: ``docs - 1`` cut points a
+    row drawn from ``rng`` in ``1..s-1``, the id counted up at each cut
+    (``examples/long_context.py:42-48``, row by row)."""
+    import numpy as np
+    ids = np.zeros((b, s), np.int32)
+    for row in range(b):
+        for cut in rng.choice(np.arange(1, s), docs - 1, replace=False):
+            ids[row, cut:] += 1
+    return torch.from_numpy(ids).to("cuda")
+
+
+def visible_pairs(torch, q_ids, kv_ids, causal: bool, heads: int) -> int:
+    """The (row, col) scores the ids (and the causal mask) leave visible,
+    over every batch-head: the pairs a bound counts."""
+    sq, sk = q_ids.shape[1], kv_ids.shape[1]
+    row = torch.arange(sq, device=q_ids.device)[:, None]
+    col = torch.arange(sk, device=q_ids.device)[None, :]
+    total = 0
+    for b in range(q_ids.shape[0]):
+        seen = q_ids[b][:, None] == kv_ids[b][None, :]
+        if causal:
+            seen &= col <= row + (sk - sq)
+        total += int(seen.sum())
+    return total * heads
+
+
+def check_flash_segments(torch, fa, kern, card: str) -> None:
+    """The three flash kernels with segment ids against their plain
+    versions, under the limits of the other flash checks: self-attention
+    ids (four documents a row), ``(q_ids, kv_ids)`` pairs at sq < sk with a
+    query id no key carries (its rows must give out 0, lse +inf and dq 0),
+    ids with a ``(16, 1, 1, 512)`` padding bias, causal, dropout 0.1; d 32,
+    64 and 128 in bf16 and fp32. Then ``examples/long_context.py``'s packed
+    call at its defaults through ``flash_attention``, on the kernels and
+    with ``use_kernel=False``."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cpu_gen = torch.Generator().manual_seed(7)
+    rng = np.random.RandomState(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def padding(b, s):
+        lengths = torch.randint(s // 2, s + 1, (b,), generator=cpu_gen)
+        keep = torch.arange(s)[None, :] < lengths[:, None]
+        return torch.where(keep, 0.0, -10000.0)[:, None, None, :].to(
+            "cuda")
+
+    cases = [  # (name, b, h, sq, sk, d, causal, dtype, rate, pair, bias)
+        ("self ids (4 x 12, 512, d64) causal bf16", 4, 12, 512, 512, 64,
+         True, bf16, 0.0, False, False),
+        ("self ids (2 x 8, 256, d32) causal fp32", 2, 8, 256, 256, 32, True,
+         f32, 0.0, False, False),
+        ("self ids (2 x 4, 200, d128) non-causal bf16", 2, 4, 200, 200, 128,
+         False, bf16, 0.0, False, False),
+        ("pair sq=96 < sk=200, an absent query id, causal fp32 d64", 2, 3,
+         96, 200, 64, True, f32, 0.0, True, False),
+        ("pair sq=96 < sk=200, an absent query id, non-causal bf16 d32", 2,
+         3, 96, 200, 32, False, bf16, 0.0, True, False),
+        ("ids + (16, 1, 1, 512) padding bias, causal, dropout 0.1 bf16", 16,
+         2, 512, 512, 64, True, bf16, TRAIN_DROPOUT, False, True),
+        ("ids + padding bias, causal, dropout 0.1 fp32 d128", 4, 2, 256, 256,
+         128, True, f32, TRAIN_DROPOUT, False, True),
+    ]
+    for name, b, h, sq, sk, d, causal, dt, rate, pair, biased in cases:
+        n = b * h
+        q, k, v = (rand((n, t, d), dt) for t in (sq, sk, sk))
+        do = rand((n, sq, d), dt)
+        kv_ids = packed_ids(torch, rng, b, sk, 4)
+        q_ids = packed_ids(torch, rng, b, sq, 4) if pair else kv_ids
+        masked = 0
+        if pair:
+            masked = 9
+            q_ids[-1, :masked] = 77        # no key carries id 77
+        segs = (q_ids, kv_ids)
+        bias = padding(b, sk) if biased else None
+        scale = d ** -0.5
+        seed = 31 if rate else None
+        tol = tol_for(torch, dt)
+        kw = dict(bias=bias, segments=segs)
+        out_k, lse_k = kern.flash_fwd(q, k, v, causal, scale, rate, seed,
+                                      **kw)
+        out_p, lse_p = fa._flash_fwd_plain(q, k, v, causal, scale, rate,
+                                           seed, **kw)
+        torch.cuda.synchronize()
+        errs = {"flash_fwd": close(torch, [(out_k, out_p)], tol, fwd_slack(
+            torch, fa, q, k, v, causal, scale, rate, seed, bias))}
+        compare_lse(torch, lse_k, lse_p, TOL_LSE, f"flash_fwd {name}")
+        delta = (do.float() * out_p.float()).sum(dim=-1)
+        args = (q, k, v, do, lse_p, delta, causal, scale, rate, seed)
+        dq_k = kern.flash_bwd_dq(*args, **kw)
+        dk_k, dv_k = kern.flash_bwd_dkv(*args, **kw)
+        dq_p = fa._flash_bwd_dq_plain(*args, **kw)
+        dk_p, dv_p = fa._flash_bwd_dkv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs["flash_bwd_dq"] = close(torch, [(dq_k, dq_p)], tol)
+        errs["flash_bwd_dkv"] = close(torch, [(dk_k, dk_p), (dv_k, dv_p)],
+                                      tol)
+        for kname, (err, share) in errs.items():
+            check(share <= 1, f"{kname} {name}: err {err:.3g}, {share:.3g} "
+                              f"x the limit {tol}")
+        if masked:
+            rows = slice((b - 1) * h, n)
+            check(bool((out_k[rows, :masked] == 0).all())
+                  and bool(torch.isinf(lse_k[rows, :masked]).all())
+                  and bool((lse_k[rows, :masked] > 0).all())
+                  and bool((dq_k[rows, :masked] == 0).all()),
+                  f"{name}: rows of an absent id: out, lse or dq not 0 / "
+                  "+inf / 0")
+        print(f"flash segments {name}: max_abs_err, share of the limit "
+              f"{tol}: " + ", ".join(
+                  f"{kname[6:]} {err:.3g}, {share:.3g}"
+                  for kname, (err, share) in errs.items())
+              + (f"; {masked} rows of an absent id 0 / +inf / 0"
+                 if masked else ""))
+        del q, k, v, do, out_k, out_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+
+    # examples/long_context.py's packed call at its defaults (one device:
+    # 256 positions, 8 heads, d 32, fp32, causal, four documents)
+    rng = np.random.RandomState(0)
+    s, heads, d = 256, 8, 32
+    q, k, v = (torch.from_numpy(rng.randn(1, heads, s, d)).to(
+        "cuda", f32) for _ in range(3))
+    bounds = sorted(rng.choice(np.arange(1, s), 3, replace=False))
+    ids = np.zeros((1, s), np.int32)
+    for cut in bounds:
+        ids[0, cut:] += 1
+    ids = torch.from_numpy(ids).to("cuda")
+    before = kern.LAUNCHES["flash_fwd"]
+    packed = fa.flash_attention(q, k, v, causal=True, segment_ids=ids)
+    check(kern.LAUNCHES["flash_fwd"] == before + 1,
+          "the packed example's call did not launch flash_fwd")
+    plain = fa.flash_attention(q, k, v, causal=True, segment_ids=ids,
+                               use_kernel=False)
+    torch.cuda.synchronize()
+    err, share = close(torch, [(packed, plain)], FP32_TOL)
+    check(share <= 1, f"packed example: err {err:.3g}, {share:.3g} x the "
+                      f"limit {FP32_TOL}")
+    print(f"packed-varlen over {s} tokens / 4 docs (examples/"
+          f"long_context.py's call, cuts {[int(c) for c in bounds]}): "
+          f"{float((packed ** 2).sum()):.6f} on the kernels, "
+          f"{float((plain ** 2).sum()):.6f} plain; max_abs_err {err:.3g}, "
+          f"{share:.3g} x the limit {FP32_TOL} [{card}]")
+
+
+def check_dbias_case(torch, fa, kern, name: str, args, bias, segs) -> tuple:
+    """``flash_dbias`` against ``_flash_dbias_plain`` on ``args`` (the
+    inputs of ``flash_bwd_dq``), a second launch equal bit for bit; returns
+    (max abs error, share of the limit)."""
+    db_k = kern.flash_dbias(*args, bias=bias, segments=segs)
+    again = kern.flash_dbias(*args, bias=bias, segments=segs)
+    db_p = fa._flash_dbias_plain(*args, bias=bias, segments=segs)
+    torch.cuda.synchronize()
+    check(torch.equal(db_k, again), f"flash_dbias {name}: a second launch "
+                                    "differs")
+    return dbias_close(torch, db_k, db_p, name)
+
+
+def dbias_close(torch, got, want, name: str) -> tuple:
+    """(max abs error, share of the limit) of a dbias under ``DBIAS_TOL``,
+    its atol scaled by the plain output's largest value."""
+    atol, rtol, rel = DBIAS_TOL
+    err, share = close(torch, [(got, want)],
+                       (atol * float(want.abs().max()), rtol, rel))
+    check(share <= 1, f"flash_dbias {name}: err {err:.3g}, {share:.3g} x "
+                      "the limit")
+    return err, share
+
+
+def check_flash_dbias(torch, fa, kern, card: str) -> None:
+    """``flash_dbias`` against its plain twin at the six bias shapes of
+    ``DBIAS_SHAPES`` (the five of ``tests/test_flash_attention.py:133-139``
+    and ``(b, 1, 1, sk)``), scaled to ``(2, 12, 512, 512)``: non-causal
+    bf16; causal with dropout 0.3 and segment ids in fp32; and ragged (sq
+    500 < sk 510) causal bf16 at d 32. Each launch repeated, equal bit for
+    bit."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rng = np.random.RandomState(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, s = DBIAS_BH_S
+
+    def rand(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    variants = [  # (name, sq, sk, d, causal, dtype, rate, ids)
+        ("non-causal bf16", s, s, 64, False, bf16, 0.0, False),
+        ("causal, dropout 0.3, segment ids, fp32", s, s, 64, True, f32, 0.3,
+         True),
+        ("ragged sq=500 < sk=510 causal bf16 d32", 500, 510, 32, True, bf16,
+         0.0, False),
+    ]
+    for vname, sq, sk, d, causal, dt, rate, with_ids in variants:
+        n = b * h
+        q, k, v = (rand((n, t, d), dt) for t in (sq, sk, sk))
+        do = rand((n, sq, d), dt)
+        segs = None
+        if with_ids:
+            ids = packed_ids(torch, rng, b, sq, 4)
+            segs = (ids, ids)
+        scale, seed = d ** -0.5, (99 if rate else None)
+        readings = []
+        for full in DBIAS_SHAPES:
+            bias = rand(tuple(dim if f else 1 for dim, f in
+                              zip((b, h, sq), full)) + (sk,))
+            out, lse = fa._flash_fwd_plain(q, k, v, causal, scale, rate, seed,
+                                           bias=bias, segments=segs)
+            delta = (do.float() * out.float()).sum(dim=-1)
+            args = (q, k, v, do, lse, delta, causal, scale, rate, seed)
+            err, share = check_dbias_case(
+                torch, fa, kern, f"{tuple(bias.shape)} {vname}", args, bias,
+                segs)
+            readings.append(f"{tuple(bias.shape)} {err:.3g}, {share:.3g}")
+        print(f"flash_dbias {vname} (2 x 12 heads): max_abs_err, share of "
+              f"the limit {DBIAS_TOL} (atol x max |plain|), a second launch "
+              f"equal bit for bit: " + "; ".join(readings) + f" [{card}]")
+        del q, k, v, do
+
+
+# ---------------------------------------------------------------------------
 # phase 4: GPT-small serving
 # ---------------------------------------------------------------------------
 
@@ -1386,8 +1711,9 @@ def train(torch, kern, card: str):
                   f"{what}: {name} launched {counts[name]} times, not "
                   f"{LN_PER_GPT_PASS}")
         check(counts["decode_attention"] == 0
-              and counts["paged_decode_attention"] == 0,
-              f"{what} launched a decode kernel")
+              and counts["paged_decode_attention"] == 0
+              and counts["flash_dbias"] == 0,
+              f"{what} launched a decode kernel or flash_dbias")
 
     step = trainer(True)
     launches = {name: 0 for name in kern.LAUNCHES}
@@ -1568,8 +1894,9 @@ def train_bert(torch, kern, card: str):
 
     L = cfg.num_layers
     want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "ln_fwd": LN_PER_BERT_PASS, "ln_bwd": LN_PER_BERT_PASS,
-            "decode_attention": 0, "paged_decode_attention": 0}
+            "flash_dbias": 0, "ln_fwd": LN_PER_BERT_PASS,
+            "ln_bwd": LN_PER_BERT_PASS, "decode_attention": 0,
+            "paged_decode_attention": 0}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step = trainer(True)
@@ -1638,6 +1965,452 @@ def train_bert(torch, kern, card: str):
           f"worst leaf {g_leaf}: ||kernel - plain|| / ||plain|| {g_err:.4g} "
           f"(tol {TOL_BERT_GRAD})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: long-context attention (packed documents, a learned ALiBi bias)
+# ---------------------------------------------------------------------------
+
+def long_inputs(torch):
+    """``bench.py::bench_flash_long``'s q, k, v and dy (``RandomState(0)``,
+    bf16 on the card) and, from the same stream after them, four packed
+    documents a row as int32 segment ids; the ALiBi slopes' start."""
+    import numpy as np
+    b, h, s, d = LONG_SHAPE
+    rng = np.random.RandomState(0)
+    q, k, v, dy = (torch.from_numpy(rng.randn(b, h, s, d)).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    ids = packed_ids(torch, rng, b, s, LONG_DOCS)
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)],
+                          dtype=torch.float32, device="cuda")
+    return q, k, v, dy, ids, slopes
+
+
+def alibi(torch, slopes, s: int):
+    """ALiBi as a learned causal row bias ``(1, h, 1, s)``: ``slope_h * j``
+    (the ``-slope_h * i`` term of ``-slope_h (i - j)`` is constant along a
+    row, and softmax drops it)."""
+    pos = torch.arange(s, device=slopes.device, dtype=torch.float32)
+    return slopes.view(1, -1, 1, 1) * pos.view(1, 1, 1, s)
+
+
+def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
+                       slopes) -> dict:
+    """The four flash kernels at the long-context path's shape (96 x 4096
+    x 4096, d 64, causal, the packed ids, the ALiBi row at its start)
+    against their plain versions batch by batch (out, lse, dQ, dK and dV
+    are per batch; dbias is the plain per-batch sums added in batch order
+    in fp32), then ``flash_dbias`` at a ``(1, 12, 4096, 4096)``
+    relative-position table (its ``sqb == sq`` branch at full size), each
+    dbias launch repeated bit for bit. Returns the max abs errors."""
+    b, h, s, d = LONG_SHAPE
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (t.reshape(b * h, s, d) for t in (q, k, v, dy))
+    bias = alibi(torch, slopes, s)
+    segs = (ids, ids)
+    out_k, lse_k = kern.flash_fwd(q3, k3, v3, True, scale, bias=bias,
+                                  segments=segs)
+    lse_p, delta_p = torch.empty_like(lse_k), torch.empty_like(lse_k)
+    share = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "flash_dbias": 0.0}
+    err = dict.fromkeys(share, 0.0)
+
+    def note(kname, reading):
+        err[kname] = max(err[kname], reading[0])
+        share[kname] = max(share[kname], reading[1])
+
+    def batch(i):
+        rows = slice(i * h, (i + 1) * h)
+        return rows, (ids[i:i + 1], ids[i:i + 1])
+
+    tol = BF16_TOL
+    for i in range(b):
+        rows, seg_i = batch(i)
+        out_p, lse_p[rows] = fa._flash_fwd_plain(
+            q3[rows], k3[rows], v3[rows], True, scale, bias=bias,
+            segments=seg_i)
+        delta_p[rows] = (do3[rows].float() * out_p.float()).sum(dim=-1)
+        note("flash_fwd", close(torch, [(out_k[rows], out_p)], tol, fwd_slack(
+            torch, fa, q3[rows], k3[rows], v3[rows], True, scale, bias=bias)))
+        compare_lse(torch, lse_k[rows], lse_p[rows], TOL_LSE,
+                    f"flash_fwd long-context batch {i}", TOL_LSE_REL)
+    args = (q3, k3, v3, do3, lse_p, delta_p, True, scale)
+    kw = dict(bias=bias, segments=segs)
+    dq_k = kern.flash_bwd_dq(*args, **kw)
+    dk_k, dv_k = kern.flash_bwd_dkv(*args, **kw)
+    db_k = kern.flash_dbias(*args, **kw)
+    check(torch.equal(db_k, kern.flash_dbias(*args, **kw)),
+          "flash_dbias long-context: a second launch differs")
+    db_p = torch.zeros_like(db_k)
+    for i in range(b):
+        rows, seg_i = batch(i)
+        args_i = (q3[rows], k3[rows], v3[rows], do3[rows], lse_p[rows],
+                  delta_p[rows], True, scale)
+        kw_i = dict(bias=bias, segments=seg_i)
+        note("flash_bwd_dq", close(torch, [(
+            dq_k[rows], fa._flash_bwd_dq_plain(*args_i, **kw_i))], tol))
+        dk_p, dv_p = fa._flash_bwd_dkv_plain(*args_i, **kw_i)
+        note("flash_bwd_dkv", close(torch, [(dk_k[rows], dk_p),
+                                            (dv_k[rows], dv_p)], tol))
+        db_p += fa._flash_dbias_plain(*args_i, **kw_i)
+    torch.cuda.synchronize()
+    note("flash_dbias", dbias_close(torch, db_k, db_p, "long-context"))
+    for kname in share:
+        check(share[kname] <= 1, f"{kname} long-context: {share[kname]:.3g}"
+                                 " x the limit")
+    print(f"long-context kernels vs plain, batch by batch (96 x 4096 x 4096,"
+          f" d64, causal, 4 packed documents a row, ALiBi row bias, bf16): "
+          f"max_abs_err, share of the limit: " + ", ".join(
+              f"{kname} {err[kname]:.3g}, {share[kname]:.3g}"
+              for kname in share) + "; a second flash_dbias equal bit for "
+          f"bit [{card}]")
+    del dq_k, dk_k, dv_k, out_k
+
+    # the relative-position table (1, 12, 4096, 4096), on the path's inputs
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    table = torch.randn((1, h, s, s), generator=gen, device="cuda")
+    out_t, lse_t = kern.flash_fwd(q3, k3, v3, True, scale, bias=table,
+                                  segments=segs)
+    delta_t = (do3.float() * out_t.float()).sum(dim=-1)
+    del out_t
+    args = (q3, k3, v3, do3, lse_t, delta_t, True, scale)
+    db_k = kern.flash_dbias(*args, bias=table, segments=segs)
+    check(torch.equal(db_k, kern.flash_dbias(*args, bias=table,
+                                             segments=segs)),
+          "flash_dbias (1, 12, 4096, 4096): a second launch differs")
+    db_p = torch.zeros_like(db_k)
+    for i in range(b):
+        rows, seg_i = batch(i)
+        db_p += fa._flash_dbias_plain(
+            q3[rows], k3[rows], v3[rows], do3[rows], lse_t[rows],
+            delta_t[rows], True, scale, bias=table, segments=seg_i)
+    t_err, t_share = dbias_close(torch, db_k, db_p, "(1, 12, 4096, 4096)")
+    table_ms = event_ms(torch, lambda: kern.flash_dbias(
+        *args, bias=table, segments=segs))
+    print(f"flash_dbias (1, 12, 4096, 4096) relative-position table on the "
+          f"path's inputs: max_abs_err {t_err:.3g}, {t_share:.3g} x the "
+          f"limit; a second launch equal bit for bit; kernel {table_ms:.4f} "
+          f"ms [{card}]")
+    del table, db_k, db_p
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
+                      slopes) -> dict:
+    """Device times (CUDA events, see :func:`event_ms`) of the four flash
+    kernels at the long-context path's shape with its ids and bias, of
+    their plain versions batch by batch, of
+    the library calls (SDPA causal, SDPA with the packed causal mask as a
+    boolean mask, and SDPA's backward with a float mask that takes a
+    gradient), and the bounds over the pairs the ids leave visible.
+    Returns the ``flash_dbias`` row of the kernels line and the four
+    kernels' times."""
+    b, h, s, d = LONG_SHAPE
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (t.reshape(b * h, s, d) for t in (q, k, v, dy))
+    bias = alibi(torch, slopes, s)
+    segs = (ids, ids)
+    out, lse = kern.flash_fwd(q3, k3, v3, True, scale, bias=bias,
+                              segments=segs)
+    delta = (do3.float() * out.float()).sum(dim=-1)
+    args = (q3, k3, v3, do3, lse, delta, True, scale)
+    kw = dict(bias=bias, segments=segs)
+    kernel = {
+        "flash_fwd": lambda: kern.flash_fwd(q3, k3, v3, True, scale, **kw),
+        "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args, **kw),
+        "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args, **kw),
+        "flash_dbias": lambda: kern.flash_dbias(*args, **kw)}
+    plain_fn = {"flash_fwd": fa._flash_fwd_plain,
+                "flash_bwd_dq": fa._flash_bwd_dq_plain,
+                "flash_bwd_dkv": fa._flash_bwd_dkv_plain,
+                "flash_dbias": fa._flash_dbias_plain}
+
+    def batched(fn, fwd):
+        def call():
+            for i in range(b):
+                rows = slice(i * h, (i + 1) * h)
+                seg_i = (ids[i:i + 1], ids[i:i + 1])
+                lead = ((q3[rows], k3[rows], v3[rows], True, scale) if fwd
+                        else (q3[rows], k3[rows], v3[rows], do3[rows],
+                              lse[rows], delta[rows], True, scale))
+                fn(*lead, bias=bias, segments=seg_i)
+        return call
+
+    ms = {name: event_ms(torch, fn) for name, fn in kernel.items()}
+    plain = {name: event_ms(torch, batched(fn, name == "flash_fwd"), 1)
+             for name, fn in plain_fn.items()}
+    # library yardsticks: the port never calls them
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(s, device="cuda")
+    packed = ((ids[:, None, :, None] == ids[:, None, None, :])
+              & (pos[None, :] <= pos[:, None]))            # (8, 1, s, s)
+    lib = {}
+    lib["causal fwd"] = event_ms(torch, lambda: sdpa(q, k, v,
+                                                     is_causal=True), 10)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o = sdpa(qg, kg, vg, is_causal=True)
+    lib["causal bwd"] = event_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dy, retain_graph=True), 10)
+    lib["packed fwd"] = event_ms(torch, lambda: sdpa(q, k, v,
+                                                     attn_mask=packed), 5)
+    o = sdpa(qg, kg, vg, attn_mask=packed)
+    lib["packed bwd"] = event_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dy, retain_graph=True), 5)
+    del o
+    # B6's yardstick: SDPA's backward with a float mask (the ALiBi row and
+    # the packed causal mask, (8, 12, 4096, 4096) bf16) that takes a grad
+    mask = bias.to(torch.bfloat16).expand(b, h, s, s).masked_fill(
+        ~packed, float("-inf")).requires_grad_()
+    try:
+        o = sdpa(qg, kg, vg, attn_mask=mask)
+        lib["mask grad bwd"] = event_ms(torch, lambda: torch.autograd.grad(
+            o, (qg, kg, vg, mask), dy, retain_graph=True))
+        del o
+    except RuntimeError as exc:
+        lib["mask grad bwd"] = None
+        print(f"SDPA backward with a float mask's grad: no backend returned "
+              f"it ({str(exc).splitlines()[0][:200]})")
+    del qg, kg, vg, mask, packed
+    torch.cuda.empty_cache()
+    pairs = visible_pairs(torch, ids, ids, True, h)
+    causal_pairs = b * h * (s * (s + 1) // 2)
+    tile, rows_b = nbytes_of(q), b * h * s * 4
+    extra = nbytes_of(bias, ids)           # the bias row and the ids
+    work = {  # bytes (inputs read once, outputs written once), operations
+        "flash_fwd": (4 * tile + rows_b + extra, 4 * d * pairs),
+        "flash_bwd_dq": (5 * tile + 2 * rows_b + extra, 6 * d * pairs),
+        "flash_bwd_dkv": (6 * tile + 2 * rows_b + extra, 8 * d * pairs),
+        "flash_dbias": (4 * tile + 2 * rows_b + 2 * nbytes_of(bias)
+                        + nbytes_of(ids), 4 * d * pairs)}
+    library = {"flash_fwd": lib["packed fwd"],
+               "flash_bwd_dq": lib["packed bwd"],
+               "flash_bwd_dkv": lib["packed bwd"],
+               "flash_dbias": lib["mask grad bwd"]}
+    share_seen = pairs / causal_pairs
+    print(f"long-context shape: {pairs} visible pairs ({share_seen:.4f} of "
+          f"the {causal_pairs} causal ones); SDPA causal fwd "
+          f"{lib['causal fwd']:.4f} ms, bwd {lib['causal bwd']:.4f} ms; SDPA "
+          f"with the packed causal mask as a bool (8, 1, 4096, 4096) mask fwd"
+          f" {lib['packed fwd']:.4f} ms, bwd {lib['packed bwd']:.4f} ms; SDPA "
+          f"backward with the float mask's grad "
+          + ("none" if lib["mask grad bwd"] is None
+             else f"{lib['mask grad bwd']:.4f} ms") + f" [{card}]")
+    bounds = {}
+    for kname in kernel:
+        bounds[kname] = bound(*work[kname])
+        print(f"{kname} long-context timing (96 x 4096 x 4096, d64, causal, "
+              f"ids, ALiBi row, bf16): kernel {ms[kname]:.4f} ms, plain "
+              f"(8 batches) {plain[kname]:.4f} ms, library "
+              + ("none" if library[kname] is None
+                 else f"{library[kname]:.4f} ms") + f", bound "
+              f"{bounds[kname][0]:.5f} ms ({bounds[kname][1]}; "
+              f"{work[kname][0] / 1e6:.1f} MB, {work[kname][1] / 1e9:.2f} "
+              f"GFLOP) [{card}]")
+    del out, lse, delta
+    torch.cuda.empty_cache()
+    b_ms, b_by = bounds["flash_dbias"]
+    return {"name": "flash_dbias", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/flash_dbias.cu",
+            "replaces": REPLACES["flash_dbias"], "ms": ms["flash_dbias"],
+            "plain_ms": plain["flash_dbias"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library["flash_dbias"]}, ms
+
+
+def long_trainer(torch, fa, q, k, v, dy, ids, slopes0, use_kernel: bool):
+    """A step of the long-context path: ``flash_attention`` with the ALiBi
+    row of the slopes, the ids, causal; the loss ``sum(out * dy)``;
+    backward; ``FusedAdam`` on the slopes. The kernel path runs the whole
+    batch in one call, the plain path batch by batch (the slopes' grad
+    summed over the batches in order). ``step(start)`` first sets the
+    slopes to ``start`` if given, and returns ``(loss, sum |out * dy|,
+    (dq, dk, dv), the slopes' grad, the slopes after the step)``."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    b, s = q.shape[0], q.shape[2]
+    slopes = slopes0.clone().requires_grad_()
+    opt = FusedAdam(lr=LONG_LR)
+    state = opt.init({"slopes": slopes})
+    parts = [slice(0, b)] if use_kernel else [slice(i, i + 1)
+                                              for i in range(b)]
+
+    def step(start=None):
+        if start is not None:
+            with torch.no_grad():
+                slopes.copy_(start)
+        slopes.grad = None
+        loss, l1, grads = 0.0, 0.0, ([], [], [])
+        for part in parts:
+            leaves = [t[part].detach().requires_grad_() for t in (q, k, v)]
+            out = fa.flash_attention(
+                *leaves, bias=alibi(torch, slopes, s), causal=True,
+                bias_requires_grad=True, segment_ids=ids[part],
+                use_kernel=use_kernel)
+            terms = out.float() * dy[part].float()
+            part_loss = terms.sum()
+            part_loss.backward()
+            loss = loss + part_loss.detach()
+            l1 = l1 + terms.detach().abs().sum()
+            for acc, t in zip(grads, leaves):
+                acc.append(t.grad)
+        g = slopes.grad.detach().clone()
+        opt.step({"slopes": slopes.grad}, state, {"slopes": slopes})
+        return (loss, l1, [torch.cat(x) for x in grads], g,
+                slopes.detach().clone())
+    return step
+
+
+def compare_long(torch, kernel_run, plain_run) -> dict:
+    """The worst, over the steps, of the loss difference over ``sum |out
+    * dy|``, the relative norm of dQ/dK/dV, that of the slopes' grad, and
+    the largest difference of the slopes after a step."""
+    worst = dict.fromkeys(("loss", "dqkv", "grad", "slopes"), 0.0)
+    for (k_loss, _, k_grads, k_g, k_sl), (loss, l1, grads, g, sl) in zip(
+            kernel_run, plain_run):
+        worst["loss"] = max(worst["loss"], float((k_loss - loss).abs() / l1))
+        worst["dqkv"] = max(worst["dqkv"], max(
+            float((a.float() - w.float()).norm() / w.float().norm())
+            for a, w in zip(k_grads, grads)))
+        worst["grad"] = max(worst["grad"],
+                            float((k_g - g).norm() / g.norm()))
+        worst["slopes"] = max(worst["slopes"],
+                              float((k_sl - sl).abs().max()))
+    return worst
+
+
+def long_context(torch, fa, kern, card: str):
+    """The long-context path (see the module docstring): the kernels at
+    its shape, then ``LONG_STEPS`` steps of forward, backward and
+    ``FusedAdam`` on the ALiBi slopes through ``flash_attention`` on the
+    kernels, each launching each of the four flash kernels once; the plain
+    path batch by batch from the kernel path's slopes at each step (bf16:
+    loss, dQ/dK/dV); the same path in fp32, kernel and plain trajectories
+    each on their own (loss, dQ/dK/dV, the slopes' grad and the slopes);
+    then ``bench_flash_long``'s own call (no bias, no ids). Returns the
+    launch counts of the bf16 kernel path's steps and the ``flash_dbias``
+    row."""
+    b, h, s, d = LONG_SHAPE
+    q, k, v, dy, ids, slopes0 = long_inputs(torch)
+    errs = check_long_kernels(torch, fa, kern, card, q, k, v, dy, ids,
+                              slopes0)
+    row, kernel_ms = time_long_kernels(torch, fa, kern, card, q, k, v, dy,
+                                       ids, slopes0)
+    row["max_abs_err"] = errs["flash_dbias"]
+    want = {name: 0 for name in kern.LAUNCHES}
+    want.update(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1, flash_dbias=1)
+
+    def run_kernel_path(tensors, what):
+        step = long_trainer(torch, fa, *tensors, ids, slopes0, True)
+        launches = {name: 0 for name in kern.LAUNCHES}
+        run, times = [], []
+        for i in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            t0 = time.perf_counter()
+            result = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = dict(kern.LAUNCHES)
+            check(counts == want, f"long-context {what} step {i}: launches "
+                                  f"{counts}, want {want}")
+            check(bool(torch.isfinite(result[0])) and all(
+                bool(torch.isfinite(g).all())
+                for g in result[2] + [result[3]]),
+                f"long-context {what} step {i}: loss or grads not finite")
+            for name, n in counts.items():
+                launches[name] += n
+            run.append(result)
+            print(f"long-context {what} step {i}: loss "
+                  f"{float(result[0]):.4f}, slopes' grad "
+                  f"{[round(x, 3) for x in result[3].tolist()]}, "
+                  f"{1e3 * times[-1]:.3f} ms (host clock, synchronized), "
+                  f"launches {counts} [{card}]")
+        return step, run, times, launches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, kernel_run, times, launches = run_kernel_path((q, k, v, dy),
+                                                        "bf16")
+    steady = sorted(times)[len(times) // 2]
+    print(f"long-context: 8 x 4096 tokens, 4 packed documents a row, ALiBi "
+          f"slopes trained by FusedAdam(lr={LONG_LR}): median step "
+          f"{1e3 * steady:.3f} ms, {b * s / steady:.1f} tokens/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"the four kernels' event times sum to "
+          f"{sum(kernel_ms.values()):.3f} ms, "
+          f"{100 * sum(kernel_ms.values()) / (1e3 * steady):.1f}% of the "
+          f"step [{card}]")
+    profile_step(torch, "long-context step (8 x 4096 tokens)", step, card,
+                 iters=3)
+    del step
+
+    # bf16: the plain path from the kernel path's slopes before each step
+    plain = long_trainer(torch, fa, q, k, v, dy, ids, slopes0, False)
+    kern.reset_launches()
+    plain_run = [plain(slopes0 if i == 0 else kernel_run[i - 1][4])
+                 for i in range(LONG_STEPS)]
+    check(sum(kern.LAUNCHES.values()) == 0,
+          "the plain long-context path launched kernels")
+    bf16 = compare_long(torch, kernel_run, plain_run)
+    for what, lim in (("loss", TOL_LONG_LOSS), ("dqkv", TOL_LONG_DQKV)):
+        check(bf16[what] <= lim, f"long-context bf16 kernel vs plain path: "
+                                 f"{what} {bf16[what]:.3g} > {lim}")
+    print(f"long-context bf16: kernel path vs plain path (batch by batch, "
+          f"from the kernel path's slopes at each step) over {LONG_STEPS} "
+          f"steps: |loss diff| / sum |out * dy| {bf16['loss']:.3g} (tol "
+          f"{TOL_LONG_LOSS}); dQ/dK/dV relative norm {bf16['dqkv']:.3g} (tol "
+          f"{TOL_LONG_DQKV}); the slopes' grad relative norm "
+          f"{bf16['grad']:.3g}, not held in bf16 (see LONG_TOL_FP32); "
+          f"plain-path slopes' grads "
+          f"{[[round(x, 3) for x in r[3].tolist()] for r in plain_run]}")
+    del plain, plain_run, kernel_run
+    torch.cuda.empty_cache()
+
+    # fp32: the same path and inputs, each trajectory on its own
+    f32 = tuple(t.float() for t in (q, k, v, dy))
+    _, kernel_run, _, _ = run_kernel_path(f32, "fp32")
+    plain = long_trainer(torch, fa, *f32, ids, slopes0, False)
+    kern.reset_launches()
+    plain_run = [plain() for _ in range(LONG_STEPS)]
+    check(sum(kern.LAUNCHES.values()) == 0,
+          "the plain long-context path launched kernels")
+    fp32 = compare_long(torch, kernel_run, plain_run)
+    for what, lim in LONG_TOL_FP32.items():
+        check(fp32[what] <= lim, f"long-context fp32 kernel vs plain path: "
+                                 f"{what} {fp32[what]:.3g} > {lim}")
+    print(f"long-context fp32: kernel path vs plain path (batch by batch), "
+          f"{LONG_STEPS} steps each on its own: " + ", ".join(
+              f"{what} {fp32[what]:.3g} (tol {lim})"
+              for what, lim in LONG_TOL_FP32.items())
+          + f"; plain-path slopes after each step "
+          f"{[[round(x, 6) for x in r[4].tolist()] for r in plain_run]} "
+          f"[{card}]")
+    del plain, plain_run, kernel_run, f32
+    torch.cuda.empty_cache()
+
+    # bench.py::bench_flash_long's own call: causal, no bias, no ids
+    def bench_step():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True)
+        (out.float() * dy.float()).sum().backward()
+
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    bench_step()
+    torch.cuda.synchronize()
+    counts = dict(kern.LAUNCHES)
+    want.update(flash_dbias=0)
+    check(counts == want, f"bench_flash_long step: launches {counts}, want "
+                          f"{want}")
+    bench_ms = 1e3 * _host_time(torch, bench_step, 3)
+    print(f"flash_attention_seq4096_fwd_bwd_ms {bench_ms:.3f} (bench_flash_"
+          f"long's call: 8 x 12 x 4096, d64, causal, bf16, forward and "
+          f"backward through flash_attention on the kernels; host clock, "
+          f"mean of 3 synchronized steps) [{card}]")
+    profile_step(torch, "bench_flash_long step (fwd + bwd)", bench_step,
+                 card, iters=3)
+    del q, k, v, dy
+    torch.cuda.empty_cache()
+    return launches, row
 
 
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
@@ -1711,16 +2484,21 @@ def main() -> None:
             dkv_row, check_paged(torch, fa, cache_mod, kern, card)]
     rows += check_layer_norm(torch, ln, kern, card)
     check_flash_bias(torch, fa, kern, card)
+    check_flash_segments(torch, fa, kern, card)
+    check_flash_dbias(torch, fa, kern, card)
     serving, dense_times = serve(torch, kern, card)
     paged = serve_paged(torch, kern, card, dense_times)
     training = train(torch, kern, card)
     bert = train_bert(torch, kern, card)
+    long, dbias_row = long_context(torch, fa, kern, card)
+    rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, paged serving "
           f"{paged}, training ({TRAIN_STEPS} steps, then one with dropout) "
-          f"{training}, BERT training ({BERT_STEPS} steps) {bert}")
+          f"{training}, BERT training ({BERT_STEPS} steps) {bert}, "
+          f"long-context training ({LONG_STEPS} steps) {long}")
     for row in rows:
-        row["launches"] = sum(path[row["name"]]
-                              for path in (serving, paged, training, bert))
+        row["launches"] = sum(path[row["name"]] for path in
+                              (serving, paged, training, bert, long))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

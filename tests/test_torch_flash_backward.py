@@ -8,9 +8,10 @@
 - the plain backward versions (``_flash_bwd_dq_plain``,
   ``_flash_bwd_dkv_plain``, which mirror the CUDA kernels) against
   autograd of the plain forward, including zero grads on fully masked rows;
-- the contract: a dropout rate without a seed raises, a bias or segment ids
-  on the kernel path raise, a bias gets zero grad unless
-  ``bias_requires_grad``.
+- the contract: a dropout rate without a seed raises, a learned bias or
+  segment ids with ``use_kernel=True`` on CPU tensors raise as every kernel
+  request there does and run the plain twins with ``use_kernel=False``, a
+  bias gets zero grad unless ``bias_requires_grad``.
 
 Inputs come from numpy with a seed. Tolerances: fp32 1e-5 absolute on
 values and grads of magnitude ~1 (the two sides sum in different orders).
@@ -135,13 +136,30 @@ def test_dropout_rate_without_seed_raises():
 
 
 def test_bias_and_segments_raise_on_the_kernel_path():
-    q = torch.zeros(1, 1, 8, 64)
-    with pytest.raises(NotImplementedError, match="dbias"):
-        pfa.flash_attention(q, q, q, bias=torch.zeros(1, 1, 1, 8),
-                            use_kernel=True, bias_requires_grad=True)
-    with pytest.raises(NotImplementedError, match="segment"):
-        pfa.flash_attention(q, q, q, segment_ids=torch.zeros(1, 8),
-                            use_kernel=True)
+    """A learned bias and segment ids take the kernels like any other
+    call: ``use_kernel=True`` on CPU tensors raises ``use_kernel_for``'s
+    error, and ``use_kernel=False`` runs the plain twins, which match
+    ``mha_reference`` (values and the bias's gradient)."""
+    q, k, v, w = (torch.from_numpy(x) for x in _inputs(6, 1, 2, 8, 8, 64))
+    bias = torch.from_numpy(np.random.RandomState(7).randn(
+        1, 2, 1, 8).astype(np.float32))
+    ids = torch.tensor([[0, 0, 0, 1, 1, 2, 2, 2]])
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        pfa.flash_attention(q, k, v, bias=bias, use_kernel=True,
+                            bias_requires_grad=True)
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        pfa.flash_attention(q, k, v, segment_ids=ids, use_kernel=True)
+    tb = bias.clone().requires_grad_()
+    out = pfa.flash_attention(q, k, v, bias=tb, use_kernel=False,
+                              bias_requires_grad=True, segment_ids=ids,
+                              causal=True)
+    rb = bias.clone().requires_grad_()
+    ref = pfa.mha_reference(q, k, v, bias=rb, segment_ids=ids, causal=True)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               atol=TOL)
+    (g,) = torch.autograd.grad(out, tb, w)
+    (rg,) = torch.autograd.grad(ref, rb, w)
+    np.testing.assert_allclose(g.numpy(), rg.numpy(), atol=TOL)
 
 
 @pytest.mark.parametrize("bias_requires_grad", [False, True])

@@ -119,8 +119,9 @@ def test_bias_normalization_follows_the_reference():
 
 
 def test_learned_bias_keeps_the_reference_route_on_cpu():
-    """``bias_requires_grad=True`` runs ``mha_reference`` on the CPU (its
-    gradient waits for the dbias kernel on the card) and matches JAX's."""
+    """``bias_requires_grad=True`` on the CPU runs the plain twins, the
+    bias's gradient from ``_flash_dbias_plain``, and matches the gradient
+    of the JAX package's reference route (``use_pallas=False``)."""
     rng = np.random.RandomState(9)
     q, k, v, w = (rng.randn(1, 2, 16, 16).astype(np.float32)
                   for _ in range(4))

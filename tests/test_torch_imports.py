@@ -134,7 +134,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             q[:, :1], pool, pool, torch.zeros(1, 3, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), None, None, 0.125)
     assert _kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0, "decode_attention": 0,
+                                 "flash_bwd_dkv": 0, "flash_dbias": 0,
+                                 "decode_attention": 0,
                                  "paged_decode_attention": 0, "ln_fwd": 0,
                                  "ln_bwd": 0}
 
@@ -148,16 +149,20 @@ def test_source_key_tracks_sources():
 def test_dropout_raises_until_training_slice():
     """The training contract that replaced the inference-only raise:
     attention dropout runs once it has a seed, a rate without one raises,
-    and a bias on the kernel path raises."""
+    and a learned bias asked of the kernels on CPU tensors raises as any
+    kernel request there does, while the plain twins run it."""
     from apex_tpu_torch.ops import flash_attention
     q = torch.zeros(1, 1, 8, 16)
     with pytest.raises(ValueError, match="requires dropout_seed"):
         flash_attention(q, q, q, dropout_rate=0.1)
     out = flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=0)
     assert out.shape == q.shape
-    with pytest.raises(NotImplementedError, match="bias"):
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8),
                         use_kernel=True, bias_requires_grad=True)
+    out = flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8),
+                          use_kernel=False, bias_requires_grad=True)
+    assert out.shape == q.shape
 
 
 def test_tp_layers_default_to_the_card_and_raise_without_one():
