@@ -26,6 +26,16 @@ packed-sequence segment ids, int32 ``(b, sq)`` and ``(b, sk)``, one row
 per batch of ``n / b`` heads. ``flash_dbias`` sums a learned bias's score
 cotangent over its broadcast dims.
 
+``flash_fwd`` and ``flash_bwd_dkv`` have two bodies, chosen by the
+inputs' dtype: bf16 runs on the tensor cores (``mma.sync`` tiles staged by
+``cp.async``, ``csrc/mma.cuh``; the inputs must be 16-byte aligned), and
+skips the (q tile, key tile) pairs whose segment ids never meet, from the
+per-64-position id ranges :func:`seg_tile_ranges` computes; fp32 runs the
+exact SIMT bodies. The other flash kernels run one body for both. The bf16
+``flash_bwd_dkv`` also takes the row norms of q and do, which bound its
+tensor-core sums' distance from the plain version's fp32 sums
+(``csrc/flash_bwd.cu``, kFixKappa).
+
 ``ln_fwd`` and ``ln_bwd`` (``csrc/layer_norm.cu``) are the LayerNorm and
 RMSNorm kernels; :mod:`apex_tpu_torch.normalization.fused_layer_norm`
 wraps them in its ``torch.autograd.Function``.
@@ -47,7 +57,8 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias", "decode_attention",
-           "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES"]
+           "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES",
+           "ID_TILE", "seg_tile_ranges", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -55,14 +66,18 @@ _BUILD = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu",
            "decode_attention.cu", "paged_decode_attention.cu",
            "layer_norm.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "mma.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v writes each kernel's registers, shared memory and spills into
+# the build log (build_log), without changing the code
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # head dims of the flash kernels, and of the two decode kernels
 _HEAD_DIMS = (32, 64, 128)
+# positions a segment-id range covers (csrc/mma.cuh::kIdTile)
+ID_TILE = 64
 _DECODE_HEAD_DIMS = (64, 128)
 # csrc/layer_norm.cu: widths taken
 _LN_MAX_H = 65536
@@ -121,6 +136,8 @@ def _compile(lib_path: Path) -> None:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {src}\n{log}" for src, log in failed))
+    lib_path.with_suffix(".log").write_text("".join(
+        f"--- {src}\n{log}" for src, log in zip(SOURCES, logs)))
     tmp = lib_path.with_suffix(f".{tag}.tmp")
     link = subprocess.run(
         [nvcc, *_ARCH, "-shared", *map(str, objs), "-o", str(tmp)],
@@ -138,14 +155,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     drop = [I, U, I, F]  # on, seed, thresh, inv_keep
     bias = [P, I, I, I, I]  # pointer, heads, strides of batch, head, row
     seg = [P, P, I]  # q ids, kv ids, heads per id row
+    rng = [P, P]  # the ids' per-tile ranges, q and kv
     lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + seg
-                                   + drop + [P])
+                                   + rng + drop + [P])
     lib.apex_flash_fwd.restype = I
     lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
                                       + drop + [P])
     lib.apex_flash_bwd_dq.restype = I
+    # ... + the q and do row norms (bf16 only)
     lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias
-                                       + seg + drop + [P])
+                                       + seg + rng + [P, P] + drop + [P])
     lib.apex_flash_bwd_dkv.restype = I
     # ... + kept slices, batch-heads each reduces, their two strides, and
     # whether the bias has full query rows
@@ -178,6 +197,14 @@ def build() -> Tuple[ctypes.CDLL, float]:
         seconds = time.perf_counter() - t0
         _LIB = _bind(ctypes.CDLL(str(lib_path)))
         return _LIB, seconds
+
+
+def build_log() -> str:
+    """The compiler's output of the current build (ptxas's per-kernel
+    registers, shared memory and spills), or "" if it was not built
+    here."""
+    path = _BUILD / f"libapex_tpu_torch_{_source_key()}.log"
+    return path.read_text() if path.exists() else ""
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -278,6 +305,41 @@ def _seg_args(name: str, segments, n: int, sq: int, sk: int) -> Tuple:
     return q_ids.data_ptr(), kv_ids.data_ptr(), n // b
 
 
+def seg_tile_ranges(ids: torch.Tensor, tile: int = ID_TILE) -> torch.Tensor:
+    """``(b, ceil(s / tile), 2)`` int32: the (min, max) segment id of each
+    ``tile``-position tile of ``ids (b, s)``, the last tile padded with its
+    row's last id (positions past ``s`` are masked anyway, so the range is
+    exact). A (q tile, key tile) pair whose ranges are disjoint holds no
+    pair of equal ids: the tensor-core bodies skip it
+    (``csrc/mma.cuh::tiles_meet``; the predicate is
+    :func:`apex_tpu_torch.ops.flash_attention._tiles_meet`)."""
+    b, s = ids.shape
+    pad = -s % tile
+    if pad:
+        ids = torch.cat([ids, ids[:, -1:].expand(b, pad)], dim=1)
+    tiles = ids.view(b, -1, tile)
+    return torch.stack([tiles.amin(dim=-1), tiles.amax(dim=-1)],
+                       dim=-1).to(torch.int32).contiguous()
+
+
+def _rng_args(segments) -> Tuple:
+    """The ids' tile ranges as the kernels take them (null pointers without
+    ids), with the tensors that hold them alive until the launch."""
+    if segments is None:
+        return (None, None), ()
+    held = tuple(seg_tile_ranges(ids) for ids in segments)
+    return tuple(r.data_ptr() for r in held), held
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    """The tensor-core bodies stage bf16 rows with 16-byte ``cp.async``
+    copies: their inputs must start 16-byte aligned (rows of d 32, 64 or
+    128 bf16 then are). Raises otherwise; nothing falls back."""
+    for t in tensors:
+        _require(t.dtype != torch.bfloat16 or t.data_ptr() % 16 == 0,
+                 f"{name}: bf16 inputs must be 16-byte aligned")
+
+
 def _extras(bias, segments) -> Tuple:
     """The optional tensors a flash kernel reads, for the common checks."""
     return ((() if bias is None else (bias,))
@@ -299,10 +361,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_common("flash_fwd", (q, k, v, *_extras(bias, segments)),
                   q.device)
     n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
+    _check_aligned("flash_fwd", q, k, v)
     bias_args = _bias_args("flash_fwd", bias, n, sq, sk)
     seg_args = _seg_args("flash_fwd", segments, n, sq, sk)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
+    rng_args, _held = _rng_args(segments)
     out = torch.empty_like(q)
     lse = torch.empty((n, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -310,7 +374,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal),
-            float(scale), *bias_args, *seg_args, *drop, stream)
+            float(scale), *bias_args, *seg_args, *rng_args, *drop, stream)
     _check_launch("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -371,8 +435,15 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_bwd_dq`."""
     n, sq, sk, d, bias_args, seg_args = _check_bwd(
         "flash_bwd_dkv", q, k, v, do, lse, delta, bias, segments)
+    _check_aligned("flash_bwd_dkv", q, k, v, do)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
+    rng_args, _held = _rng_args(segments)
+    # the tensor-core body bounds its sums' error by the rows' norms
+    # (csrc/flash_bwd.cu, kFixKappa)
+    norms = ((torch.linalg.vector_norm(q, dim=-1, dtype=torch.float32),
+              torch.linalg.vector_norm(do, dim=-1, dtype=torch.float32))
+             if q.dtype == torch.bfloat16 else ())
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -381,7 +452,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
-            *bias_args, *seg_args, *drop, stream)
+            *bias_args, *seg_args, *rng_args,
+            *([t.data_ptr() for t in norms] or [None, None]), *drop, stream)
     _check_launch("flash_bwd_dkv", err)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv

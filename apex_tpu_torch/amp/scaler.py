@@ -78,9 +78,19 @@ def _scale(state: LossScaleState, tree: Any) -> Any:
 
 def _unscale(state: LossScaleState, grads: Any,
              cast_to: torch.dtype = torch.float32) -> Any:
+    """The reference's ``unscale``: each float leaf rounded to ``cast_to``,
+    then multiplied by the fp32 ``1 / scale`` in their promoted dtype, as
+    JAX promotes ``g.astype(cast_to) * inv`` (a bf16 or fp16 ``cast_to``
+    gives fp32 grads). Non-float leaves pass through untouched."""
     inv = 1.0 / state.loss_scale
-    return tree_map(lambda g: g.to(cast_to) * inv if _is_float(g) else g,
-                    grads)
+
+    def one(g):
+        if not _is_float(g):
+            return g
+        wide = torch.promote_types(cast_to, inv.dtype)
+        return g.to(cast_to).to(wide) * inv.to(wide)
+
+    return tree_map(one, grads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +113,10 @@ class DynamicLossScale:
 
     def unscale(self, state: LossScaleState, grads: Any,
                 cast_to: torch.dtype = torch.float32) -> Any:
-        """Grads widened to ``cast_to`` *before* the multiply by
-        ``1 / scale`` (the master-grad copy of amp O2)."""
+        """Grads cast to ``cast_to`` *before* the multiply by ``1 /
+        scale`` (the master-grad copy of amp O2). The product is taken in
+        ``promote_types(cast_to, fp32)``, as the reference's is: a bf16 or
+        fp16 ``cast_to`` rounds the grads there and returns them in fp32."""
         return _unscale(state, grads, cast_to)
 
     def update(self, state: LossScaleState,

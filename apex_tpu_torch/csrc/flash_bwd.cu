@@ -18,30 +18,62 @@
 // d in {32, 64, 128}. The dropout keep mask is regenerated from the counter
 // hash of common.cuh, the same bits as the forward's. Like the TPU kernels,
 // ds is rounded to k's dtype before the dS K product, and p_eff to do's
-// dtype and ds to q's dtype before the dkv products.
+// dtype and ds to q's dtype before the dkv products; dk's scale is applied
+// after its fp32 sum, as the reference's.
 //
 // What bounds them on the H100: at the training shape (n = 96, sq = sk =
 // 1024, d = 64, causal, bf16) dq does 3 and dkv 4 products of the causal
 // half, ~19 and ~26 GFLOP, whose floor on the tensor cores (~20 and ~26 us)
-// is above the ~10-15 us of HBM traffic. This version runs its products on
-// the fp32 pipes with one operand from shared memory per multiply-add, so
-// shared-memory bandwidth bounds it, some two orders of magnitude above the
-// floor.
+// is above the ~10-15 us of HBM traffic.
 //
-// What the design does about it: the TPU kernels walk one sequential grid
-// axis with an fp32 accumulator tile in VMEM scratch. Here a loop inside the
-// block takes that axis, and the accumulators live in registers:
+// flash_bwd_dkv, bf16: tensor cores (flash_bwd_dkv_mma_kernel). One block
+// of 4 warps per (batch-head, 64-key tile), each warp owning 16 keys. K and
+// V are staged once; the 64-row q and do tiles, with their lse, delta,
+// row norms and (with ids) query ids, stream through a 2-stage cp.async
+// ring, starting at the first q tile that can see the key tile. The work
+// is transposed, as FlashAttention-2's dkv: S^T = K Q^T and dP^T = V dO^T
+// are m16n8k16 products with K and V as the A operands, so P_eff^T and
+// dS^T come out in accumulator fragments already laid out as the A
+// operands of dV += P_eff^T dO and dK += dS^T Q (do and q as B operands
+// through ldmatrix.trans); lse and delta are per column of the transposed
+// tile. The dK and dV accumulators (16 keys x d fp32 a warp) stay in
+// registers for the whole loop. At d 128 a key group has two warps, each
+// holding half of dK's and dV's columns, and each takes a q tile in 16-row
+// quarters, so the transposed scores' registers fit beside them.
+// A (q tile, key tile) pair whose segment-id ranges are disjoint
+// (mma.cuh::tiles_meet) is never loaded: it would add exact zeros.
+// Rounding where the plain version rounds: P_eff and dS are rounded to
+// bf16 before their products, and a flipped rounding of a large
+// probability moves a dK or dV element by up to 2^-7 p |do|. The tensor
+// cores' S and dP sums (each 16-wide k chunk into a fresh accumulator, so
+// the chunks' truncation does not pile up) come within ~2^-23 |q| |k| of
+// the plain version's cuBLAS fp32 sums, which are a sequential fmaf chain
+// over d; a score whose p exceeds kFixP and whose P_eff or dS lies within
+// that bound's reach of a bf16 rounding point takes its sums again by that
+// chain from the staged tiles (kFixP: a few scores in a thousand). What
+// holds it above its floor: mma.sync (not wgmma); the softmax recompute,
+// masks, dropout hash and rounding test of each score on the fp32 pipes;
+// the re-taken sums; the causal diagonal's partial tiles. No atomics and a
+// fixed loop order: a second launch gives the same bits.
+//
+// flash_bwd_dq (both dtypes) and flash_bwd_dkv in fp32: the SIMT bodies,
+// exact fp32 products (what the fp32 checks' limits need), run on the fp32
+// pipes with one operand from shared memory per multiply-add, so
+// shared-memory bandwidth bounds them, some two orders of magnitude above
+// the floor. The TPU kernels walk one sequential grid axis with an fp32
+// accumulator tile in VMEM scratch. Here a loop inside the block takes
+// that axis, and the accumulators live in registers:
 // - flash_bwd_dq: one block per (bh, 64-row q tile), 8 warps of 8
 //   interleaved rows; the q and do tiles are staged once, each 32-key k/v
 //   tile in turn (rows padded to d + 1 floats, so lane j's reads of key j
 //   hit 32 distinct banks). For a row, lane j computes s and dp of key j;
 //   then lanes own output dims and the tile's ds values are broadcast by
 //   shuffle. The loop stops at the causal diagonal (offset sk - sq).
-// - flash_bwd_dkv: one block per (bh, 64-key kv tile), 8 warps of 8
-//   interleaved keys; k and v are staged once, each 32-row q/do tile in turn
-//   with its lse and delta. For a key, lane i computes s and dp of row i,
-//   then lanes own output dims of dk and dv. The loop starts at the first q
-//   tile that can see the kv tile.
+// - flash_bwd_dkv (fp32): one block per (bh, 64-key kv tile), 8 warps of 8
+//   interleaved keys; k and v are staged once, each 32-row q/do tile in
+//   turn with its lse and delta. For a key, lane i computes s and dp of
+//   row i, then lanes own output dims of dk and dv. The loop starts at the
+//   first q tile that can see the kv tile.
 // dq and dkv stay two kernels, as on the TPU: the fused FlashAttention-2 form
 // would add dq with atomics, in an order that changes from run to run. Each
 // k/v byte is read once per q tile and each q/do byte once per kv tile.
@@ -52,11 +84,12 @@
 // Segment ids follow the same split: the streamed tile's ids go to shared
 // memory beside it (key ids in dq, query ids in dkv) and the owned rows'
 // or keys' ids stay in registers; without ids (kSeg false) nothing more is
-// read or compared per score.
-// Tensor cores (mma.sync / wgmma) and TMA staging are left for a later,
-// faster version.
+// read or compared per score. The SIMT bodies skip no tile for its ids.
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace apex_port {
 namespace {
@@ -327,6 +360,467 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_bwd_dkv's bf16 tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBN = 64;  // keys a block
+constexpr int kBM = 64;  // q rows a streamed tile
+static_assert(kBM == mma::kIdTile && kBN == mma::kIdTile,
+              "the id ranges are per 64-position tile");
+
+// Warps a block: four own 16 keys each, and at d 128 each key group has
+// two warps, each holding half of dK's and dV's columns (two 16 x 128 fp32
+// accumulators would not fit a warp's registers): both compute the
+// group's transposed scores, each its half of the two products after them
+template <int D>
+__host__ __device__ constexpr int d_split() { return D > 64 ? 2 : 1; }
+
+template <int D>
+__host__ __device__ constexpr int dkv_threads() { return 128 * d_split<D>(); }
+
+// K and V, two stages of the q and do tiles (padded rows), and two stages
+// of the q tile's lse, delta, query ids and q and do row norms
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(bf16) * (2 * kBN + 4 * kBM) * mma::ld<D>() +
+         sizeof(float) * 2 * 5 * kBM;
+}
+
+// Exact rounding of P_eff and dS. The plain version's S = q k^T and dP =
+// do v^T are cuBLAS fp32 sums, bit for bit a sequential fmaf chain over d
+// from 0; the tensor cores' sums differ from them by about 2^-23 |q| |k|.
+// That moves a probability across a bf16 rounding point now and then, and
+// one flipped P_eff or dS of a large probability moves a dK or dV element
+// by up to 2^-7 p |do| (|q|), several times the checks' limit at the
+// long-context shape. So a score whose p exceeds kFixP, and whose P_eff or
+// dS lies closer to a bf16 rounding point than the sums' error bound
+// (kFixKappa |q| |k|) carried through each fp32 step (kFixU of each step's
+// value, and __expf's error) allows, has its two sums taken again by that
+// fmaf chain from the staged tiles, and its chain again with expf. Flips
+// of smaller probabilities move an element by under 2^-13 |do|.
+constexpr float kFixP = 1.f / 64.f;
+constexpr float kFixKappa = 1.f / (1 << 20);
+constexpr float kFixU = 1.f / (1 << 22);
+// |x - lse| < 5.55 where p > kFixP, plus __expf's error (under 2^-20 of
+// its value, kFixU of its argument's magnitude included), in units of
+// kFixU
+constexpr float kXPad = 5.55f + 4.f;
+
+// a score's chain after its two sums, each fp32 op rounded on its own (no
+// contraction into an fma) where the plain version rounds:
+// p = exp(s * scale + bias - lse), p_eff = keep * p * inv_keep,
+// ds = p * (keep * dp * inv_keep - delta); kExact takes expf, as the plain
+// version, else __expf
+struct Score {
+  float p, p_eff, ds;
+  float x_mag;  // |s * scale| + |s * scale + bias|
+  float t_mag;  // |dp_eff| + |dp_eff - delta|
+};
+
+template <bool kExact>
+__device__ __forceinline__ Score score_chain(float s, float dp, float scale,
+                                             bool has_bias, float b,
+                                             float lse, float delta,
+                                             const Dropout& dr, bool keep) {
+  Score r;
+  const float x1 = __fmul_rn(s, scale);
+  const float x2 = has_bias ? __fadd_rn(x1, b) : x1;
+  // a fully masked row has lse = +inf: exp(s - inf) == 0
+  const float x3 = __fsub_rn(x2, lse);
+  r.p = kExact ? expf(x3) : __expf(x3);
+  r.p_eff = r.p;
+  float dpe = dp;
+  if (dr.on) {
+    r.p_eff = keep ? __fmul_rn(r.p, dr.inv_keep) : 0.f;
+    dpe = keep ? __fmul_rn(dp, dr.inv_keep) : 0.f;
+  }
+  const float t = __fsub_rn(dpe, delta);
+  r.ds = __fmul_rn(r.p, t);
+  r.x_mag = fabsf(x1) + fabsf(x2);
+  r.t_mag = fabsf(dpe) + fabsf(t);
+  return r;
+}
+
+// whether y lies within r of the point halfway between its two nearest
+// bf16 values, where round to nearest turns
+__device__ __forceinline__ bool near_bf16_midpoint(float y, float r) {
+  const float mid =
+      __int_as_float((__float_as_int(y) & 0xffff0000) | 0x8000);
+  return fabsf(y - mid) <= r;
+}
+
+// the plain version's sum of a (row, key) score: fmaf over d from 0, on
+// two padded bf16 rows of shared tiles, 16 bytes of each at a time
+template <int D>
+__device__ __forceinline__ float fma_chain(const bf16* a, const bf16* b) {
+  float acc = 0.f;
+  for (int c = 0; c < D; c += 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a + c);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + c);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 pair: the low half first, each widened by a 16-bit shift
+      acc = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16),
+                 acc);
+      acc = fmaf(__uint_as_float(xs[i] & 0xffff0000u),
+                 __uint_as_float(ys[i] & 0xffff0000u), acc);
+    }
+  }
+  return acc;
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(dkv_threads<D>())
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ q_norm,
+                         const float* __restrict__ do_norm,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
+                         int sk, int causal, float scale, ScoreBias bias,
+                         Segments seg, const int* __restrict__ q_rng,
+                         const int* __restrict__ kv_rng, Dropout dr) {
+  constexpr int kThreads = dkv_threads<D>();
+  constexpr int kLd = mma::ld<D>();
+  constexpr int kKC = D / 16;  // k chunks of K Q^T and V dO^T
+  constexpr int kDW = D / d_split<D>();  // dK and dV columns a warp holds
+  constexpr int kDT = kDW / 8;  // their 8-wide n tiles
+  // q rows a warp takes at once: at d 128 a quarter of the tile, so the
+  // transposed scores' registers fit beside the accumulators
+  constexpr int kRS = D > 64 ? 16 : 64;
+  constexpr int kRT = kRS / 8;  // 8-wide n tiles of the transposed scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // kBN x kLd
+  bf16* vs = ks + kBN * kLd;                     // kBN x kLd
+  bf16* qs = vs + kBN * kLd;                     // 2 stages of kBM x kLd
+  bf16* dos = qs + 2 * kBM * kLd;                // 2 stages of kBM x kLd
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kBM * kLd);  // 2 x kBM
+  float* delta_s = lse_s + 2 * kBM;                              // 2 x kBM
+  int* qid_s = reinterpret_cast<int*>(delta_s + 2 * kBM);        // 2 x kBM
+  float* qn_s = reinterpret_cast<float*>(qid_s + 2 * kBM);       // 2 x kBM
+  float* dn_s = qn_s + 2 * kBM;                                  // 2 x kBM
+
+  const int bh = blockIdx.x;
+  const int kv_tile = blockIdx.y;  // the first key tiles see the most rows
+  const int c0 = kv_tile * kBN;
+  const int warp = threadIdx.x / 32 % 4;  // the warp's key group
+  const int d0 = threadIdx.x / 128 * kDW;  // its first dK/dV column
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int w0 = c0 + warp * 16;  // the warp's first key
+  const int keys[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const int offset = sk - sq;
+  const size_t qbase = static_cast<size_t>(bh) * sq;
+  const size_t kbase = static_cast<size_t>(bh) * sk;
+  const bf16* qb = q + qbase * D;
+  const bf16* dob = dout + qbase * D;
+  const uint32_t bh_key = dropout_bh_key(dr, bh);
+
+  const int n_tiles = (sq + kBM - 1) / kBM;
+  // rows before c0 - offset see none of this tile's keys
+  const int first = causal ? max(0, c0 - offset) / kBM : 0;
+  const int* qr = nullptr;
+  const int* kr = nullptr;
+  const int* q_ids = nullptr;
+  if (kSeg) {
+    const size_t b = bh / seg.heads;
+    qr = q_rng + b * n_tiles * 2;
+    kr = kv_rng + b * ((sk + kBN - 1) / kBN) * 2;
+    q_ids = seg_row(seg.q, seg.heads, bh, sq);
+  }
+  // the first q tile at or after i whose ids can meet the key tile's
+  auto next_tile = [&](int i) {
+    if (kSeg)
+      while (i < n_tiles && !mma::tiles_meet(qr, i, kr, kv_tile)) ++i;
+    return i;
+  };
+  auto stage_q = [&](int i, int st) {
+    mma::stage_tile<D, kThreads>(qs + st * kBM * kLd, qb, i * kBM, sq);
+    mma::stage_tile<D, kThreads>(dos + st * kBM * kLd, dob, i * kBM, sq);
+    if (threadIdx.x < kBM) {
+      // rows past sq read as 0: the masks zero their scores
+      const int row = i * kBM + threadIdx.x;
+      const bool in = row < sq;
+      const size_t g = qbase + (in ? row : 0);
+      mma::cp_async_4(lse_s + st * kBM + threadIdx.x, lse + g, in);
+      mma::cp_async_4(delta_s + st * kBM + threadIdx.x, delta + g, in);
+      mma::cp_async_4(qn_s + st * kBM + threadIdx.x, q_norm + g, in);
+      mma::cp_async_4(dn_s + st * kBM + threadIdx.x, do_norm + g, in);
+      if (kSeg)
+        mma::cp_async_4(qid_s + st * kBM + threadIdx.x,
+                        q_ids + (in ? row : 0), in);
+    }
+  };
+
+  mma::stage_tile<D, kThreads>(ks, k + kbase * D, c0, sk);
+  mma::stage_tile<D, kThreads>(vs, v + kbase * D, c0, sk);
+  mma::cp_async_commit();
+  int i = next_tile(first);
+  if (i < n_tiles) stage_q(i, 0);
+  mma::cp_async_commit();
+
+  int kid[2] = {0, 0};       // the keys' ids (kSeg)
+  float kbias[2] = {0.f, 0.f};  // a bias without query rows, per key
+  const float* bias0 = bias.p != nullptr ? bias_row(bias, bh, 0) : nullptr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= sk) continue;
+    if (kSeg) kid[r] = seg_row(seg.kv, seg.heads, bh, sk)[keys[r]];
+    if (bias0 != nullptr && bias.sr == 0) kbias[r] = bias0[keys[r]];
+  }
+  mma::cp_async_wait<1>();  // K and V
+  __syncthreads();
+  float kn[2], vn[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bf16* kr_ = ks + (warp * 16 + (lane >> 2) + 8 * r) * kLd;
+    const bf16* vr_ = vs + (warp * 16 + (lane >> 2) + 8 * r) * kLd;
+    float k2 = 0.f, v2 = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D; c += 2) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kr_ + c));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vr_ + c));
+      k2 = fmaf(x.x, x.x, fmaf(x.y, x.y, k2));
+      v2 = fmaf(y.x, y.x, fmaf(y.y, y.y, v2));
+    }
+    // the bound on the S (times scale) and dP_eff sums' error, per unit
+    // norm of the q or do row (kFixKappa)
+    kn[r] = kFixKappa * scale * sqrtf(k2);
+    vn[r] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) * sqrtf(v2);
+  }
+  float dk_acc[kDT][4], dv_acc[kDT][4];
+#pragma unroll
+  for (int dn = 0; dn < kDT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  int st = 0;
+  while (i < n_tiles) {
+    const int in = next_tile(i + 1);
+    if (in < n_tiles) stage_q(in, st ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // K, V and q tile i
+    __syncthreads();
+    const int i0 = i * kBM;
+    const bf16* qt = qs + st * kBM * kLd;
+    const bf16* dot = dos + st * kBM * kLd;
+    const float* ls = lse_s + st * kBM;
+    const float* dl = delta_s + st * kBM;
+    const int* qi = qid_s + st * kBM;
+    const float* qn = qn_s + st * kBM;
+    const float* dn = dn_s + st * kBM;
+#pragma unroll
+    for (int r0 = 0; r0 < kBM; r0 += kRS) {
+      // uniform across the warp: keys past sk, or rows that see none of
+      // the warp's keys
+      const bool live =
+          w0 < sk && !(causal && i0 + r0 + kRS - 1 + offset < w0);
+      if (!live) continue;
+      float s[kRT][4], dp[kRT][4];
+#pragma unroll
+      for (int nt = 0; nt < kRT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys. Each
+      // 16-wide k chunk goes into a fresh accumulator, added to the sum
+      // with a rounded fp32 add: the tensor cores truncate a product's sum
+      // into its accumulator, and across the chunks that bias moves p and
+      // dp far enough from the plain version's fp32 sums to flip their
+      // bf16 roundings (P_eff, dS) several times as often
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        uint32_t ak[4], av[4];
+        mma::ldmatrix_x4(ak, mma::frag_a_ptr<D>(ks, warp * 16, kc * 16,
+                                                lane));
+        mma::ldmatrix_x4(av, mma::frag_a_ptr<D>(vs, warp * 16, kc * 16,
+                                                lane));
+#pragma unroll
+        for (int np = 0; np < kRT / 2; ++np) {
+          uint32_t b[4];
+          float c[4][4] = {};
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(qt, r0 + np * 16,
+                                                  kc * 16, lane));
+          mma::mma_16816(c[0], ak, b[0], b[1]);
+          mma::mma_16816(c[1], ak, b[2], b[3]);
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(dot, r0 + np * 16,
+                                                  kc * 16, lane));
+          mma::mma_16816(c[2], av, b[0], b[1]);
+          mma::mma_16816(c[3], av, b[2], b[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[2 * np][e] += c[0][e];
+            s[2 * np + 1][e] += c[1][e];
+            dp[2 * np][e] += c[2][e];
+            dp[2 * np + 1][e] += c[3][e];
+          }
+        }
+      }
+      // masks are needed on the sq and sk edges, on the diagonal and with
+      // ids
+      const bool edge = i0 + r0 + kRS > sq || w0 + 16 > sk ||
+                        (causal && w0 + 15 > i0 + r0 + offset) || kSeg;
+      // element (nt, e): key keys[e / 2], q row i0 + r0 + 8 nt + 2 t + e % 2
+      // bits of the elements whose S sum is taken again (fix), and of those
+      // whose dP sum is too (fix_dp)
+      uint32_t fix = 0, fix_dp = 0;
+#pragma unroll
+      for (int nt = 0; nt < kRT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = keys[e >> 1];
+          const int rl = r0 + nt * 8 + 2 * t + (e & 1);
+          const int row = i0 + rl;
+          bool valid = true;
+          if (edge) {
+            valid = row < sq && key < sk && (!causal || key <= row + offset);
+            if (kSeg) valid = valid && kid[e >> 1] == qi[rl];
+          }
+          float p_eff = 0.f, ds = 0.f;
+          if (valid) {
+            const bool keep =
+                !dr.on || dropout_keep(bh_key, row, key, dr.thresh);
+            const float bv =
+                bias0 == nullptr ? 0.f
+                : bias.sr == 0   ? kbias[e >> 1]
+                                 : bias0[static_cast<size_t>(row) * bias.sr +
+                                         key];
+            const Score sc = score_chain<false>(
+                s[nt][e], dp[nt][e], scale, bias0 != nullptr, bv, ls[rl],
+                dl[rl], dr, keep);
+            p_eff = sc.p_eff;
+            ds = sc.ds;
+            if (sc.p > kFixP) {
+              const float dx =
+                  qn[rl] * kn[e >> 1] + kFixU * (sc.x_mag + kXPad);
+              const float dt = dn[rl] * vn[e >> 1] + kFixU * sc.t_mag;
+              const uint32_t bit = 1u << (nt * 4 + e);
+              // dS uncertain: both sums; else P_eff uncertain: S alone (dS
+              // then rounds to the plain version's bf16 value already)
+              if (near_bf16_midpoint(ds, fabsf(ds) * (dx + kFixU) +
+                                             sc.p * dt))
+                fix_dp |= bit;
+              if ((fix_dp & bit) ||
+                  near_bf16_midpoint(p_eff, p_eff * (dx + kFixU)))
+                fix |= bit;
+            }
+          }
+          s[nt][e] = p_eff;
+          dp[nt][e] = ds;
+        }
+      }
+      // the rare scores near a bf16 rounding point: the sums and the chain
+      // as the plain version takes them (see kFixP), one at a time
+      for (uint32_t f = fix; f != 0; f &= f - 1) {
+        const int pos = __ffs(f) - 1;
+        const int hi = pos >> 1 & 1;  // key g + 8
+        const int key = hi ? keys[1] : keys[0];
+        const int kl = warp * 16 + (lane >> 2) + 8 * hi;
+        const int rl = r0 + (pos >> 2) * 8 + 2 * t + (pos & 1);
+        const int row = i0 + rl;
+        const bool keep =
+            !dr.on || dropout_keep(bh_key, row, key, dr.thresh);
+        const float bv =
+            bias0 == nullptr ? 0.f
+            : bias.sr == 0   ? (hi ? kbias[1] : kbias[0])
+                             : bias0[static_cast<size_t>(row) * bias.sr +
+                                     key];
+        const bool with_dp = (fix_dp >> pos) & 1u;
+        const Score sc = score_chain<true>(
+            fma_chain<D>(qt + rl * kLd, ks + kl * kLd),
+            with_dp ? fma_chain<D>(dot + rl * kLd, vs + kl * kLd) : 0.f,
+            scale, bias0 != nullptr, bv, ls[rl], dl[rl], dr, keep);
+#pragma unroll
+        for (int nt = 0; nt < kRT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (pos == nt * 4 + e) {
+              s[nt][e] = sc.p_eff;
+              if (with_dp) dp[nt][e] = sc.ds;
+            }
+      }
+      // dV += P_eff^T dO and dK += dS^T Q: the fragments (rounded to
+      // bf16) as A operands, do and q as B through ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < kRS / 16; ++kc) {
+        uint32_t ap[4], as[4];
+        mma::pack_a(ap, s[2 * kc], s[2 * kc + 1]);
+        mma::pack_a(as, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+        for (int dn = 0; dn < kDW / 16; ++dn) {
+          uint32_t b[4];
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(
+                                        dot, r0 + kc * 16, d0 + dn * 16,
+                                        lane));
+          mma::mma_16816(dv_acc[2 * dn], ap, b[0], b[1]);
+          mma::mma_16816(dv_acc[2 * dn + 1], ap, b[2], b[3]);
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(
+                                        qt, r0 + kc * 16, d0 + dn * 16,
+                                        lane));
+          mma::mma_16816(dk_acc[2 * dn], as, b[0], b[1]);
+          mma::mma_16816(dk_acc[2 * dn + 1], as, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+    i = in;
+    st ^= 1;
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = keys[r];
+    if (key >= sk) continue;
+    bf16* dkr = dk + (kbase + key) * D + d0 + 2 * t;
+    bf16* dvr = dv + (kbase + key) * D + d0 + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < kDT; ++dn) {
+      *reinterpret_cast<__nv_bfloat162*>(dkr + dn * 8) = __floats2bfloat162_rn(
+          dk_acc[dn][2 * r] * scale, dk_acc[dn][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + dn * 8) = __floats2bfloat162_rn(
+          dv_acc[dn][2 * r], dv_acc[dn][2 * r + 1]);
+    }
+  }
+}
+
+template <int D, bool kSeg>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* q_norm, const void* do_norm,
+                       void* dk, void* dv, int n, int sq, int sk, int causal,
+                       float scale, ScoreBias bias, Segments seg,
+                       const int* q_rng, const int* kv_rng, Dropout dr,
+                       cudaStream_t stream) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<D, kSeg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n, (sk + kBN - 1) / kBN);
+  constexpr int threads = dkv_threads<D>();
+  flash_bwd_dkv_mma_kernel<D, kSeg><<<grid, threads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(q_norm), static_cast<const float*>(do_norm),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, scale,
+      bias, seg, q_rng, kv_rng, dr);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 struct BwdArgs {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -335,6 +829,10 @@ struct BwdArgs {
   ScoreBias bias;
   Segments seg;
   Dropout dr;
+  const int* q_rng;   // the ids' tile ranges (bf16 dkv only)
+  const int* kv_rng;
+  const void* q_norm;  // q and do row norms, fp32 (n, sq) (bf16 dkv only)
+  const void* do_norm;
 };
 
 template <typename T, int D, bool kSeg>
@@ -371,11 +869,24 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 dkv takes the tensor-core body, everything else the SIMT bodies
 template <bool kDq, typename T, int D>
 cudaError_t launch_kind(const BwdArgs& a, cudaStream_t st) {
-  if (a.seg.q != nullptr)
-    return kDq ? launch_dq<T, D, true>(a, st) : launch_dkv<T, D, true>(a, st);
-  return kDq ? launch_dq<T, D, false>(a, st) : launch_dkv<T, D, false>(a, st);
+  const bool seg = a.seg.q != nullptr;
+  if constexpr (kDq) {
+    return seg ? launch_dq<T, D, true>(a, st) : launch_dq<T, D, false>(a, st);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if ((seg && (a.q_rng == nullptr || a.kv_rng == nullptr)) ||
+        a.q_norm == nullptr || a.do_norm == nullptr)
+      return cudaErrorInvalidValue;
+    return (seg ? tc::launch_dkv<D, true> : tc::launch_dkv<D, false>)(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_norm, a.do_norm, a.dk,
+        a.dv, a.n, a.sq, a.sk, a.causal, a.scale, a.bias, a.seg, a.q_rng,
+        a.kv_rng, a.dr, st);
+  } else {
+    return seg ? launch_dkv<T, D, true>(a, st)
+               : launch_dkv<T, D, false>(a, st);
+  }
 }
 
 template <bool kDq, typename T>
@@ -403,9 +914,11 @@ int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
 }  // namespace apex_port
 
 // C entry points, bound with ctypes. dtype: 0 fp32, 1 bf16 (q, k, v, do and
-// the outputs share it; lse and delta are fp32). The bias, the segment ids
-// and dropout as in apex_flash_fwd. Each returns the cudaError_t of its
-// launch (0 on success).
+// the outputs share it; lse and delta are fp32; bf16 dkv needs q, k, v
+// and do 16-byte aligned, and the fp32 (n, sq) row norms of q and do,
+// `q_norm` and `do_norm`, null for fp32). The bias, the segment ids, their
+// tile ranges (dkv only) and dropout as in apex_flash_fwd. Each returns
+// the cudaError_t of its launch (0 on success).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int n, int sq,
@@ -421,7 +934,8 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                   ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
                   Segments{static_cast<const int*>(q_ids),
                            static_cast<const int*>(kv_ids), seg_heads},
-                  Dropout{dropout, seed, thresh, inv_keep}};
+                  Dropout{dropout, seed, thresh, inv_keep}, nullptr,
+                  nullptr, nullptr, nullptr};
   return dispatch<true>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -432,6 +946,8 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   float scale, const void* bias, int heads,
                                   int sb, int sh, int sr, const void* q_ids,
                                   const void* kv_ids, int seg_heads,
+                                  const void* q_rng, const void* kv_rng,
+                                  const void* q_norm, const void* do_norm,
                                   int dropout, unsigned seed, int thresh,
                                   float inv_keep, void* stream) {
   using namespace apex_port;
@@ -440,6 +956,8 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                   ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
                   Segments{static_cast<const int*>(q_ids),
                            static_cast<const int*>(kv_ids), seg_heads},
-                  Dropout{dropout, seed, thresh, inv_keep}};
+                  Dropout{dropout, seed, thresh, inv_keep},
+                  static_cast<const int*>(q_rng),
+                  static_cast<const int*>(kv_rng), q_norm, do_norm};
   return dispatch<false>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -11,35 +11,50 @@
 // value is a finite score: only the masks make a row fully masked; with a
 // (q_ids, kv_ids) pair, so does a query id that no key carries.
 //
-// What bounds it on the H100: at the serving prefill shape (n = 12 heads,
-// sq = sk = 128, d = 64, causal) the function moves ~0.8 MB (q, k, v, o,
-// lse) and needs ~25 MFLOP, so its floor is the ~0.24 us of HBM traffic;
-// what actually bounds this version is latency and launch overhead, since
-// one launch has only 24 blocks of work for 132 SMs.
+// Two bodies, chosen by the inputs' dtype (a route, not a fallback: a bf16
+// launch that fails raises):
 //
-// What the design does about it: the TPU kernel walks the kv blocks as a
-// sequential grid axis with (m, l, acc) in VMEM scratch. Here a loop inside
-// the block takes that axis: each block owns one (n, 64-row q tile), stages
-// the q tile once and each 32-key k/v tile in shared memory (fp32, k rows
-// padded to d + 1 floats so the per-lane score reads hit 32 distinct banks),
-// and keeps the running (m, l, acc) of its rows in registers. Each warp owns
-// 8 interleaved rows; for a row, lane j scores key j of the tile, the warp
-// reduces max and sum with shuffles, and the P V product runs with lanes
-// owning output dims and the probabilities broadcast by shuffle. Tiles
-// wholly above the causal diagonal are skipped for the block and for each
-// row (an exact no-op: they would leave (m, l, acc) unchanged), and each
-// K/V byte is read from HBM once per q tile. Like the TPU kernel, the
-// probabilities are rounded to the value dtype before the P V product and
-// masked entries are zeroed explicitly. Dropout hashes the global (bh, row,
-// col) of each score a lane owns, so the mask does not depend on the tiling.
-// Segment ids: each streamed tile's key ids go to shared memory beside it,
-// and a row's query id stays in a register; without ids (kSeg false) the
-// kernel reads and compares nothing more per score. No tile is skipped for
-// its ids yet (that is for a later version).
-// Tensor cores (mma.sync / wgmma) and TMA staging are left for a later,
-// faster version.
+// bf16: tensor cores (flash_fwd_mma_kernel). What bounds it on the H100: at
+// GPT's training shape (n = 96, sq = sk = 1024, d = 64, causal) the function
+// moves 50.7 MB (q, k, v, o, lse) and does 12.9 GFLOP over the causal half,
+// so its floor is the ~15 us of HBM traffic, the tensor-core floor (~13 us
+// at 989 TFLOP/s) just under it; at the long-context shape (96 x 4096 x 4096
+// with packed ids) the products over the visible pairs bound it. What holds
+// this version above that: mma.sync (not wgmma) reaches a fraction of the
+// bf16 peak, and the softmax's exp and the masks run on the fp32 pipes
+// beside it. The design: one block of 4 warps per (batch-head, 64-row q
+// tile), each warp owning 16 rows; the q tile is staged once and its A
+// fragments kept in registers, the 64-key K/V tiles stream through a 2-stage
+// cp.async ring in padded shared tiles (mma.cuh), S = Q K^T and O += P V run
+// as m16n8k16 products with fp32 accumulation (S's 16-wide k chunks each
+// into a fresh accumulator, so the tensor cores' truncation does not pile up
+// across them: the scores stay within ~2^-23 |q| |k| of the plain version's
+// fp32 sums), and the running (m, l, O) of a row live in the quad of lanes
+// that holds it (max reduced with two shuffles). The bias is read at each
+// score's global (b, h, row, col), masked scores go to kNegInf and their
+// probabilities are zeroed explicitly, dropout hashes each score's global
+// (bh, row, col) as common.cuh does, and the probabilities (unnormalized, as
+// the TPU kernel's) are rounded to bf16 while they are packed as the A
+// fragment of P V. Tiles wholly above the causal diagonal are skipped for
+// the block and for each warp, and, with segment ids, a (q tile, key tile)
+// pair whose id ranges are disjoint (mma.cuh:: tiles_meet; the ranges come
+// from the wrapper) is never loaded: an exact no-op, since every score in it
+// is masked. Blocks run heaviest first (the last q tiles see the most keys
+// under the causal mask).
+//
+// fp32: the SIMT body (flash_fwd_kernel), exact fp32 products, which the
+// fp32 checks' limits need (TF32 would break them). What bounds it: its
+// products run on the fp32 pipes out of shared memory, some two orders of
+// magnitude above the floor. The design: each block owns one (n, 64-row q
+// tile) and walks 32-key k/v tiles staged in shared memory (fp32, k rows
+// padded to d + 1 floats), the running (m, l, acc) of its rows in
+// registers; each warp owns 8 interleaved rows, lane j scores key j, the
+// warp reduces max and sum with shuffles, and P V runs with lanes owning
+// output dims and the probabilities broadcast by shuffle. It skips the
+// tiles above the causal diagonal, but not those the ids hide.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace apex_port {
 namespace {
@@ -223,22 +238,327 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = 64;  // q rows a block
+constexpr int kBN = 64;  // keys a K/V tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+static_assert(kBM == mma::kIdTile && kBN == mma::kIdTile,
+              "the id ranges are per 64-position tile");
+
+// the q tile and two stages of K and V tiles, padded rows
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * 5 * kBM * mma::ld<D>();
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int causal,
+                     float scale, ScoreBias bias, Segments seg,
+                     const int* __restrict__ q_rng,
+                     const int* __restrict__ kv_rng, Dropout dr) {
+  constexpr int kLd = mma::ld<D>();
+  constexpr int kKC = D / 16;  // k chunks of Q K^T
+  constexpr int kDT = D / 8;   // 8-wide n tiles of O
+  constexpr int kST = kBN / 8; // 8-wide n tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kBM x kLd
+  bf16* ks = qs + kBM * kLd;                     // 2 stages of kBN x kLd
+  bf16* vs = ks + 2 * kBN * kLd;                 // 2 stages of kBN x kLd
+
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int q0 = q_tile * kBM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int w0 = q0 + warp * 16;  // the warp's first row
+  const int rows[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const int offset = sk - sq;  // causal: col <= row + offset is visible
+  const size_t qbase = static_cast<size_t>(bh) * sq;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const uint32_t bh_key = dropout_bh_key(dr, bh);
+
+  // keys past kv_end are above the diagonal for every row of the tile
+  int kv_end = sk;
+  if (causal) kv_end = min(sk, q0 + kBM + offset);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
+  const int* qr = nullptr;
+  const int* kr = nullptr;
+  if (kSeg) {
+    const size_t b = bh / seg.heads;
+    qr = q_rng + b * ((sq + kBM - 1) / kBM) * 2;
+    kr = kv_rng + b * ((sk + kBN - 1) / kBN) * 2;
+  }
+  // the first key tile at or after j whose ids can meet the q tile's
+  auto next_tile = [&](int j) {
+    if (kSeg)
+      while (j < n_tiles && !mma::tiles_meet(qr, q_tile, kr, j)) ++j;
+    return j;
+  };
+  auto stage_kv = [&](int j, int st) {
+    mma::stage_tile<D, kThreads>(ks + st * kBN * kLd, kb, j * kBN, sk);
+    mma::stage_tile<D, kThreads>(vs + st * kBN * kLd, vb, j * kBN, sk);
+  };
+
+  mma::stage_tile<D, kThreads>(qs, q + qbase * D, q0, sq);
+  mma::cp_async_commit();
+  int j = next_tile(0);
+  if (j < n_tiles) stage_kv(j, 0);
+  mma::cp_async_commit();
+
+  int qid[2] = {0, 0};  // the rows' query ids (kSeg)
+  const int* kv_ids = kSeg ? seg_row(seg.kv, seg.heads, bh, sk) : nullptr;
+  const float* brow[2] = {nullptr, nullptr};  // the rows' bias rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    if (kSeg) qid[r] = seg_row(seg.q, seg.heads, bh, sq)[rows[r]];
+    if (bias.p != nullptr) brow[r] = bias_row(bias, bh, rows[r]);
+  }
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's part of each row's sum
+  float acc[kDT][4];
+#pragma unroll
+  for (int dn = 0; dn < kDT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  mma::cp_async_wait<1>();  // the q tile
+  __syncthreads();
+  uint32_t qf[kKC][4];  // the warp's 16 q rows as A fragments
+#pragma unroll
+  for (int kc = 0; kc < kKC; ++kc)
+    mma::ldmatrix_x4(qf[kc], mma::frag_a_ptr<D>(qs, warp * 16, kc * 16,
+                                                lane));
+
+  int st = 0;
+  while (j < n_tiles) {
+    const int jn = next_tile(j + 1);
+    if (jn < n_tiles) stage_kv(jn, st ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // tile j
+    __syncthreads();
+    const int j0 = j * kBN;
+    // uniform across the warp: rows past sq, or every row above the tile
+    const bool live = w0 < sq && !(causal && j0 > w0 + 15 + offset);
+    if (live) {
+      const bf16* kt = ks + st * kBN * kLd;
+      const bf16* vt = vs + st * kBN * kLd;
+      // S = Q K^T, each 16-wide k chunk into a fresh accumulator added to
+      // the sum with a rounded fp32 add (the tensor cores truncate a sum
+      // into its accumulator; chunk by chunk that bias would pile up, and
+      // move the probabilities further from the plain version's)
+      float s[kST][4];
+#pragma unroll
+      for (int nt = 0; nt < kST; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+#pragma unroll
+        for (int np = 0; np < kST / 2; ++np) {
+          uint32_t b[4];
+          float c[2][4] = {};
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(kt, np * 16, kc * 16,
+                                                  lane));
+          mma::mma_16816(c[0], qf[kc], b[0], b[1]);
+          mma::mma_16816(c[1], qf[kc], b[2], b[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[2 * np][e] += c[0][e];
+            s[2 * np + 1][e] += c[1][e];
+          }
+        }
+      }
+      // masks are needed on the sk edge, on the diagonal and with ids
+      const bool edge = j0 + kBN > sk ||
+                        (causal && j0 + kBN - 1 > w0 + offset) || kSeg;
+      uint32_t valid_bits = 0xffffffffu;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < kST; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int row = rows[r];
+          const int col = j0 + nt * 8 + 2 * t + (e & 1);
+          float x = s[nt][e] * scale;
+          if (brow[r] != nullptr && col < sk) x += brow[r][col];
+          if (edge) {
+            bool valid = row < sq && col < sk &&
+                         (!causal || col <= row + offset);
+            if (kSeg) valid = valid && qid[r] == kv_ids[col];
+            if (!valid) {
+              valid_bits &= ~(1u << (nt * 4 + e));
+              x = kNegInf;
+            }
+          }
+          s[nt][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the row's four lanes share their maxima
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 2));
+        corr[r] = __expf(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kST; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          // a row with no visible key so far has m == kNegInf and
+          // exp(s - m) == 1 on masked entries: zero them explicitly
+          const float p = (valid_bits >> (nt * 4 + e)) & 1u
+                              ? __expf(s[nt][e] - m[r]) : 0.f;
+          l[r] += p;
+          float pd = p;
+          if (dr.on) {
+            const int col = j0 + nt * 8 + 2 * t + (e & 1);
+            pd = dropout_keep(bh_key, rows[r], col, dr.thresh)
+                     ? p * dr.inv_keep : 0.f;
+          }
+          s[nt][e] = pd;
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        acc[dn][0] *= corr[0];
+        acc[dn][1] *= corr[0];
+        acc[dn][2] *= corr[1];
+        acc[dn][3] *= corr[1];
+      }
+      // O += P V: P (rounded to bf16) as the A fragment, V as B through
+      // ldmatrix.trans of its [key][d] tile
+#pragma unroll
+      for (int kc = 0; kc < kBN / 16; ++kc) {
+        uint32_t a[4];
+        mma::pack_a(a, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t b[4];
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(vt, kc * 16, dp * 16,
+                                                       lane));
+          mma::mma_16816(acc[2 * dp], a, b[0], b[1]);
+          mma::mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+    j = jn;
+    st ^= 1;
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
+    const int row = rows[r];
+    if (row >= sq) continue;
+    const float safe_l = l[r] == 0.f ? 1.f : l[r];
+    bf16* orow = o + (qbase + row) * D + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < kDT; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8) =
+          __floats2bfloat162_rn(acc[dn][2 * r] / safe_l,
+                                acc[dn][2 * r + 1] / safe_l);
+    if (t == 0)
+      lse[qbase + row] = l[r] == 0.f ? CUDART_INF_F : m[r] + logf(safe_l);
+  }
+}
+
+template <int D, bool kSeg>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int n, int sq, int sk, int causal, float scale,
+                   ScoreBias bias, Segments seg, const int* q_rng,
+                   const int* kv_rng, Dropout dr, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D, kSeg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n, (sq + kBM - 1) / kBM);
+  flash_fwd_mma_kernel<D, kSeg><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, causal, scale, bias, seg, q_rng,
+      kv_rng, dr);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_seg(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int n, int sq, int sk, int causal,
+                       float scale, ScoreBias bias, Segments seg,
+                       const int* q_rng, const int* kv_rng, Dropout dr,
+                       cudaStream_t stream) {
+  return seg.q != nullptr
+             ? launch<D, true>(q, k, v, o, lse, n, sq, sk, causal, scale,
+                               bias, seg, q_rng, kv_rng, dr, stream)
+             : launch<D, false>(q, k, v, o, lse, n, sq, sk, causal, scale,
+                                bias, seg, q_rng, kv_rng, dr, stream);
+}
+
+cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
+                     void* o, void* lse, int n, int sq, int sk, int causal,
+                     float scale, ScoreBias bias, Segments seg,
+                     const int* q_rng, const int* kv_rng, Dropout dr,
+                     cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_seg<32>(q, k, v, o, lse, n, sq, sk, causal, scale, bias,
+                            seg, q_rng, kv_rng, dr, stream);
+    case 64:
+      return launch_seg<64>(q, k, v, o, lse, n, sq, sk, causal, scale, bias,
+                            seg, q_rng, kv_rng, dr, stream);
+    case 128:
+      return launch_seg<128>(q, k, v, o, lse, n, sq, sk, causal, scale,
+                             bias, seg, q_rng, kv_rng, dr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 }  // namespace apex_port
 
-// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16. `bias` is null
-// or an fp32 bias read as common.cuh::ScoreBias with `heads` and the
-// strides `sb`, `sh`, `sr`. `q_ids`/`kv_ids` are null or int32 segment ids
-// (b, sq)/(b, sk) read as common.cuh::Segments with `seg_heads` heads per id
-// row. Dropout is on iff `dropout`; then `seed`, `thresh` and `inv_keep`
-// are as in common.cuh::Dropout. Returns the cudaError_t of the launch (0
-// on success).
+// C entry point, bound with ctypes. dtype: 0 fp32 (the SIMT body), 1 bf16
+// (the tensor-core body; q, k, v 16-byte aligned). `bias` is null or an
+// fp32 bias read as common.cuh::ScoreBias with `heads` and the strides
+// `sb`, `sh`, `sr`. `q_ids`/`kv_ids` are null or int32 segment ids
+// (b, sq)/(b, sk) read as common.cuh::Segments with `seg_heads` heads per
+// id row; with them, `q_rng`/`kv_rng` are their per-64-position-tile
+// (min, max) ranges, int32 (b, ceil(sq / 64), 2)/(b, ceil(sk / 64), 2),
+// which the bf16 body skips tile pairs by (mma.cuh::tiles_meet). Dropout
+// is on iff `dropout`; then `seed`, `thresh` and `inv_keep` are as in
+// common.cuh::Dropout. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int n, int sq, int sk,
                               int d, int dtype, int causal, float scale,
                               const void* bias, int heads, int sb, int sh,
                               int sr, const void* q_ids, const void* kv_ids,
-                              int seg_heads, int dropout, unsigned seed,
+                              int seg_heads, const void* q_rng,
+                              const void* kv_rng, int dropout, unsigned seed,
                               int thresh, float inv_keep, void* stream) {
   using namespace apex_port;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -249,8 +569,12 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == kFloat32)
     return launch_d<float>(d, q, k, v, o, lse, n, sq, sk, causal, scale, bi,
                            sg, dr, st);
-  if (dtype == kBFloat16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, lse, n, sq, sk, causal,
-                                   scale, bi, sg, dr, st);
+  if (dtype == kBFloat16) {
+    if (sg.q != nullptr && (q_rng == nullptr || kv_rng == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tc::launch_d(d, q, k, v, o, lse, n, sq, sk, causal, scale, bi, sg,
+                        static_cast<const int*>(q_rng),
+                        static_cast<const int*>(kv_rng), dr, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -221,6 +221,19 @@ def _visible(n: int, sq: int, sk: int, causal: bool, segments, device):
     return valid
 
 
+def _tiles_meet(q_ids, kv_ids, tile: int = _kernels.ID_TILE) -> torch.Tensor:
+    """``(b, ceil(sq / tile), ceil(sk / tile))`` bool: whether any id of a
+    q tile can equal any id of a key tile, from the tiles' (min, max) id
+    ranges (:func:`apex_tpu_torch._kernels.seg_tile_ranges`). Disjoint
+    ranges mean no visible score, whatever the ids (monotone or not): the
+    tensor-core kernels skip those pairs (``csrc/mma.cuh::tiles_meet``,
+    the same predicate), an exact no-op."""
+    q_rng = _kernels.seg_tile_ranges(q_ids, tile)
+    kv_rng = _kernels.seg_tile_ranges(kv_ids, tile)
+    return ((kv_rng[:, None, :, 1] >= q_rng[:, :, None, 0])
+            & (kv_rng[:, None, :, 0] <= q_rng[:, :, None, 1]))
+
+
 def _norm_bias(bias, b: int, h: int, sq: int, sk: int) -> torch.Tensor:
     """``bias`` broadcastable to ``(b, h, sq, sk)`` as the kernels take
     it, the reference's normalization: fp32, rank 4, each dim 1 or full, a

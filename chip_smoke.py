@@ -7,7 +7,8 @@ first use); without a card, or without the package beside it, it exits
 non-zero and prints no result. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels, timed;
+2. build the CUDA kernels, timed, and print the registers, spills and
+   shared memory of the tensor-core bodies from ptxas's report;
 3. each kernel against its plain PyTorch version on the card, element by
    element and by relative norm, with the max abs error and the share of
    the limit used (the limits are stated and derived below the imports;
@@ -18,7 +19,10 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``flash_bwd_dkv`` at the training shape (96 x 1024 x 1024, d 64,
    causal, bf16) and at ragged, cross, non-causal, fp32 d 128, fully masked
    and dropout 0.1 cases, and the dropout mask read back from the kernel
-   bit for bit; ``decode_attention`` at the serving path's shapes and at
+   bit for bit (``flash_fwd`` and ``flash_bwd_dkv`` run their tensor-core
+   bodies on bf16 inputs and their SIMT bodies on fp32 ones); a second
+   ``flash_fwd`` and ``flash_bwd_dkv`` at the training shape equal to the
+   first bit for bit; ``decode_attention`` at the serving path's shapes and at
    int8 and multi-row cases; ``paged_decode_attention`` at the paged
    serving path's shape (tables a random permutation of the pool), with an
    int8 pool, 5 q rows, fp32 d 128 with 16-token blocks, 48-token blocks,
@@ -89,13 +93,16 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``ln_bwd`` 26 times; step time, tokens/s, peak memory, a profile; then
    3 steps of the plain path, which must launch nothing and agree on the
    losses and step 0's grads;
-8. long-context attention at ``bench.py::bench_flash_long``'s shape (8 x
-   12 heads, 4096 positions, d 64, bf16, causal; q, k, v and dy from
+8. long-context attention at ``bench.py::bench_flash_long``'s shape (8 x 12
+   heads, 4096 positions, d 64, bf16, causal; q, k, v and dy from
    ``RandomState(0)``) with four packed documents a row (segment ids, the
    cut points drawn from the same stream) and a learned ALiBi row bias
    ``slope_h * j`` whose slopes start at ALiBi's ``2**(-8 (i + 1) / 12)``:
-   the four flash kernels against their plain versions batch by batch, and
-   ``flash_dbias`` at a ``(1, 12, 4096, 4096)`` table; kernel, plain and
+   the four flash kernels against their plain versions batch by batch (a
+   second ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_dbias`` equal bit
+   for bit), and ``flash_dbias`` at a ``(1, 12, 4096, 4096)`` table; the
+   share of 64 x 64 tile pairs the tensor-core bodies compute under the ids
+   (``_tiles_meet``) beside the share of pairs visible; kernel, plain and
    library times (SDPA causal, with the packed mask as a boolean mask, and
    its backward with a float mask's gradient) beside the bounds over the
    pairs the ids leave visible; then 3 steps of ``flash_attention(bias=,
@@ -105,7 +112,9 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``flash_dbias`` once; step time and a profile; the plain path batch by
    batch, whose loss, dQ/dK/dV, slopes' grads and slopes must agree; and
    ``bench_flash_long``'s own call (no bias, no ids), timed;
-9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+9. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+   SIMT fp32`` for ``flash_fwd`` and ``flash_bwd_dkv``, ``SIMT`` for the
+   rest), then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -163,6 +172,10 @@ TRAIN_COMPARE_STEPS = 3
 TRAIN_BH = (8, 12)
 TRAIN_ATTN = (96, 1024, 1024, 64)
 TRAIN_DROPOUT = 0.1
+# what each kernel runs on: flash_fwd and flash_bwd_dkv take a bf16 body on
+# the tensor cores and an fp32 one on the SIMT pipes, the rest one SIMT body
+BODY = {"flash_fwd": "mma.sync bf16 / SIMT fp32",
+        "flash_bwd_dkv": "mma.sync bf16 / SIMT fp32"}
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
@@ -397,6 +410,62 @@ def event_ms(torch, fn, iters: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def same_bits(torch, what: str, first, again) -> None:
+    """A second launch on the same inputs gave the same bits: ``first``
+    and ``again`` are tuples of the launches' outputs."""
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{what}: a second launch differs")
+
+
+# csrc/flash_fwd.cu and csrc/flash_bwd.cu: the bf16 tensor-core bodies and
+# their dynamic shared memory a block (bf16 rows of D + 8 elements: the
+# 64-row q tile and two stages of 64 keys of K and V; K, V and two stages
+# of q and do, plus two stages of 64 lse, delta, query ids and q and do
+# row norms, fp32)
+MMA_KERNELS = {"flash_fwd_mma_kernel": lambda d: 2 * 5 * 64 * (d + 8),
+               "flash_bwd_dkv_mma_kernel":
+                   lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 5 * 64}
+
+
+def mma_resources(kern) -> None:
+    """Registers, spills and shared memory of the tensor-core bodies, from
+    ptxas's report in this build's log (``_kernels.build_log``)."""
+    import re
+    log = kern.build_log()
+    found = []
+    for blk in log.split("Compiling entry function")[1:]:
+        name = re.search(r"(flash_fwd_mma_kernel|flash_bwd_dkv_mma_kernel)"
+                         r"ILi(\d+)ELb([01])E", blk)
+        regs = re.search(r"Used (\d+) registers", blk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", blk)
+        if not (name and regs and spill):
+            continue
+        kname, d, seg = name.group(1), int(name.group(2)), name.group(3)
+        found.append(f"{kname}<d {d}{', ids' if seg == '1' else ''}> "
+                     f"{regs.group(1)} registers, spill {spill.group(1)}/"
+                     f"{spill.group(2)} bytes, {MMA_KERNELS[kname](d)} B "
+                     "shared")
+    print("ptxas -v, the tensor-core bodies (128 threads a block; the dkv "
+          "body 256 at d 128): "
+          + ("; ".join(found) if found else
+             "not in this build's log (built before this process)"))
+
+
+def tile_shares(torch, fa, ids, causal: bool) -> tuple:
+    """Tile pairs (64 x 64) of self-attention over ``ids (b, s)``: those
+    the tensor-core kernels compute (inside the causal region and meeting
+    by ``_tiles_meet``), the causal ones, and all of them."""
+    meet = fa._tiles_meet(ids, ids)
+    tiles = meet.shape[-1]
+    region = torch.ones(tiles, tiles, dtype=torch.bool, device=ids.device)
+    if causal:
+        region = torch.tril(region)
+    computed = int((meet & region).sum())
+    return computed, ids.shape[0] * int(region.sum()), meet.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -776,6 +845,12 @@ def check_flash_train(torch, fa, kern, card: str):
     out, lse = kern.flash_fwd(q, k, v, True, scale)
     delta = (do.float() * out.float()).sum(dim=-1)
     args = (q, k, v, do, lse, delta, True, scale)
+    same_bits(torch, "flash_fwd at the training shape", (out, lse),
+              kern.flash_fwd(q, k, v, True, scale))
+    same_bits(torch, "flash_bwd_dkv at the training shape",
+              kern.flash_bwd_dkv(*args), kern.flash_bwd_dkv(*args))
+    print("flash_fwd and flash_bwd_dkv at the training shape: a second "
+          "launch equal bit for bit")
     kernel = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, True, scale),
               "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args),
               "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args)}
@@ -2034,10 +2109,14 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
             torch, fa, q3[rows], k3[rows], v3[rows], True, scale, bias=bias)))
         compare_lse(torch, lse_k[rows], lse_p[rows], TOL_LSE,
                     f"flash_fwd long-context batch {i}", TOL_LSE_REL)
+    same_bits(torch, "flash_fwd long-context", (out_k, lse_k), kern.flash_fwd(
+        q3, k3, v3, True, scale, bias=bias, segments=segs))
     args = (q3, k3, v3, do3, lse_p, delta_p, True, scale)
     kw = dict(bias=bias, segments=segs)
     dq_k = kern.flash_bwd_dq(*args, **kw)
     dk_k, dv_k = kern.flash_bwd_dkv(*args, **kw)
+    same_bits(torch, "flash_bwd_dkv long-context", (dk_k, dv_k),
+              kern.flash_bwd_dkv(*args, **kw))
     db_k = kern.flash_dbias(*args, **kw)
     check(torch.equal(db_k, kern.flash_dbias(*args, **kw)),
           "flash_dbias long-context: a second launch differs")
@@ -2062,8 +2141,8 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
           f" d64, causal, 4 packed documents a row, ALiBi row bias, bf16): "
           f"max_abs_err, share of the limit: " + ", ".join(
               f"{kname} {err[kname]:.3g}, {share[kname]:.3g}"
-              for kname in share) + "; a second flash_dbias equal bit for "
-          f"bit [{card}]")
+              for kname in share) + "; a second flash_fwd, flash_bwd_dkv and "
+          f"flash_dbias equal bit for bit [{card}]")
     del dq_k, dk_k, dv_k, out_k
 
     # the relative-position table (1, 12, 4096, 4096), on the path's inputs
@@ -2188,6 +2267,13 @@ def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
                "flash_bwd_dkv": lib["packed bwd"],
                "flash_dbias": lib["mask grad bwd"]}
     share_seen = pairs / causal_pairs
+    computed, causal_tiles, all_tiles = tile_shares(torch, fa, ids, True)
+    print(f"long-context tiles (64 x 64, a batch row's): the tensor-core "
+          f"kernels compute {computed} of the {causal_tiles} causal tile "
+          f"pairs ({computed / causal_tiles:.4f}; _tiles_meet on the ids), "
+          f"beside the {share_seen:.4f} of causal pairs the ids leave "
+          f"visible; causal tile pairs are {causal_tiles / all_tiles:.4f} "
+          f"of all {all_tiles}")
     print(f"long-context shape: {pairs} visible pairs ({share_seen:.4f} of "
           f"the {causal_pairs} causal ones); SDPA causal fwd "
           f"{lib['causal fwd']:.4f} ms, bwd {lib['causal bwd']:.4f} ms; SDPA "
@@ -2472,6 +2558,7 @@ def main() -> None:
     _, build_s = kern.build()
     print(f"build: kernels built in {build_s:.1f} s "
           f"({', '.join(kern.SOURCES)})")
+    mma_resources(kern)
 
     print(f"kernel vs plain: limits (atol, rtol, relative norm) bf16 "
           f"{BF16_TOL}, fp32 {FP32_TOL}, flash_fwd's bf16 atol plus "
@@ -2499,8 +2586,10 @@ def main() -> None:
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in
                               (serving, paged, training, bert, long))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        row["body"] = BODY.get(row["name"], "SIMT")
+    keys = ("name", "route", "body", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
