@@ -26,15 +26,23 @@ packed-sequence segment ids, int32 ``(b, sq)`` and ``(b, sk)``, one row
 per batch of ``n / b`` heads. ``flash_dbias`` sums a learned bias's score
 cotangent over its broadcast dims.
 
-``flash_fwd`` and ``flash_bwd_dkv`` have two bodies, chosen by the
-inputs' dtype: bf16 runs on the tensor cores (``mma.sync`` tiles staged by
-``cp.async``, ``csrc/mma.cuh``; the inputs must be 16-byte aligned), and
-skips the (q tile, key tile) pairs whose segment ids never meet, from the
-per-64-position id ranges :func:`seg_tile_ranges` computes; fp32 runs the
-exact SIMT bodies. The other flash kernels run one body for both. The bf16
-``flash_bwd_dkv`` also takes the row norms of q and do, which bound its
-tensor-core sums' distance from the plain version's fp32 sums
-(``csrc/flash_bwd.cu``, kFixKappa).
+``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have two bodies,
+chosen by the inputs' dtype: bf16 runs on the tensor cores (``mma.sync``
+tiles staged by ``cp.async``, ``csrc/mma.cuh``; the inputs must be 16-byte
+aligned), and skips the (q tile, key tile) pairs whose segment ids never
+meet, from the per-64-position id ranges :func:`seg_tile_ranges` computes
+(the caller may pass them as ``tile_ranges``, so that one forward and its
+backward compute them once); fp32 runs the exact SIMT bodies.
+``flash_dbias`` runs one body for both.
+The bf16 backward bodies round dS (and P_eff) where the plain version
+does, re-taking the rare score near a bf16 rounding point
+(``csrc/rounding.cuh``); the bf16 ``flash_bwd_dkv`` takes the row norms of
+q and do for that test from the wrapper, ``flash_bwd_dq`` computes its
+own.
+
+``decode_attention`` splits each slot-head's live prefix over
+:func:`decode_splits` blocks; the last block of a slot-head to finish
+merges their partials in a fixed order (``csrc/decode_attention.cu``).
 
 ``ln_fwd`` and ``ln_bwd`` (``csrc/layer_norm.cu``) are the LayerNorm and
 RMSNorm kernels; :mod:`apex_tpu_torch.normalization.fused_layer_norm`
@@ -56,7 +64,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias", "decode_attention",
+           "flash_bwd_dq", "flash_bwd_dq_retaken", "flash_bwd_dkv",
+           "flash_dbias", "decode_attention", "decode_splits",
            "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES",
            "ID_TILE", "seg_tile_ranges", "build_log"]
 
@@ -66,7 +75,7 @@ _BUILD = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu",
            "decode_attention.cu", "paged_decode_attention.cu",
            "layer_norm.cu")
-_HEADERS = ("common.cuh", "mma.cuh")
+_HEADERS = ("common.cuh", "mma.cuh", "rounding.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v writes each kernel's registers, shared memory and spills into
 # the build log (build_log), without changing the code
@@ -81,6 +90,11 @@ ID_TILE = 64
 _DECODE_HEAD_DIMS = (64, 128)
 # csrc/layer_norm.cu: widths taken
 _LN_MAX_H = 65536
+# csrc/decode_attention.cu: q rows a block past the first (one row takes a
+# block of its own), and the H100's SMs, whose two waves the split aims to
+# fill
+_DECODE_ROWS = 4
+_SMS = 132
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "flash_dbias": 0,
@@ -90,6 +104,9 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
+# decode_attention's arrival counters, one buffer per (device, stream):
+# zeroed once, and left at 0 by every launch (csrc/decode_attention.cu)
+_ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -159,8 +176,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + seg
                                    + rng + drop + [P])
     lib.apex_flash_fwd.restype = I
+    # ... + the count of re-taken scores (null, or a uint64)
     lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
-                                      + drop + [P])
+                                      + rng + drop + [P, P])
     lib.apex_flash_bwd_dq.restype = I
     # ... + the q and do row norms (bf16 only)
     lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias
@@ -171,8 +189,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apex_flash_dbias.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
                                      + [I] * 5 + drop + [P])
     lib.apex_flash_dbias.restype = I
-    lib.apex_decode_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
-                                          I, I, I, F, P]
+    # ... + the partials' scratch and the arrival counters
+    lib.apex_decode_attention.argtypes = [P] * 10 + [I] * 7 + [F, P]
     lib.apex_decode_attention.restype = I
     lib.apex_paged_decode_attention.argtypes = [P] * 9 + [I] * 8 + [F, P]
     lib.apex_paged_decode_attention.restype = I
@@ -322,12 +340,22 @@ def seg_tile_ranges(ids: torch.Tensor, tile: int = ID_TILE) -> torch.Tensor:
                        dim=-1).to(torch.int32).contiguous()
 
 
-def _rng_args(segments) -> Tuple:
+def _rng_args(segments, tile_ranges) -> Tuple:
     """The ids' tile ranges as the kernels take them (null pointers without
-    ids), with the tensors that hold them alive until the launch."""
+    ids): ``tile_ranges``, the :func:`seg_tile_ranges` of ``segments``,
+    computed here if None; with the tensors that hold them alive until the
+    launch."""
     if segments is None:
         return (None, None), ()
-    held = tuple(seg_tile_ranges(ids) for ids in segments)
+    held = (tuple(seg_tile_ranges(ids) for ids in segments)
+            if tile_ranges is None else tuple(tile_ranges))
+    for ids, rng in zip(segments, held):
+        _require(rng.dtype == torch.int32 and rng.is_contiguous()
+                 and tuple(rng.shape) == (ids.shape[0],
+                                          -(-ids.shape[1] // ID_TILE), 2)
+                 and rng.device == ids.device,
+                 f"tile ranges {tuple(rng.shape)} do not match ids "
+                 f"{tuple(ids.shape)}")
     return tuple(r.data_ptr() for r in held), held
 
 
@@ -350,14 +378,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float, dropout_rate: float = 0.0,
               seed: Optional[int] = None,
               bias: Optional[torch.Tensor] = None,
-              segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              tile_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
     dtype, d in {32, 64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``,
     with attention dropout at ``dropout_rate`` keyed by ``seed``, the score
     bias ``bias`` (see :func:`_bias_args`) added after the scale, and the
     segment ids ``segments`` (see :func:`_seg_args`) masking scores whose
-    ids differ."""
+    ids differ; ``tile_ranges`` are the ids' :func:`seg_tile_ranges`, or
+    None to compute them."""
     _check_common("flash_fwd", (q, k, v, *_extras(bias, segments)),
                   q.device)
     n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
@@ -366,7 +396,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seg_args = _seg_args("flash_fwd", segments, n, sq, sk)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
-    rng_args, _held = _rng_args(segments)
+    rng_args, _held = _rng_args(segments, tile_ranges)
     out = torch.empty_like(q)
     lse = torch.empty((n, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -402,15 +432,49 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, scale: float, dropout_rate: float = 0.0,
                  seed: Optional[int] = None,
                  bias: Optional[torch.Tensor] = None,
-                 segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 tile_ranges: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
                  ) -> torch.Tensor:
     """``dq (n, sq, d)`` in q's dtype from ``q``, ``k``, ``v``, ``bias``,
-    ``segments`` and ``do`` as for :func:`flash_fwd`, the forward's ``lse
-    (n, sq)`` and ``delta = rowsum(do * out) (n, sq)``, both fp32."""
+    ``segments``, ``tile_ranges`` and ``do`` as for :func:`flash_fwd`, the
+    forward's ``lse (n, sq)`` and ``delta = rowsum(do * out) (n, sq)``,
+    both fp32."""
+    return _flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,
+                         dropout_rate, seed, bias, segments, tile_ranges,
+                         None)
+
+
+def flash_bwd_dq_retaken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor, lse: torch.Tensor,
+                         delta: torch.Tensor, causal: bool, scale: float,
+                         dropout_rate: float = 0.0,
+                         seed: Optional[int] = None,
+                         bias: Optional[torch.Tensor] = None,
+                         segments: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
+                         ) -> Tuple[torch.Tensor, int]:
+    """:func:`flash_bwd_dq` on bf16 inputs, with the number of scores the
+    tensor-core body's rounding pass took again (``csrc/rounding.cuh``):
+    a diagnostic, which synchronizes to read the count; ``dq`` is the
+    same."""
+    _require(q.dtype == torch.bfloat16,
+             "flash_bwd_dq_retaken: only the bf16 body re-takes scores")
+    count = torch.zeros(1, dtype=torch.int64, device=q.device)
+    dq = _flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_rate,
+                       seed, bias, segments, None, count)
+    return dq, int(count.item())
+
+
+def _flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_rate,
+                  seed, bias, segments, tile_ranges,
+                  retaken) -> torch.Tensor:
     n, sq, sk, d, bias_args, seg_args = _check_bwd(
         "flash_bwd_dq", q, k, v, do, lse, delta, bias, segments)
+    _check_aligned("flash_bwd_dq", q, k, v, do)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
+    rng_args, _held = _rng_args(segments, tile_ranges)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -418,7 +482,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, sq, sk, d,
             _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
-            *seg_args, *drop, stream)
+            *seg_args, *rng_args, *drop,
+            None if retaken is None else retaken.data_ptr(), stream)
     _check_launch("flash_bwd_dq", err)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -429,7 +494,9 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, scale: float, dropout_rate: float = 0.0,
                   seed: Optional[int] = None,
                   bias: Optional[torch.Tensor] = None,
-                  segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  tile_ranges: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)``, each ``(n, sk, d)`` in k's dtype, from the inputs of
     :func:`flash_bwd_dq`."""
@@ -438,7 +505,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_aligned("flash_bwd_dkv", q, k, v, do)
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
-    rng_args, _held = _rng_args(segments)
+    rng_args, _held = _rng_args(segments, tile_ranges)
     # the tensor-core body bounds its sums' error by the rows' norms
     # (csrc/flash_bwd.cu, kFixKappa)
     norms = ((torch.linalg.vector_norm(q, dim=-1, dtype=torch.float32),
@@ -510,6 +577,39 @@ def flash_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return db
 
 
+def decode_splits(n: int, T: int, q_len: int) -> int:
+    """Blocks ``decode_attention`` splits each slot-head's live prefix
+    over, from the launch's shape alone (the host never reads a cursor):
+    a chunk of about 256 of the ``T`` positions, more blocks where the grid
+    (``n`` slot-heads x splits x :func:`_decode_groups`) would not fill
+    two waves of the H100's 132 SMs, but never a chunk under 64 of the
+    ``T`` positions. A shorter live prefix is split over the same blocks
+    (at the dense serving path's cursors, 17-144 of 1024, that ran faster
+    than a floor of 64 live positions a chunk: PERF.md)."""
+    groups = _decode_groups(n, q_len)
+    splits = max(1, -(-T // 256))
+    fill = -(-2 * _SMS // groups)
+    return max(splits, min(fill, T // 64))
+
+
+def _decode_groups(n: int, q_len: int) -> int:
+    """The decode kernel's blocks a chunk: one a slot-head for one q row,
+    else one per 4 q rows."""
+    return n if q_len == 1 else n * -(-q_len // _DECODE_ROWS)
+
+
+def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """``count`` uint32 arrival counters at 0 for a ``decode_attention``
+    launch on ``stream``: a buffer kept per (device, stream), which every
+    launch leaves at 0, so it is zeroed only when it grows."""
+    key = (torch.device(device).index or 0, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor,
                      k_scale: Optional[torch.Tensor],
@@ -546,17 +646,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
              "decode_attention: cache rows must be 16-byte aligned")
     _require(n > 0 and q_len > 0, "decode_attention: empty batch or query")
+    splits = decode_splits(n, T, q_len)
     lib, _ = build()
     out = torch.empty_like(q)
     lse = torch.empty((n, q_len), dtype=torch.float32, device=q.device)
+    part = torch.empty(n * splits * q_len * (d + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        arrivals = _arrivals(q.device, stream, _decode_groups(n, q_len))
         err = lib.apex_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
-            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), n, q_len, T,
-            d, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], float(scale),
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            part.data_ptr(), arrivals.data_ptr(), n, q_len, T, d, splits,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], float(scale),
             stream)
     _check_launch("decode_attention", err)
     LAUNCHES["decode_attention"] += 1

@@ -26,6 +26,31 @@
 // half, ~19 and ~26 GFLOP, whose floor on the tensor cores (~20 and ~26 us)
 // is above the ~10-15 us of HBM traffic.
 //
+// Two bodies each, chosen by the inputs' dtype (a route, not a fallback: a
+// bf16 launch that fails raises): bf16 runs on the tensor cores, fp32 on
+// the SIMT bodies below, whose exact fp32 products the fp32 checks' limits
+// (and the long path's LONG_TOL_FP32) need.
+//
+// flash_bwd_dq, bf16: tensor cores (flash_bwd_dq_mma_kernel), in
+// flash_attention's forward shape. One block of 4 warps per (batch-head,
+// 64-row q tile), heaviest tile first, each warp owning 16 q rows. The q
+// and do tiles are staged once (A operands through ldmatrix); the rows'
+// lse and delta stay in registers, per row of the accumulator fragment;
+// the 64-key K and V tiles, with (with ids) their key ids, stream through
+// a 2-stage cp.async ring from key tile 0 to the causal diagonal (offset
+// sk - sq). Per key tile: S = Q K^T and dP = dO V^T as m16n8k16 products
+// (each 16-wide k chunk into a fresh accumulator); per accumulator element
+// on its lane's (row, key), p = exp(scale s + bias - lse), the masks, the
+// dropout hash and ds = p (dp_eff - delta); ds rounded to bf16 and packed
+// from accumulator to A fragment; dQ += dS K with K as the B operand
+// through ldmatrix.trans. The 16 x d fp32 dQ accumulator of a warp stays in
+// registers for the whole loop, and the scale is applied after its sum. A
+// (q tile, key tile) pair whose segment-id ranges are disjoint is never
+// loaded. dS is rounded where the plain version rounds it: the flagged-score
+// pass of rounding.cuh, fed the rows' q and do norms (from the staged tile)
+// and each key tile's K and V norms (from its staged tile, between the
+// ring's two barriers).
+//
 // flash_bwd_dkv, bf16: tensor cores (flash_bwd_dkv_mma_kernel). One block
 // of 4 warps per (batch-head, 64-key tile), each warp owning 16 keys. K and
 // V are staged once; the 64-row q and do tiles, with their lse, delta,
@@ -42,22 +67,19 @@
 // quarters, so the transposed scores' registers fit beside them.
 // A (q tile, key tile) pair whose segment-id ranges are disjoint
 // (mma.cuh::tiles_meet) is never loaded: it would add exact zeros.
-// Rounding where the plain version rounds: P_eff and dS are rounded to
-// bf16 before their products, and a flipped rounding of a large
-// probability moves a dK or dV element by up to 2^-7 p |do|. The tensor
-// cores' S and dP sums (each 16-wide k chunk into a fresh accumulator, so
-// the chunks' truncation does not pile up) come within ~2^-23 |q| |k| of
-// the plain version's cuBLAS fp32 sums, which are a sequential fmaf chain
-// over d; a score whose p exceeds kFixP and whose P_eff or dS lies within
-// that bound's reach of a bf16 rounding point takes its sums again by that
-// chain from the staged tiles (kFixP: a few scores in a thousand). What
-// holds it above its floor: mma.sync (not wgmma); the softmax recompute,
-// masks, dropout hash and rounding test of each score on the fp32 pipes;
-// the re-taken sums; the causal diagonal's partial tiles. No atomics and a
-// fixed loop order: a second launch gives the same bits.
+// P_eff and dS are rounded to bf16 where the plain version rounds them:
+// the flagged-score pass of rounding.cuh (a few scores in a thousand take
+// their sums again), fed the q and do row norms from the wrapper and the
+// keys' K and V norms from the staged tiles.
 //
-// flash_bwd_dq (both dtypes) and flash_bwd_dkv in fp32: the SIMT bodies,
-// exact fp32 products (what the fp32 checks' limits need), run on the fp32
+// What holds both bf16 bodies above their floors: mma.sync (not wgmma);
+// the softmax recompute, masks, dropout hash and rounding test of each
+// score on the fp32 pipes; the re-taken sums; the causal diagonal's
+// partial tiles. No atomics and a fixed loop order: a second launch gives
+// the same bits.
+//
+// flash_bwd_dq and flash_bwd_dkv in fp32: the SIMT bodies, exact fp32
+// products (what the fp32 checks' limits need), run on the fp32
 // pipes with one operand from shared memory per multiply-add, so
 // shared-memory bandwidth bounds them, some two orders of magnitude above
 // the floor. The TPU kernels walk one sequential grid axis with an fp32
@@ -88,6 +110,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "rounding.cuh"
 
 #include <type_traits>
 
@@ -390,90 +413,9 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(float) * 2 * 5 * kBM;
 }
 
-// Exact rounding of P_eff and dS. The plain version's S = q k^T and dP =
-// do v^T are cuBLAS fp32 sums, bit for bit a sequential fmaf chain over d
-// from 0; the tensor cores' sums differ from them by about 2^-23 |q| |k|.
-// That moves a probability across a bf16 rounding point now and then, and
-// one flipped P_eff or dS of a large probability moves a dK or dV element
-// by up to 2^-7 p |do| (|q|), several times the checks' limit at the
-// long-context shape. So a score whose p exceeds kFixP, and whose P_eff or
-// dS lies closer to a bf16 rounding point than the sums' error bound
-// (kFixKappa |q| |k|) carried through each fp32 step (kFixU of each step's
-// value, and __expf's error) allows, has its two sums taken again by that
-// fmaf chain from the staged tiles, and its chain again with expf. Flips
-// of smaller probabilities move an element by under 2^-13 |do|.
-constexpr float kFixP = 1.f / 64.f;
-constexpr float kFixKappa = 1.f / (1 << 20);
-constexpr float kFixU = 1.f / (1 << 22);
-// |x - lse| < 5.55 where p > kFixP, plus __expf's error (under 2^-20 of
-// its value, kFixU of its argument's magnitude included), in units of
-// kFixU
-constexpr float kXPad = 5.55f + 4.f;
-
-// a score's chain after its two sums, each fp32 op rounded on its own (no
-// contraction into an fma) where the plain version rounds:
-// p = exp(s * scale + bias - lse), p_eff = keep * p * inv_keep,
-// ds = p * (keep * dp * inv_keep - delta); kExact takes expf, as the plain
-// version, else __expf
-struct Score {
-  float p, p_eff, ds;
-  float x_mag;  // |s * scale| + |s * scale + bias|
-  float t_mag;  // |dp_eff| + |dp_eff - delta|
-};
-
-template <bool kExact>
-__device__ __forceinline__ Score score_chain(float s, float dp, float scale,
-                                             bool has_bias, float b,
-                                             float lse, float delta,
-                                             const Dropout& dr, bool keep) {
-  Score r;
-  const float x1 = __fmul_rn(s, scale);
-  const float x2 = has_bias ? __fadd_rn(x1, b) : x1;
-  // a fully masked row has lse = +inf: exp(s - inf) == 0
-  const float x3 = __fsub_rn(x2, lse);
-  r.p = kExact ? expf(x3) : __expf(x3);
-  r.p_eff = r.p;
-  float dpe = dp;
-  if (dr.on) {
-    r.p_eff = keep ? __fmul_rn(r.p, dr.inv_keep) : 0.f;
-    dpe = keep ? __fmul_rn(dp, dr.inv_keep) : 0.f;
-  }
-  const float t = __fsub_rn(dpe, delta);
-  r.ds = __fmul_rn(r.p, t);
-  r.x_mag = fabsf(x1) + fabsf(x2);
-  r.t_mag = fabsf(dpe) + fabsf(t);
-  return r;
-}
-
-// whether y lies within r of the point halfway between its two nearest
-// bf16 values, where round to nearest turns
-__device__ __forceinline__ bool near_bf16_midpoint(float y, float r) {
-  const float mid =
-      __int_as_float((__float_as_int(y) & 0xffff0000) | 0x8000);
-  return fabsf(y - mid) <= r;
-}
-
-// the plain version's sum of a (row, key) score: fmaf over d from 0, on
-// two padded bf16 rows of shared tiles, 16 bytes of each at a time
-template <int D>
-__device__ __forceinline__ float fma_chain(const bf16* a, const bf16* b) {
-  float acc = 0.f;
-  for (int c = 0; c < D; c += 8) {
-    const uint4 x = *reinterpret_cast<const uint4*>(a + c);
-    const uint4 y = *reinterpret_cast<const uint4*>(b + c);
-    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // a bf16 pair: the low half first, each widened by a 16-bit shift
-      acc = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16),
-                 acc);
-      acc = fmaf(__uint_as_float(xs[i] & 0xffff0000u),
-                 __uint_as_float(ys[i] & 0xffff0000u), acc);
-    }
-  }
-  return acc;
-}
+// Exact rounding of P_eff and dS: csrc/rounding.cuh (kFixP and the
+// flagged-score pass), shared with the dq body
+using namespace rounding;
 
 template <int D, bool kSeg>
 __global__ void __launch_bounds__(dkv_threads<D>())
@@ -582,22 +524,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   float kn[2], vn[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const bf16* kr_ = ks + (warp * 16 + (lane >> 2) + 8 * r) * kLd;
-    const bf16* vr_ = vs + (warp * 16 + (lane >> 2) + 8 * r) * kLd;
-    float k2 = 0.f, v2 = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; c += 2) {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(kr_ + c));
-      const float2 y = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vr_ + c));
-      k2 = fmaf(x.x, x.x, fmaf(x.y, x.y, k2));
-      v2 = fmaf(y.x, y.x, fmaf(y.y, y.y, v2));
-    }
+    const int kl = warp * 16 + (lane >> 2) + 8 * r;
     // the bound on the S (times scale) and dP_eff sums' error, per unit
     // norm of the q or do row (kFixKappa)
-    kn[r] = kFixKappa * scale * sqrtf(k2);
-    vn[r] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) * sqrtf(v2);
+    kn[r] = kFixKappa * scale * row_norm<D>(ks + kl * kLd);
+    vn[r] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) *
+            row_norm<D>(vs + kl * kLd);
   }
   float dk_acc[kDT][4], dv_acc[kDT][4];
 #pragma unroll
@@ -701,18 +633,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
             p_eff = sc.p_eff;
             ds = sc.ds;
             if (sc.p > kFixP) {
-              const float dx =
-                  qn[rl] * kn[e >> 1] + kFixU * (sc.x_mag + kXPad);
-              const float dt = dn[rl] * vn[e >> 1] + kFixU * sc.t_mag;
+              const float qk = qn[rl] * kn[e >> 1];
               const uint32_t bit = 1u << (nt * 4 + e);
               // dS uncertain: both sums; else P_eff uncertain: S alone (dS
               // then rounds to the plain version's bf16 value already)
-              if (near_bf16_midpoint(ds, fabsf(ds) * (dx + kFixU) +
-                                             sc.p * dt))
-                fix_dp |= bit;
-              if ((fix_dp & bit) ||
-                  near_bf16_midpoint(p_eff, p_eff * (dx + kFixU)))
-                fix |= bit;
+              if (ds_uncertain(sc, qk, dn[rl] * vn[e >> 1])) fix_dp |= bit;
+              if ((fix_dp & bit) || p_eff_uncertain(sc, qk)) fix |= bit;
             }
           }
           s[nt][e] = p_eff;
@@ -721,8 +647,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       }
       // the rare scores near a bf16 rounding point: the sums and the chain
       // as the plain version takes them (see kFixP), one at a time
-      for (uint32_t f = fix; f != 0; f &= f - 1) {
-        const int pos = __ffs(f) - 1;
+      for_each_bit(fix, [&](int pos) {
         const int hi = pos >> 1 & 1;  // key g + 8
         const int key = hi ? keys[1] : keys[0];
         const int kl = warp * 16 + (lane >> 2) + 8 * hi;
@@ -740,15 +665,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
             fma_chain<D>(qt + rl * kLd, ks + kl * kLd),
             with_dp ? fma_chain<D>(dot + rl * kLd, vs + kl * kLd) : 0.f,
             scale, bias0 != nullptr, bv, ls[rl], dl[rl], dr, keep);
-#pragma unroll
-        for (int nt = 0; nt < kRT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (pos == nt * 4 + e) {
-              s[nt][e] = sc.p_eff;
-              if (with_dp) dp[nt][e] = sc.ds;
-            }
-      }
+        set_elem(s, pos, sc.p_eff);
+        if (with_dp) set_elem(dp, pos, sc.ds);
+      });
       // dV += P_eff^T dO and dK += dS^T Q: the fragments (rounded to
       // bf16) as A operands, do and q as B through ldmatrix.trans
 #pragma unroll
@@ -819,6 +738,334 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_bwd_dq's bf16 tensor-core body
+// ---------------------------------------------------------------------------
+
+constexpr int kDqThreads = 128;  // 4 warps of 16 q rows
+
+// the q and do tiles, two stages of K and V (padded rows), and two stages
+// of the key tile's ids and of its K and V row norms (fp32)
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * (2 * kBM + 4 * kBN) * mma::ld<D>() +
+         sizeof(float) * 2 * 3 * kBN;
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int sq, int sk, int causal,
+                        float scale, ScoreBias bias, Segments seg,
+                        const int* __restrict__ q_rng,
+                        const int* __restrict__ kv_rng, Dropout dr,
+                        unsigned long long* __restrict__ retaken) {
+  constexpr int kLd = mma::ld<D>();
+  constexpr int kKC = D / 16;   // k chunks of Q K^T and dO V^T
+  constexpr int kDT = D / 8;    // 8-wide n tiles of dQ
+  // keys a warp scores at once: half a tile at d 64 and 128, so the
+  // scores' registers leave room beside the dQ accumulator for three
+  // blocks an SM at d 64 (chip_smoke.py prints ptxas's count)
+  constexpr int kSub = D > 32 ? 32 : kBN;
+  constexpr int kST = kSub / 8;  // 8-wide n tiles of S and dP
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kBM x kLd
+  bf16* dos = qs + kBM * kLd;                    // kBM x kLd
+  bf16* ks = dos + kBM * kLd;                    // 2 stages of kBN x kLd
+  bf16* vs = ks + 2 * kBN * kLd;                 // 2 stages of kBN x kLd
+  int* kid_s = reinterpret_cast<int*>(vs + 2 * kBN * kLd);  // 2 x kBN
+  float* kn_s = reinterpret_cast<float*>(kid_s + 2 * kBN);  // 2 x kBN
+  float* vn_s = kn_s + 2 * kBN;                              // 2 x kBN
+
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int q0 = q_tile * kBM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int w0 = q0 + warp * 16;  // the warp's first row
+  const int rows[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const int offset = sk - sq;  // causal: col <= row + offset is visible
+  const size_t qbase = static_cast<size_t>(bh) * sq;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const uint32_t bh_key = dropout_bh_key(dr, bh);
+
+  // keys past kv_end are above the diagonal for every row of the tile
+  int kv_end = sk;
+  if (causal) kv_end = min(sk, q0 + kBM + offset);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
+  const int* qr = nullptr;
+  const int* kr = nullptr;
+  const int* kv_ids = nullptr;
+  if (kSeg) {
+    const size_t b = bh / seg.heads;
+    qr = q_rng + b * ((sq + kBM - 1) / kBM) * 2;
+    kr = kv_rng + b * ((sk + kBN - 1) / kBN) * 2;
+    kv_ids = seg_row(seg.kv, seg.heads, bh, sk);
+  }
+  // the first key tile at or after j whose ids can meet the q tile's
+  auto next_tile = [&](int j) {
+    if (kSeg)
+      while (j < n_tiles && !mma::tiles_meet(qr, q_tile, kr, j)) ++j;
+    return j;
+  };
+  auto stage_kv = [&](int j, int st) {
+    mma::stage_tile<D, kDqThreads>(ks + st * kBN * kLd, kb, j * kBN, sk);
+    mma::stage_tile<D, kDqThreads>(vs + st * kBN * kLd, vb, j * kBN, sk);
+    if (kSeg && threadIdx.x < kBN) {
+      const int col = j * kBN + threadIdx.x;
+      const bool in = col < sk;
+      mma::cp_async_4(kid_s + st * kBN + threadIdx.x, kv_ids + (in ? col : 0),
+                      in);
+    }
+  };
+  // the bounds' per-key factors of a staged tile (rounding.cuh): thread i
+  // takes key i % 64 of K (i < 64) or of V
+  auto tile_norms = [&](int st) {
+    const int key = threadIdx.x % kBN;
+    if (threadIdx.x < kBN)
+      kn_s[st * kBN + key] =
+          kFixKappa * scale * row_norm<D>(ks + (st * kBN + key) * kLd);
+    else
+      vn_s[st * kBN + key] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) *
+                             row_norm<D>(vs + (st * kBN + key) * kLd);
+  };
+
+  mma::stage_tile<D, kDqThreads>(qs, q + qbase * D, q0, sq);
+  mma::stage_tile<D, kDqThreads>(dos, dout + qbase * D, q0, sq);
+  mma::cp_async_commit();
+  int j = next_tile(0);
+  if (j < n_tiles) stage_kv(j, 0);
+  mma::cp_async_commit();
+
+  // the rows' lse, delta, query ids and bias row (that of rows[1] is 8
+  // rows on); rows past sq read lse +inf, so nothing of theirs is ever
+  // nonzero, and their bias is never read
+  float row_lse[2] = {CUDART_INF_F, CUDART_INF_F};
+  float row_delta[2] = {0.f, 0.f};
+  int qid[2] = {0, 0};
+  const float* brow =
+      bias.p != nullptr && rows[0] < sq ? bias_row(bias, bh, rows[0])
+                                        : nullptr;
+  const int brow_hi = 8 * bias.sr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    row_lse[r] = lse[qbase + rows[r]];
+    row_delta[r] = delta[qbase + rows[r]];
+    if (kSeg) qid[r] = seg_row(seg.q, seg.heads, bh, sq)[rows[r]];
+  }
+  float acc[kDT][4];
+#pragma unroll
+  for (int dn = 0; dn < kDT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  mma::cp_async_wait<0>();  // q, do and the first key tile
+  __syncthreads();
+  float qn[2], don[2];  // the rows' q and do norms
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = warp * 16 + (lane >> 2) + 8 * r;
+    qn[r] = row_norm<D>(qs + rl * kLd);
+    don[r] = row_norm<D>(dos + rl * kLd);
+  }
+  if (j < n_tiles) tile_norms(0);
+
+  int st = 0;
+  while (j < n_tiles) {
+    const int jn = next_tile(j + 1);
+    // stage st ^ 1 was last read before the previous iteration's closing
+    // barrier
+    if (jn < n_tiles) stage_kv(jn, st ^ 1);
+    mma::cp_async_commit();
+    __syncthreads();  // tile j's norms are written
+    const int j0 = j * kBN;
+    // uniform across the warp: rows past sq, or every row above the tile
+    const bool live = w0 < sq && !(causal && j0 > w0 + 15 + offset);
+    if (live) {
+      const bf16* kt = ks + st * kBN * kLd;
+      const bf16* vt = vs + st * kBN * kLd;
+      // the tile's keys in sub-tiles of kSub
+#pragma unroll
+      for (int k0 = 0; k0 < kBN; k0 += kSub) {
+        const int* kid = kid_s + st * kBN + k0;
+        const float* kn = kn_s + st * kBN + k0;
+        const float* vn = vn_s + st * kBN + k0;
+        const bf16* kst = kt + k0 * kLd;
+        const bf16* vst = vt + k0 * kLd;
+        const int c0 = j0 + k0;  // the sub-tile's first key
+        // uniform across the warp: keys past sk, or above every row
+        if (c0 >= sk || (causal && c0 > w0 + 15 + offset)) continue;
+        // S = Q K^T and dP = dO V^T, each 16-wide k chunk into a fresh
+        // accumulator added to the sum with a rounded fp32 add (the tensor
+        // cores truncate a sum into its accumulator; chunk by chunk that
+        // bias would pile up, and move dS further from the plain version's)
+        float s[kST][4], dp[kST][4];
+#pragma unroll
+        for (int nt = 0; nt < kST; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc) {
+          uint32_t aq[4], ad[4];
+          mma::ldmatrix_x4(aq, mma::frag_a_ptr<D>(qs, warp * 16, kc * 16,
+                                                  lane));
+          mma::ldmatrix_x4(ad, mma::frag_a_ptr<D>(dos, warp * 16, kc * 16,
+                                                  lane));
+#pragma unroll
+          for (int np = 0; np < kST / 2; ++np) {
+            uint32_t b[4];
+            float c[2][4] = {};
+            mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(kst, np * 16, kc * 16,
+                                                    lane));
+            mma::mma_16816(c[0], aq, b[0], b[1]);
+            mma::mma_16816(c[1], aq, b[2], b[3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[2 * np][e] += c[0][e];
+              s[2 * np + 1][e] += c[1][e];
+              c[0][e] = c[1][e] = 0.f;
+            }
+            mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(vst, np * 16, kc * 16,
+                                                    lane));
+            mma::mma_16816(c[0], ad, b[0], b[1]);
+            mma::mma_16816(c[1], ad, b[2], b[3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dp[2 * np][e] += c[0][e];
+              dp[2 * np + 1][e] += c[1][e];
+            }
+          }
+        }
+        // masks are needed on the sq and sk edges, on the diagonal and with
+        // ids
+        const bool edge = w0 + 16 > sq || c0 + kSub > sk ||
+                          (causal && c0 + kSub - 1 > w0 + offset) || kSeg;
+        // element (nt, e): row rows[e / 2], key c0 + 8 nt + 2 t + e % 2;
+        // the bits of the elements whose sums are taken again
+        uint32_t fix = 0;
+#pragma unroll
+        for (int nt = 0; nt < kST; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int row = rows[r];
+            const int cl = nt * 8 + 2 * t + (e & 1);
+            const int col = c0 + cl;
+            bool valid = true;
+            if (edge) {
+              valid =
+                  row < sq && col < sk && (!causal || col <= row + offset);
+              if (kSeg) valid = valid && qid[r] == kid[cl];
+            }
+            float ds = 0.f;
+            if (valid) {
+              const bool keep =
+                  !dr.on || dropout_keep(bh_key, row, col, dr.thresh);
+              const Score sc = score_chain<false>(
+                  s[nt][e], dp[nt][e], scale, brow != nullptr,
+                  brow != nullptr ? brow[r * brow_hi + col] : 0.f,
+                  row_lse[r], row_delta[r], dr, keep);
+              ds = sc.ds;
+              if (sc.p > kFixP &&
+                  ds_uncertain(sc, qn[r] * kn[cl], don[r] * vn[cl]))
+                fix |= 1u << (nt * 4 + e);
+            }
+            s[nt][e] = ds;
+          }
+        }
+        // the rare scores near a bf16 rounding point: both sums and the
+        // chain as the plain version takes them (rounding.cuh), one at a
+        // time; the row's values by select, so no register array is
+        // indexed at run time
+        for_each_bit(fix, [&](int pos) {
+          const bool hi = pos >> 1 & 1;  // row g + 8
+          const int rl = warp * 16 + (lane >> 2) + (hi ? 8 : 0);
+          const int cl = (pos >> 2) * 8 + 2 * t + (pos & 1);
+          const int row = hi ? rows[1] : rows[0];
+          const int col = c0 + cl;
+          const bool keep =
+              !dr.on || dropout_keep(bh_key, row, col, dr.thresh);
+          const Score sc = score_chain<true>(
+              fma_chain<D>(qs + rl * kLd, kst + cl * kLd),
+              fma_chain<D>(dos + rl * kLd, vst + cl * kLd), scale,
+              brow != nullptr,
+              brow != nullptr ? brow[(hi ? brow_hi : 0) + col] : 0.f,
+              hi ? row_lse[1] : row_lse[0], hi ? row_delta[1] : row_delta[0],
+              dr, keep);
+          set_elem(s, pos, sc.ds);
+        });
+        if (retaken != nullptr) {  // the diagnostic count (_kernels.py)
+          const int n_fix = __reduce_add_sync(kFullMask, __popc(fix));
+          if (lane == 0)
+            atomicAdd(retaken, static_cast<unsigned long long>(n_fix));
+        }
+        // dQ += dS K: dS (rounded to bf16) as the A fragment, K as B
+        // through ldmatrix.trans of its [key][d] tile
+#pragma unroll
+        for (int kc = 0; kc < kSub / 16; ++kc) {
+          uint32_t a[4];
+          mma::pack_a(a, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+          for (int dd = 0; dd < D / 16; ++dd) {
+            uint32_t b[4];
+            mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(kst, kc * 16,
+                                                         dd * 16, lane));
+            mma::mma_16816(acc[2 * dd], a, b[0], b[1]);
+            mma::mma_16816(acc[2 * dd + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    mma::cp_async_wait<0>();  // tile jn
+    __syncthreads();  // every warp is done with stage st; tile jn is in
+    if (jn < n_tiles) tile_norms(st ^ 1);
+    j = jn;
+    st ^= 1;
+  }
+
+  // dq = scale * (dS K), the scale after the fp32 sum as the plain version
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    if (row >= sq) continue;
+    bf16* out = dq + (qbase + row) * D + 2 * t;
+#pragma unroll
+    for (int dd = 0; dd < kDT; ++dd)
+      *reinterpret_cast<__nv_bfloat162*>(out + dd * 8) =
+          __floats2bfloat162_rn(acc[dd][2 * r] * scale,
+                                acc[dd][2 * r + 1] * scale);
+  }
+}
+
+template <int D, bool kSeg>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int n, int sq, int sk, int causal,
+                      float scale, ScoreBias bias, Segments seg,
+                      const int* q_rng, const int* kv_rng, Dropout dr,
+                      unsigned long long* retaken, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<D, kSeg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n, (sq + kBM - 1) / kBM);
+  flash_bwd_dq_mma_kernel<D, kSeg><<<grid, kDqThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), sq, sk, causal, scale, bias, seg, q_rng,
+      kv_rng, dr, retaken);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 struct BwdArgs {
@@ -829,10 +1076,11 @@ struct BwdArgs {
   ScoreBias bias;
   Segments seg;
   Dropout dr;
-  const int* q_rng;   // the ids' tile ranges (bf16 dkv only)
+  const int* q_rng;   // the ids' tile ranges (bf16 only)
   const int* kv_rng;
   const void* q_norm;  // q and do row norms, fp32 (n, sq) (bf16 dkv only)
   const void* do_norm;
+  unsigned long long* retaken;  // bf16 dq: scores re-taken, or null
 };
 
 template <typename T, int D, bool kSeg>
@@ -869,13 +1117,21 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 dkv takes the tensor-core body, everything else the SIMT bodies
+// bf16 takes the tensor-core bodies, fp32 the SIMT bodies
 template <bool kDq, typename T, int D>
 cudaError_t launch_kind(const BwdArgs& a, cudaStream_t st) {
   const bool seg = a.seg.q != nullptr;
-  if constexpr (kDq) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kDq && kBf16) {
+    if (seg && (a.q_rng == nullptr || a.kv_rng == nullptr))
+      return cudaErrorInvalidValue;
+    return (seg ? tc::launch_dq<D, true> : tc::launch_dq<D, false>)(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.n, a.sq, a.sk,
+        a.causal, a.scale, a.bias, a.seg, a.q_rng, a.kv_rng, a.dr,
+        a.retaken, st);
+  } else if constexpr (kDq) {
     return seg ? launch_dq<T, D, true>(a, st) : launch_dq<T, D, false>(a, st);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  } else if constexpr (kBf16) {
     if ((seg && (a.q_rng == nullptr || a.kv_rng == nullptr)) ||
         a.q_norm == nullptr || a.do_norm == nullptr)
       return cudaErrorInvalidValue;
@@ -914,11 +1170,13 @@ int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
 }  // namespace apex_port
 
 // C entry points, bound with ctypes. dtype: 0 fp32, 1 bf16 (q, k, v, do and
-// the outputs share it; lse and delta are fp32; bf16 dkv needs q, k, v
-// and do 16-byte aligned, and the fp32 (n, sq) row norms of q and do,
+// the outputs share it; lse and delta are fp32; bf16 needs q, k, v and do
+// 16-byte aligned, and bf16 dkv the fp32 (n, sq) row norms of q and do,
 // `q_norm` and `do_norm`, null for fp32). The bias, the segment ids, their
-// tile ranges (dkv only) and dropout as in apex_flash_fwd. Each returns
-// the cudaError_t of its launch (0 on success).
+// tile ranges (read by the bf16 bodies) and dropout as in apex_flash_fwd.
+// dq's `retaken` is null, or a uint64 to which the bf16 body adds the
+// scores its rounding pass took again (a diagnostic; dq is the same). Each
+// returns the cudaError_t of its launch (0 on success).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int n, int sq,
@@ -926,16 +1184,20 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  float scale, const void* bias, int heads,
                                  int sb, int sh, int sr, const void* q_ids,
                                  const void* kv_ids, int seg_heads,
+                                 const void* q_rng, const void* kv_rng,
                                  int dropout, unsigned seed, int thresh,
-                                 float inv_keep, void* stream) {
+                                 float inv_keep, void* retaken,
+                                 void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, n, sq, sk,
                   causal, scale,
                   ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
                   Segments{static_cast<const int*>(q_ids),
                            static_cast<const int*>(kv_ids), seg_heads},
-                  Dropout{dropout, seed, thresh, inv_keep}, nullptr,
-                  nullptr, nullptr, nullptr};
+                  Dropout{dropout, seed, thresh, inv_keep},
+                  static_cast<const int*>(q_rng),
+                  static_cast<const int*>(kv_rng), nullptr, nullptr,
+                  static_cast<unsigned long long*>(retaken)};
   return dispatch<true>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -958,6 +1220,6 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                            static_cast<const int*>(kv_ids), seg_heads},
                   Dropout{dropout, seed, thresh, inv_keep},
                   static_cast<const int*>(q_rng),
-                  static_cast<const int*>(kv_rng), q_norm, do_norm};
+                  static_cast<const int*>(kv_rng), q_norm, do_norm, nullptr};
   return dispatch<false>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }

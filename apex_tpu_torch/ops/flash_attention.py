@@ -17,8 +17,9 @@ training paths run:
   bias-shaped output (O(|bias|) memory, never the score matrix);
 - ``decode_attention`` replaces ``_decode_kernel``: ``q_len`` query rows
   per slot and head against a dense cache, masked by the per-slot write
-  cursor, with optional int8 dequantization; it returns the output and the
-  prefix logsumexp (``-inf`` on empty rows);
+  cursor, with optional int8 dequantization, each slot-head's prefix split
+  over several blocks whose partials merge in a fixed order; it returns the
+  output and the prefix logsumexp (``-inf`` on empty rows);
 - ``paged_decode_attention`` replaces ``_paged_decode_kernel``: the same
   over a global block pool, each slot's positions found through its block
   table (the paged serving engine's decode step).
@@ -381,17 +382,27 @@ class _FlashAttention(torch.autograd.Function):
     learned bias (``need_dbias``), dbias. The bias ``(bb, hb, sqb, sk)``
     (or None) otherwise takes a zero gradient, as the reference's without
     ``bias_requires_grad``. The segment ids ``(b, sq)``/``(b, sk)`` int32
-    (or None) take none. ``use_kernel`` picks the kernels or their plain
-    versions."""
+    (or None) take none; on the kernels, their tile ranges
+    (``_kernels.seg_tile_ranges``) are computed once a forward and kept for
+    the backward's two kernels. ``use_kernel`` picks the kernels or their
+    plain versions."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, bias4, q_ids, kv_ids, causal: bool,
                 scale: float, dropout_rate: float, seed, use_kernel: bool,
                 need_dbias: bool):
         segments = None if q_ids is None else (q_ids, kv_ids)
-        fwd = _kernels.flash_fwd if use_kernel else _flash_fwd_plain
-        out, lse = fwd(q3, k3, v3, causal, scale, dropout_rate, seed,
-                       bias=bias4, segments=segments)
+        if use_kernel:
+            ranges = (None if segments is None else
+                      tuple(_kernels.seg_tile_ranges(i) for i in segments))
+            out, lse = _kernels.flash_fwd(
+                q3, k3, v3, causal, scale, dropout_rate, seed, bias=bias4,
+                segments=segments, tile_ranges=ranges)
+            ctx.tile_ranges = ranges
+        else:
+            out, lse = _flash_fwd_plain(q3, k3, v3, causal, scale,
+                                        dropout_rate, seed, bias=bias4,
+                                        segments=segments)
         ctx.save_for_backward(q3, k3, v3, out, lse, bias4, q_ids, kv_ids)
         ctx.args = (causal, scale, dropout_rate, seed)
         ctx.use_kernel = use_kernel
@@ -407,8 +418,9 @@ class _FlashAttention(torch.autograd.Function):
         args = (q3, k3, v3, do3, lse, delta, *ctx.args)
         kw = dict(bias=bias4, segments=segments)
         if ctx.use_kernel:
-            dq = _kernels.flash_bwd_dq(*args, **kw)
-            dk, dv = _kernels.flash_bwd_dkv(*args, **kw)
+            ranges = dict(tile_ranges=ctx.tile_ranges)
+            dq = _kernels.flash_bwd_dq(*args, **kw, **ranges)
+            dk, dv = _kernels.flash_bwd_dkv(*args, **kw, **ranges)
         else:
             dq = _flash_bwd_dq_plain(*args, **kw)
             dk, dv = _flash_bwd_dkv_plain(*args, **kw)

@@ -8,7 +8,8 @@ non-zero and prints no result. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels, timed, and print the registers, spills and
-   shared memory of the tensor-core bodies from ptxas's report;
+   shared memory of the tensor-core bodies (``flash_fwd``,
+   ``flash_bwd_dq``, ``flash_bwd_dkv``) from ptxas's report;
 3. each kernel against its plain PyTorch version on the card, element by
    element and by relative norm, with the max abs error and the share of
    the limit used (the limits are stated and derived below the imports;
@@ -19,20 +20,24 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``flash_bwd_dkv`` at the training shape (96 x 1024 x 1024, d 64,
    causal, bf16) and at ragged, cross, non-causal, fp32 d 128, fully masked
    and dropout 0.1 cases, and the dropout mask read back from the kernel
-   bit for bit (``flash_fwd`` and ``flash_bwd_dkv`` run their tensor-core
-   bodies on bf16 inputs and their SIMT bodies on fp32 ones); a second
-   ``flash_fwd`` and ``flash_bwd_dkv`` at the training shape equal to the
-   first bit for bit; ``decode_attention`` at the serving path's shapes and at
-   int8 and multi-row cases; ``paged_decode_attention`` at the paged
-   serving path's shape (tables a random permutation of the pool), with an
-   int8 pool, 5 q rows, fp32 d 128 with 16-token blocks, 48-token blocks,
-   and a poison case (every block no cursor covers filled with NaN, every
-   table entry past the cursors pointing nowhere: the output must not
-   change by a bit). Kernel, plain and library (SDPA forward, and SDPA
-   backward for the dQ/dK/dV pair: yardsticks only, the port never calls
-   SDPA; no PyTorch call reads a block table, so the paged kernel is timed
-   beside the dense decode kernel instead) device times under
-   ``torch.profiler``, beside the bound. ``ln_fwd`` and ``ln_bwd`` at the
+   bit for bit (the three flash kernels run their tensor-core bodies on
+   bf16 inputs and their SIMT bodies on fp32 ones); a second launch of each
+   at the training shape equal to the first bit for bit, and how many
+   scores ``flash_bwd_dq``'s rounding pass took again there (and at BERT's
+   and the long-context shapes); ``decode_attention`` at the serving path's
+   shapes, at int8 and multi-row cases, at one slot with every cursor in
+   {0, 1, 63, 64, 65, 1023, 1024}, int8 at q_len 4 and bf16 d 128, each
+   launch repeated bit for bit, timed at 8 slots and at one slot at the
+   full prefix and at the serving step's cursors; ``paged_decode_attention``
+   at the paged serving path's shape (tables a random permutation of the
+   pool), with an int8 pool, 5 q rows, fp32 d 128 with 16-token blocks,
+   48-token blocks, and a poison case (every block no cursor covers
+   filled with NaN, every table entry past the cursors pointing nowhere:
+   the output must not change by a bit). Kernel, plain and library (SDPA
+   forward, and SDPA backward for the dQ/dK/dV pair: yardsticks only, the
+   port never calls SDPA; no PyTorch call reads a block table, so the paged
+   kernel is timed beside the dense decode kernel instead) device times
+   under ``torch.profiler``, beside the bound. ``ln_fwd`` and ``ln_bwd`` at the
    path shape (8192 x 768: bf16 with bf16 affine parameters, fp32, mixed,
    RMSNorm, no affine), at 1024 x 16384 and at 1001 rows of the widths
    just past each kernel template's reach (264, 1032, 4104) and of 8, in
@@ -46,7 +51,10 @@ non-zero and prints no result. Phases, each fatal on failure:
    flash kernels with segment ids (self-attention ids, a pair at sq < sk
    with a query id no key carries, ids with a padding bias, causal and
    dropout 0.1; d 32, 64, 128, bf16 and fp32) and
-   ``examples/long_context.py``'s packed call; ``flash_dbias`` at six
+   ``examples/long_context.py``'s packed call; ``flash_bwd_dq``'s bf16 body
+   at d 32, 64 and 128: causal, cross, ragged, fully masked rows (dq 0), a
+   padding bias, a per-head bias, segment ids and dropout 0.1, each launch
+   repeated bit for bit; ``flash_dbias`` at six
    bias shapes of ``(2, 12, 512, 512)``, with and without causal, dropout
    0.3 and ids, and ragged, each launch repeated bit for bit;
 4. GPT-small (vocab 32768, hidden 768, 12 layers, 12 heads, 1024
@@ -99,8 +107,8 @@ non-zero and prints no result. Phases, each fatal on failure:
    cut points drawn from the same stream) and a learned ALiBi row bias
    ``slope_h * j`` whose slopes start at ALiBi's ``2**(-8 (i + 1) / 12)``:
    the four flash kernels against their plain versions batch by batch (a
-   second ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_dbias`` equal bit
-   for bit), and ``flash_dbias`` at a ``(1, 12, 4096, 4096)`` table; the
+   second launch of each equal bit for bit), and ``flash_dbias`` at a
+   ``(1, 12, 4096, 4096)`` table; the
    share of 64 x 64 tile pairs the tensor-core bodies compute under the ids
    (``_tiles_meet``) beside the share of pairs visible; kernel, plain and
    library times (SDPA causal, with the packed mask as a boolean mask, and
@@ -113,8 +121,9 @@ non-zero and prints no result. Phases, each fatal on failure:
    batch, whose loss, dQ/dK/dV, slopes' grads and slopes must agree; and
    ``bench_flash_long``'s own call (no bias, no ids), timed;
 9. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
-   SIMT fp32`` for ``flash_fwd`` and ``flash_bwd_dkv``, ``SIMT`` for the
-   rest), then ``{"ok": true, "device": {...}}`` last.
+   SIMT fp32`` for the three flash kernels, ``SIMT, split over
+   positions`` for ``decode_attention``, ``SIMT`` for the rest), then
+   ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -172,10 +181,12 @@ TRAIN_COMPARE_STEPS = 3
 TRAIN_BH = (8, 12)
 TRAIN_ATTN = (96, 1024, 1024, 64)
 TRAIN_DROPOUT = 0.1
-# what each kernel runs on: flash_fwd and flash_bwd_dkv take a bf16 body on
-# the tensor cores and an fp32 one on the SIMT pipes, the rest one SIMT body
+# what each kernel runs on: the three flash kernels take a bf16 body on the
+# tensor cores and an fp32 one on the SIMT pipes, the rest one SIMT body
 BODY = {"flash_fwd": "mma.sync bf16 / SIMT fp32",
-        "flash_bwd_dkv": "mma.sync bf16 / SIMT fp32"}
+        "flash_bwd_dq": "mma.sync bf16 / SIMT fp32",
+        "flash_bwd_dkv": "mma.sync bf16 / SIMT fp32",
+        "decode_attention": "SIMT, split over positions"}
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
@@ -420,12 +431,27 @@ def same_bits(torch, what: str, first, again) -> None:
           f"{what}: a second launch differs")
 
 
+def retaken(torch, kern, what: str, args, kw: dict, visible: int,
+            dq) -> None:
+    """How many scores the bf16 ``flash_bwd_dq`` body's rounding pass
+    (``csrc/rounding.cuh``) took again on ``args``, of the ``visible``
+    ones, from a diagnostic launch whose dq must equal ``dq`` bit for
+    bit."""
+    dq_diag, count = kern.flash_bwd_dq_retaken(*args, **kw)
+    same_bits(torch, f"flash_bwd_dq at {what}, counting", (dq,), (dq_diag,))
+    print(f"flash_bwd_dq rounding pass at {what}: {count} of {visible} "
+          f"visible scores taken again ({count / visible:.3g})")
+
+
 # csrc/flash_fwd.cu and csrc/flash_bwd.cu: the bf16 tensor-core bodies and
 # their dynamic shared memory a block (bf16 rows of D + 8 elements: the
-# 64-row q tile and two stages of 64 keys of K and V; K, V and two stages
-# of q and do, plus two stages of 64 lse, delta, query ids and q and do
-# row norms, fp32)
+# 64-row q tile and two stages of 64 keys of K and V; q, do and two stages
+# of K and V, plus two stages of 64 key ids and K and V norms, 4 bytes
+# each; K, V and two stages of q and do, plus two stages of 64 lse, delta,
+# query ids and q and do row norms)
 MMA_KERNELS = {"flash_fwd_mma_kernel": lambda d: 2 * 5 * 64 * (d + 8),
+               "flash_bwd_dq_mma_kernel":
+                   lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 3 * 64,
                "flash_bwd_dkv_mma_kernel":
                    lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 5 * 64}
 
@@ -437,7 +463,7 @@ def mma_resources(kern) -> None:
     log = kern.build_log()
     found = []
     for blk in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(flash_fwd_mma_kernel|flash_bwd_dkv_mma_kernel)"
+        name = re.search(r"(" + "|".join(MMA_KERNELS) + r")"
                          r"ILi(\d+)ELb([01])E", blk)
         regs = re.search(r"Used (\d+) registers", blk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -569,11 +595,39 @@ def check_decode(torch, fa, cache_mod, kern, card: str) -> dict:
     cases.append(("q_len=9 fp32 d128", rand((16, 9, 128)),
                   rand((16, 256, 128)), rand((16, 256, 128)), None, None,
                   lens9.repeat_interleave(4)))
+    # the position split (csrc/decode_attention.cu): one slot (12 slot-heads,
+    # 16 chunks of 64 of the 1024 positions) at every cursor around a chunk's
+    # and the cache's edges, int8 at q_len 4, bf16 d 128 (inputs from their
+    # own generator, so the cases above keep theirs)
+    gen_split = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand_split(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen_split, device="cuda").to(
+            dtype)
+
+    q1 = rand_split((H, 1, d), torch.bfloat16)
+    k1, v1 = (rand_split((H, T, d), torch.bfloat16) for _ in range(2))
+    for cursor in (0, 1, 63, 64, 65, 1023, 1024):
+        cases.append((f"one slot, cursor {cursor} bf16", q1, k1, v1, None,
+                      None, torch.full((H,), cursor, dtype=torch.int32,
+                                       device="cuda")))
+    kq4, ks4 = cache_mod._quantize(rand_split((n, T, d)))
+    vq4, vs4 = cache_mod._quantize(rand_split((n, T, d)))
+    cases.append(("int8 cache with scales, q_len=4 bf16",
+                  rand_split((n, 4, d), torch.bfloat16), kq4, vq4, ks4, vs4,
+                  path_lengths.repeat_interleave(H)))
+    cases.append(("bf16 d128 (8x12, T 1024)",
+                  rand_split((n, 1, 128), torch.bfloat16),
+                  rand_split((n, T, 128), torch.bfloat16),
+                  rand_split((n, T, 128), torch.bfloat16), None, None,
+                  path_lengths.repeat_interleave(H)))
     worst = 0.0
     for name, q, k, v, ksc, vsc, lengths in cases:
         scale = q.shape[-1] ** -0.5
         out_k, lse_k = kern.decode_attention(q, k, v, lengths, ksc, vsc,
                                              scale)
+        same_bits(torch, f"decode_attention {name}", (out_k, lse_k),
+                  kern.decode_attention(q, k, v, lengths, ksc, vsc, scale))
         out_p, lse_p = fa._decode_plain(q, k, v, lengths, ksc, vsc, scale)
         torch.cuda.synchronize()
         tol = tol_for(torch, q.dtype)
@@ -586,37 +640,75 @@ def check_decode(torch, fa, cache_mod, kern, card: str) -> dict:
         check(bool((out_k[empty] == 0).all())
               and bool((lse_k[empty] == float("-inf")).all()),
               "decode_attention: empty rows are not 0 / -inf")
+        splits = kern.decode_splits(k.shape[0], k.shape[1], q.shape[1])
         print(f"decode_attention {name}: max_abs_err out {err:.3g}, "
               f"{share:.3g} x the limit {tol}; lse {lerr:.3g} "
-              f"(tol {TOL_LSE})")
+              f"(tol {TOL_LSE}); {splits} chunks a slot-head; a second "
+              "launch equal bit for bit")
         if q.shape[1] == 1 and k.dtype == torch.bfloat16:
             worst = max(worst, err)
+    del cases, kq4, vq4, k1, v1
 
-    # timing: every slot at the full 1024-position prefix
-    q = rand((n, 1, d), torch.bfloat16)
-    k = rand((n, T, d), torch.bfloat16)
-    v = rand((n, T, d), torch.bfloat16)
-    full = torch.full((n,), T, dtype=torch.int32, device="cuda")
-    scale = d ** -0.5
-    ms = device_ms(torch, lambda: kern.decode_attention(q, k, v, full, None,
-                                                        None, scale))
-    plain_ms = device_ms(torch, lambda: fa._decode_plain(q, k, v, full, None,
-                                                         None, scale))
-    q4, k4, v4 = q.view(S, H, 1, d), k.view(S, H, T, d), v.view(S, H, T, d)
-    lib_ms = device_ms(torch, lambda: torch.nn.functional
-                       .scaled_dot_product_attention(q4, k4, v4))
-    live = int(full.sum())             # positions the lengths make live
-    nbytes = 2 * live * d * 2 + nbytes_of(q, q, full) + n * 4
-    ops = 2 * 2 * live * d
-    b_ms, b_by = bound(nbytes, ops)
-    print(f"decode_attention path timing (8 slots x 1024): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+    t = decode_timings(torch, fa, kern, card)
     return {"name": "decode_attention", "route": "cuda",
             "source": "apex_tpu_torch/csrc/decode_attention.cu",
             "replaces": "apex_tpu/ops/flash_attention.py:1021",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+# the cursors of the dense serving path's decode step halfway through its
+# first 8 requests: their prompts (PROMPT_LENS) and 16 of the 32 new tokens
+SERVE_CURSORS = tuple(p + NEW_TOKENS // 2 for p in PROMPT_LENS[:8])
+
+
+def decode_timings(torch, fa, kern, card: str) -> dict:
+    """``decode_attention`` (bf16, d 64, max_len 1024) timed beside its
+    plain twin, SDPA and its bound: every one of 8 slots x 12 heads at the
+    full prefix (the keys ``ms``, ``plain_ms``, ``library_ms``,
+    ``bound_ms``, ``bound_by``), one slot at the full prefix, and 8 slots
+    at :data:`SERVE_CURSORS` (SDPA with a boolean mask of the cursors).
+    Takes the ``_kernels`` and ``ops.flash_attention`` modules, so
+    another tree's kernel can be timed on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    S, H, T, d = 8, 12, 1024, 64
+    n = S * H
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for shape in ((n, 1, d), (n, T, d),
+                                                 (n, T, d)))
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = q.view(S, H, 1, d), k.view(S, H, T, d), v.view(S, H, T, d)
+    full = torch.full((n,), T, dtype=torch.int32, device="cuda")
+    serve_lens = torch.tensor(SERVE_CURSORS, dtype=torch.int32,
+                              device="cuda").repeat_interleave(H)
+    serve_mask = (torch.arange(T, device="cuda")[None, :]
+                  < serve_lens.view(S, H)[:, :1])[:, None, None, :]
+    out = {}
+    for what, heads, lengths, lib in (
+            ("8 slots x 1024", n, full, lambda: sdpa(q4, k4, v4)),
+            ("one slot x 1024", H, full[:H],
+             lambda: sdpa(q4[:1], k4[:1], v4[:1])),
+            (f"8 slots at the serving cursors {SERVE_CURSORS}", n,
+             serve_lens, lambda: sdpa(q4, k4, v4, attn_mask=serve_mask))):
+        args = (q[:heads], k[:heads], v[:heads], lengths, None, None, scale)
+        ms = device_ms(torch, lambda: kern.decode_attention(*args))
+        plain_ms = device_ms(torch, lambda: fa._decode_plain(*args))
+        lib_ms = device_ms(torch, lib)
+        live = int(lengths.sum())      # positions the lengths make live
+        b_ms, b_by = bound(2 * live * d * 2
+                           + nbytes_of(args[0], args[0], lengths)
+                           + heads * 4, 2 * 2 * live * d)
+        print(f"decode_attention timing, {what}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} "
+              f"ms ({b_by}) [{card}]")
+        out.setdefault("ms", ms)
+        out.setdefault("plain_ms", plain_ms)
+        out.setdefault("library_ms", lib_ms)
+        out.setdefault("bound_ms", b_ms)
+        out.setdefault("bound_by", b_by)
+    return out
 
 
 def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
@@ -849,8 +941,14 @@ def check_flash_train(torch, fa, kern, card: str):
               kern.flash_fwd(q, k, v, True, scale))
     same_bits(torch, "flash_bwd_dkv at the training shape",
               kern.flash_bwd_dkv(*args), kern.flash_bwd_dkv(*args))
-    print("flash_fwd and flash_bwd_dkv at the training shape: a second "
-          "launch equal bit for bit")
+    dq_once = kern.flash_bwd_dq(*args)
+    same_bits(torch, "flash_bwd_dq at the training shape", (dq_once,),
+              (kern.flash_bwd_dq(*args),))
+    print("flash_fwd, flash_bwd_dq and flash_bwd_dkv at the training shape: "
+          "a second launch equal bit for bit")
+    retaken(torch, kern, "GPT's shape (96 x 1024 x 1024, d64, causal)",
+            args, {}, n * (sq * (sq + 1) // 2), dq_once)
+    del dq_once
     kernel = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, True, scale),
               "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args),
               "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args)}
@@ -1136,6 +1234,9 @@ def check_flash_bias(torch, fa, kern, card: str) -> None:
     out, lse = kern.flash_fwd(q, k, v, False, scale, bias=bias)
     delta = (do.float() * out.float()).sum(dim=-1)
     args = (q, k, v, do, lse, delta, False, scale)
+    retaken(torch, kern, "BERT's shape (192 x 512 x 512, d64, padding bias)",
+            args, dict(bias=bias), n * s * s,
+            kern.flash_bwd_dq(*args, bias=bias))
     kernel = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, False, scale,
                                                   bias=bias),
               "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args, bias=bias),
@@ -1331,6 +1432,91 @@ def check_flash_segments(torch, fa, kern, card: str) -> None:
           f"{float((packed ** 2).sum()):.6f} on the kernels, "
           f"{float((plain ** 2).sum()):.6f} plain; max_abs_err {err:.3g}, "
           f"{share:.3g} x the limit {FP32_TOL} [{card}]")
+
+
+def check_flash_dq(torch, fa, kern, card: str) -> None:
+    """``flash_bwd_dq``'s bf16 tensor-core body against its plain twin at d
+    32, 64 and 128 beyond the cases of the checks above (which hold it at d
+    64 on the training, BERT, segment-id and long-context inputs): causal,
+    cross (sq < sk), ragged, fully masked rows (which must give dq 0), a
+    padding bias, a per-head bias, segment ids and dropout 0.1, under the
+    bf16 limits; each launch repeated bit for bit."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cpu_gen = torch.Generator().manual_seed(10)
+    rng = np.random.RandomState(10)
+    bf16 = torch.bfloat16
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def padding(b, s):
+        lengths = torch.randint(s // 2, s + 1, (b,), generator=cpu_gen)
+        keep = torch.arange(s)[None, :] < lengths[:, None]
+        return torch.where(keep, 0.0, -10000.0)[:, None, None, :].to(
+            "cuda")
+
+    cases = [  # (name, b, h, sq, sk, d, causal, rate, bias, ids)
+        ("d32 causal", 2, 6, 256, 256, 32, True, 0.0, None, False),
+        ("d128 causal", 2, 6, 256, 256, 128, True, 0.0, None, False),
+        ("d128 cross sq=64 < sk=200 causal", 1, 6, 64, 200, 128, True, 0.0,
+         None, False),
+        ("d32 cross sq=64 < sk=200 non-causal", 1, 6, 64, 200, 32, False,
+         0.0, None, False),
+        ("d128 ragged sq=sk=100 causal", 1, 6, 100, 100, 128, True, 0.0,
+         None, False),
+        ("d32 ragged sq=sk=100 causal, dropout 0.1", 1, 6, 100, 100, 32,
+         True, TRAIN_DROPOUT, None, False),
+        ("d64 fully masked rows sq=96 > sk=40 causal", 1, 4, 96, 40, 64,
+         True, 0.0, None, False),
+        ("d128 fully masked rows sq=96 > sk=40 causal", 1, 4, 96, 40, 128,
+         True, 0.0, None, False),
+        ("d128 dropout 0.1 causal", 2, 4, 256, 256, 128, True,
+         TRAIN_DROPOUT, None, False),
+        ("d128 (4, 1, 1, 256) padding bias non-causal", 4, 4, 256, 256, 128,
+         False, 0.0, "padding", False),
+        ("d32 (1, 4, 192, 192) per-head bias causal", 2, 4, 192, 192, 32,
+         True, 0.0, "head", False),
+        ("d32 segment ids causal", 4, 4, 320, 320, 32, True, 0.0, None,
+         True),
+        ("d128 segment ids + per-head bias, dropout 0.1, causal", 2, 4, 256,
+         256, 128, True, TRAIN_DROPOUT, "head", True),
+    ]
+    for name, b, h, sq, sk, d, causal, rate, bias_kind, with_ids in cases:
+        n = b * h
+        q, k, v, do = (rand((n, t, d), bf16) for t in (sq, sk, sk, sq))
+        bias = (padding(b, sk) if bias_kind == "padding" else
+                rand((1, h, sq, sk)) if bias_kind == "head" else None)
+        segs = None
+        if with_ids:
+            ids = packed_ids(torch, rng, b, sk, 4)
+            segs = (ids, ids)
+        scale = d ** -0.5
+        seed = 99 if rate else None
+        kw = dict(bias=bias, segments=segs)
+        out_p, lse_p = fa._flash_fwd_plain(q, k, v, causal, scale, rate, seed,
+                                           **kw)
+        delta = (do.float() * out_p.float()).sum(dim=-1)
+        args = (q, k, v, do, lse_p, delta, causal, scale, rate, seed)
+        dq_k = kern.flash_bwd_dq(*args, **kw)
+        same_bits(torch, f"flash_bwd_dq {name}", (dq_k,),
+                  (kern.flash_bwd_dq(*args, **kw),))
+        dq_p = fa._flash_bwd_dq_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, share = close(torch, [(dq_k, dq_p)], BF16_TOL)
+        check(share <= 1, f"flash_bwd_dq {name}: err {err:.3g}, {share:.3g} "
+                          f"x the limit {BF16_TOL}")
+        note = ""
+        if causal and sq > sk:
+            masked = sq - sk
+            check(bool(torch.isinf(lse_p[:, :masked]).all())
+                  and bool((dq_k[:, :masked] == 0).all()),
+                  f"flash_bwd_dq {name}: fully masked rows' dq not 0")
+            note = f"; {masked} fully masked rows 0"
+        print(f"flash_bwd_dq bf16 {name} ({n} x {sq} x {sk}): max_abs_err "
+              f"{err:.3g}, {share:.3g} x the limit {BF16_TOL}; a second "
+              f"launch equal bit for bit{note} [{card}]")
+        del q, k, v, do, out_p, dq_k, dq_p
 
 
 def check_dbias_case(torch, fa, kern, name: str, args, bias, segs) -> tuple:
@@ -2114,6 +2300,11 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
     args = (q3, k3, v3, do3, lse_p, delta_p, True, scale)
     kw = dict(bias=bias, segments=segs)
     dq_k = kern.flash_bwd_dq(*args, **kw)
+    same_bits(torch, "flash_bwd_dq long-context", (dq_k,),
+              (kern.flash_bwd_dq(*args, **kw),))
+    retaken(torch, kern, "the long-context shape (96 x 4096 x 4096, ids, "
+            "ALiBi row)", args, kw, visible_pairs(torch, ids, ids, True, h),
+            dq_k)
     dk_k, dv_k = kern.flash_bwd_dkv(*args, **kw)
     same_bits(torch, "flash_bwd_dkv long-context", (dk_k, dv_k),
               kern.flash_bwd_dkv(*args, **kw))
@@ -2141,8 +2332,8 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
           f" d64, causal, 4 packed documents a row, ALiBi row bias, bf16): "
           f"max_abs_err, share of the limit: " + ", ".join(
               f"{kname} {err[kname]:.3g}, {share[kname]:.3g}"
-              for kname in share) + "; a second flash_fwd, flash_bwd_dkv and "
-          f"flash_dbias equal bit for bit [{card}]")
+              for kname in share) + "; a second launch of each equal bit "
+          f"for bit [{card}]")
     del dq_k, dk_k, dv_k, out_k
 
     # the relative-position table (1, 12, 4096, 4096), on the path's inputs
@@ -2572,6 +2763,7 @@ def main() -> None:
     rows += check_layer_norm(torch, ln, kern, card)
     check_flash_bias(torch, fa, kern, card)
     check_flash_segments(torch, fa, kern, card)
+    check_flash_dq(torch, fa, kern, card)
     check_flash_dbias(torch, fa, kern, card)
     serving, dense_times = serve(torch, kern, card)
     paged = serve_paged(torch, kern, card, dense_times)

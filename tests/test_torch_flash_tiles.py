@@ -23,6 +23,15 @@ here:
   pairs (0.4377), beside the 0.4038 of causal pairs the ids leave
   visible.
 
+The bf16 ``flash_bwd_dq`` body walks, for each 64-row q tile, the key
+tiles from 0 to the causal diagonal (offset ``sk - sq``), skips those whose
+ids never meet the q tile's, and within a visited tile skips a warp's 16
+rows when they lie past ``sq`` or above the whole tile
+(``csrc/flash_bwd.cu::flash_bwd_dq_mma_kernel``). :func:`_dq_computed`
+models that loop; every score ``mha_reference`` leaves visible must lie in
+what it computes, at the shapes above and at the cross, ragged and
+fully masked shapes of ``chip_smoke.py::check_flash_train``.
+
 Beside it, the wrappers' alignment rule for the bf16 (tensor-core)
 inputs.
 """
@@ -105,6 +114,61 @@ def test_visible_scores_lie_in_kept_tile_pairs(kind, causal, sq, sk):
                  sk).numpy()
     assert visible.any()
     assert not (visible & ~kept).any()
+
+
+def _dq_computed(q_ids, kv_ids, sq: int, sk: int,
+                 causal: bool) -> np.ndarray:
+    """``(b, sq, sk)`` bool: the scores the bf16 dq body computes. Per q
+    tile, key tiles ``0 .. ceil(kv_end / 64)`` with ``kv_end = min(sk, q0
+    + 64 + sk - sq)`` under the causal mask (none if it is not positive),
+    those whose id ranges meet the q tile's (all without ids); in each, a
+    warp's 16 rows unless they start past ``sq`` or every one of them lies
+    above the tile (``j0 > w0 + 15 + offset``)."""
+    b = 1 if q_ids is None else q_ids.shape[0]
+    offset = sk - sq
+    meet = (None if q_ids is None else
+            pfa._tiles_meet(torch.from_numpy(q_ids),
+                            torch.from_numpy(kv_ids)).numpy())
+    out = np.zeros((b, sq, sk), bool)
+    for q_tile in range(-(-sq // TILE)):
+        q0 = q_tile * TILE
+        kv_end = min(sk, q0 + TILE + offset) if causal else sk
+        for j in range(-(-kv_end // TILE) if kv_end > 0 else 0):
+            j0 = j * TILE
+            for w0 in range(q0, q0 + TILE, 16):
+                if w0 >= sq or (causal and j0 > w0 + 15 + offset):
+                    continue
+                keep = (np.ones(b, bool) if meet is None
+                        else meet[:, q_tile, j])
+                out[keep, w0:w0 + 16, j0:j0 + TILE] = True
+    return out
+
+
+DQ_SHAPES = SHAPES + [(64, 200), (100, 100), (96, 40)]
+
+
+@pytest.mark.parametrize("sq,sk", DQ_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["none", "packed", "non-monotone",
+                                  "ragged"])
+def test_dq_loop_visits_every_visible_score(kind, causal, sq, sk):
+    """The dq body's key-tile loop (from 0 to the causal diagonal, the
+    ragged edges, the id skip) reaches every score ``mha_reference``
+    leaves visible."""
+    rng = np.random.RandomState(2 * sq + 5 * sk + causal + len(kind))
+    b = 2
+    if kind == "none":
+        q_ids = kv_ids = None
+        jq = np.zeros((b, sq), np.int32)
+        jk = np.zeros((b, sk), np.int32)
+    else:
+        kv_ids = _ids(kind, rng, b, sk)
+        q_ids = kv_ids if sq == sk else _ids(kind, rng, b, sq)
+        jq, jk = q_ids, kv_ids
+    visible = _visible_jax(jq, jk, causal)
+    computed = _dq_computed(q_ids, kv_ids, sq, sk, causal)
+    assert visible.any()
+    assert not (visible & ~computed).any()
 
 
 def test_predicate_mirrors_the_ranges():
@@ -196,3 +260,82 @@ def test_bf16_inputs_must_be_16_byte_aligned():
         _kernels._check_aligned("flash_fwd", aligned, shifted)
     fp32 = torch.zeros(2 * 64 * 64 + 1)[1:].view(2, 64, 64)
     _kernels._check_aligned("flash_bwd_dkv", fp32)
+    with pytest.raises(ValueError, match="flash_bwd_dq: bf16 inputs"):
+        _kernels._check_aligned("flash_bwd_dq", aligned, shifted)
+
+
+@pytest.mark.parametrize("shift", ["q", "k", "v", "do"])
+def test_flash_bwd_dq_checks_alignment_before_launch(shift, monkeypatch):
+    """``flash_bwd_dq`` holds its bf16 q, k, v and do to the alignment rule
+    before it builds or launches anything (the device checks, which need
+    the card, are stubbed out here)."""
+    monkeypatch.setattr(_kernels, "_check_common", lambda *a: None)
+
+    def no_build():
+        raise RuntimeError("reached the build")
+
+    monkeypatch.setattr(_kernels, "build", no_build)
+    base = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    tensors = {name: base[:2 * 64 * 64].view(2, 64, 64)
+               for name in ("q", "k", "v", "do")}
+    stats = (torch.zeros(2, 64), torch.zeros(2, 64))
+    with pytest.raises(RuntimeError, match="reached the build"):
+        _kernels.flash_bwd_dq(*tensors.values(), *stats, True, 0.125)
+    tensors[shift] = base[1:1 + 2 * 64 * 64].view(2, 64, 64)
+    with pytest.raises(ValueError, match="flash_bwd_dq: bf16 inputs must"):
+        _kernels.flash_bwd_dq(*tensors.values(), *stats, True, 0.125)
+
+
+def test_kernel_path_computes_tile_ranges_once(monkeypatch):
+    """On the kernels, one forward computes the ids' tile ranges once and
+    hands the same tensors to ``flash_fwd`` and to the backward's
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the wrappers are replaced by
+    their plain twins here, which record what they were given; the
+    autograd function is called as ``flash_attention`` calls it on the
+    card, on its ``(n, s, d)`` layout)."""
+    rng = np.random.RandomState(31)
+    b, h, s, d = 2, 2, 192, 32
+    q, k, v = (torch.from_numpy(rng.randn(b * h, s, d).astype(np.float32))
+               .requires_grad_() for _ in range(3))
+    ids = torch.from_numpy(_ids("packed", rng, b, s))
+    made, given = [], {}
+    real_ranges = _kernels.seg_tile_ranges
+
+    def counted_ranges(t, tile=TILE):
+        made.append(real_ranges(t, tile))
+        return made[-1]
+
+    def recording(name, plain):
+        def run(*args, tile_ranges=None, **kw):
+            given[name] = tile_ranges
+            return plain(*args, **kw)
+        return run
+
+    monkeypatch.setattr(_kernels, "seg_tile_ranges", counted_ranges)
+    for name, plain in (("flash_fwd", pfa._flash_fwd_plain),
+                        ("flash_bwd_dq", pfa._flash_bwd_dq_plain),
+                        ("flash_bwd_dkv", pfa._flash_bwd_dkv_plain)):
+        monkeypatch.setattr(_kernels, name, recording(name, plain))
+    out = pfa._FlashAttention.apply(q, k, v, None, ids, ids, True,
+                                    d ** -0.5, 0.0, None, True, False)
+    out.sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+    assert len(made) == 2             # the q ids' and the kv ids'
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert len(given[name]) == 2
+        assert all(a is b for a, b in zip(given[name], made)), name
+    assert torch.equal(made[0], real_ranges(ids))
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype"])
+def test_given_tile_ranges_must_match_the_ids(bad):
+    """Tile ranges a caller passes are held to their ids' shape and to
+    int32 before a kernel would read them."""
+    ids = torch.zeros(2, 130, dtype=torch.int32)
+    good = _kernels.seg_tile_ranges(ids)
+    assert tuple(good.shape) == (2, 3, 2)
+    ptrs, held = _kernels._rng_args((ids, ids), (good, good))
+    assert held[0] is good and ptrs[0] == good.data_ptr()
+    wrong = good[:, :2].contiguous() if bad == "shape" else good.long()
+    with pytest.raises(ValueError, match="tile ranges"):
+        _kernels._rng_args((ids, ids), (good, wrong))
