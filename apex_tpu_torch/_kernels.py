@@ -24,7 +24,11 @@ each of ``bb``, ``hb``, ``sqb`` 1 or full, kept broadcast: the wrapper
 passes its element strides, 0 on a broadcast dim. They take optional
 packed-sequence segment ids, int32 ``(b, sq)`` and ``(b, sk)``, one row
 per batch of ``n / b`` heads. ``flash_dbias`` sums a learned bias's score
-cotangent over its broadcast dims.
+cotangent over its broadcast dims. For bf16 inputs and a bias without
+query rows (:func:`dbias_folds`), ``flash_bwd_dkv(..., need_dbias=True)``
+takes that gradient in its own launch instead (the fold: per-batch-head
+partials from the tensor-core body, then a fixed-order sum over the
+batch-heads that share a bias slice), counted as ``flash_dbias_fold``.
 
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have two bodies,
 chosen by the inputs' dtype: bf16 runs on the tensor cores (``mma.sync``
@@ -65,8 +69,9 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dq_retaken", "flash_bwd_dkv",
-           "flash_dbias", "decode_attention", "decode_splits",
-           "paged_decode_attention", "ln_fwd", "ln_bwd", "SOURCES",
+           "flash_dbias", "dbias_folds", "decode_attention", "decode_splits",
+           "paged_decode_attention", "ln_fwd", "ln_bwd", "ln_bwd_ctas",
+           "SOURCES",
            "ID_TILE", "seg_tile_ranges", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
@@ -88,8 +93,11 @@ _HEAD_DIMS = (32, 64, 128)
 # positions a segment-id range covers (csrc/mma.cuh::kIdTile)
 ID_TILE = 64
 _DECODE_HEAD_DIMS = (64, 128)
-# csrc/layer_norm.cu: widths taken
+# csrc/layer_norm.cu: widths taken, and the widest rows of the backward's
+# row kernel (one warp a row, 8 rows a block)
 _LN_MAX_H = 65536
+_LN_BWD_WARP_MAX_H = 1024
+_LN_BWD_ROWS = 8
 # csrc/decode_attention.cu: q rows a block past the first (one row takes a
 # block of its own), and the H100's SMs, whose two waves the split aims to
 # fill
@@ -98,7 +106,7 @@ _SMS = 132
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "flash_dbias": 0,
-                            "decode_attention": 0,
+                            "flash_dbias_fold": 0, "decode_attention": 0,
                             "paged_decode_attention": 0, "ln_fwd": 0,
                             "ln_bwd": 0}
 
@@ -180,10 +188,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
                                       + rng + drop + [P, P])
     lib.apex_flash_bwd_dq.restype = I
-    # ... + the q and do row norms (bf16 only)
+    # ... + the q and do row norms and the folded dbias's partials (bf16
+    # only)
     lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias
-                                       + seg + rng + [P, P] + drop + [P])
+                                       + seg + rng + [P] * 3 + drop + [P])
     lib.apex_flash_bwd_dkv.restype = I
+    # partials, db, kept, reduced, g_stride, r_stride, sk, stream
+    lib.apex_flash_dbias_fold_sum.argtypes = [P, P] + [I] * 5 + [P]
+    lib.apex_flash_dbias_fold_sum.restype = I
     # ... + kept slices, batch-heads each reduces, their two strides, and
     # whether the bias has full query rows
     lib.apex_flash_dbias.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
@@ -496,13 +508,26 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   tile_ranges: Optional[Tuple[torch.Tensor,
-                                              torch.Tensor]] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                                              torch.Tensor]] = None,
+                  need_dbias: bool = False) -> Tuple[torch.Tensor, ...]:
     """``(dk, dv)``, each ``(n, sk, d)`` in k's dtype, from the inputs of
-    :func:`flash_bwd_dq`."""
+    :func:`flash_bwd_dq`. With ``need_dbias`` (only where
+    :func:`dbias_folds` holds: bf16 inputs, a bias without query rows),
+    ``(dk, dv, dbias)``: the learned bias's gradient of
+    :func:`flash_dbias`, folded into the same launch (the body sums each
+    key's dS over the rows of a batch-head into an ``(n, sk)`` fp32
+    partial, then a second launch sums the partials of the batch-heads
+    that share a bias slice in the order of :func:`_dbias_split`; with one
+    batch-head a slice the body writes ``dbias`` itself). dK and dV are
+    the same bits either way."""
+    name = "flash_bwd_dkv"
     n, sq, sk, d, bias_args, seg_args = _check_bwd(
-        "flash_bwd_dkv", q, k, v, do, lse, delta, bias, segments)
-    _check_aligned("flash_bwd_dkv", q, k, v, do)
+        name, q, k, v, do, lse, delta, bias, segments)
+    _check_aligned(name, q, k, v, do)
+    _require(not need_dbias or (bias is not None
+                                and dbias_folds(bias.shape, q.dtype)),
+             f"{name}: the folded dbias takes bf16 inputs and a bias "
+             "without query rows (flash_dbias takes the rest)")
     drop = _dropout_args(dropout_rate, seed)
     lib, _ = build()
     rng_args, _held = _rng_args(segments, tile_ranges)
@@ -513,6 +538,14 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              if q.dtype == torch.bfloat16 else ())
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    db = part = None
+    if need_dbias:
+        split = _dbias_split(bias, n)
+        db = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+        # one batch-head a slice: slice g is batch-head g, so the partials
+        # are dbias itself
+        part = db if split[1] == 1 else torch.empty(
+            (n, sk), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.apex_flash_bwd_dkv(
@@ -520,10 +553,40 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
             *bias_args, *seg_args, *rng_args,
-            *([t.data_ptr() for t in norms] or [None, None]), *drop, stream)
-    _check_launch("flash_bwd_dkv", err)
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+            *([t.data_ptr() for t in norms] or [None, None]),
+            None if part is None else part.data_ptr(), *drop, stream)
+        _check_launch(name, err)
+        if part is not None and part is not db:
+            _check_launch(name, _dbias_fold_sum(lib, part, db, split,
+                                                stream))
+    LAUNCHES[name] += 1
+    if not need_dbias:
+        return dk, dv
+    LAUNCHES["flash_dbias_fold"] += 1
+    return dk, dv, db
+
+
+def dbias_folds(bias_shape, dtype: torch.dtype) -> bool:
+    """Whether a learned bias's gradient takes the fold in
+    :func:`flash_bwd_dkv` (True) or :func:`flash_dbias` (False), by the
+    bias's shape ``(bb, hb, sqb, sk)`` and the inputs' dtype alone: the
+    fold for bf16 inputs and a bias without query rows (``sqb == 1``: an
+    ALiBi row, a learned padding mask). A table with query rows stays on
+    ``flash_dbias``, since its per-batch-head partials would hold ``n /
+    (bb hb)`` times the table (6.4 GB at the long-context shape), and so
+    do fp32 inputs, whose SIMT bodies hold the fp32 limits."""
+    return dtype == torch.bfloat16 and bias_shape[2] == 1
+
+
+def _dbias_fold_sum(lib, part: torch.Tensor, db: torch.Tensor, split,
+                    stream: int) -> int:
+    """The fold's second launch (``csrc/flash_dbias.cu``): ``db`` slice
+    ``g`` = the partials of its batch-heads ``g * g_stride + r * r_stride``
+    summed in the order ``r = 0..R-1``. Returns the launch's error code."""
+    kept, reduced, g_stride, r_stride = split
+    return lib.apex_flash_dbias_fold_sum(
+        part.data_ptr(), db.data_ptr(), kept, reduced, g_stride, r_stride,
+        part.shape[1], stream)
 
 
 def _dbias_split(bias: torch.Tensor, n: int) -> Tuple[int, int, int, int]:
@@ -816,8 +879,9 @@ def ln_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     h)`` (fp32 or bf16), the forward's input and statistics and its
     weight -> ``(dx (n, h) in x's dtype, dweight, dbias)``. ``dweight``
     (with a weight) and ``dbias`` (with ``has_bias``) are summed over the
-    rows in fp32, partial rows per block then a column sum in a second
-    launch, and come back in the weight's dtype (fp32 without one)."""
+    rows in fp32, partial rows per block (:func:`ln_bwd_ctas`) then
+    a column sum in a second launch, which rounds them once to the
+    weight's dtype (fp32 without one)."""
     name = "ln_bwd"
     params = () if weight is None else (weight,)
     _check_common(name, (dy2d, x2d, mean, invvar, *params), x2d.device)
@@ -833,24 +897,36 @@ def ln_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     w_dtype = _check_params(name, h, weight) or torch.float32
     lib, _ = build()
     dev = x2d.device
-    # scratch for the partial rows of at most two blocks an SM; the C entry
-    # point picks the grid within that and sums only the rows it wrote
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_ctas = min(n, 2 * sms)
     dx = torch.empty_like(x2d)
-    part = torch.empty((2, max_ctas, h), dtype=torch.float32, device=dev)
-    sums = torch.empty((2, h), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, h), dtype=w_dtype, device=dev)
     want_g, want_b = weight is not None, bool(has_bias)
     with torch.cuda.device(dev):
+        # scratch for the partial rows of at most two blocks an SM; the C
+        # entry point launches at most the blocks the SMs hold at once
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ctas = ln_bwd_ctas(n, h, 2 * sms)
+        part = torch.empty((2, ctas, h), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_ln_bwd(
             dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(),
             invvar.data_ptr(), weight.data_ptr() if want_g else None,
             dx.data_ptr(), part[0].data_ptr() if want_g else None,
             part[1].data_ptr() if want_b else None, sums[0].data_ptr(),
-            sums[1].data_ptr(), n, h, max_ctas, _DTYPE_CODE[x2d.dtype],
+            sums[1].data_ptr(), n, h, ctas, _DTYPE_CODE[x2d.dtype],
             _DTYPE_CODE[dy2d.dtype], _DTYPE_CODE[w_dtype], int(rms), stream)
     _check_launch(name, err)
     LAUNCHES[name] += 1
-    return (dx, sums[0].to(w_dtype) if want_g else None,
-            sums[1].to(w_dtype) if want_b else None)
+    return (dx, sums[0] if want_g else None, sums[1] if want_b else None)
+
+
+def ln_bwd_ctas(n: int, h: int, max_blocks: int) -> int:
+    """The partial rows of dweight and dbias :func:`ln_bwd` holds for ``n``
+    rows of width ``h``, and the blocks it launches, each writing one: one
+    block for every 8 rows up to ``h = 1024`` (a warp a row), else one for
+    every row, and never more than ``max_blocks`` (``ln_bwd`` passes two
+    an SM; a block walks its rows grid-stride). Where fewer blocks of the
+    row kernel fit on the SMs at once, ``csrc/layer_norm.cu`` launches one
+    wave of those (the CUDA occupancy query)."""
+    rows = _LN_BWD_ROWS if h <= _LN_BWD_WARP_MAX_H else 1
+    return max(1, min(-(-n // rows), max_blocks))
+

@@ -71,6 +71,19 @@
 // the flagged-score pass of rounding.cuh (a few scores in a thousand take
 // their sums again), fed the q and do row norms from the wrapper and the
 // keys' K and V norms from the staged tiles.
+// With a learned bias without query rows (bb, hb, 1, sk) on the bf16 path,
+// the dkv body also takes the bias's gradient (kDbias, the fold of the
+// reference's _dbias_kernel): the dS it forms for dK is that gradient's
+// summand, so each thread adds the unrounded dS of its two keys as the
+// flagged-score pass leaves them, the four lanes of a key combine at the
+// end, and the key's sum over every row of the batch-head goes to an (n,
+// sk) fp32 partial; csrc/flash_dbias.cu sums the partials of the
+// batch-heads that share a bias slice in a fixed order. The standalone
+// flash_dbias recomputed both products for that. Since the fp32 dS is the
+// output here, the fold also takes again the dS of a score whose S scale +
+// bias may round to another fp32 value than the plain version's (a large
+// bias: rounding.cuh, bias_sum_uncertain), for its sum only: dK and dV are
+// made of the same values as without the fold, and keep their bits.
 //
 // What holds both bf16 bodies above their floors: mma.sync (not wgmma);
 // the softmax recompute, masks, dropout hash and rounding test of each
@@ -417,7 +430,7 @@ constexpr size_t dkv_smem_bytes() {
 // flagged-score pass), shared with the dq body
 using namespace rounding;
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kDbias>
 __global__ void __launch_bounds__(dkv_threads<D>())
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -430,15 +443,18 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
                          int sk, int causal, float scale, ScoreBias bias,
                          Segments seg, const int* __restrict__ q_rng,
-                         const int* __restrict__ kv_rng, Dropout dr) {
+                         const int* __restrict__ kv_rng, Dropout dr,
+                         float* __restrict__ db_part) {
   constexpr int kThreads = dkv_threads<D>();
   constexpr int kLd = mma::ld<D>();
   constexpr int kKC = D / 16;  // k chunks of K Q^T and V dO^T
   constexpr int kDW = D / d_split<D>();  // dK and dV columns a warp holds
   constexpr int kDT = kDW / 8;  // their 8-wide n tiles
   // q rows a warp takes at once: at d 128 a quarter of the tile, so the
-  // transposed scores' registers fit beside the accumulators
-  constexpr int kRS = D > 64 ? 16 : 64;
+  // transposed scores' registers fit beside the accumulators; with the
+  // fold at d 64 half of it, for the fold's registers (the same rows go
+  // into dK and dV in the same order, so neither moves by a bit)
+  constexpr int kRS = D > 64 ? 16 : (kDbias && D == 64 ? 32 : 64);
   constexpr int kRT = kRS / 8;  // 8-wide n tiles of the transposed scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // kBN x kLd
@@ -519,6 +535,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     if (kSeg) kid[r] = seg_row(seg.kv, seg.heads, bh, sk)[keys[r]];
     if (bias0 != nullptr && bias.sr == 0) kbias[r] = bias0[keys[r]];
   }
+  // kDbias: what a flip of a score's S scale + bias moves p by, per unit p
+  // (about an ulp of the key's bias: rounding.cuh, kFoldFlip)
+  const float kulp[2] = {fp32_ulp(kbias[0]), fp32_ulp(kbias[1])};
   mma::cp_async_wait<1>();  // K and V
   __syncthreads();
   float kn[2], vn[2];
@@ -536,6 +555,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   for (int dn = 0; dn < kDT; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+  float db_acc[2] = {0.f, 0.f};  // kDbias: the lane's share of its keys' sums
 
   int st = 0;
   while (i < n_tiles) {
@@ -603,9 +623,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       const bool edge = i0 + r0 + kRS > sq || w0 + 16 > sk ||
                         (causal && w0 + 15 > i0 + r0 + offset) || kSeg;
       // element (nt, e): key keys[e / 2], q row i0 + r0 + 8 nt + 2 t + e % 2
-      // bits of the elements whose S sum is taken again (fix), and of those
-      // whose dP sum is too (fix_dp)
-      uint32_t fix = 0, fix_dp = 0;
+      // bits of the elements whose S sum is taken again (fix), of those
+      // whose dP sum is too (fix_dp), and (kDbias) of those whose dS the
+      // fold takes again (fold)
+      uint32_t fix = 0, fix_dp = 0, fold = 0;
 #pragma unroll
       for (int nt = 0; nt < kRT; ++nt) {
 #pragma unroll
@@ -639,6 +660,16 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
               // then rounds to the plain version's bf16 value already)
               if (ds_uncertain(sc, qk, dn[rl] * vn[e >> 1])) fix_dp |= bit;
               if ((fix_dp & bit) || p_eff_uncertain(sc, qk)) fix |= bit;
+              if constexpr (kDbias) {
+                // the fold's fp32 dS: taken again where S scale + bias may
+                // round off the plain version's (rounding.cuh, kFoldFlip)
+                const float x1 = __fmul_rn(s[nt][e], scale);
+                if (sc.p * kulp[e >> 1] >= kFoldFlip &&
+                    bias_sum_uncertain(x1, bv,
+                                       kFoldKappa / kFixKappa * qk +
+                                           0.5f * kFixU * fabsf(x1)))
+                  fold |= bit;
+              }
             }
           }
           s[nt][e] = p_eff;
@@ -646,8 +677,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         }
       }
       // the rare scores near a bf16 rounding point: the sums and the chain
-      // as the plain version takes them (see kFixP), one at a time
-      for_each_bit(fix, [&](int pos) {
+      // as the plain version takes them (see kFixP), one at a time; with
+      // the fold, also the scores whose fp32 dS it takes again (fold), both
+      // sums each, whose exact dS goes to the fold's sum alone: dK and dV
+      // are made of the same values as without the fold
+      fold &= ~fix_dp;
+      for_each_bit(fix | fold, [&](int pos) {
         const int hi = pos >> 1 & 1;  // key g + 8
         const int key = hi ? keys[1] : keys[0];
         const int kl = warp * 16 + (lane >> 2) + 8 * hi;
@@ -660,14 +695,36 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
             : bias.sr == 0   ? (hi ? kbias[1] : kbias[0])
                              : bias0[static_cast<size_t>(row) * bias.sr +
                                      key];
-        const bool with_dp = (fix_dp >> pos) & 1u;
+        const bool with_dp = ((fix_dp | fold) >> pos) & 1u;
         const Score sc = score_chain<true>(
             fma_chain<D>(qt + rl * kLd, ks + kl * kLd),
             with_dp ? fma_chain<D>(dot + rl * kLd, vs + kl * kLd) : 0.f,
             scale, bias0 != nullptr, bv, ls[rl], dl[rl], dr, keep);
-        set_elem(s, pos, sc.p_eff);
-        if (with_dp) set_elem(dp, pos, sc.ds);
+        if (!kDbias || ((fix >> pos) & 1u)) set_elem(s, pos, sc.p_eff);
+        if ((fix_dp >> pos) & 1u) {
+          set_elem(dp, pos, sc.ds);
+        } else if (kDbias && ((fold >> pos) & 1u)) {
+          // the fold's correction of the dS that dK is made of
+          const float fix_ds = sc.ds - get_elem(dp, pos);
+          if (hi)
+            db_acc[1] += fix_ds;
+          else
+            db_acc[0] += fix_ds;
+        }
       });
+      if constexpr (kDbias) {
+        // the bias's gradient: the unrounded dS of the lane's two keys, in
+        // the order q tile, r0, then the fold's corrections in bit order
+        // (above), then the dS in the order nt, e % 2 (masked scores hold
+        // 0)
+#pragma unroll
+        for (int nt = 0; nt < kRT; ++nt) {
+          db_acc[0] += dp[nt][0];
+          db_acc[0] += dp[nt][1];
+          db_acc[1] += dp[nt][2];
+          db_acc[1] += dp[nt][3];
+        }
+      }
       // dV += P_eff^T dO and dK += dS^T Q: the fragments (rounded to
       // bf16) as A operands, do and q as B through ldmatrix.trans
 #pragma unroll
@@ -697,6 +754,20 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   }
   mma::cp_async_wait<0>();
 
+  if constexpr (kDbias) {
+    // the four lanes of a key (t = 0..3) combine in a fixed order, and one
+    // writes the key's partial; at d 128 both warps of a key group hold the
+    // same sums, and the one with d0 == 0 writes. A key no q tile reached
+    // writes 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = db_acc[r];
+      sum += __shfl_xor_sync(kFullMask, sum, 1);
+      sum += __shfl_xor_sync(kFullMask, sum, 2);
+      if (t == 0 && d0 == 0 && keys[r] < sk) db_part[kbase + keys[r]] = sum;
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = keys[r];
@@ -713,29 +784,43 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kDbias>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* q_norm, const void* do_norm,
                        void* dk, void* dv, int n, int sq, int sk, int causal,
                        float scale, ScoreBias bias, Segments seg,
                        const int* q_rng, const int* kv_rng, Dropout dr,
-                       cudaStream_t stream) {
+                       float* db_part, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<D, kSeg>,
+      flash_bwd_dkv_mma_kernel<D, kSeg, kDbias>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n, (sk + kBN - 1) / kBN);
   constexpr int threads = dkv_threads<D>();
-  flash_bwd_dkv_mma_kernel<D, kSeg><<<grid, threads, smem, stream>>>(
+  flash_bwd_dkv_mma_kernel<D, kSeg, kDbias><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(q_norm), static_cast<const float*>(do_norm),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, scale,
-      bias, seg, q_rng, kv_rng, dr);
+      bias, seg, q_rng, kv_rng, dr, db_part);
   return cudaGetLastError();
+}
+
+template <int D, bool kSeg>
+cudaError_t launch_dkv_fold(bool fold, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* delta, const void* q_norm,
+                            const void* do_norm, void* dk, void* dv, int n,
+                            int sq, int sk, int causal, float scale,
+                            ScoreBias bias, Segments seg, const int* q_rng,
+                            const int* kv_rng, Dropout dr, float* db_part,
+                            cudaStream_t stream) {
+  return (fold ? launch_dkv<D, kSeg, true> : launch_dkv<D, kSeg, false>)(
+      q, k, v, dout, lse, delta, q_norm, do_norm, dk, dv, n, sq, sk, causal,
+      scale, bias, seg, q_rng, kv_rng, dr, db_part, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1081,6 +1166,7 @@ struct BwdArgs {
   const void* q_norm;  // q and do row norms, fp32 (n, sq) (bf16 dkv only)
   const void* do_norm;
   unsigned long long* retaken;  // bf16 dq: scores re-taken, or null
+  float* db_part;  // bf16 dkv: the folded dbias's (n, sk) partials, or null
 };
 
 template <typename T, int D, bool kSeg>
@@ -1132,14 +1218,18 @@ cudaError_t launch_kind(const BwdArgs& a, cudaStream_t st) {
   } else if constexpr (kDq) {
     return seg ? launch_dq<T, D, true>(a, st) : launch_dq<T, D, false>(a, st);
   } else if constexpr (kBf16) {
+    const bool fold = a.db_part != nullptr;
+    // the fold takes a bias without query rows (row stride 0)
     if ((seg && (a.q_rng == nullptr || a.kv_rng == nullptr)) ||
-        a.q_norm == nullptr || a.do_norm == nullptr)
+        a.q_norm == nullptr || a.do_norm == nullptr ||
+        (fold && (a.bias.p == nullptr || a.bias.sr != 0)))
       return cudaErrorInvalidValue;
-    return (seg ? tc::launch_dkv<D, true> : tc::launch_dkv<D, false>)(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_norm, a.do_norm, a.dk,
-        a.dv, a.n, a.sq, a.sk, a.causal, a.scale, a.bias, a.seg, a.q_rng,
-        a.kv_rng, a.dr, st);
+    return (seg ? tc::launch_dkv_fold<D, true> : tc::launch_dkv_fold<D, false>)(
+        fold, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_norm, a.do_norm,
+        a.dk, a.dv, a.n, a.sq, a.sk, a.causal, a.scale, a.bias, a.seg,
+        a.q_rng, a.kv_rng, a.dr, a.db_part, st);
   } else {
+    if (a.db_part != nullptr) return cudaErrorInvalidValue;  // bf16 only
     return seg ? launch_dkv<T, D, true>(a, st)
                : launch_dkv<T, D, false>(a, st);
   }
@@ -1175,8 +1265,11 @@ int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
 // `q_norm` and `do_norm`, null for fp32). The bias, the segment ids, their
 // tile ranges (read by the bf16 bodies) and dropout as in apex_flash_fwd.
 // dq's `retaken` is null, or a uint64 to which the bf16 body adds the
-// scores its rounding pass took again (a diagnostic; dq is the same). Each
-// returns the cudaError_t of its launch (0 on success).
+// scores its rounding pass took again (a diagnostic; dq is the same).
+// dkv's `db_part` is null, or (bf16, with a bias of row stride 0) an (n, sk)
+// fp32 tensor that takes each batch-head's sum of dS over the rows, per
+// key: the folded dbias, before apex_flash_dbias_fold_sum. Each returns the
+// cudaError_t of its launch (0 on success).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int n, int sq,
@@ -1197,7 +1290,7 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                   Dropout{dropout, seed, thresh, inv_keep},
                   static_cast<const int*>(q_rng),
                   static_cast<const int*>(kv_rng), nullptr, nullptr,
-                  static_cast<unsigned long long*>(retaken)};
+                  static_cast<unsigned long long*>(retaken), nullptr};
   return dispatch<true>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1210,8 +1303,8 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* kv_ids, int seg_heads,
                                   const void* q_rng, const void* kv_rng,
                                   const void* q_norm, const void* do_norm,
-                                  int dropout, unsigned seed, int thresh,
-                                  float inv_keep, void* stream) {
+                                  void* db_part, int dropout, unsigned seed,
+                                  int thresh, float inv_keep, void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, n, sq, sk,
                   causal, scale,
@@ -1220,6 +1313,7 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                            static_cast<const int*>(kv_ids), seg_heads},
                   Dropout{dropout, seed, thresh, inv_keep},
                   static_cast<const int*>(q_rng),
-                  static_cast<const int*>(kv_rng), q_norm, do_norm, nullptr};
+                  static_cast<const int*>(kv_rng), q_norm, do_norm, nullptr,
+                  static_cast<float*>(db_part)};
   return dispatch<false>(a, d, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -45,9 +45,14 @@
 // still written, as zeros. Rows and keys past sq and sk (ragged lengths) are
 // masked in the kernel. Segment ids, dropout and the bias are read at the
 // global (b, h, row, col) the forward read.
-// Folding dbias into flash_bwd_dkv (which recomputes the same ds) needs a
-// second, fixed-order pass over per-batch-head partials; it is left for a
-// later version, as are tensor cores and TMA.
+// This kernel is the route for tables with query rows and for fp32 inputs.
+// A bias without query rows on bf16 inputs takes the fold instead:
+// flash_bwd_dkv's tensor-core body (csrc/flash_bwd.cu, kDbias) already
+// forms every visible ds, and writes each batch-head's sum over the rows
+// per key into an (n, sk) fp32 partial; dbias_fold_sum_kernel below sums
+// the R partials of each kept slice in the order r = 0..R-1 (no atomics: a
+// repeat is equal bit for bit). A table's partials would hold R x |bias|
+// floats (6.4 GB at the long-context shape), so tables stay here.
 
 #include "common.cuh"
 
@@ -268,6 +273,23 @@ dbias_cols_kernel(const DbiasArgs a) {
   }
 }
 
+// The fold's second pass: db[g, key] = the sum over r = 0..R-1, in that
+// order, of part[g * g_stride + r * r_stride, key], one thread a key. It
+// reads the (n, sk) partials once (1.5 MB at the long-context shape)
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+dbias_fold_sum_kernel(const float* __restrict__ part, float* __restrict__ db,
+                      int sk, int reduced, int g_stride, int r_stride) {
+  const int g = blockIdx.y;
+  const int key = blockIdx.x * kSumThreads + threadIdx.x;
+  if (key >= sk) return;
+  float sum = 0.f;
+  for (int r = 0; r < reduced; ++r)
+    sum += part[static_cast<size_t>(g * g_stride + r * r_stride) * sk + key];
+  db[static_cast<size_t>(g) * sk + key] = sum;
+}
+
 template <typename T, int D, bool kSeg>
 cudaError_t launch(const DbiasArgs& a, int kept, int rows,
                    cudaStream_t stream) {
@@ -352,4 +374,21 @@ extern "C" int apex_flash_dbias(const void* q, const void* k, const void* v,
   if (dtype == kFloat32) return launch_d<float>(a, d, kept, rows, st);
   if (dtype == kBFloat16) return launch_d<__nv_bfloat16>(a, d, kept, rows, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fold's second pass (dbias_fold_sum_kernel): `part` (n, sk) fp32 from
+// apex_flash_bwd_dkv's db_part, `db` (kept, sk) fp32, the split as in
+// apex_flash_dbias. Returns the cudaError_t of the launch (0 on success).
+extern "C" int apex_flash_dbias_fold_sum(const void* part, void* db, int kept,
+                                         int reduced, int g_stride,
+                                         int r_stride, int sk, void* stream) {
+  using namespace apex_port;
+  if (kept <= 0 || reduced <= 0 || sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((sk + kSumThreads - 1) / kSumThreads, kept);
+  dbias_fold_sum_kernel<<<grid, kSumThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(db), sk, reduced,
+      g_stride, r_stride);
+  return static_cast<int>(cudaGetLastError());
 }

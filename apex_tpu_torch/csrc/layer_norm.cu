@@ -30,13 +30,30 @@
 // registers, the block's 8 warps add theirs into shared memory in a fixed
 // order, and each block writes one fp32 partial row to a (ctas, h) scratch:
 // the reference's two-stage scheme (layer_norm_cuda_kernel.cu:540-678). A
-// second launch sums the partial rows per column, again in a fixed order:
-// no atomics, so the results repeat bit for bit. Above those widths one
-// block of 256 threads owns a row and streams it from memory once per pass
-// (two or three reads of x; the row no longer fits in registers), with the
-// block's backward partial row kept in the scratch itself.
+// second launch sums the partial rows per column, again in a fixed order,
+// and writes them in the weight's dtype: no atomics, so the results repeat
+// bit for bit. Above those widths one block of 256 threads owns a row and
+// streams it from memory once per pass (two or three reads of x; the row
+// no longer fits in registers), with the block's backward partial row kept
+// in the scratch itself.
+//
+// The backward's row kernel is sized for occupancy: a memory-bound kernel
+// needs rows in flight on every SM. A lane holds its columns of x and dy as
+// loaded (bf16 stays packed, two values a register) and widens them at each
+// use, the weight sits in shared memory (fp32, read by every warp), and the
+// lane's values a row are instantiated for the widths taken (8, 16, 24 and
+// 32: 24 at h = 768, so no vector is dead). That leaves 128 registers a
+// thread at h = 768 bf16 (ptxas, no spill), two blocks of 8 warps an SM,
+// where the first version's ~210 left one; where the next row's x and dy
+// fit beside them (BwdPlan), they are loaded before the current row's two
+// warp sums, so the sums' latency hides behind the loads. The grid is at
+// most one wave of the blocks that fit at once (the occupancy query, in
+// launch_bwd) and at most the wrapper's scratch of two partial rows an SM:
+// 264 at 8192 x 768 on an H100, where the kernel took 0.0282 ms and the
+// column sum 0.0021 (PERF.md).
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,6 +113,33 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
     for (int j = 0; j < kBytes / 8; ++j)
       reinterpret_cast<uint2*>(p)[j] = raw[j];
   }
+}
+
+// kBytes bytes of a row held in registers as they were loaded, in 16-byte
+// words (8-byte where a vector is 8 bytes), widened at each use
+template <int kBytes>
+struct Packed {
+  static constexpr int kWord = kBytes % 16 == 0 ? 16 : 8;
+  using Word = std::conditional_t<kWord == 16, uint4, uint2>;
+  Word w[kBytes / kWord];
+};
+
+template <typename T, int N>
+using PackedOf = Packed<N * static_cast<int>(sizeof(T))>;
+
+template <typename T, int N>
+__device__ __forceinline__ void load_packed(const T* p, PackedOf<T, N>& r) {
+  using P = PackedOf<T, N>;
+#pragma unroll
+  for (int j = 0; j < N * static_cast<int>(sizeof(T)) / P::kWord; ++j)
+    r.w[j] = reinterpret_cast<const typename P::Word*>(p)[j];
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const PackedOf<T, N>& r, float* out) {
+  const T* e = reinterpret_cast<const T*>(r.w);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
 }
 
 // the affine parameters of N columns at c: 1 and 0 where absent
@@ -244,11 +288,26 @@ ln_fwd_block_kernel(const T* __restrict__ x, const W* __restrict__ w,
 // backward
 // ---------------------------------------------------------------------------
 
+// The row kernel's register plan for kPer values a lane of x (T) and dy
+// (D): a row's two packed arrays take kRowRegs registers and the lane's
+// dgamma/dbeta partials 2 kPer. The next row is loaded early (kPrefetch)
+// when both rows and the partials fit in 96 registers, and two blocks are
+// asked of each SM (kMinBlocks, at most 128 registers a thread) when what
+// is held does
+template <typename T, typename D, int kPer>
+struct BwdPlan {
+  static constexpr int kRowRegs =
+      kPer * static_cast<int>(sizeof(T) + sizeof(D)) / 4;
+  static constexpr bool kPrefetch = 2 * kRowRegs + 2 * kPer <= 96;
+  static constexpr int kMinBlocks =
+      (kPrefetch ? 2 : 1) * kRowRegs + 2 * kPer <= 96 ? 2 : 1;
+};
+
 // one warp per row, grid-stride over rows; lane l owns the same columns in
 // every row, so its dgamma/dbeta partials stay in registers. Each block
 // writes its partial rows to part_g/part_b (ctas, h); either may be null.
 template <typename T, typename D, typename W, int kPer>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (BwdPlan<T, D, kPer>::kMinBlocks))
 ln_bwd_warp_kernel(const D* __restrict__ dy, const T* __restrict__ x,
                    const float* __restrict__ mean,
                    const float* __restrict__ invvar,
@@ -257,43 +316,71 @@ ln_bwd_warp_kernel(const D* __restrict__ dy, const T* __restrict__ x,
                    int n, int h, int rms) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecs = kPer / kVec;
-  extern __shared__ float sm[];  // 2 h floats: the block's partial rows
+  constexpr bool kPrefetch = BwdPlan<T, D, kPer>::kPrefetch;
+  extern __shared__ float sm[];  // the weight, then the 2 partial rows
+  float* sw = sm;
+  float* sg = sm + h;
+  float* sb = sm + 2 * h;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int nvec = h / kVec;
   const float inv_h = 1.f / static_cast<float>(h);
+  for (int i = threadIdx.x; i < h; i += kThreads) {
+    sw[i] = w != nullptr ? to_float(w[i]) : 1.f;
+    sg[i] = sb[i] = 0.f;
+  }
+  __syncthreads();
 
-  float wc[kVecs][kVec], acc_g[kVecs][kVec], acc_b[kVecs][kVec];
+  float acc_g[kVecs][kVec], acc_b[kVecs][kVec];
 #pragma unroll
-  for (int k = 0; k < kVecs; ++k) {
-    const int iv = lane + 32 * k;
-    float unused[kVec];
-    if (iv < nvec) load_affine<W, kVec>(w, nullptr, iv * kVec, wc[k], unused);
+  for (int k = 0; k < kVecs; ++k)
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc_g[k][i] = acc_b[k][i] = 0.f;
-  }
 
-  for (int row = blockIdx.x * kWarps + warp; row < n;
-       row += gridDim.x * kWarps) {
+  // a row's x and dy as loaded, and its statistics
+  struct Row {
+    PackedOf<T, kVec> x[kVecs];
+    PackedOf<D, kVec> dy[kVecs];
+    float mu, inv;
+  };
+  auto load_row = [&](int row, Row& r) {
     const size_t off = static_cast<size_t>(row) * h;
-    const float mu = rms ? 0.f : mean[row];
-    const float inv = invvar[row];
-    float xv[kVecs][kVec], dv[kVecs][kVec];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int iv = lane + 32 * k;
+      if (iv >= nvec) continue;
+      load_packed<T, kVec>(x + off + iv * kVec, r.x[k]);
+      load_packed<D, kVec>(dy + off + iv * kVec, r.dy[k]);
+    }
+    r.mu = rms ? 0.f : mean[row];
+    r.inv = invvar[row];
+  };
+
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + warp;
+  Row cur, nxt;
+  if (row < n) load_row(row, cur);
+  for (; row < n; row += stride) {
+    const int next = row + stride;
+    // the next row's loads go out before this row's warp sums
+    if (kPrefetch && next < n) load_row(next, nxt);
+    const size_t off = static_cast<size_t>(row) * h;
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) {
       const int iv = lane + 32 * k;
       if (iv >= nvec) continue;
-      load_vec<T, kVec>(x + off + iv * kVec, xv[k]);
-      load_vec<D, kVec>(dy + off + iv * kVec, dv[k]);
+      float xv[kVec], dv[kVec];
+      unpack<T, kVec>(cur.x[k], xv);
+      unpack<D, kVec>(cur.dy[k], dv);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        const float xh = (xv[k][i] - mu) * inv;
-        const float dxh = dv[k][i] * wc[k][i];
+        const float xh = (xv[i] - cur.mu) * cur.inv;
+        const float dxh = dv[i] * sw[iv * kVec + i];
         s1 += dxh;
         s2 += dxh * xh;
-        acc_g[k][i] += dv[k][i] * xh;
-        acc_b[k][i] += dv[k][i];
+        acc_g[k][i] += dv[i] * xh;
+        acc_b[k][i] += dv[i];
       }
     }
     const float m1 = rms ? 0.f : warp_sum(s1) * inv_h;
@@ -302,21 +389,26 @@ ln_bwd_warp_kernel(const D* __restrict__ dy, const T* __restrict__ x,
     for (int k = 0; k < kVecs; ++k) {
       const int iv = lane + 32 * k;
       if (iv >= nvec) continue;
-      float g[kVec];
+      float xv[kVec], dv[kVec], g[kVec];
+      unpack<T, kVec>(cur.x[k], xv);
+      unpack<D, kVec>(cur.dy[k], dv);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        const float xh = (xv[k][i] - mu) * inv;
-        const float dxh = dv[k][i] * wc[k][i];
-        g[i] = inv * (dxh - m1 - xh * m2);
+        const float xh = (xv[i] - cur.mu) * cur.inv;
+        const float dxh = dv[i] * sw[iv * kVec + i];
+        g[i] = cur.inv * (dxh - m1 - xh * m2);
       }
       store_vec<T, kVec>(dx + off + iv * kVec, g);
+    }
+    if (next < n) {
+      if (kPrefetch)
+        cur = nxt;
+      else
+        load_row(next, cur);
     }
   }
 
   // the block's partial rows: the warps add theirs in order 0..7
-  float* sg = sm;
-  float* sb = sm + h;
-  for (int i = threadIdx.x; i < 2 * h; i += kThreads) sm[i] = 0.f;
   for (int turn = 0; turn < kWarps; ++turn) {
     __syncthreads();
     if (warp != turn) continue;
@@ -399,18 +491,20 @@ ln_bwd_block_kernel(const D* __restrict__ dy, const T* __restrict__ x,
 }
 
 // stage two: out_g[c] = sum over the ctas partial rows of part_g[., c] (and
-// the same for b, blockIdx.y == 1). A block owns 32 columns; its 32 row
-// groups each sum every 32nd partial row (a handful of independent loads a
-// thread), then one warp adds the 32 group sums, all in a fixed order.
+// the same for b, blockIdx.y == 1), rounded once to the weight's dtype W. A
+// block owns 32 columns; its 32 row groups each sum every 32nd partial row
+// (a handful of independent loads a thread), then one warp adds the 32
+// group sums, all in a fixed order.
 constexpr int kColGroups = 32;
 
+template <typename W>
 __global__ void __launch_bounds__(32 * kColGroups)
 ln_colsum_kernel(const float* __restrict__ part_g,
-                 const float* __restrict__ part_b, float* __restrict__ out_g,
-                 float* __restrict__ out_b, int ctas, int h) {
+                 const float* __restrict__ part_b, W* __restrict__ out_g,
+                 W* __restrict__ out_b, int ctas, int h) {
   __shared__ float red[kColGroups][33];
   const float* part = blockIdx.y == 0 ? part_g : part_b;
-  float* out = blockIdx.y == 0 ? out_g : out_b;
+  W* out = blockIdx.y == 0 ? out_g : out_b;
   if (part == nullptr) return;  // uniform across the block
   const int lane = threadIdx.x % 32;
   const int group = threadIdx.x / 32;
@@ -427,7 +521,7 @@ ln_colsum_kernel(const float* __restrict__ part_g,
     float t = 0.f;
 #pragma unroll
     for (int g = 0; g < kColGroups; ++g) t += red[g][lane];
-    out[col] = t;
+    store_as(out + col, t);
   }
 }
 
@@ -494,6 +588,21 @@ struct BwdArgs {
   int n, h, max_ctas, rms;
 };
 
+// the row kernel for width h: kPer, the values a lane holds, rounded up to
+// the widths instantiated
+template <typename T, typename D, typename W>
+using BwdWarpFn = void (*)(const D*, const T*, const float*, const float*,
+                           const W*, T*, float*, float*, int, int, int);
+
+template <typename T, typename D, typename W>
+BwdWarpFn<T, D, W> bwd_warp_kernel(int h) {
+  const int per = (h + 31) / 32;
+  if (per <= 8) return ln_bwd_warp_kernel<T, D, W, 8>;
+  if (per <= 16) return ln_bwd_warp_kernel<T, D, W, 16>;
+  if (per <= 24) return ln_bwd_warp_kernel<T, D, W, 24>;
+  return ln_bwd_warp_kernel<T, D, W, 32>;
+}
+
 template <typename T, typename D, typename W>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   const D* dy = static_cast<const D*>(a.dy);
@@ -505,17 +614,24 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   float* pg = static_cast<float*>(a.part_g);
   float* pb = static_cast<float*>(a.part_b);
   // blocks: one for every kWarps rows (warp kernel) or every row (block
-  // kernel), at most max_ctas, the partial rows the scratch holds
+  // kernel), at most max_ctas, the partial rows the scratch holds; the row
+  // kernel's also at most one wave of the blocks the SMs hold at once
   int ctas;
   if (a.h <= kBwdWarpMaxH) {
-    ctas = std::min((a.n + kWarps - 1) / kWarps, a.max_ctas);
-    const size_t smem = 2 * sizeof(float) * a.h;
-    if ((a.h + 31) / 32 <= 8)  // values a lane holds, rounded up
-      ln_bwd_warp_kernel<T, D, W, 8><<<ctas, kThreads, smem, st>>>(
-          dy, x, mean, invvar, w, dx, pg, pb, a.n, a.h, a.rms);
-    else
-      ln_bwd_warp_kernel<T, D, W, 32><<<ctas, kThreads, smem, st>>>(
-          dy, x, mean, invvar, w, dx, pg, pb, a.n, a.h, a.rms);
+    const BwdWarpFn<T, D, W> kernel = bwd_warp_kernel<T, D, W>(a.h);
+    const size_t smem = 3 * sizeof(float) * a.h;  // weight, 2 partial rows
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    ctas = std::min({(a.n + kWarps - 1) / kWarps, a.max_ctas, per_sm * sms});
+    kernel<<<ctas, kThreads, smem, st>>>(dy, x, mean, invvar, w, dx, pg, pb,
+                                         a.n, a.h, a.rms);
   } else {
     ctas = std::min(a.n, a.max_ctas);
     ln_bwd_block_kernel<T, D, W><<<ctas, kBlockThreads, 0, st>>>(
@@ -524,10 +640,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (pg == nullptr && pb == nullptr)) return err;
   const dim3 grid((a.h + 31) / 32, 2);
-  ln_colsum_kernel<<<grid, 32 * kColGroups, 0, st>>>(pg, pb,
-                                         static_cast<float*>(a.out_g),
-                                         static_cast<float*>(a.out_b),
-                                         ctas, a.h);
+  ln_colsum_kernel<W><<<grid, 32 * kColGroups, 0, st>>>(
+      pg, pb, static_cast<W*>(a.out_g), static_cast<W*>(a.out_b), ctas, a.h);
   return cudaGetLastError();
 }
 
@@ -567,9 +681,10 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
 }
 
 // dx in x's dtype; part_g/part_b are (max_ctas, h) fp32 scratch, null
-// when dgamma/dbeta are not wanted, and out_g/out_b their (h,) fp32 column
-// sums. max_ctas >= 1 bounds the blocks launched: ceil(n / 8) at h <= 1024,
-// n above; the column sum reads only the partial rows written.
+// when dgamma/dbeta are not wanted, and out_g/out_b their (h,) column sums
+// in w's dtype. max_ctas >= 1 bounds the blocks launched: ceil(n / 8) at
+// h <= 1024 and the blocks the SMs hold at once, n above; the column sum
+// reads only the partial rows written.
 extern "C" int apex_ln_bwd(const void* dy, const void* x, const void* mean,
                            const void* invvar, const void* w, void* dx,
                            void* part_g, void* part_b, void* out_g,

@@ -92,6 +92,52 @@ __device__ __forceinline__ bool p_eff_uncertain(const Score& sc, float qk) {
   return near_bf16_midpoint(sc.p_eff, sc.p_eff * (dx + kFixU));
 }
 
+// The folded dbias (flash_bwd_dkv's kDbias body) sums each score's fp32 dS
+// unrounded, so there a score's x2 = S scale + bias has to round where the
+// plain version's does. Under a large bias it may not: an ALiBi row
+// reaches ~2580, where an fp32 ulp is 2.4e-4, and the tensor cores' x1 =
+// S scale, a little off the plain version's, can lie on the other side of
+// one of x2's rounding points; p then moves by a relative 2.4e-4, and the
+// long-context path's dbias by more than its limit (1.28 of it, on an
+// H100, without this test). A score of p > kFixP where such a flip would
+// move p by about kFoldFlip or more (p times an ulp of its key's bias,
+// fp32_ulp) and may happen (bias_sum_uncertain, x1 taken to lie within
+// kFoldKappa scale |q| |k| + 2^-23 |x1| of the plain version's: a few
+// times the sums' typical error, not kFixKappa's bound) has its dS taken
+// again for the fold. Neither window is a bound, and a score of p <= kFixP
+// is never tested: the test sits in the bf16 tests' branch for p > kFixP
+// (run on every score, it cost the fold twice as much at the same error).
+// So what the flips it lets pass move is not bounded here; chip_smoke.py
+// holds the fold under its limit at the long-context path's inputs, at
+// three other seeds', under slopes 2 and 4 times steeper and with the
+// slopes the path trained (PERF.md).
+constexpr float kFoldFlip = 1.f / (1 << 18);
+constexpr float kFoldKappa = 1.f / (1 << 21);
+
+// an ulp of x, the spacing of the fp32 values at |x| (0 under 2^-103)
+__device__ __forceinline__ float fp32_ulp(float x) {
+  const int bits = __float_as_int(fabsf(x)) & 0x7f800000;
+  return __int_as_float(max(bits - (23 << 23), 0));
+}
+
+// whether x1 + b, with x1 within dx of the plain version's, may round to
+// another fp32 value than the plain version's
+__device__ __forceinline__ bool bias_sum_uncertain(float x1, float b,
+                                                   float dx) {
+  const float x2 = __fadd_rn(x1, b);
+  // the rounding error of x2, exactly (TwoSum)
+  const float bt = __fsub_rn(x2, x1);
+  const float err =
+      __fadd_rn(__fsub_rn(x1, __fsub_rn(x2, bt)), __fsub_rn(b, bt));
+  const float away = x2 < 0.f ? -err : err;  // toward larger |x2|
+  // the rounding points of x2: half an ulp above |x2| and half an ulp
+  // below it (a quarter at a power of two, whose lower neighbour is nearer)
+  const float ulp = fp32_ulp(x2);
+  const bool pow2 = (__float_as_int(x2) & 0x7fffff) == 0;
+  const float below = pow2 ? 0.25f * ulp : 0.5f * ulp;
+  return fminf(0.5f * ulp - away, below + away) <= dx;
+}
+
 // the plain version's sum of a (row, key) score: fmaf over d from 0, on
 // two padded bf16 rows of shared tiles, 16 bytes of each at a time
 template <int D>
@@ -135,6 +181,19 @@ __device__ __forceinline__ float row_norm(const __nv_bfloat16* a) {
 template <class F>
 __device__ __forceinline__ void for_each_bit(uint32_t bits, F&& f) {
   for (; bits != 0; bits &= bits - 1) f(__ffs(bits) - 1);
+}
+
+// frag[pos / 4][pos % 4], with every index static
+template <int kNT>
+__device__ __forceinline__ float get_elem(const float (&frag)[kNT][4],
+                                          int pos) {
+  float x = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (pos == nt * 4 + e) x = frag[nt][e];
+  return x;
 }
 
 // frag[pos / 4][pos % 4] = x with every index static, so the fragments

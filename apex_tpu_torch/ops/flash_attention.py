@@ -14,7 +14,10 @@ training paths run:
   saved logsumexp and the dropout mask regenerated from its counters;
 - ``flash_dbias`` replaces ``_dbias_kernel``: a learned bias's gradient,
   the score cotangent summed over the bias's broadcast dims into a
-  bias-shaped output (O(|bias|) memory, never the score matrix);
+  bias-shaped output (O(|bias|) memory, never the score matrix); for bf16
+  inputs and a bias without query rows (``_kernels.dbias_folds``) that
+  gradient is folded into ``flash_bwd_dkv``'s launch instead, which forms
+  the same score cotangent for dK;
 - ``decode_attention`` replaces ``_decode_kernel``: ``q_len`` query rows
   per slot and head against a dense cache, masked by the per-slot write
   cursor, with optional int8 dequantization, each slot-head's prefix split
@@ -379,7 +382,9 @@ class _FlashAttention(torch.autograd.Function):
     (with the score bias and the segment ids); the backward takes ``delta
     = rowsum(do * out)`` from the saved (rounded) output, in fp32 outside
     any kernel as the reference does, then runs dQ and dKV, and, for a
-    learned bias (``need_dbias``), dbias. The bias ``(bb, hb, sqb, sk)``
+    learned bias (``need_dbias``), dbias: on the kernels folded into the
+    dKV launch where ``_kernels.dbias_folds`` says so (bf16, a bias
+    without query rows), else ``flash_dbias``. The bias ``(bb, hb, sqb, sk)``
     (or None) otherwise takes a zero gradient, as the reference's without
     ``bias_requires_grad``. The segment ids ``(b, sq)``/``(b, sk)`` int32
     (or None) take none; on the kernels, their tile ranges
@@ -417,20 +422,25 @@ class _FlashAttention(torch.autograd.Function):
         delta = (do3.float() * out.float()).sum(dim=-1)
         args = (q3, k3, v3, do3, lse, delta, *ctx.args)
         kw = dict(bias=bias4, segments=segments)
+        learned = ctx.needs_input_grad[3] and ctx.need_dbias
+        dbias = None
         if ctx.use_kernel:
             ranges = dict(tile_ranges=ctx.tile_ranges)
             dq = _kernels.flash_bwd_dq(*args, **kw, **ranges)
-            dk, dv = _kernels.flash_bwd_dkv(*args, **kw, **ranges)
+            if learned and _kernels.dbias_folds(bias4.shape, q3.dtype):
+                dk, dv, dbias = _kernels.flash_bwd_dkv(
+                    *args, **kw, **ranges, need_dbias=True)
+            else:
+                dk, dv = _kernels.flash_bwd_dkv(*args, **kw, **ranges)
+                if learned:
+                    dbias = _kernels.flash_dbias(*args, **kw)
         else:
             dq = _flash_bwd_dq_plain(*args, **kw)
             dk, dv = _flash_bwd_dkv_plain(*args, **kw)
-        dbias = None
-        if ctx.needs_input_grad[3]:
-            if ctx.need_dbias:
-                dbias = (_kernels.flash_dbias if ctx.use_kernel
-                         else _flash_dbias_plain)(*args, **kw)
-            else:
-                dbias = torch.zeros_like(bias4)
+            if learned:
+                dbias = _flash_dbias_plain(*args, **kw)
+        if ctx.needs_input_grad[3] and not ctx.need_dbias:
+            dbias = torch.zeros_like(bias4)
         return (dq, dk, dv, dbias) + (None,) * 8
 
 
@@ -443,7 +453,8 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
     """Fused attention over ``(b, h, s, d)`` tensors, differentiable.
 
     This is :class:`_FlashAttention`: the ``flash_fwd``/``flash_bwd_dq``/
-    ``flash_bwd_dkv`` (and, for a learned bias, ``flash_dbias``) kernels on
+    ``flash_bwd_dkv`` (and, for a learned bias, ``flash_dbias`` or the
+    fold of its gradient into ``flash_bwd_dkv``) kernels on
     CUDA tensors, their plain versions on the CPU (or with
     ``use_kernel=False``). ``dropout_rate``/``dropout_seed``: in-kernel
     attention dropout, keyed by the int seed (its int32 bit pattern); a

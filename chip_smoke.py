@@ -9,7 +9,9 @@ non-zero and prints no result. Phases, each fatal on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels, timed, and print the registers, spills and
    shared memory of the tensor-core bodies (``flash_fwd``,
-   ``flash_bwd_dq``, ``flash_bwd_dkv``) from ptxas's report;
+   ``flash_bwd_dq``, ``flash_bwd_dkv`` with and without the folded dbias)
+   and the registers and spills of ``ln_bwd``'s row kernel from ptxas's
+   report;
 3. each kernel against its plain PyTorch version on the card, element by
    element and by relative norm, with the max abs error and the share of
    the limit used (the limits are stated and derived below the imports;
@@ -44,7 +46,8 @@ non-zero and prints no result. Phases, each fatal on failure:
    bf16 and fp32, dweight/dbias within a stated fp32 relative norm and a
    second ``ln_bwd`` equal bit for bit, timed
    beside ``F.layer_norm``, ``aten.native_layer_norm_backward`` and
-   ``F.rms_norm``; the three flash kernels with a ``(16, 1, 1, 512)``
+   ``F.rms_norm``, with ``ln_bwd``'s grid; the three flash kernels with a
+   ``(16, 1, 1, 512)``
    padding bias and a ``(1, 12, 512, 512)`` bias at BERT's attention shape
    (192 x 512 x 512, d 64, non-causal, bf16) and at causal, dropout and
    fp32 cases, timed at BERT's shape beside SDPA with a float mask; the
@@ -56,7 +59,10 @@ non-zero and prints no result. Phases, each fatal on failure:
    padding bias, a per-head bias, segment ids and dropout 0.1, each launch
    repeated bit for bit; ``flash_dbias`` at six
    bias shapes of ``(2, 12, 512, 512)``, with and without causal, dropout
-   0.3 and ids, and ragged, each launch repeated bit for bit;
+   0.3 and ids (fp32 and bf16), and ragged, each launch repeated bit for
+   bit, and at the two row shapes in bf16 the dbias folded into
+   ``flash_bwd_dkv`` (repeated bit for bit, its dK/dV equal to the
+   unfolded launch's);
 4. GPT-small (vocab 32768, hidden 768, 12 layers, 12 heads, 1024
    positions; random weights from a seed) served at full width: a
    ``ServingEngine`` (8 slots, max_len 1024, prefill window 128, bf16
@@ -107,22 +113,30 @@ non-zero and prints no result. Phases, each fatal on failure:
    cut points drawn from the same stream) and a learned ALiBi row bias
    ``slope_h * j`` whose slopes start at ALiBi's ``2**(-8 (i + 1) / 12)``:
    the four flash kernels against their plain versions batch by batch (a
-   second launch of each equal bit for bit), and ``flash_dbias`` at a
-   ``(1, 12, 4096, 4096)`` table; the
+   second launch of each equal bit for bit; the folded dbias too, and it
+   again on ``RandomState(1)``-``(3)``'s inputs, under slopes 2 and 4
+   times steeper and, after the steps below, with the slopes they
+   trained), and
+   ``flash_dbias`` at a ``(1, 12, 4096, 4096)`` table; the
    share of 64 x 64 tile pairs the tensor-core bodies compute under the ids
    (``_tiles_meet``) beside the share of pairs visible; kernel, plain and
    library times (SDPA causal, with the packed mask as a boolean mask, and
    its backward with a float mask's gradient) beside the bounds over the
-   pairs the ids leave visible; then 3 steps of ``flash_attention(bias=,
-   bias_requires_grad=True, segment_ids=, causal=True)``, the loss
-   ``sum(out * dy)``, backward and ``FusedAdam(lr=1e-2)`` on the slopes,
-   each launching ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and
-   ``flash_dbias`` once; step time and a profile; the plain path batch by
+   pairs the ids leave visible, and ``flash_bwd_dkv`` with and without the
+   folded dbias and the fold's second pass; then 3 steps of
+   ``flash_attention(bias=, bias_requires_grad=True, segment_ids=,
+   causal=True)``, the loss ``sum(out * dy)``, backward and
+   ``FusedAdam(lr=1e-2)`` on the slopes, each launching ``flash_fwd``,
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` once, the last with the folded
+   dbias (``flash_dbias_fold`` once, ``flash_dbias`` never; in fp32
+   ``flash_dbias`` once); step time and a profile; the plain path batch by
    batch, whose loss, dQ/dK/dV, slopes' grads and slopes must agree; and
    ``bench_flash_long``'s own call (no bias, no ids), timed;
 9. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
-   positions`` for ``decode_attention``, ``SIMT`` for the rest), then
+   positions`` for ``decode_attention``, the fold and the table route for
+   ``flash_dbias``, whose ``launches`` count both, ``SIMT`` for the
+   rest), then
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -138,6 +152,7 @@ import time
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12       # outside the tensor cores
 
 # tolerances, kernel vs plain on identical inputs, element by element:
 # |kernel - plain| <= atol + rtol * |plain|, and over a whole output
@@ -186,7 +201,12 @@ TRAIN_DROPOUT = 0.1
 BODY = {"flash_fwd": "mma.sync bf16 / SIMT fp32",
         "flash_bwd_dq": "mma.sync bf16 / SIMT fp32",
         "flash_bwd_dkv": "mma.sync bf16 / SIMT fp32",
-        "decode_attention": "SIMT, split over positions"}
+        "flash_dbias": "bf16 row bias: folded into flash_bwd_dkv's mma.sync "
+                       "body + a fixed-order second pass (csrc/flash_dbias.cu"
+                       "; the row's times are the folded launch's, dK and dV"
+                       " included); tables and fp32: SIMT flash_dbias",
+        "decode_attention": "SIMT, split over positions",
+        "ln_bwd": "SIMT, sized for occupancy"}
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
             "flash_bwd_dkv": "apex_tpu/ops/flash_attention.py:411",
@@ -201,12 +221,13 @@ REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
 # sums keep the terms' absolute rounding) and 1e-5 relative norm
 LN_PATH = (8192, 768)
 LN_WIDE = (1024, 16384)
-# widths just past each kernel template's reach (csrc/layer_norm.cu: 8, 32
-# and 128 values a lane, the warp kernels' limits of 1024 and 4096), whose
-# last columns a template sized from h / 32 rounded down would leave out,
-# and the narrowest width taken; 1001 rows leave a partial block of rows
+# widths just past each kernel template's reach (csrc/layer_norm.cu: the
+# forward's 8, 32 and 128 values a lane, the backward's 8, 16, 24 and 32,
+# the warp kernels' limits of 1024 and 4096), whose last columns a template
+# sized from h / 32 rounded down would leave out, and the narrowest width
+# taken; 1001 rows leave a partial block of rows
 LN_EDGE_ROWS = 1001
-LN_EDGE_WIDTHS = (8, 264, 1032, 4104)
+LN_EDGE_WIDTHS = (8, 264, 520, 776, 1032, 4104)
 LN_EPS = 1e-12
 LN_PARAM_GRAD_TOL = (1e-4, 1e-5, 1e-5)
 LN_COPIES = 6              # input sets the timing rotates through
@@ -275,6 +296,11 @@ LONG_LR = 1e-2
 TOL_LONG_LOSS = 1e-5
 TOL_LONG_DQKV = 1e-2
 LONG_TOL_FP32 = {"loss": 1e-6, "dqkv": 1e-4, "grad": 1e-3, "slopes": 1e-4}
+# the folded dbias at the long shape is also held under DBIAS_TOL on these
+# seeds' inputs (RandomState(seed), as the path's) and under the path's
+# slopes times these (the ALiBi row up to ~5160 and ~10320)
+LONG_FOLD_SEEDS = (1, 2, 3)
+LONG_FOLD_STEEPER = (2, 4)
 
 PROMPT_LENS = [1, 128, 17, 64, 100, 5, 33, 128, 77, 2, 90, 45, 120, 9, 60,
                127]
@@ -304,11 +330,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, fp32_ops: float = 0.0):
     """Least time (ms) the card could take for bf16 work: bytes over HBM
-    bandwidth vs operations over the bf16 tensor-core peak."""
+    bandwidth vs operations over the bf16 tensor-core peak, plus any fp32
+    operations outside the tensor cores over their peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = (ops / BF16_OPS_PER_S + fp32_ops / FP32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -456,29 +483,47 @@ MMA_KERNELS = {"flash_fwd_mma_kernel": lambda d: 2 * 5 * 64 * (d + 8),
                    lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 5 * 64}
 
 
+# the template arguments of ln_bwd_warp_kernel<x, dy, w, values a lane> as
+# mangled: fp32 is "f", __nv_bfloat16 its name or a substitution
+LN_BWD_TYPES = r"f|13__nv_bfloat16|S\d*_"
+
+
 def mma_resources(kern) -> None:
-    """Registers, spills and shared memory of the tensor-core bodies, from
-    ptxas's report in this build's log (``_kernels.build_log``)."""
+    """Registers, spills and shared memory of the tensor-core bodies (the
+    dkv body's with and without the folded dbias) and of ``ln_bwd``'s row
+    kernel, from ptxas's report in this build's log
+    (``_kernels.build_log``)."""
     import re
     log = kern.build_log()
-    found = []
+    found, ln = [], []
     for blk in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(" + "|".join(MMA_KERNELS) + r")"
-                         r"ILi(\d+)ELb([01])E", blk)
         regs = re.search(r"Used (\d+) registers", blk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", blk)
-        if not (name and regs and spill):
+        if not (regs and spill):
             continue
-        kname, d, seg = name.group(1), int(name.group(2)), name.group(3)
-        found.append(f"{kname}<d {d}{', ids' if seg == '1' else ''}> "
-                     f"{regs.group(1)} registers, spill {spill.group(1)}/"
-                     f"{spill.group(2)} bytes, {MMA_KERNELS[kname](d)} B "
-                     "shared")
+        use = (f"{regs.group(1)} registers, spill {spill.group(1)}/"
+               f"{spill.group(2)} bytes")
+        name = re.search(r"(" + "|".join(MMA_KERNELS) + r")"
+                         r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", blk)
+        row = re.search(r"ln_bwd_warp_kernelI((?:" + LN_BWD_TYPES
+                        + r"){3})Li(\d+)E", blk)
+        if name:
+            kname, d, seg, fold = name.groups()
+            found.append(f"{kname}<d {d}{', ids' if seg == '1' else ''}"
+                         f"{', dbias fold' if fold == '1' else ''}> {use}, "
+                         f"{MMA_KERNELS[kname](int(d))} B shared")
+        elif row:
+            types = "/".join("fp32" if t == "f" else "bf16" for t in
+                             re.findall(LN_BWD_TYPES, row.group(1)))
+            ln.append(f"<{types}, {row.group(2)} a lane> {use}")
     print("ptxas -v, the tensor-core bodies (128 threads a block; the dkv "
           "body 256 at d 128): "
           + ("; ".join(found) if found else
              "not in this build's log (built before this process)"))
+    print("ptxas -v, ln_bwd_warp_kernel <x/dy/weight, values a lane> (256 "
+          "threads a block): " + ("; ".join(ln) if ln else "not in this "
+                                  "build's log"))
 
 
 def tile_shares(torch, fa, ids, causal: bool) -> tuple:
@@ -1141,11 +1186,19 @@ def check_layer_norm(torch, ln, kern, card: str):
                        ("ln_bwd", "normalization/_pallas.py:129")):
         b_ms, b_by = bound(*work[kname])
         t = times[kname]
+        grid = ""
+        if kname == "ln_bwd":
+            # ln_bwd's grid: its scratch's two partial rows an SM, which
+            # csrc/layer_norm.cu cuts to one wave where fewer blocks fit
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            grid = (f"; grid {kern.ln_bwd_ctas(n, h, 2 * sms)} blocks (two "
+                    f"an SM, fewer only where the occupancy query finds "
+                    f"fewer resident)")
         print(f"{kname} path timing (8192 x 768, bf16, bf16 affine, inputs "
               f"not in L2): kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library "
               f"{t['library']:.4f} ms ({library[kname]}), bound "
-              f"{b_ms:.5f} ms ({b_by}; {work[kname][0] / 1e6:.1f} MB) "
-              f"[{card}]")
+              f"{b_ms:.5f} ms ({b_by}; {work[kname][0] / 1e6:.1f} MB)"
+              f"{grid} [{card}]")
         rows.append({"name": kname, "route": "cuda",
                      "source": "apex_tpu_torch/csrc/layer_norm.cu",
                      "replaces": f"apex_tpu/{src}",
@@ -1532,6 +1585,28 @@ def check_dbias_case(torch, fa, kern, name: str, args, bias, segs) -> tuple:
     return dbias_close(torch, db_k, db_p, name)
 
 
+def check_fold_case(torch, fa, kern, name: str, args, bias, segs,
+                    want=None) -> tuple:
+    """The dbias folded into ``flash_bwd_dkv`` (``need_dbias=True``)
+    against ``want``, the plain dbias (``_flash_dbias_plain`` on ``args``
+    when not given), under ``DBIAS_TOL``; a second folded launch equal bit
+    for bit, and its dK and dV equal to the unfolded launch's bit for bit.
+    Returns (max abs error, share of the limit)."""
+    kw = dict(bias=bias, segments=segs)
+    folded = kern.flash_bwd_dkv(*args, **kw, need_dbias=True)
+    same_bits(torch, f"flash_bwd_dkv with the folded dbias {name}", folded,
+              kern.flash_bwd_dkv(*args, **kw, need_dbias=True))
+    unfolded = kern.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(folded, unfolded)),
+          f"flash_bwd_dkv {name}: the folded launch's dK/dV differ from the "
+          "unfolded launch's")
+    del unfolded
+    if want is None:
+        want = fa._flash_dbias_plain(*args, **kw)
+    return dbias_close(torch, folded[2], want, f"fold {name}")
+
+
 def dbias_close(torch, got, want, name: str) -> tuple:
     """(max abs error, share of the limit) of a dbias under ``DBIAS_TOL``,
     its atol scaled by the plain output's largest value."""
@@ -1547,9 +1622,10 @@ def check_flash_dbias(torch, fa, kern, card: str) -> None:
     """``flash_dbias`` against its plain twin at the six bias shapes of
     ``DBIAS_SHAPES`` (the five of ``tests/test_flash_attention.py:133-139``
     and ``(b, 1, 1, sk)``), scaled to ``(2, 12, 512, 512)``: non-causal
-    bf16; causal with dropout 0.3 and segment ids in fp32; and ragged (sq
-    500 < sk 510) causal bf16 at d 32. Each launch repeated, equal bit for
-    bit."""
+    bf16; causal with dropout 0.3 and segment ids in fp32 and in bf16; and
+    ragged (sq 500 < sk 510) causal bf16 at d 32. Each launch repeated,
+    equal bit for bit. Where the fold takes the bias (``dbias_folds``: bf16,
+    the two row shapes), the folded dbias too (``check_fold_case``)."""
     import numpy as np
     gen = torch.Generator(device="cuda").manual_seed(8)
     rng = np.random.RandomState(8)
@@ -1565,6 +1641,8 @@ def check_flash_dbias(torch, fa, kern, card: str) -> None:
          True),
         ("ragged sq=500 < sk=510 causal bf16 d32", 500, 510, 32, True, bf16,
          0.0, False),
+        ("causal, dropout 0.3, segment ids, bf16", s, s, 64, True, bf16, 0.3,
+         True),
     ]
     for vname, sq, sk, d, causal, dt, rate, with_ids in variants:
         n = b * h
@@ -1575,7 +1653,7 @@ def check_flash_dbias(torch, fa, kern, card: str) -> None:
             ids = packed_ids(torch, rng, b, sq, 4)
             segs = (ids, ids)
         scale, seed = d ** -0.5, (99 if rate else None)
-        readings = []
+        readings, folds = [], []
         for full in DBIAS_SHAPES:
             bias = rand(tuple(dim if f else 1 for dim, f in
                               zip((b, h, sq), full)) + (sk,))
@@ -1583,13 +1661,22 @@ def check_flash_dbias(torch, fa, kern, card: str) -> None:
                                            bias=bias, segments=segs)
             delta = (do.float() * out.float()).sum(dim=-1)
             args = (q, k, v, do, lse, delta, causal, scale, rate, seed)
-            err, share = check_dbias_case(
-                torch, fa, kern, f"{tuple(bias.shape)} {vname}", args, bias,
-                segs)
+            what = f"{tuple(bias.shape)} {vname}"
+            err, share = check_dbias_case(torch, fa, kern, what, args, bias,
+                                          segs)
             readings.append(f"{tuple(bias.shape)} {err:.3g}, {share:.3g}")
+            if kern.dbias_folds(bias.shape, dt):
+                err, share = check_fold_case(torch, fa, kern, what, args,
+                                             bias, segs)
+                folds.append(f"{tuple(bias.shape)} {err:.3g}, {share:.3g}")
         print(f"flash_dbias {vname} (2 x 12 heads): max_abs_err, share of "
               f"the limit {DBIAS_TOL} (atol x max |plain|), a second launch "
               f"equal bit for bit: " + "; ".join(readings) + f" [{card}]")
+        if folds:
+            print(f"flash_dbias folded into flash_bwd_dkv, {vname}: "
+                  f"max_abs_err, share of the limit: " + "; ".join(folds)
+                  + "; a second folded launch equal bit for bit, its dK/dV "
+                  f"equal to the unfolded launch's [{card}]")
         del q, k, v, do
 
 
@@ -1973,8 +2060,9 @@ def train(torch, kern, card: str):
                   f"{LN_PER_GPT_PASS}")
         check(counts["decode_attention"] == 0
               and counts["paged_decode_attention"] == 0
-              and counts["flash_dbias"] == 0,
-              f"{what} launched a decode kernel or flash_dbias")
+              and counts["flash_dbias"] == 0
+              and counts["flash_dbias_fold"] == 0,
+              f"{what} launched a decode kernel or a dbias kernel")
 
     step = trainer(True)
     launches = {name: 0 for name in kern.LAUNCHES}
@@ -2155,7 +2243,8 @@ def train_bert(torch, kern, card: str):
 
     L = cfg.num_layers
     want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "flash_dbias": 0, "ln_fwd": LN_PER_BERT_PASS,
+            "flash_dbias": 0, "flash_dbias_fold": 0,
+            "ln_fwd": LN_PER_BERT_PASS,
             "ln_bwd": LN_PER_BERT_PASS, "decode_attention": 0,
             "paged_decode_attention": 0}
     torch.cuda.empty_cache()
@@ -2232,13 +2321,14 @@ def train_bert(torch, kern, card: str):
 # phase 8: long-context attention (packed documents, a learned ALiBi bias)
 # ---------------------------------------------------------------------------
 
-def long_inputs(torch):
+def long_inputs(torch, seed: int = 0):
     """``bench.py::bench_flash_long``'s q, k, v and dy (``RandomState(0)``,
-    bf16 on the card) and, from the same stream after them, four packed
-    documents a row as int32 segment ids; the ALiBi slopes' start."""
+    bf16 on the card; another ``seed`` for other inputs) and, from the same
+    stream after them, four packed documents a row as int32 segment ids;
+    the ALiBi slopes' start."""
     import numpy as np
     b, h, s, d = LONG_SHAPE
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     q, k, v, dy = (torch.from_numpy(rng.randn(b, h, s, d)).to(
         "cuda", torch.bfloat16) for _ in range(4))
     ids = packed_ids(torch, rng, b, s, LONG_DOCS)
@@ -2261,9 +2351,11 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
     x 4096, d 64, causal, the packed ids, the ALiBi row at its start)
     against their plain versions batch by batch (out, lse, dQ, dK and dV
     are per batch; dbias is the plain per-batch sums added in batch order
-    in fp32), then ``flash_dbias`` at a ``(1, 12, 4096, 4096)``
-    relative-position table (its ``sqb == sq`` branch at full size), each
-    dbias launch repeated bit for bit. Returns the max abs errors."""
+    in fp32) and the dbias folded into ``flash_bwd_dkv`` (repeated bit for
+    bit, its dK/dV equal to the unfolded launch's), then ``flash_dbias`` at
+    a ``(1, 12, 4096, 4096)`` relative-position table (its ``sqb == sq``
+    branch at full size), each dbias launch repeated bit for bit. Returns
+    the max abs errors."""
     b, h, s, d = LONG_SHAPE
     scale = d ** -0.5
     q3, k3, v3, do3 = (t.reshape(b * h, s, d) for t in (q, k, v, dy))
@@ -2273,7 +2365,7 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
                                   segments=segs)
     lse_p, delta_p = torch.empty_like(lse_k), torch.empty_like(lse_k)
     share = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-             "flash_dbias": 0.0}
+             "flash_dbias": 0.0, "flash_dbias_fold": 0.0}
     err = dict.fromkeys(share, 0.0)
 
     def note(kname, reading):
@@ -2325,6 +2417,8 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
         db_p += fa._flash_dbias_plain(*args_i, **kw_i)
     torch.cuda.synchronize()
     note("flash_dbias", dbias_close(torch, db_k, db_p, "long-context"))
+    note("flash_dbias_fold", check_fold_case(torch, fa, kern, "long-context",
+                                             args, bias, segs, db_p))
     for kname in share:
         check(share[kname] <= 1, f"{kname} long-context: {share[kname]:.3g}"
                                  " x the limit")
@@ -2333,7 +2427,8 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
           f"max_abs_err, share of the limit: " + ", ".join(
               f"{kname} {err[kname]:.3g}, {share[kname]:.3g}"
               for kname in share) + "; a second launch of each equal bit "
-          f"for bit [{card}]")
+          f"for bit, the folded launch's dK/dV equal to the unfolded "
+          f"launch's [{card}]")
     del dq_k, dk_k, dv_k, out_k
 
     # the relative-position table (1, 12, 4096, 4096), on the path's inputs
@@ -2366,6 +2461,42 @@ def check_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
     return err
 
 
+def check_long_fold(torch, fa, kern, card: str, what: str, q, k, v, dy,
+                    ids, slopes) -> tuple:
+    """The dbias folded into ``flash_bwd_dkv`` at the long-context shape
+    on other inputs than :func:`check_long_kernels`' (``what`` says which)
+    against the plain version batch by batch, under ``DBIAS_TOL``, as
+    :func:`check_fold_case` holds it (lse and delta from the kernel's
+    forward, the same for both). Returns (max abs error, share of the
+    limit)."""
+    b, h, s, d = LONG_SHAPE
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (t.reshape(b * h, s, d) for t in (q, k, v, dy))
+    bias = alibi(torch, slopes, s)
+    segs = (ids, ids)
+    out, lse = kern.flash_fwd(q3, k3, v3, True, scale, bias=bias,
+                              segments=segs)
+    delta = (do3.float() * out.float()).sum(dim=-1)
+    del out
+    args = (q3, k3, v3, do3, lse, delta, True, scale)
+    want = torch.zeros(bias.shape, device="cuda")
+    for i in range(b):
+        rows = slice(i * h, (i + 1) * h)
+        want += fa._flash_dbias_plain(*(t[rows] for t in args[:6]), True,
+                                      scale, bias=bias,
+                                      segments=(ids[i:i + 1], ids[i:i + 1]))
+    err, share = check_fold_case(torch, fa, kern, f"long-context, {what}",
+                                 args, bias, segs, want)
+    print(f"flash_dbias folded into flash_bwd_dkv at the long-context shape,"
+          f" {what} (ALiBi row up to {float(bias.abs().max()):.1f}): "
+          f"max_abs_err {err:.3g}, {share:.3g} x the limit; a second folded "
+          f"launch equal bit for bit, its dK/dV equal to the unfolded "
+          f"launch's [{card}]")
+    del want, args, lse, delta
+    torch.cuda.empty_cache()
+    return err, share
+
+
 def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
                       slopes) -> dict:
     """Device times (CUDA events, see :func:`event_ms`) of the four flash
@@ -2374,8 +2505,15 @@ def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
     the library calls (SDPA causal, SDPA with the packed causal mask as a
     boolean mask, and SDPA's backward with a float mask that takes a
     gradient), and the bounds over the pairs the ids leave visible.
-    Returns the ``flash_dbias`` row of the kernels line and the four
-    kernels' times."""
+    Returns the ``flash_dbias`` row of the kernels line and the times of
+    the kernels a step launches. B6's row is the fold as the path runs it: the folded
+    ``flash_bwd_dkv`` launch (dK, dV and the dbias partials; timed twice,
+    in turns with the unfolded one) and the second pass alone on the
+    path's partials. Its bound is the unfolded launch's work plus the
+    partials' bytes and one fp32 add a visible score, its plain time the
+    plain dK/dV and dbias, its library call SDPA's backward with a float
+    mask's gradient (which computes dQ too); beside it the standalone
+    ``flash_dbias`` and the fold's added time."""
     b, h, s, d = LONG_SHAPE
     scale = d ** -0.5
     q3, k3, v3, do3 = (t.reshape(b * h, s, d) for t in (q, k, v, dy))
@@ -2410,6 +2548,29 @@ def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
     ms = {name: event_ms(torch, fn) for name, fn in kernel.items()}
     plain = {name: event_ms(torch, batched(fn, name == "flash_fwd"), 1)
              for name, fn in plain_fn.items()}
+    # the fold: dkv without and with it, in turns, 10 launches each time
+    turns = {False: [], True: []}
+    for fold in (False, True, True, False):
+        turns[fold].append(event_ms(torch, lambda: kern.flash_bwd_dkv(
+            *args, **kw, need_dbias=fold), 10))
+    dkv_ms, fold_ms = (sum(turns[f]) / 2 for f in (False, True))
+    lib_k, _ = kern.build()
+    split = kern._dbias_split(bias, b * h)
+    part = torch.randn((b * h, s), device="cuda")
+    db = torch.empty(bias.shape, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    second_ms = event_ms(torch, lambda: kern._dbias_fold_sum(
+        lib_k, part, db, split, stream), 10)
+    del part, db
+    fused_ms = fold_ms + second_ms
+    print(f"flash_dbias folded into flash_bwd_dkv at the long-context shape:"
+          f" dkv {dkv_ms:.4f} ms without the fold, {fold_ms:.4f} ms with it "
+          f"(turns: {', '.join(f'{t:.4f}' for t in turns[False])} / "
+          f"{', '.join(f'{t:.4f}' for t in turns[True])}), the second pass "
+          f"alone {second_ms:.4f} ms ({split[1]} partial rows a slice): the "
+          f"fold as the path runs it {fused_ms:.4f} ms (dK, dV and dbias), "
+          f"{fused_ms - dkv_ms:.4f} ms more than dK/dV alone; the standalone "
+          f"flash_dbias {ms['flash_dbias']:.4f} ms [{card}]")
     # library yardsticks: the port never calls them
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pos = torch.arange(s, device="cuda")
@@ -2486,12 +2647,30 @@ def time_long_kernels(torch, fa, kern, card: str, q, k, v, dy, ids,
               f"GFLOP) [{card}]")
     del out, lse, delta
     torch.cuda.empty_cache()
-    b_ms, b_by = bounds["flash_dbias"]
+    # the fold as the path runs it: dK/dV's work, the partials written and
+    # read, dbias written, and one fp32 add a visible score
+    fold_bytes = (work["flash_bwd_dkv"][0] + 2 * b * h * s * 4
+                  + 4 * bias.numel())
+    b_ms, b_by = bound(fold_bytes, work["flash_bwd_dkv"][1], pairs)
+    fold_plain = plain["flash_bwd_dkv"] + plain["flash_dbias"]
+    print(f"flash_dbias folded into flash_bwd_dkv, long-context timing: "
+          f"{fused_ms:.4f} ms, plain dK/dV and dbias (8 batches) "
+          f"{fold_plain:.4f} ms, library (SDPA backward with the float "
+          f"mask's grad, dQ included) "
+          + ("none" if library["flash_dbias"] is None
+             else f"{library['flash_dbias']:.4f} ms") + f", bound {b_ms:.5f}"
+          f" ms ({b_by}; {fold_bytes / 1e6:.1f} MB, "
+          f"{work['flash_bwd_dkv'][1] / 1e9:.2f} GFLOP bf16, "
+          f"{pairs / 1e9:.3f} GFLOP fp32) [{card}]")
+    # what a step runs: the forward, dQ, and dK/dV with the fold
+    step_ms = {"flash_fwd": ms["flash_fwd"],
+               "flash_bwd_dq": ms["flash_bwd_dq"],
+               "flash_bwd_dkv with the fold": fused_ms}
     return {"name": "flash_dbias", "route": "cuda",
-            "source": "apex_tpu_torch/csrc/flash_dbias.cu",
-            "replaces": REPLACES["flash_dbias"], "ms": ms["flash_dbias"],
-            "plain_ms": plain["flash_dbias"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library["flash_dbias"]}, ms
+            "source": "apex_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": REPLACES["flash_dbias"], "ms": fused_ms,
+            "plain_ms": fold_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library["flash_dbias"]}, step_ms
 
 
 def long_trainer(torch, fa, q, k, v, dy, ids, slopes0, use_kernel: bool):
@@ -2556,26 +2735,45 @@ def compare_long(torch, kernel_run, plain_run) -> dict:
 
 def long_context(torch, fa, kern, card: str):
     """The long-context path (see the module docstring): the kernels at
-    its shape, then ``LONG_STEPS`` steps of forward, backward and
+    its shape, the fold on other seeds' inputs and under steeper slopes,
+    then ``LONG_STEPS`` steps of forward, backward and
     ``FusedAdam`` on the ALiBi slopes through ``flash_attention`` on the
     kernels, each launching each of the four flash kernels once; the plain
     path batch by batch from the kernel path's slopes at each step (bf16:
-    loss, dQ/dK/dV); the same path in fp32, kernel and plain trajectories
+    loss, dQ/dK/dV; then the fold with the trained slopes); the same path in fp32, kernel and plain trajectories
     each on their own (loss, dQ/dK/dV, the slopes' grad and the slopes);
     then ``bench_flash_long``'s own call (no bias, no ids). Returns the
     launch counts of the bf16 kernel path's steps and the ``flash_dbias``
-    row."""
+    row (B6 there being the fold, its launches counted as
+    ``flash_dbias_fold``)."""
     b, h, s, d = LONG_SHAPE
     q, k, v, dy, ids, slopes0 = long_inputs(torch)
     errs = check_long_kernels(torch, fa, kern, card, q, k, v, dy, ids,
                               slopes0)
     row, kernel_ms = time_long_kernels(torch, fa, kern, card, q, k, v, dy,
                                        ids, slopes0)
-    row["max_abs_err"] = errs["flash_dbias"]
+    # the fold on other inputs: other seeds' q, k, v, dy and ids, the
+    # path's inputs under steeper slopes (here), and the path's inputs with
+    # the slopes its steps trained (below)
+    fold_errs = []
+    for seed in LONG_FOLD_SEEDS:
+        fold_errs.append(check_long_fold(
+            torch, fa, kern, card, f"seed {seed}'s inputs",
+            *long_inputs(torch, seed))[0])
+    for times in LONG_FOLD_STEEPER:
+        fold_errs.append(check_long_fold(
+            torch, fa, kern, card, f"slopes x {times}", q, k, v, dy, ids,
+            times * slopes0)[0])
+    row["max_abs_err"] = max(errs["flash_dbias"], errs["flash_dbias_fold"])
     want = {name: 0 for name in kern.LAUNCHES}
-    want.update(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1, flash_dbias=1)
+    want.update(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    # the learned row bias's gradient: folded into flash_bwd_dkv in bf16,
+    # flash_dbias in fp32 (_kernels.dbias_folds)
+    wants = {"bf16": dict(want, flash_dbias_fold=1),
+             "fp32": dict(want, flash_dbias=1)}
 
     def run_kernel_path(tensors, what):
+        want = wants[what]
         step = long_trainer(torch, fa, *tensors, ids, slopes0, True)
         launches = {name: 0 for name in kern.LAUNCHES}
         run, times = [], []
@@ -2612,13 +2810,19 @@ def long_context(torch, fa, kern, card: str):
           f"slopes trained by FusedAdam(lr={LONG_LR}): median step "
           f"{1e3 * steady:.3f} ms, {b * s / steady:.1f} tokens/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-          f"the four kernels' event times sum to "
+          f"the event times of the kernels a step launches (flash_fwd, "
+          f"flash_bwd_dq, flash_bwd_dkv with the fold and its second pass) "
+          f"sum to "
           f"{sum(kernel_ms.values()):.3f} ms, "
           f"{100 * sum(kernel_ms.values()) / (1e3 * steady):.1f}% of the "
           f"step [{card}]")
     profile_step(torch, "long-context step (8 x 4096 tokens)", step, card,
                  iters=3)
     del step
+    fold_errs.append(check_long_fold(
+        torch, fa, kern, card, f"the slopes after {LONG_STEPS} steps", q, k,
+        v, dy, ids, kernel_run[-1][4])[0])
+    row["max_abs_err"] = max([row["max_abs_err"]] + fold_errs)
 
     # bf16: the plain path from the kernel path's slopes before each step
     plain = long_trainer(torch, fa, q, k, v, dy, ids, slopes0, False)
@@ -2675,7 +2879,6 @@ def long_context(torch, fa, kern, card: str):
     bench_step()
     torch.cuda.synchronize()
     counts = dict(kern.LAUNCHES)
-    want.update(flash_dbias=0)
     check(counts == want, f"bench_flash_long step: launches {counts}, want "
                           f"{want}")
     bench_ms = 1e3 * _host_time(torch, bench_step, 3)
@@ -2776,8 +2979,12 @@ def main() -> None:
           f"{training}, BERT training ({BERT_STEPS} steps) {bert}, "
           f"long-context training ({LONG_STEPS} steps) {long}")
     for row in rows:
-        row["launches"] = sum(path[row["name"]] for path in
-                              (serving, paged, training, bert, long))
+        # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
+        names = ((row["name"], "flash_dbias_fold")
+                 if row["name"] == "flash_dbias" else (row["name"],))
+        row["launches"] = sum(path[name] for path in
+                              (serving, paged, training, bert, long)
+                              for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

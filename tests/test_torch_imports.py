@@ -135,6 +135,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, dtype=torch.int32), None, None, 0.125)
     assert _kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "flash_dbias": 0,
+                                 "flash_dbias_fold": 0,
                                  "decode_attention": 0,
                                  "paged_decode_attention": 0, "ln_fwd": 0,
                                  "ln_bwd": 0}
