@@ -44,9 +44,11 @@ does, re-taking the rare score near a bf16 rounding point
 q and do for that test from the wrapper, ``flash_bwd_dq`` computes its
 own.
 
-``decode_attention`` splits each slot-head's live prefix over
-:func:`decode_splits` blocks; the last block of a slot-head to finish
-merges their partials in a fixed order (``csrc/decode_attention.cu``).
+``decode_attention`` and ``paged_decode_attention`` split each
+slot-head's live prefix over :func:`decode_splits` blocks; the last block
+of a slot-head to finish merges their partials in a fixed order. Both run
+one body (``csrc/decode.cuh``), which differs only in how a position
+becomes a cache row, and take every head dim :func:`decode_dim_ok` admits.
 
 ``ln_fwd`` and ``ln_bwd`` (``csrc/layer_norm.cu``) are the LayerNorm and
 RMSNorm kernels; :mod:`apex_tpu_torch.normalization.fused_layer_norm`
@@ -62,6 +64,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -70,8 +73,8 @@ import torch
 __all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dq_retaken", "flash_bwd_dkv",
            "flash_dbias", "dbias_folds", "decode_attention", "decode_splits",
-           "paged_decode_attention", "ln_fwd", "ln_bwd", "ln_bwd_ctas",
-           "SOURCES",
+           "decode_dim_ok", "paged_decode_attention", "ln_fwd", "ln_bwd",
+           "ln_bwd_ctas", "SOURCES",
            "ID_TILE", "seg_tile_ranges", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
@@ -80,7 +83,7 @@ _BUILD = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu",
            "decode_attention.cu", "paged_decode_attention.cu",
            "layer_norm.cu")
-_HEADERS = ("common.cuh", "mma.cuh", "rounding.cuh")
+_HEADERS = ("common.cuh", "mma.cuh", "rounding.cuh", "decode.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v writes each kernel's registers, shared memory and spills into
 # the build log (build_log), without changing the code
@@ -88,19 +91,19 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# head dims of the flash kernels, and of the two decode kernels
+# head dims of the flash kernels (the decode kernels': decode_dim_ok)
 _HEAD_DIMS = (32, 64, 128)
 # positions a segment-id range covers (csrc/mma.cuh::kIdTile)
 ID_TILE = 64
-_DECODE_HEAD_DIMS = (64, 128)
+# csrc/decode.cuh::kMaxD: the widest head dim of the decode kernels
+_DECODE_MAX_D = 256
 # csrc/layer_norm.cu: widths taken, and the widest rows of the backward's
 # row kernel (one warp a row, 8 rows a block)
 _LN_MAX_H = 65536
 _LN_BWD_WARP_MAX_H = 1024
 _LN_BWD_ROWS = 8
-# csrc/decode_attention.cu: q rows a block past the first (one row takes a
-# block of its own), and the H100's SMs, whose two waves the split aims to
-# fill
+# csrc/decode.cuh: q rows a block past the first (one row takes a block of
+# its own), and the H100's SMs, whose two waves the split aims to fill
 _DECODE_ROWS = 4
 _SMS = 132
 
@@ -112,8 +115,8 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
-# decode_attention's arrival counters, one buffer per (device, stream):
-# zeroed once, and left at 0 by every launch (csrc/decode_attention.cu)
+# the decode kernels' arrival counters, one buffer per (device, stream):
+# zeroed once, and left at 0 by every launch (csrc/decode.cuh)
 _ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -151,18 +154,25 @@ def _compile(lib_path: Path) -> None:
     _BUILD.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}"
     objs = [_BUILD / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
-    procs = [subprocess.Popen(
-        [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for src, obj in zip(SOURCES, objs)]
-    logs = [p.communicate()[0].decode(errors="replace") for p in procs]
-    failed = [(src, log) for src, p, log in zip(SOURCES, procs, logs)
-              if p.returncode != 0]
+    t0 = time.perf_counter()
+
+    def run(src: str, obj: Path) -> Tuple[int, str, float]:
+        done = subprocess.run(
+            [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        return (done.returncode, done.stdout.decode(errors="replace"),
+                time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        runs = list(pool.map(run, SOURCES, objs))
+    failed = [(src, log) for src, (rc, log, _) in zip(SOURCES, runs) if rc]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {src}\n{log}" for src, log in failed))
+    # each source's compiler output, headed by the seconds it took
     lib_path.with_suffix(".log").write_text("".join(
-        f"--- {src}\n{log}" for src, log in zip(SOURCES, logs)))
+        f"--- {src} ({secs:.1f} s)\n{log}"
+        for src, (_, log, secs) in zip(SOURCES, runs)))
     tmp = lib_path.with_suffix(f".{tag}.tmp")
     link = subprocess.run(
         [nvcc, *_ARCH, "-shared", *map(str, objs), "-o", str(tmp)],
@@ -204,7 +214,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # ... + the partials' scratch and the arrival counters
     lib.apex_decode_attention.argtypes = [P] * 10 + [I] * 7 + [F, P]
     lib.apex_decode_attention.restype = I
-    lib.apex_paged_decode_attention.argtypes = [P] * 9 + [I] * 8 + [F, P]
+    # ... + the division by the block size (csrc/decode.cuh::FastDiv)
+    lib.apex_paged_decode_attention.argtypes = ([P] * 11 + [I] * 7 + [U, I]
+                                                + [I, I, F, P])
     lib.apex_paged_decode_attention.restype = I
     lib.apex_ln_fwd.argtypes = [P] * 6 + [I] * 5 + [F, I, P]
     lib.apex_ln_fwd.restype = I
@@ -230,9 +242,9 @@ def build() -> Tuple[ctypes.CDLL, float]:
 
 
 def build_log() -> str:
-    """The compiler's output of the current build (ptxas's per-kernel
-    registers, shared memory and spills), or "" if it was not built
-    here."""
+    """The compiler's output of the current build (each source's seconds
+    and ptxas's per-kernel registers, shared memory and spills), or "" if
+    it was not built here."""
     path = _BUILD / f"libapex_tpu_torch_{_source_key()}.log"
     return path.read_text() if path.exists() else ""
 
@@ -641,8 +653,10 @@ def flash_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_splits(n: int, T: int, q_len: int) -> int:
-    """Blocks ``decode_attention`` splits each slot-head's live prefix
-    over, from the launch's shape alone (the host never reads a cursor):
+    """Blocks ``decode_attention`` and ``paged_decode_attention`` split
+    each slot-head's live prefix over, from the launch's shape alone (the
+    host never reads a cursor; ``T`` is the positions a slot-head can
+    hold: the dense cache's, or the table's span ``n_table * block_size``):
     a chunk of about 256 of the ``T`` positions, more blocks where the grid
     (``n`` slot-heads x splits x :func:`_decode_groups`) would not fill
     two waves of the H100's 132 SMs, but never a chunk under 64 of the
@@ -656,15 +670,34 @@ def decode_splits(n: int, T: int, q_len: int) -> int:
 
 
 def _decode_groups(n: int, q_len: int) -> int:
-    """The decode kernel's blocks a chunk: one a slot-head for one q row,
+    """The decode kernels' blocks a chunk: one a slot-head for one q row,
     else one per 4 q rows."""
     return n if q_len == 1 else n * -(-q_len // _DECODE_ROWS)
 
 
+def decode_dim_ok(d: int) -> bool:
+    """Whether the decode kernels take head dim ``d``: every multiple of 8
+    from 8 to 256, the reference's ``d % 8 == 0`` rule (a row is split
+    over lanes of 8 elements, ``csrc/decode.cuh``)."""
+    return d % 8 == 0 and 8 <= d <= _DECODE_MAX_D
+
+
+def _fast_div(divisor: int) -> Tuple[int, int]:
+    """``(magic, shift)`` of ``csrc/decode.cuh::FastDiv``: ``x // divisor``
+    is ``umulhi(x, magic) >> shift`` for ``0 <= x < 2**31``, with ``magic
+    = ceil(2**(31 + l) / divisor)``, ``shift = l - 1``, ``l =
+    ceil(log2(divisor))``; ``(0, 0)`` for a divisor of 1 (the quotient is
+    ``x``)."""
+    if divisor == 1:
+        return 0, 0
+    l = (divisor - 1).bit_length()
+    return -(-(1 << (31 + l)) // divisor), l - 1
+
+
 def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """``count`` uint32 arrival counters at 0 for a ``decode_attention``
-    launch on ``stream``: a buffer kept per (device, stream), which every
-    launch leaves at 0, so it is zeroed only when it grows."""
+    """``count`` uint32 arrival counters at 0 for a decode kernel's launch
+    on ``stream``: a buffer kept per (device, stream), which every launch
+    leaves at 0, so it is zeroed only when it grows."""
     key = (torch.device(device).index or 0, stream)
     buf = _ARRIVALS.get(key)
     if buf is None or buf.numel() < count:
@@ -680,7 +713,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q (n, q_len, d)`` bf16/fp32 over ``k``/``v`` ``(n, T, d)``
     (bf16, fp32, or int8 with ``(n, T)`` fp32 scales) masked by ``lengths
-    (n,)`` int32 -> ``(out (n, q_len, d) in q.dtype, lse (n, q_len))``."""
+    (n,)`` int32 -> ``(out (n, q_len, d) in q.dtype, lse (n, q_len))``;
+    ``d`` as :func:`decode_dim_ok` admits."""
     quantized = k.dtype == torch.int8
     scales = (k_scale, v_scale) if quantized else ()
     _check_common("decode_attention", (q, k, v, lengths, *scales), q.device)
@@ -702,10 +736,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      and tuple(s.shape) == (n, T) for s in (k_scale,
                                                             v_scale)),
                  "decode_attention: int8 caches need (n, T) fp32 scales")
-    if d not in _DECODE_HEAD_DIMS:
+    if not decode_dim_ok(d):
         raise NotImplementedError(
-            f"decode_attention: head dim {d} is not one of "
-            f"{_DECODE_HEAD_DIMS}")
+            f"decode_attention: head dim {d} is not a multiple of 8 in "
+            f"[8, {_DECODE_MAX_D}]")
     _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
              "decode_attention: cache rows must be 16-byte aligned")
     _require(n > 0 and q_len > 0, "decode_attention: empty batch or query")
@@ -743,8 +777,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     scales), slot ``s`` reading logical position ``t`` from pool block
     ``tables[s, t // block_size]`` below its cursor ``lengths[s]``
     (``tables (slots, n_table)``, ``lengths (slots,)``, both int32) ->
-    ``(out (n, q_len, d) in q.dtype, lse (n, q_len))``. Table entries at or
-    past ``ceil(lengths[s] / block_size)`` are never read."""
+    ``(out (n, q_len, d) in q.dtype, lse (n, q_len))``; ``d`` as
+    :func:`decode_dim_ok` admits. Table entries at or past
+    ``ceil(lengths[s] / block_size)`` are never read."""
     name = "paged_decode_attention"
     quantized = k_pool.dtype == torch.int8
     scales = (k_scale, v_scale) if quantized else ()
@@ -775,25 +810,35 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      for s in (k_scale, v_scale)),
                  f"{name}: int8 pools need (num_blocks, heads, block_size) "
                  "fp32 scales")
-    if d not in _DECODE_HEAD_DIMS:
+    if not decode_dim_ok(d):
         raise NotImplementedError(
-            f"{name}: head dim {d} is not one of {_DECODE_HEAD_DIMS}")
+            f"{name}: head dim {d} is not a multiple of 8 in [8, "
+            f"{_DECODE_MAX_D}]")
     _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
              f"{name}: pool rows must be 16-byte aligned")
     _require(n > 0 and q_len > 0 and n_table > 0 and block_size > 0,
              f"{name}: empty batch, query, table or block")
+    span = n_table * block_size
+    _require(span < 1 << 31, f"{name}: a table spans {span} positions, "
+                             "past 2**31 - 1")
+    splits = decode_splits(n, span, q_len)
     lib, _ = build()
     out = torch.empty_like(q)
     lse = torch.empty((n, q_len), dtype=torch.float32, device=q.device)
+    part = torch.empty(n * splits * q_len * (d + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        arrivals = _arrivals(q.device, stream, _decode_groups(n, q_len))
         err = lib.apex_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), n, heads,
-            q_len, block_size, n_table, d, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pool.dtype], float(scale), stream)
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            part.data_ptr(), arrivals.data_ptr(), n, heads, q_len,
+            block_size, n_table, d, splits, *_fast_div(block_size),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], float(scale),
+            stream)
     _check_launch(name, err)
     LAUNCHES[name] += 1
     return out, lse

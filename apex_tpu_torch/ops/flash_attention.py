@@ -47,8 +47,9 @@ Kernel selection follows the reference's ``use_pallas`` contract as
 ``use_kernel``: ``None`` runs the kernel iff the tensors lie on a CUDA
 device, ``True`` on CPU tensors raises, ``False`` runs the plain version.
 On CUDA there is no shape-based fallback: the kernels mask ragged lengths
-themselves, and whatever they do not take (a head dim other than
-32/64/128) raises.
+themselves, and whatever they do not take raises (the flash kernels take
+head dims 32, 64 and 128, the two decode kernels every multiple of 8 from
+8 to 256, the reference's ``d % 8 == 0``).
 """
 
 from __future__ import annotations

@@ -7,11 +7,11 @@ first use); without a card, or without the package beside it, it exits
 non-zero and prints no result. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels, timed, and print the registers, spills and
-   shared memory of the tensor-core bodies (``flash_fwd``,
-   ``flash_bwd_dq``, ``flash_bwd_dkv`` with and without the folded dbias)
-   and the registers and spills of ``ln_bwd``'s row kernel from ptxas's
-   report;
+2. build the CUDA kernels, timed (and each source's nvcc), and print the
+   registers, spills and shared memory of the tensor-core bodies
+   (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` with and without the
+   folded dbias), the registers and spills of ``ln_bwd``'s row kernel and
+   of the decode kernels' template instances from ptxas's report;
 3. each kernel against its plain PyTorch version on the card, element by
    element and by relative norm, with the max abs error and the share of
    the limit used (the limits are stated and derived below the imports;
@@ -30,12 +30,20 @@ non-zero and prints no result. Phases, each fatal on failure:
    shapes, at int8 and multi-row cases, at one slot with every cursor in
    {0, 1, 63, 64, 65, 1023, 1024}, int8 at q_len 4 and bf16 d 128, each
    launch repeated bit for bit, timed at 8 slots and at one slot at the
-   full prefix and at the serving step's cursors; ``paged_decode_attention``
+   full prefix and at the serving step's cursors, with a sha256 of its
+   outputs' bits over these cases; ``paged_decode_attention``
    at the paged serving path's shape (tables a random permutation of the
    pool), with an int8 pool, 5 q rows, fp32 d 128 with 16-token blocks,
-   48-token blocks, and a poison case (every block no cursor covers
-   filled with NaN, every table entry past the cursors pointing nowhere:
-   the output must not change by a bit). Kernel, plain and library (SDPA
+   48-token blocks (also with chunk edges inside blocks), 1-token blocks,
+   each launch repeated bit for bit, and a poison case (every block no
+   cursor covers filled with NaN, every table entry past the cursors
+   pointing nowhere: the output must not change by a bit), timed at 8
+   slots and at one slot at the full prefix and at the serving step's
+   cursors beside ``decode_attention`` at the same cursors; both decode
+   kernels at every head dim they take (d 8 to 256 in steps of 8, bf16 q
+   over a bf16 cache at q_len 1 and 3, over int8 at one d of each
+   lane-group width, fp32 past d 128, an empty slot in each), and d 4, 12
+   and 264 refused. Kernel, plain and library (SDPA
    forward, and SDPA backward for the dQ/dK/dV pair: yardsticks only, the
    port never calls SDPA; no PyTorch call reads a block table, so the paged
    kernel is timed beside the dense decode kernel instead) device times
@@ -134,17 +142,19 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``bench_flash_long``'s own call (no bias, no ids), timed;
 9. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
-   positions`` for ``decode_attention``, the fold and the table route for
-   ``flash_dbias``, whose ``launches`` count both, ``SIMT`` for the
-   rest), then
+   positions`` for the two decode kernels, which also list the head dims
+   they take, the fold and the table route for ``flash_dbias``, whose
+   ``launches`` count both, ``SIMT`` for the rest), then
    ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -206,6 +216,7 @@ BODY = {"flash_fwd": "mma.sync bf16 / SIMT fp32",
                        "; the row's times are the folded launch's, dK and dV"
                        " included); tables and fp32: SIMT flash_dbias",
         "decode_attention": "SIMT, split over positions",
+        "paged_decode_attention": "SIMT, split over positions",
         "ln_bwd": "SIMT, sized for occupancy"}
 REPLACES = {"flash_fwd": "apex_tpu/ops/flash_attention.py:222",
             "flash_bwd_dq": "apex_tpu/ops/flash_attention.py:340",
@@ -493,7 +504,6 @@ def mma_resources(kern) -> None:
     dkv body's with and without the folded dbias) and of ``ln_bwd``'s row
     kernel, from ptxas's report in this build's log
     (``_kernels.build_log``)."""
-    import re
     log = kern.build_log()
     found, ln = [], []
     for blk in log.split("Compiling entry function")[1:]:
@@ -524,6 +534,52 @@ def mma_resources(kern) -> None:
     print("ptxas -v, ln_bwd_warp_kernel <x/dy/weight, values a lane> (256 "
           "threads a block): " + ("; ".join(ln) if ln else "not in this "
                                   "build's log"))
+
+
+# csrc/decode.cuh: the split body's template arguments as mangled in
+# (paged_)decode_kernel<q, cache, wide fp32, lanes a row, d fills the lanes,
+# q rows>: fp32 "f", int8 "a", __nv_bfloat16 its name or a substitution
+DECODE_TYPES = r"f|a|13__nv_bfloat16|S\d*_"
+
+
+def decode_resources(kern) -> None:
+    """Registers and spills of the two decode kernels' template instances
+    from ptxas's report in this build's log: how many there are, the most
+    registers and spill bytes of any, and the bf16 instances at d 64, 128
+    and 256 (8, 16 and 32 lanes a row, filled) and fp32's past d 128."""
+    log = kern.build_log()
+    rows = []
+    for blk in log.split("Compiling entry function")[1:]:
+        name = re.search(r"\d+(paged_decode_kernel|decode_kernel)I((?:"
+                         + DECODE_TYPES + r"){2})Lb([01])ELi(\d+)ELb([01])E"
+                         r"Li(\d+)E", blk)
+        regs = re.search(r"Used (\d+) registers", blk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", blk)
+        if not (name and regs and spill):
+            continue
+        kname, types, wide, lanes, full, r = name.groups()
+        q_t, kv_t = ("fp32" if t == "f" else "int8" if t == "a" else "bf16"
+                     for t in re.findall(DECODE_TYPES, types))
+        rows.append((kname, q_t, kv_t, wide == "1", int(lanes), full == "1",
+                     int(r), int(regs.group(1)),
+                     int(spill.group(1)) + int(spill.group(2))))
+    if not rows:
+        print("ptxas -v, the decode kernels: not in this build's log (built "
+              "before this process)")
+        return
+    for kname in ("decode_kernel", "paged_decode_kernel"):
+        mine = [x for x in rows if x[0] == kname]
+        shown = [f"{q_t}/{kv_t} {'8 fp32 a lane, ' if wide else ''}"
+                 f"{lanes} lanes a row{', filled' if full else ''}, {r} q "
+                 f"row(s): {regs} registers, spill {sp} bytes"
+                 for _, q_t, kv_t, wide, lanes, full, r, regs, sp in mine
+                 if (q_t, kv_t) == ("bf16", "bf16") and lanes >= 8 and full
+                 or wide and q_t == "fp32"]
+        print(f"ptxas -v, {kname} (128 threads a block): {len(mine)} "
+              f"instances, at most {max(x[7] for x in mine)} registers, "
+              f"spill {max(x[8] for x in mine)} bytes at most; "
+              + "; ".join(shown))
 
 
 def tile_shares(torch, fa, ids, causal: bool) -> tuple:
@@ -667,12 +723,16 @@ def check_decode(torch, fa, cache_mod, kern, card: str) -> dict:
                   rand_split((n, T, 128), torch.bfloat16), None, None,
                   path_lengths.repeat_interleave(H)))
     worst = 0.0
+    bits = hashlib.sha256()
     for name, q, k, v, ksc, vsc, lengths in cases:
         scale = q.shape[-1] ** -0.5
         out_k, lse_k = kern.decode_attention(q, k, v, lengths, ksc, vsc,
                                              scale)
         same_bits(torch, f"decode_attention {name}", (out_k, lse_k),
                   kern.decode_attention(q, k, v, lengths, ksc, vsc, scale))
+        for t in (out_k, lse_k):
+            bits.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes())
         out_p, lse_p = fa._decode_plain(q, k, v, lengths, ksc, vsc, scale)
         torch.cuda.synchronize()
         tol = tol_for(torch, q.dtype)
@@ -692,6 +752,10 @@ def check_decode(torch, fa, cache_mod, kern, card: str) -> dict:
               "launch equal bit for bit")
         if q.shape[1] == 1 and k.dtype == torch.bfloat16:
             worst = max(worst, err)
+    # the outputs' bits over these cases: equal before and after a change
+    # that must leave the kernel's arithmetic as it is
+    print(f"decode_attention bits: sha256 of out and lse over the "
+          f"{len(cases)} cases above {bits.hexdigest()}")
     del cases, kq4, vq4, k1, v1
 
     t = decode_timings(torch, fa, kern, card)
@@ -758,9 +822,9 @@ def decode_timings(torch, fa, kern, card: str) -> dict:
 
 def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
     """``paged_decode_attention`` against ``_paged_decode_plain`` on the
-    card, the poison case bit for bit, and timing at the paged serving
-    path's shape beside the dense decode kernel at the same live
-    context."""
+    card, each launch repeated bit for bit, the poison case bit for bit,
+    and timing (:func:`paged_timings`) beside the dense decode kernel at
+    the same live context."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cpu_gen = torch.Generator().manual_seed(4)
 
@@ -800,11 +864,33 @@ def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
          rand((25, 4, 48, d), torch.bfloat16), None, None,
          tables_for(25, 4, 6), lens([0, 47, 48, 288])),
     ]
+    # chunks that start and end inside 48-token blocks (4 chunks a
+    # slot-head over a span of 288: chunk edges at multiples of 2, 26, 63
+    # and 72, an empty chunk at cursor 5), and 1-token blocks (inputs from
+    # their own generator, so the cases above keep theirs)
+    gen_split = torch.Generator(device="cuda").manual_seed(14)
+
+    def rand_split(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen_split, device="cuda").to(
+            dtype)
+
+    cases += [
+        ("48-token blocks, chunks inside blocks bf16",
+         rand_split((16, 1, d)), rand_split((25, 4, 48, d)),
+         rand_split((25, 4, 48, d)), None, None, tables_for(25, 4, 6),
+         lens([5, 101, 250, 287])),
+        ("1-token blocks, q_len=2 bf16", rand_split((8, 2, d)),
+         rand_split((600, 2, 1, d)), rand_split((600, 2, 1, d)), None, None,
+         tables_for(600, 4, 140), lens([0, 1, 77, 140])),
+    ]
     worst = 0.0
     for name, q, kp, vp, ksc, vsc, tables, lengths in cases:
         scale = q.shape[-1] ** -0.5
         out_k, lse_k = kern.paged_decode_attention(q, kp, vp, tables,
                                                    lengths, ksc, vsc, scale)
+        same_bits(torch, f"paged_decode_attention {name}", (out_k, lse_k),
+                  kern.paged_decode_attention(q, kp, vp, tables, lengths,
+                                              ksc, vsc, scale))
         out_p, lse_p = fa._paged_decode_plain(q, kp, vp, tables, lengths,
                                               ksc, vsc, scale)
         torch.cuda.synchronize()
@@ -818,9 +904,12 @@ def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
         check(bool((out_k[empty] == 0).all())
               and bool((lse_k[empty] == float("-inf")).all()),
               "paged_decode_attention: empty rows are not 0 / -inf")
+        splits = kern.decode_splits(q.shape[0], tables.shape[1] *
+                                    kp.shape[2], q.shape[1])
         print(f"paged_decode_attention {name}: max_abs_err out {err:.3g}, "
               f"{share:.3g} x the limit {tol}; lse {lerr:.3g} "
-              f"(tol {TOL_LSE})")
+              f"(tol {TOL_LSE}); {splits} chunks a slot-head; a second "
+              "launch equal bit for bit")
         if q.shape[1] == 1 and kp.dtype == torch.bfloat16:
             worst = max(worst, err)
 
@@ -848,40 +937,169 @@ def check_paged(torch, fa, cache_mod, kern, card: str) -> dict:
     print(f"paged_decode_attention poison: {int((~covered).sum())} uncovered "
           f"blocks NaN, {int((~live).sum())} table entries past the cursors "
           f"2**30: output and lse equal bit for bit")
-    del kn, vn
+    del kn, vn, cases
 
-    # timing: every slot at the full 1024 positions (8 blocks of 128)
-    q = rand((S * H, 1, d), torch.bfloat16)
-    kp = rand((nb, H, bs, d), torch.bfloat16)
-    vp = rand((nb, H, bs, d), torch.bfloat16)
-    full = lens([n_table * bs] * S)
-    ms = device_ms(torch, lambda: kern.paged_decode_attention(
-        q, kp, vp, path_tables, full, None, None, scale))
-    plain_ms = device_ms(torch, lambda: fa._paged_decode_plain(
-        q, kp, vp, path_tables, full, None, None, scale))
-    # the dense kernel over the same live context: the table's price
-    kd = rand((S * H, n_table * bs, d), torch.bfloat16)
-    vd = rand((S * H, n_table * bs, d), torch.bfloat16)
-    full_bh = full.repeat_interleave(H)
-    dense_ms = device_ms(torch, lambda: kern.decode_attention(
-        q, kd, vd, full_bh, None, None, scale))
-    del kd, vd
-    live = int(full.sum()) * H         # (position, head) rows read
-    table_bytes = S * n_table * 4      # the live table entries
-    nbytes = 2 * live * d * 2 + nbytes_of(q, q, full) + S * H * 4 + \
-        table_bytes
-    ops = 2 * 2 * live * d
-    b_ms, b_by = bound(nbytes, ops)
-    print(f"paged_decode_attention path timing (8 slots x 1024, 128-token "
-          f"blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"none (no PyTorch call reads a block table); dense "
-          f"decode_attention at the same live context {dense_ms:.4f} ms; "
-          f"bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB) [{card}]")
+    t = paged_timings(torch, fa, kern, card, path_tables)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "apex_tpu_torch/csrc/paged_decode_attention.cu",
             "replaces": REPLACES["paged_decode_attention"],
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+
+
+def paged_timings(torch, fa, kern, card: str, tables) -> dict:
+    """``paged_decode_attention`` (bf16, d 64, 128-token blocks through
+    ``tables``, 8 per slot) timed beside its plain twin, the dense
+    ``decode_attention`` at the same cursors and the bound: every one of 8
+    slots x 12 heads at the full 1024 positions (the keys ``ms``,
+    ``plain_ms``, ``bound_ms``, ``bound_by``), at :data:`SERVE_CURSORS`,
+    and one slot at the full prefix. No PyTorch call reads a block table,
+    so there is no library time. Takes the ``_kernels`` and
+    ``ops.flash_attention`` modules, so another tree's kernels can be
+    timed on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    S, H, d = 8, 12, 64
+    bs, nb = PAGED["block_size"], PAGED["num_blocks"]
+    T = tables.shape[1] * bs
+    q, kp, vp = (torch.randn(shape, generator=gen, device="cuda")
+                 .to(torch.bfloat16)
+                 for shape in ((S * H, 1, d), (nb, H, bs, d), (nb, H, bs, d)))
+    kd, vd = (torch.randn((S * H, T, d), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+
+    def lens(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    out = {}
+    for what, slots, lengths in (
+            ("8 slots x 1024", S, lens([T] * S)),
+            (f"8 slots at the serving cursors {SERVE_CURSORS}", S,
+             lens(SERVE_CURSORS)),
+            ("one slot x 1024", 1, lens([T]))):
+        n = slots * H
+        args = (q[:n], kp, vp, tables[:slots], lengths, None, None, scale)
+        lengths_bh = lengths.repeat_interleave(H)
+        ms = device_ms(torch, lambda: kern.paged_decode_attention(*args))
+        plain_ms = device_ms(torch, lambda: fa._paged_decode_plain(*args))
+        dense_ms = device_ms(torch, lambda: kern.decode_attention(
+            q[:n], kd[:n], vd[:n], lengths_bh, None, None, scale))
+        live = int(lengths.sum()) * H       # (position, head) rows read
+        entries = int((-(-lengths // bs)).sum())   # live table entries
+        nbytes = (2 * live * d * 2 + nbytes_of(q[:n], q[:n], lengths)
+                  + n * 4 + entries * 4)
+        b_ms, b_by = bound(nbytes, 2 * 2 * live * d)
+        splits = kern.decode_splits(n, T, 1)
+        print(f"paged_decode_attention timing, {what} (128-token blocks): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none "
+              f"(no PyTorch call reads a block table); dense "
+              f"decode_attention at the same cursors {dense_ms:.4f} ms; "
+              f"bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.3f} MB); "
+              f"{splits} chunks a slot-head, both kernels [{card}]")
+        out.setdefault("ms", ms)
+        out.setdefault("plain_ms", plain_ms)
+        out.setdefault("bound_ms", b_ms)
+        out.setdefault("bound_by", b_by)
+    return out
+
+
+# the decode kernels' head-dim phase: every d they take (a multiple of 8
+# from 8 to 256); int8 at one d of each lane-group width (csrc/decode.cuh:
+# the lanes a row needs, rounded up to a power of two), fp32 past 128,
+# where a lane takes two 16-byte slices; dims they refuse
+DECODE_DIMS = tuple(range(8, 257, 8))
+DECODE_DIMS_INT8 = (8, 16, 24, 40, 96, 200)
+DECODE_DIMS_FP32 = (136, 256)
+DECODE_DIMS_OUT = (4, 12, 264)
+
+
+def check_head_dims(torch, fa, cache_mod, kern) -> None:
+    """Both decode kernels against their plain versions at every head dim
+    they take, at one small shape each (2 slots x 2 heads, 96 positions,
+    16-token blocks for the paged one; one slot empty: out 0, lse -inf):
+    bf16 q over a bf16 cache at q_len 1 and 3, bf16 q over int8 at
+    :data:`DECODE_DIMS_INT8`, fp32 over fp32 at q_len 2 at
+    :data:`DECODE_DIMS_FP32`; :data:`DECODE_DIMS_OUT` must raise
+    ``NotImplementedError``. Prints the worst share of the limit per
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    S, H, bs, n_table = 2, 2, 16, 6
+    T, n = n_table * bs, S * H
+    nb = 2 * S * n_table + 1
+    lengths = torch.tensor([0, 77], dtype=torch.int32, device="cuda")
+    lengths_bh = lengths.repeat_interleave(H)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(6))
+    tables = (perm[: S * n_table] + 1).view(S, n_table).to(
+        device="cuda", dtype=torch.int32)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    runs = [(d, q_len, torch.bfloat16, torch.bfloat16)
+            for d in DECODE_DIMS for q_len in (1, 3)]
+    runs += [(d, 1, torch.bfloat16, torch.int8) for d in DECODE_DIMS_INT8]
+    runs += [(d, 2, torch.float32, torch.float32) for d in DECODE_DIMS_FP32]
+    worst = {"decode_attention": 0.0, "paged_decode_attention": 0.0}
+    for d, q_len, qdt, kvdt in runs:
+        q = rand((n, q_len, d), qdt)
+        scale = d ** -0.5
+        cache_dt = torch.float32 if kvdt == torch.int8 else kvdt
+        kd, vd = rand((n, T, d), cache_dt), rand((n, T, d), cache_dt)
+        kp, vp = (rand((nb, H, bs, d), cache_dt) for _ in range(2))
+        dense_sc = paged_sc = (None, None)
+        if kvdt == torch.int8:
+            (kd, ksd), (vd, vsd) = (cache_mod._quantize(x) for x in (kd, vd))
+            (kp, ksp), (vp, vsp) = (cache_mod._quantize(x) for x in (kp, vp))
+            dense_sc, paged_sc = (ksd, vsd), (ksp, vsp)
+        for name, launch, plain in (
+                ("decode_attention",
+                 lambda: kern.decode_attention(q, kd, vd, lengths_bh,
+                                               *dense_sc, scale),
+                 lambda: fa._decode_plain(q, kd, vd, lengths_bh, *dense_sc,
+                                          scale)),
+                ("paged_decode_attention",
+                 lambda: kern.paged_decode_attention(q, kp, vp, tables,
+                                                     lengths, *paged_sc,
+                                                     scale),
+                 lambda: fa._paged_decode_plain(q, kp, vp, tables, lengths,
+                                                *paged_sc, scale))):
+            what = (f"{name} d {d}, q_len {q_len}, {str(qdt)[6:]} q over "
+                    f"{str(kvdt)[6:]}")
+            out_k, lse_k = launch()
+            out_p, lse_p = plain()
+            torch.cuda.synchronize()
+            tol = tol_for(torch, qdt)
+            err, share = close(torch, [(out_k, out_p)], tol)
+            check(share <= 1, f"{what}: out err {err:.3g}, {share:.3g} x "
+                              f"the limit {tol}")
+            compare_lse(torch, lse_k, lse_p, TOL_LSE, what)
+            check(bool((out_k[:H] == 0).all())
+                  and bool((lse_k[:H] == float("-inf")).all()),
+                  f"{what}: the empty slot's rows are not 0 / -inf")
+            worst[name] = max(worst[name], share)
+    for d in DECODE_DIMS_OUT:
+        q = rand((n, 1, d), torch.bfloat16)
+        kd = rand((n, T, d), torch.bfloat16)
+        kp = rand((nb, H, bs, d), torch.bfloat16)
+        for name, launch in (
+                ("decode_attention", lambda: kern.decode_attention(
+                    q, kd, kd, lengths_bh, None, None, 1.0)),
+                ("paged_decode_attention",
+                 lambda: kern.paged_decode_attention(
+                     q, kp, kp, tables, lengths, None, None, 1.0))):
+            try:
+                launch()
+            except NotImplementedError:
+                continue
+            fail(f"{name} took head dim {d}")
+    print(f"decode head dims: {len(runs)} runs of each kernel over d "
+          f"{DECODE_DIMS[0]}..{DECODE_DIMS[-1]} step 8 (bf16 q over bf16 at "
+          f"q_len 1 and 3, over int8 at d {DECODE_DIMS_INT8}, fp32 at d "
+          f"{DECODE_DIMS_FP32}, an empty slot in each), worst share of the "
+          f"limit: decode_attention {worst['decode_attention']:.3g}, "
+          f"paged_decode_attention {worst['paged_decode_attention']:.3g}; "
+          f"d {DECODE_DIMS_OUT} raise NotImplementedError")
 
 
 def check_flash_train(torch, fa, kern, card: str):
@@ -2950,9 +3168,13 @@ def main() -> None:
     print(f"device: {card}")
 
     _, build_s = kern.build()
+    secs = re.findall(r"^--- (\S+) \(([\d.]+) s\)", kern.build_log(), re.M)
     print(f"build: kernels built in {build_s:.1f} s "
-          f"({', '.join(kern.SOURCES)})")
+          f"({', '.join(kern.SOURCES)}); nvcc a source, all started "
+          "together: " + (", ".join(f"{src} {t} s" for src, t in secs)
+                          or "not in this build's log"))
     mma_resources(kern)
+    decode_resources(kern)
 
     print(f"kernel vs plain: limits (atol, rtol, relative norm) bf16 "
           f"{BF16_TOL}, fp32 {FP32_TOL}, flash_fwd's bf16 atol plus "
@@ -2963,6 +3185,7 @@ def main() -> None:
                                  prefill_row["max_abs_err"])
     rows = [fwd_row, check_decode(torch, fa, cache_mod, kern, card), dq_row,
             dkv_row, check_paged(torch, fa, cache_mod, kern, card)]
+    check_head_dims(torch, fa, cache_mod, kern)
     rows += check_layer_norm(torch, ln, kern, card)
     check_flash_bias(torch, fa, kern, card)
     check_flash_segments(torch, fa, kern, card)
@@ -2986,11 +3209,15 @@ def main() -> None:
                               (serving, paged, training, bert, long)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
+        if row["name"] in ("decode_attention", "paged_decode_attention"):
+            row["head_dims"] = (f"d % 8 == 0, {DECODE_DIMS[0]} to "
+                                f"{DECODE_DIMS[-1]}")
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "head_dims")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -61,28 +61,40 @@ def _split_model(q, k, v, lengths, k_scale=None, v_scale=None, scale=None):
     lse = torch.full((n, q_len), -math.inf)
     for i in range(n):
         length = max(0, min(int(lengths[i]), t_max))
-        parts = []
-        for begin, end in _chunks(length, splits):
-            if begin == end:
-                parts.append((torch.full((q_len,), NEG_INF),
-                              torch.zeros(q_len), torch.zeros(q_len, d)))
-                continue
-            s = (q[i].float() @ kd[i, begin:end].T) * scale
-            m = s.amax(dim=-1)
-            p = torch.exp(s - m[:, None])
-            parts.append((m, p.sum(dim=-1), p @ vd[i, begin:end]))
-        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-        tot_l = torch.zeros(q_len)
-        tot_acc = torch.zeros(q_len, d)
-        for m, l, acc in parts:           # the fixed order c = 0 .. S - 1
-            a = torch.exp(m - mx)
-            tot_l = tot_l + l * a
-            tot_acc = tot_acc + acc * a[:, None]
-        empty = tot_l == 0
-        safe_l = torch.where(empty, 1.0, tot_l)
-        out[i] = torch.where(empty[:, None], 0.0, tot_acc / safe_l[:, None])
-        lse[i] = torch.where(empty, -math.inf, mx + torch.log(safe_l))
+        out[i], lse[i] = _merge([
+            _partial(q[i], kd[i, begin:end], vd[i, begin:end], scale)
+            for begin, end in _chunks(length, splits)])
     return out.to(q.dtype), lse
+
+
+def _partial(q, k, v, scale):
+    """One chunk's fp32 partial ``(m, l, acc)`` of ``q (q_len, d)`` over
+    its keys and values ``(len, d)``: ``(-1e30, 0, 0)`` with none."""
+    q_len, d = q.shape
+    if not len(k):
+        return (torch.full((q_len,), NEG_INF), torch.zeros(q_len),
+                torch.zeros(q_len, d))
+    s = (q.float() @ k.T) * scale
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[:, None])
+    return m, p.sum(dim=-1), p @ v
+
+
+def _merge(parts):
+    """The chunks' partials merged in the fixed order ``c = 0 .. S - 1``
+    -> ``(out (q_len, d), lse (q_len,))``: out 0 and lse -inf where no
+    chunk holds a position."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    tot_l = torch.zeros_like(mx)
+    tot_acc = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        a = torch.exp(m - mx)
+        tot_l = tot_l + l * a
+        tot_acc = tot_acc + acc * a[:, None]
+    empty = tot_l == 0
+    safe_l = torch.where(empty, 1.0, tot_l)
+    return (torch.where(empty[:, None], 0.0, tot_acc / safe_l[:, None]),
+            torch.where(empty, -math.inf, mx + torch.log(safe_l)))
 
 
 # cursors of the five slots: 0, 1, one under S, one S does not divide, T
