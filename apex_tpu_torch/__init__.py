@@ -8,7 +8,8 @@ PyTorch; each Pallas kernel of the JAX package on the ported path is a
 hand-written CUDA kernel for ``sm_90a`` under ``csrc/``, built at first
 use (:mod:`apex_tpu_torch._kernels`).
 
-The ported slices serve GPT from a dense or a paged KV cache, train it,
+The ported slices serve GPT from a dense or a paged KV cache, with or
+without speculative decoding, train it,
 and pretrain BERT (padding masks as the flash kernels' score bias, every
 LayerNorm on its own kernels): :mod:`apex_tpu_torch.models`,
 :mod:`apex_tpu_torch.serving`, :mod:`apex_tpu_torch.normalization`,

@@ -39,8 +39,10 @@ under ``torch.no_grad`` (:mod:`apex_tpu_torch.serving.engine`).
 Serving runs over a dense :class:`~apex_tpu_torch.serving.cache.KVCache`
 or a paged :class:`~apex_tpu_torch.serving.cache.PagedKVCache` (the
 reference's paged legs: prefill into pool blocks, decode through block
-tables with copy-on-write first). Still to come: the speculative verify
-leg, remat, sequence parallelism, tp > 1 and the pipeline split.
+tables with copy-on-write first) and the speculative verify leg
+(:meth:`GPTModel.verify_forward`: each slot's last token and its drafts in
+one pass, both decode kernels at ``q_len = k + 1``). Still to come: remat,
+sequence parallelism, tp > 1 and the pipeline split.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from apex_tpu_torch.ops.flash_attention import (decode_attention,
                                                 flash_attention,
                                                 paged_decode_attention)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
-from apex_tpu_torch.serving.cache import PagedKVCache
+from apex_tpu_torch.serving.cache import PagedKVCache, store_roundtrip
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     init_method_normal)
@@ -485,3 +487,95 @@ class GPTModel(nn.Module):
         logits, k_new, v_new = self._decode_stack(x, attend_layer)
         cache.append(k_new, v_new, block_ids, offsets)
         return logits, cache
+
+    # -- serving: speculative k-token verify --------------------------------
+
+    def _verify_embed(self, tokens, lengths: torch.Tensor) -> torch.Tensor:
+        """Word embedding of ``tokens (S, Q)`` plus the position embedding
+        at ``lengths + [0, Q)``, clipped to the position table: row i sits
+        where sequential decode step i would have put it."""
+        cfg = self.cfg
+        positions = (lengths.long()[:, None]
+                     + torch.arange(tokens.shape[1], device=lengths.device))
+        pos = self.embedding.position[
+            positions.clamp(0, cfg.max_position_embeddings - 1)]
+        return (self.embedding.word(tokens) + pos).to(cfg.compute_dtype)
+
+    def _verify_layer(self, lp: _Layer, x: torch.Tensor, attend):
+        """One layer of the verify step: ``x (S, Q, hidden)``, the last
+        accepted token and the drafts; ``attend(q, k_new, v_new)``, all
+        ``(S, H, Q, D)``, is the cache read with the in-flight rows merged
+        causally. Returns ``(x, (k_new, v_new))``."""
+        h = self._ln(lp.ln1, x)
+        qkv, _ = lp.qkv(h)                                  # (S, Q, 3*hidden)
+        q, k_new, v_new = (t.transpose(1, 2)
+                           for t in self._split_heads(qkv))  # (S, H, Q, D)
+        ctx = attend(q, k_new, v_new)
+        S, _, Q, _ = ctx.shape
+        out, _ = lp.proj(ctx.transpose(1, 2).reshape(S, Q, -1))
+        x = x + out
+        x = x + self._mlp(lp, self._ln(lp.ln2, x))
+        return x, (k_new, v_new)
+
+    def verify_forward(self, tokens: torch.Tensor, kv_cache,
+                       block_tables=None, lengths=None, cow_src=None,
+                       cow_dst=None):
+        """Speculative verify: score ``tokens (max_seqs, Q)``, each slot's
+        last accepted token and its ``Q - 1`` drafts, in one pass over the
+        cached prefix (a decode kernel launch a layer at ``q_len = Q``).
+        Causality among the Q rows is the exact merge inside the decode
+        op, fed the cache's store-and-load images of the earlier rows, so
+        the numerics follow Q sequential steps. Returns ``(logits (S, Q,
+        vocab), (k_new, v_new) (L, S, H, Q, D), cache)``; the window is
+        not appended (the engine appends after deciding the accepted
+        counts). A dense cache reads ``kv_cache.lengths``; a paged one
+        takes the host's tables and cursors, as the decode leg, and
+        copies the copy-on-write pairs first."""
+        if tokens.dim() != 2:
+            raise ValueError(f"verify tokens must be (max_seqs, Q), got "
+                             f"{tuple(tokens.shape)}")
+        cache = kv_cache
+        paged = isinstance(cache, PagedKVCache)
+        if paged:
+            if block_tables is None or lengths is None:
+                raise ValueError("paged verify needs block_tables and "
+                                 "lengths")
+            dev = cache.k.device
+            tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                     device=dev)
+            lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                      device=dev)
+            # copy-on-write first, as in the decode leg
+            if cow_src is not None:
+                cache.cow_copy(cow_src, cow_dst)
+        else:
+            lengths = cache.lengths
+        x = self._verify_embed(tokens, lengths)
+        store = cache.k.dtype
+
+        def attend_layer(i):
+            ksc = cache.k_scale[i] if cache.quantized else None
+            vsc = cache.v_scale[i] if cache.quantized else None
+
+            def attend(q, k_new, v_new):
+                kw = dict(k_new=k_new, v_new=v_new, k_scale=ksc,
+                          v_scale=vsc, use_kernel=self.cfg.use_kernel,
+                          k_cast=store_roundtrip(k_new, store,
+                                                 cache.quantized),
+                          v_cast=store_roundtrip(v_new, store,
+                                                 cache.quantized))
+                if paged:
+                    return paged_decode_attention(
+                        q, cache.k[i], cache.v[i], tables, lengths, **kw)
+                return decode_attention(q, cache.k[i], cache.v[i], lengths,
+                                        **kw)
+            return attend
+
+        k_all, v_all = [], []
+        for i, lp in enumerate(self.layers):
+            x, (k_new, v_new) = self._verify_layer(lp, x, attend_layer(i))
+            k_all.append(k_new)
+            v_all.append(v_new)
+        x = self._ln(self.final_ln, x)
+        return (self.logits(x), (torch.stack(k_all), torch.stack(v_all)),
+                cache)

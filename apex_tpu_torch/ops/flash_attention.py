@@ -27,6 +27,12 @@ training paths run:
   over a global block pool, each slot's positions found through its block
   table (the paged serving engine's decode step).
 
+The speculative verify step runs both decode kernels at ``q_len = k + 1``
+rows a slot: every row attends the same cached prefix, and causality among
+the in-flight rows is the exact logsumexp merge :func:`_merge_drafts`,
+plain PyTorch outside the kernel, as the reference computes it outside
+its Pallas kernel.
+
 Beside each kernel sits its plain PyTorch version (:func:`_flash_fwd_plain`,
 :func:`_flash_bwd_dq_plain`, :func:`_flash_bwd_dkv_plain`,
 :func:`_flash_dbias_plain`, :func:`_decode_plain`,
@@ -548,10 +554,51 @@ def _merge_current(out, lse, q, k_new, v_new, scale: float, out_dtype):
     return (merged / (a_old + a_new)[..., None]).to(out_dtype)
 
 
+def _merge_drafts(out, lse, q, k_new, v_new, k_cast, v_cast, scale: float,
+                  out_dtype):
+    """Exact ``(q_len + 1)``-way logsumexp merge of the speculative verify
+    step: the cached-prefix attention ``(out, lse)`` of each row with the
+    ``q_len`` in-flight tokens, causal among them (row i attends rows
+    0..i). None of them is in the cache yet; sequential decode would have
+    read rows j < i back from the cache, so those use ``k_cast``/
+    ``v_cast`` (the store-and-load images of ``k_new``/``v_new``) while the
+    diagonal stays fresh. All fp32; an empty prefix (lse == -inf) weighs 0.
+    Reduces to :func:`_merge_current` at ``q_len == 1``.
+
+    Shapes: ``out``, ``q``, ``k_new``, ``v_new``, ``k_cast``, ``v_cast``
+    ``(b, h, q_len, d)``; ``lse (b, h, q_len)``."""
+    q32 = q.float()
+    q_len = q.shape[2]
+    s_cast = torch.einsum("bhid,bhjd->bhij", q32, k_cast.float()) * scale
+    s_self = (q32 * k_new.float()).sum(dim=-1) * scale
+    idx = torch.arange(q_len, device=q.device)
+    below = idx[None, :] < idx[:, None]            # strictly earlier rows
+    s_off = torch.where(below, s_cast, -math.inf)
+    m = torch.maximum(lse, torch.maximum(s_self, s_off.amax(dim=-1)))
+    a_old = torch.exp(lse - m)                     # 0 when the prefix is empty
+    p_self = torch.exp(s_self - m)
+    p_off = torch.where(below, torch.exp(s_cast - m[..., None]), 0.0)
+    denom = a_old + p_self + p_off.sum(dim=-1)
+    merged = (a_old[..., None] * out.float()
+              + p_self[..., None] * v_new.float()
+              + torch.einsum("bhij,bhjd->bhid", p_off, v_cast.float()))
+    return (merged / denom[..., None]).to(out_dtype)
+
+
+def _check_in_flight(q, **tensors) -> None:
+    """The current (or in-flight) tokens' keys and values, and their cache
+    images, must have ``q``'s shape."""
+    for name, t in tensors.items():
+        if t is not None and tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"{name} shape {tuple(t.shape)} does not match "
+                             f"q {tuple(q.shape)}")
+
+
 def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
                      k_scale=None, v_scale=None,
                      softmax_scale: Optional[float] = None,
-                     use_kernel: Optional[bool] = None):
+                     use_kernel: Optional[bool] = None,
+                     k_cast=None, v_cast=None):
     """Attention of ``q`` over a preallocated KV cache, masked by the
     per-slot write cursor.
 
@@ -562,10 +609,14 @@ def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
         ``k_scale``/``v_scale``). Entries at or past ``lengths`` are
         never read.
       lengths: ``(b,)`` int, the number of valid cache positions.
-      k_new, v_new: ``(b, h, d)``, the current token's key and value,
-        folded in by :func:`_merge_current` (rank-3 ``q`` only; the
-        rank-4 draft merge lands with the speculative slice).
+      k_new, v_new: ``q``'s shape: the current token's key and value,
+        folded in by :func:`_merge_current` for rank-3 ``q``; for rank-4
+        ``q`` (the speculative verify step) the ``q_len`` in-flight
+        tokens', folded in causally by :func:`_merge_drafts`.
       k_scale, v_scale: ``(b, h, max_len)`` fp32 dequantization scales.
+      k_cast, v_cast: rank-4 ``q`` only: the cache's store-and-load images
+        of ``k_new``/``v_new``, which the merge uses for the earlier
+        in-flight rows (default: ``k_new``/``v_new``).
 
     Returns ``q``'s shape in ``q.dtype``.
     """
@@ -582,10 +633,8 @@ def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
     quantized = k.dtype == torch.int8
     if quantized and (k_scale is None or v_scale is None):
         raise ValueError("int8 caches need k_scale/v_scale")
-    if multi and k_new is not None:
-        raise NotImplementedError(
-            "the multi-row k_new merge (speculative verify) lands with the "
-            "speculative slice")
+    _check_in_flight(q, k_new=k_new, v_new=v_new, k_cast=k_cast,
+                     v_cast=v_cast)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     lengths_bh = lengths.to(device=k.device, dtype=torch.int32
@@ -602,16 +651,25 @@ def decode_attention(q, k, v, lengths, k_new=None, v_new=None,
     else:
         out3, lse3 = _decode_plain(q3, k3, v3, lengths_bh, ksc, vsc,
                                    float(softmax_scale))
-    return _decode_result(out3, lse3, q, k_new, v_new, float(softmax_scale))
+    return _decode_result(out3, lse3, q, k_new, v_new, k_cast, v_cast,
+                          float(softmax_scale))
 
 
-def _decode_result(out3, lse3, q, k_new, v_new, scale: float):
+def _decode_result(out3, lse3, q, k_new, v_new, k_cast, v_cast,
+                   scale: float):
     """A decode kernel's ``(out (b*h, q_len, d), lse (b*h, q_len))`` in
-    ``q``'s shape, with the current token folded in for rank-3 ``q``."""
+    ``q``'s shape, with the current token folded in for rank-3 ``q`` and
+    the in-flight tokens for rank-4 ``q``."""
     out = out3.reshape(*q.shape[:2], -1, q.shape[-1])
+    lse = lse3.reshape(*q.shape[:2], -1)
     if q.dim() == 4:
+        if k_new is not None:
+            out = _merge_drafts(out, lse, q, k_new, v_new,
+                                k_new if k_cast is None else k_cast,
+                                v_new if v_cast is None else v_cast, scale,
+                                q.dtype)
         return out
-    out, lse = out[:, :, 0], lse3.reshape(*q.shape[:2], -1)[:, :, 0]
+    out, lse = out[:, :, 0], lse[:, :, 0]
     if k_new is not None:
         out = _merge_current(out, lse, q, k_new, v_new, scale, q.dtype)
     return out
@@ -661,7 +719,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                            k_new=None, v_new=None, k_scale=None,
                            v_scale=None,
                            softmax_scale: Optional[float] = None,
-                           use_kernel: Optional[bool] = None):
+                           use_kernel: Optional[bool] = None,
+                           k_cast=None, v_cast=None):
     """Attention of ``q`` over a paged KV cache: a global block pool, each
     slot's positions found through its block table and masked by its
     cursor. Counterpart of the reference's ``paged_decode_attention``.
@@ -682,11 +741,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
         ``ceil(lengths / block_size)`` are never read.
       lengths: ``(b,)`` int, each slot's cursor (the current token is not
         in the pool: pass it as ``k_new``/``v_new``).
-      k_new, v_new: ``(b, h, d)``, the current token's key and value,
-        folded in by :func:`_merge_current` (rank-3 ``q`` only; the
-        rank-4 draft merge lands with the speculative slice).
+      k_new, v_new: ``q``'s shape: the current token's key and value
+        for rank-3 ``q``, the in-flight tokens' for rank-4 ``q``, folded
+        in as :func:`decode_attention` does.
       k_scale, v_scale: ``(num_blocks, h, block_size)`` fp32 pooled
         dequantization scales, required iff the pools are int8.
+      k_cast, v_cast: rank-4 ``q`` only: the pool's store-and-load images
+        of ``k_new``/``v_new`` (see :func:`decode_attention`).
 
     Returns ``q``'s shape in ``q.dtype``.
     """
@@ -715,10 +776,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
             and s.dtype == torch.float32 for s in (k_scale, v_scale)):
         raise ValueError("int8 pools need (num_blocks, h, block_size) fp32 "
                          "k_scale/v_scale")
-    if multi and k_new is not None:
-        raise NotImplementedError(
-            "the multi-row k_new merge (speculative verify) lands with the "
-            "speculative slice")
+    _check_in_flight(q, k_new=k_new, v_new=v_new, k_cast=k_cast,
+                     v_cast=v_cast)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     dev = k_pool.device
@@ -736,4 +795,5 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     else:
         out3, lse3 = _paged_decode_plain(q3, k_pool, v_pool, tables, lens,
                                          ksc, vsc, float(softmax_scale))
-    return _decode_result(out3, lse3, q, k_new, v_new, float(softmax_scale))
+    return _decode_result(out3, lse3, q, k_new, v_new, k_cast, v_cast,
+                          float(softmax_scale))

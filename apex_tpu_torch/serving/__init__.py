@@ -3,11 +3,13 @@
 A dense :class:`~apex_tpu_torch.serving.cache.KVCache` or a paged block
 pool (:class:`~apex_tpu_torch.serving.cache.PagedKVCache` with its host
 :class:`~apex_tpu_torch.serving.cache.BlockAllocator`), both written in
-place; eager prefill/decode steps (:class:`~apex_tpu_torch.serving.engine
-.ServingEngine`, :class:`~apex_tpu_torch.serving.engine
-.PagedServingEngine`) whose attention runs the hand-written CUDA kernels on
-the card; per-slot sampling (:mod:`~apex_tpu_torch.serving.sampling`) and
-a continuous slot batcher (:class:`~apex_tpu_torch.serving.scheduler
+place; eager prefill, decode and speculative verify steps
+(:class:`~apex_tpu_torch.serving.engine.ServingEngine`,
+:class:`~apex_tpu_torch.serving.engine.PagedServingEngine`) whose
+attention runs the hand-written CUDA kernels on the card; per-slot
+sampling and the speculative acceptance rule
+(:mod:`~apex_tpu_torch.serving.sampling`), host-side draft sources and a
+continuous slot batcher (:class:`~apex_tpu_torch.serving.scheduler
 .SlotScheduler`) emitting the ``serve/*`` metric family, with typed
 :class:`~apex_tpu_torch.serving.resilience.Rejection` s. The request record
 is re-exported for wiring convenience.
@@ -21,13 +23,15 @@ from apex_tpu_torch.serving.cache import (AdmitPlan, BlockAllocator,
                                           paged_block_bytes, store_roundtrip)
 from apex_tpu_torch.serving.engine import PagedServingEngine, ServingEngine
 from apex_tpu_torch.serving.resilience import REJECTION_REASONS, Rejection
-from apex_tpu_torch.serving.sampling import sample_tokens
-from apex_tpu_torch.serving.scheduler import (Completion, Request,
+from apex_tpu_torch.serving.sampling import sample_tokens, verify_tokens
+from apex_tpu_torch.serving.scheduler import (Completion, DraftSource,
+                                              NGramDraftSource, Request,
                                               SlotScheduler)
 
 __all__ = ["KVCache", "cache_bytes_per_slot", "store_roundtrip",
            "PagedKVCache", "BlockAllocator", "AdmitPlan", "StepPlan",
            "PoolExhausted", "paged_block_bytes", "ServingEngine",
            "PagedServingEngine", "Rejection", "REJECTION_REASONS",
-           "sample_tokens", "Completion", "Request", "SlotScheduler",
+           "sample_tokens", "verify_tokens", "Completion", "Request",
+           "SlotScheduler", "DraftSource", "NGramDraftSource",
            "RequestRecord"]

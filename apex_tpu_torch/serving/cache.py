@@ -28,8 +28,12 @@ is the reserved null block: unmapped table entries and masked writes land
 there, and nothing ever reads it below a cursor. The reference drops
 out-of-range scatter ids on the device (``mode="drop"``); here every id
 comes from the allocator, which asserts on the host that it lies in
-``[0, num_blocks)``. The speculative ``append_k`` comes with the
-speculative slice.
+``[0, num_blocks)``.
+
+The speculative verify step appends a window of ``k + 1`` tokens a slot
+with ``append_k`` (both layouts): every row that fits is written, the
+cursor advances by the accepted count only, so the rejected rows sit above
+it, where no read reaches them and the next window overwrites them.
 """
 
 from __future__ import annotations
@@ -170,6 +174,50 @@ class KVCache:
         self.lengths.copy_(advanced)
         return self
 
+    def append_k(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                 counts: torch.Tensor) -> "KVCache":
+        """Speculative verify append, in place: a window of ``K`` tokens a
+        slot, ``k_new``/``v_new`` ``(L, S, H, K, D)`` (row i belongs at
+        position ``cursor + i``), and each slot's cursor advanced by
+        ``counts (S,)`` (accepted drafts + 1; 0 for an inactive slot),
+        clamped to ``max_len``. Every row below ``max_len`` is written;
+        near saturation the window slides back to ``[max_len - K,
+        max_len)`` and its positions below the cursor are written back
+        unchanged, so a slot at ``max_len`` writes nothing."""
+        S, T = self.max_seqs, self.max_len
+        K = k_new.shape[3]
+        if K > T:
+            raise ValueError(f"verify window {K} exceeds max_len {T}")
+        dev = self.k.device
+        lengths = self.lengths.long()
+        start = lengths.clamp(max=T - K)
+        # > 0 only near saturation: row r sits at window offset r + shift
+        r = (torch.arange(K, device=dev)[None, :]
+             - (lengths - start)[:, None])                      # (S, K)
+        pos = start[:, None] + torch.arange(K, device=dev)[None, :]
+        slots = torch.arange(S, device=dev)[:, None]
+        keep = r >= 0
+        rows = r.clamp(0, K - 1)
+
+        def put(buf, new):
+            # (S, T, L, H[, D]) view of the buffer and (S, K, L, H[, D]) of
+            # the window: the old window is read before the write
+            view = buf.movedim((1, 3), (0, 1))
+            new_s = new.movedim((1, 3), (0, 1))[slots, rows]
+            mask = keep.view(S, K, *([1] * (new_s.dim() - 2)))
+            view[slots, pos] = torch.where(mask, new_s, view[slots, pos])
+
+        kq, ks = self._store(k_new)
+        vq, vs = self._store(v_new)
+        put(self.k, kq)
+        put(self.v, vq)
+        if self.quantized:
+            put(self.k_scale, ks)
+            put(self.v_scale, vs)
+        counts = torch.as_tensor(counts, device=self.lengths.device)
+        self.lengths.copy_(torch.clamp(self.lengths + counts, max=T))
+        return self
+
     def write_prompt(self, k_new: torch.Tensor, v_new: torch.Tensor,
                      slot: int, true_len: int) -> "KVCache":
         """Prefill write, in place: ``k_new``/``v_new`` are ``(L, H, P,
@@ -300,6 +348,25 @@ class PagedKVCache:
         # (S, L, H[, D])
         for buf, new in zip(self._leaves(), self._stored(k_new, v_new)):
             buf[:, bid, :, off] = new.transpose(0, 1)
+        return self
+
+    def append_k(self, k_new: torch.Tensor, v_new: torch.Tensor, block_ids,
+                 offsets) -> "PagedKVCache":
+        """Speculative verify append, in place: ``k_new``/``v_new`` are
+        ``(L, S, H, K, D)`` and ``block_ids``/``offsets`` ``(S, K)`` name
+        each token's pool block and in-block position
+        (:meth:`BlockAllocator.verify_targets`: a window may cross a block
+        edge). Masked tokens (inactive slots, positions past capacity) aim
+        at the null block. Every row is written; the host cursor advances
+        by the accepted count only (:meth:`BlockAllocator.advance_counts`),
+        so the rejected rows sit above it in the slot's own blocks."""
+        bid = _ids(block_ids, self.k.device).reshape(-1)
+        off = _ids(offsets, self.k.device).reshape(-1)
+        for buf, new in zip(self._leaves(), self._stored(k_new, v_new)):
+            # (L, S, H, K[, D]) -> (S * K, L, H[, D]): two index tensors
+            # split by a slice put the indexed dim first
+            upd = new.movedim((1, 3), (0, 1))
+            buf[:, bid, :, off] = upd.reshape(-1, *upd.shape[2:])
         return self
 
     def write_prompt_blocks(self, k_new: torch.Tensor, v_new: torch.Tensor,

@@ -19,11 +19,17 @@ decode attention through block tables (the ``paged_decode_attention``
 kernel on the card), prefix sharing with copy-on-write, and admission
 that the pool's free blocks bound.
 
+With ``speculate_k = k > 0`` both engines also run **verify**: each
+slot's last token and ``k`` drafted tokens ``(max_seqs, k + 1)`` in one
+pass over the cached prefix (the decode kernels at ``q_len = k + 1``), the
+acceptance rule (:func:`~apex_tpu_torch.serving.sampling.verify_tokens`)
+and a ``k + 1``-token cache append; each slot emits 1 to ``k + 1`` tokens.
+
 The JAX engines compile their steps ahead of time and donate the cache.
 These run eagerly and write the cache in place (see
-:mod:`apex_tpu_torch.serving.cache`). ``quarantine`` and ``speculate_k``
-(on both engines) and the paged engine's ``mean_context`` come with later
-slices.
+:mod:`apex_tpu_torch.serving.cache`). ``quarantine`` (on both engines, with
+``verify``'s ``poison``) and the paged engine's ``mean_context`` come with
+later slices.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.serving.cache import (AdmitPlan, BlockAllocator, KVCache,
                                           PagedKVCache, cache_bytes_per_slot,
                                           paged_block_bytes)
-from apex_tpu_torch.serving.sampling import sample_tokens
+from apex_tpu_torch.serving.sampling import sample_tokens, verify_tokens
 
 __all__ = ["ServingEngine", "PagedServingEngine"]
 
@@ -59,6 +65,8 @@ class ServingEngine:
         ``torch.int8`` (quantized cache with per-(position, head) scales).
       top_k: top-k sampling cutoff (0 = full vocab).
       rng_seed: seed of the engine's sampling generator.
+      speculate_k: drafts a :meth:`verify` step scores a slot (0: no
+        verify step); ``speculate_k + 1 <= max_len``.
       device: where the cache and the steps live (default ``"cuda"``;
         raises when no card is present). The model is moved there.
     """
@@ -66,7 +74,7 @@ class ServingEngine:
     def __init__(self, model, params: Optional[Mapping] = None, *,
                  max_seqs: int, max_len: int, prefill_len: int,
                  cache_dtype=torch.bfloat16, top_k: int = 0,
-                 rng_seed: int = 0, device="cuda"):
+                 rng_seed: int = 0, speculate_k: int = 0, device="cuda"):
         cfg = model.cfg
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -75,6 +83,13 @@ class ServingEngine:
         if prefill_len > max_len:
             raise ValueError(f"prefill_len {prefill_len} exceeds max_len "
                              f"{max_len}")
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if speculate_k + 1 > max_len:
+            raise ValueError(
+                f"speculate_k {speculate_k} needs a {speculate_k + 1}-token "
+                f"verify window, which exceeds max_len {max_len}")
+        self.speculate_k = int(speculate_k)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         if params is not None:
@@ -163,6 +178,64 @@ class ServingEngine:
         toks = sample_tokens(logits, self.generator, temps, self.top_k)
         return toks.cpu().numpy()
 
+    def _check_speculative(self) -> None:
+        if not self.speculate_k:
+            raise ValueError(
+                "verify requires a speculative engine "
+                f"({type(self).__name__}(..., speculate_k=k) with k > 0)")
+
+    def _verify_inputs(self, tokens, drafts, temperatures, active):
+        """The verify step's host inputs on the device: the window
+        ``(max_seqs, k + 1)``, the drafts ``(max_seqs, k)``, the
+        temperatures and the active mask. Copied before the step's first
+        launch: a copy from pageable host memory waits for the stream, so
+        one made after the launches would be a second sync."""
+        S = self.max_seqs
+        drafts = np.asarray(drafts, np.int64).reshape(S, self.speculate_k)
+        window = np.concatenate(
+            [np.asarray(tokens, np.int64).reshape(S, 1), drafts], axis=1)
+        return tuple(torch.from_numpy(a).to(self.device) for a in (
+            window, drafts, np.asarray(temperatures, np.float32).reshape(S),
+            np.asarray(active, np.bool_).reshape(S)))
+
+    def _accept(self, logits, drafts, temps, active):
+        """The acceptance rule over the verify logits, and each slot's
+        count (accepted drafts + 1; 0 outside ``active``), on the
+        device."""
+        toks, accepted = verify_tokens(logits, drafts, self.generator, temps,
+                                       self.top_k)
+        return toks, torch.where(active, accepted + 1, 0).to(torch.int32)
+
+    @staticmethod
+    def _fetch(toks, counts):
+        """Tokens and counts on the host, in one copy (the step's sync)."""
+        host = torch.cat([toks, counts[:, None]], dim=1).cpu().numpy()
+        return host[:, :-1], host[:, -1]
+
+    def verify(self, tokens: np.ndarray, drafts: np.ndarray,
+               temperatures: np.ndarray,
+               active: Optional[np.ndarray] = None):
+        """One speculative verify step for every slot: ``tokens
+        (max_seqs,)`` each slot's last emitted token, ``drafts (max_seqs,
+        speculate_k)`` the proposals after it. Returns ``(tokens
+        (max_seqs, speculate_k + 1) int32, counts (max_seqs,) int32)``:
+        slot ``s`` emits ``tokens[s, :counts[s]]`` (``counts`` is 0
+        outside ``active``, else the accepted drafts + 1), and its cursor
+        has advanced by exactly ``counts[s]``. The whole window is written;
+        the rejected rows sit above the cursor, where no read reaches
+        them. Requires ``speculate_k > 0`` at construction."""
+        self._check_speculative()
+        if active is None:
+            active = np.ones(self.max_seqs, np.bool_)
+        window, drafts, temps, act = self._verify_inputs(
+            tokens, drafts, temperatures, active)
+        with torch.no_grad():
+            logits, (k_new, v_new), _ = self.model.verify_forward(
+                window, self.cache)
+            toks, counts = self._accept(logits, drafts, temps, act)
+            self.cache.append_k(k_new, v_new, counts)
+        return self._fetch(toks, counts)
+
     def release_slot(self, slot: int) -> None:
         """Zero ``slot``'s write cursor: a retired slot stops paying
         attention over its dead prefix, and the cursor is the truth the
@@ -222,8 +295,8 @@ class PagedServingEngine(ServingEngine):
         through per-token decode steps on a prefix hit; a hit whose tail
         is longer takes the cold prefill. Default: ``block_size``.
 
-    ``quarantine``, ``speculate_k`` and ``mean_context`` (which only
-    priced the TPU kernel's cost estimate) have no counterpart yet.
+    ``quarantine`` and ``mean_context`` (which only priced the TPU
+    kernel's cost estimate) have no counterpart yet.
     """
 
     def __init__(self, model, params: Optional[Mapping] = None, *,
@@ -231,7 +304,8 @@ class PagedServingEngine(ServingEngine):
                  num_blocks: int, block_size: int,
                  cache_dtype=torch.bfloat16, top_k: int = 0,
                  rng_seed: int = 0,
-                 prefix_suffix_cap: Optional[int] = None, device="cuda"):
+                 prefix_suffix_cap: Optional[int] = None,
+                 speculate_k: int = 0, device="cuda"):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if prefill_len % block_size != 0:
@@ -247,7 +321,8 @@ class PagedServingEngine(ServingEngine):
         self.last_failed: list = []
         super().__init__(model, params, max_seqs=max_seqs, max_len=max_len,
                          prefill_len=prefill_len, cache_dtype=cache_dtype,
-                         top_k=top_k, rng_seed=rng_seed, device=device)
+                         top_k=top_k, rng_seed=rng_seed,
+                         speculate_k=speculate_k, device=device)
         self.prefill_blocks = self.prefill_len // self.block_size
         self.allocator = BlockAllocator(
             self.num_blocks, self.block_size,
@@ -351,6 +426,50 @@ class PagedServingEngine(ServingEngine):
                          if pending.size else None))
         alloc.advance(list(np.flatnonzero(ok)))
         return logits
+
+    def verify(self, tokens: np.ndarray, drafts: np.ndarray,
+               temperatures: np.ndarray,
+               active: Optional[np.ndarray] = None):
+        """The paged verify step, :meth:`ServingEngine.verify`'s contract.
+        The block bookkeeping happens here: every block the ``speculate_k
+        + 1``-token window touches is made slot-private and writable first
+        (:meth:`~apex_tpu_torch.serving.cache.BlockAllocator
+        .prepare_verify`: copy-on-write resolved, fresh blocks mapped,
+        atomic per slot); slots the exhausted pool could not serve land in
+        :attr:`last_failed`, their window aims at the null block and their
+        count comes back 0; the host cursors advance by the counts."""
+        self._check_speculative()
+        if active is None:
+            active = np.ones(self.max_seqs, np.bool_)
+        active = np.asarray(active, bool)
+        alloc = self.allocator
+        step = alloc.prepare_verify(list(np.flatnonzero(active)),
+                                    self.speculate_k + 1)
+        self.last_failed = list(step.failed)
+        ok = active.copy()
+        ok[step.failed] = False
+        pending = np.flatnonzero(step.cow_dst)
+        # every host input on the device before the first launch (see
+        # _verify_inputs)
+        window, drafts, temps, act = self._verify_inputs(
+            tokens, drafts, temperatures, ok)
+        tables, lengths, block_ids, offsets = (
+            self._to_device(a) for a in (
+                alloc.tables, alloc.lengths,
+                *alloc.verify_targets(ok, self.speculate_k + 1)))
+        cow = ((self._to_device(step.cow_src[pending]),
+                self._to_device(step.cow_dst[pending])) if pending.size
+               else (None, None))
+        with torch.no_grad():
+            logits, (k_new, v_new), _ = self.model.verify_forward(
+                window, self.cache, block_tables=tables, lengths=lengths,
+                cow_src=cow[0], cow_dst=cow[1])
+            toks, counts = self._accept(logits, drafts, temps, act)
+            self.cache.append_k(k_new, v_new, block_ids, offsets)
+        toks, counts = self._fetch(toks, counts)
+        slots = np.flatnonzero(ok)
+        alloc.advance_counts(list(slots), counts[slots].tolist())
+        return toks, counts
 
     def release_slot(self, slot: int) -> None:
         """Retire ``slot``: drop its block references on the host (shared

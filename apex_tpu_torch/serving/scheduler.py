@@ -21,9 +21,16 @@ head of the queue, prefix hits are counted, a slot the pool could not give
 a block retires ``"capacity"``, and each step sets the pool gauges. The
 dense engine's behaviour is unchanged.
 
+**Speculative decoding**: ``speculate_k=k`` (with an engine built
+``speculate_k=k``) drives the engine's ``verify`` step instead of
+``decode``: a host-side :class:`DraftSource` (default
+:class:`NGramDraftSource`, prompt-lookup self-drafting) proposes ``k``
+tokens a slot, one step scores them all, and each slot emits its accepted
+prefix plus one correction or bonus token. The ``serve/spec_*`` metrics
+track the acceptance rate.
+
 The other resilience knobs (bounded queue, deadlines, cancel, quarantine,
-drain, brownout, fault plans) and speculative decoding come with later
-slices.
+drain, brownout, fault plans) come with later slices.
 """
 
 from __future__ import annotations
@@ -41,7 +48,45 @@ from apex_tpu_torch.observability.reqtrace import (LATENCY_BUCKETS_MS,
 from apex_tpu_torch.serving.cache import PoolExhausted
 from apex_tpu_torch.serving.resilience import Rejection
 
-__all__ = ["Request", "Completion", "SlotScheduler"]
+__all__ = ["Request", "Completion", "SlotScheduler", "DraftSource",
+           "NGramDraftSource"]
+
+
+class DraftSource:
+    """What a speculative draft proposer implements: given a slot's whole
+    token context (prompt and everything generated so far, never empty),
+    propose the next ``k`` tokens. Runs on the host between steps. A wrong
+    draft costs its slot the rejected rows' compute, never correctness."""
+
+    def draft(self, context: Sequence[int], k: int) -> List[int]:
+        """Exactly ``k`` proposed tokens to follow ``context``."""
+        raise NotImplementedError
+
+
+class NGramDraftSource(DraftSource):
+    """Prompt-lookup (n-gram) self-drafting: find the longest suffix of the
+    context, up to ``max_ngram`` tokens, that also occurred earlier in it,
+    and propose the ``k`` tokens that followed its most recent earlier
+    occurrence, padded by repeating the last proposal where the match sits
+    near the end. No match proposes the last context token ``k`` times."""
+
+    def __init__(self, max_ngram: int = 3):
+        if max_ngram < 1:
+            raise ValueError(f"max_ngram must be >= 1, got {max_ngram}")
+        self.max_ngram = int(max_ngram)
+
+    def draft(self, context: Sequence[int], k: int) -> List[int]:
+        ctx = [int(t) for t in context]
+        n = len(ctx)
+        for m in range(min(self.max_ngram, n - 1), 0, -1):
+            suffix = ctx[n - m:]
+            for start in range(n - m - 1, -1, -1):
+                if ctx[start:start + m] == suffix:
+                    out = ctx[start + m:start + m + k]
+                    while len(out) < k:
+                        out.append(out[-1])
+                    return out
+        return [ctx[-1]] * k
 
 
 @dataclasses.dataclass
@@ -82,9 +127,33 @@ class _Active:
 class SlotScheduler:
     """Drive with :meth:`submit` + :meth:`step` (one decode step per
     call), or :meth:`run` for a closed batch. ``registry`` defaults to
-    the process-wide one."""
+    the process-wide one.
 
-    def __init__(self, engine, registry=None):
+    ``speculate_k=k`` (the engine built with the same ``k``) steps the
+    engine's ``verify`` instead of ``decode``: ``draft_source`` (default
+    :class:`NGramDraftSource`) proposes ``k`` tokens a slot and each slot
+    emits 1 to ``k + 1`` tokens a step. A retirement mid-harvest (eos,
+    length, capacity) abandons only tokens whose KV sits above the cursor,
+    which advanced by the accepted count alone."""
+
+    def __init__(self, engine, registry=None, *, speculate_k: int = 0,
+                 draft_source: Optional[DraftSource] = None):
+        if speculate_k:
+            if getattr(engine, "speculate_k", 0) != speculate_k:
+                raise ValueError(
+                    f"speculate_k={speculate_k} but the engine was built "
+                    f"with speculate_k={getattr(engine, 'speculate_k', 0)}: "
+                    "the scheduler and the engine must agree on the verify "
+                    "window")
+        elif draft_source is not None:
+            raise ValueError(
+                "draft_source without speculate_k: pass speculate_k=k "
+                "(matching the engine's) to enable speculative decoding")
+        self.speculate_k = int(speculate_k)
+        self.draft_source = draft_source if draft_source is not None \
+            else (NGramDraftSource() if speculate_k else None)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self.engine = engine
         self._reg = registry if registry is not None else get_registry()
         self.queue: collections.deque = collections.deque()
@@ -191,6 +260,17 @@ class SlotScheduler:
         if reason is not None:
             self._retire(slot, reason, now)
 
+    def _build_drafts(self) -> np.ndarray:
+        """The host drafting pass: one :meth:`DraftSource.draft` call per
+        active slot over its whole context. Free slots draft zeros (their
+        counts come back 0)."""
+        drafts = np.zeros((self.engine.max_seqs, self.speculate_k),
+                          np.int64)
+        for slot, st in self.active.items():
+            ctx = list(st.request.prompt) + st.generated
+            drafts[slot] = self.draft_source.draft(ctx, self.speculate_k)
+        return drafts
+
     def _admit(self) -> int:
         admitted = 0
         while self.queue and self.free:
@@ -256,18 +336,28 @@ class SlotScheduler:
         if self.active:
             mask = np.zeros(self.engine.max_seqs, np.bool_)
             mask[list(self.active)] = True
-            nxt = self.engine.decode(self._tokens, self._temps, mask)
+            if self.speculate_k:
+                nxt, counts = self.engine.verify(
+                    self._tokens, self._build_drafts(), self._temps, mask)
+            else:
+                nxt = self.engine.decode(self._tokens, self._temps, mask)
             self.steps += 1
             self._reg.counter("serve/decode_steps").inc()
-            # one stamp for the whole grid's tick (decode() synced on the
-            # fetched tokens)
+            # one stamp for the whole grid's tick (decode() and verify()
+            # synced on the fetched tokens)
             now = time.perf_counter()
-            for slot in list(self.active):
-                self._record(int(nxt[slot]), self.active[slot], slot, now)
+            if not self.speculate_k:
+                for slot in list(self.active):
+                    self._record(int(nxt[slot]), self.active[slot], slot,
+                                 now)
+            else:
+                self._harvest(nxt, counts, int(mask.sum()), now)
             # paged engines: a slot the exhausted pool could not give a
             # block retires "capacity". Its token is valid (the current
             # token is merged in flight) but its KV was dropped, so one
-            # more step would decode against a hole
+            # more step would decode against a hole. A failed verify
+            # window aimed at the null block and its count came back 0: it
+            # emitted nothing this step
             for slot in getattr(self.engine, "last_failed", ()):
                 if slot in self.active:
                     self._retire(slot, "capacity", now)
@@ -294,6 +384,31 @@ class SlotScheduler:
             self._reg.gauge("serve/tokens_per_sec").set(
                 self._tok_count / elapsed)
         return generated
+
+    def _harvest(self, nxt: np.ndarray, counts: np.ndarray, n_active: int,
+                 now: float) -> None:
+        """A verify step's tokens: each slot its accepted prefix plus one
+        correction or bonus token, ``nxt[slot, :counts[slot]]``, until a
+        retirement stops it; then the ``serve/spec_*`` metrics."""
+        self._reg.counter("serve/spec_steps").inc()
+        drafted = n_active * self.speculate_k
+        self._spec_drafted += drafted
+        self._reg.counter("serve/spec_drafted").inc(drafted)
+        accepted = 0
+        # a snapshot: _record may retire and free slots mid-harvest
+        for slot in list(self.active):
+            st = self.active[slot]
+            accepted += max(0, int(counts[slot]) - 1)
+            for j in range(int(counts[slot])):
+                self._record(int(nxt[slot, j]), st, slot, now)
+                if slot not in self.active:
+                    break
+        self._spec_accepted += accepted
+        if accepted:
+            self._reg.counter("serve/spec_accepted").inc(accepted)
+        if self._spec_drafted:
+            self._reg.gauge("serve/spec_accept_rate").set(
+                self._spec_accepted / self._spec_drafted)
 
     def run(self, requests: Sequence[Request],
             max_steps: Optional[int] = None) -> Dict[int, Completion]:

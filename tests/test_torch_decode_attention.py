@@ -140,7 +140,13 @@ def test_decode_argument_errors():
     with pytest.raises(ValueError, match="cache shapes"):
         pfa.decode_attention(z[:, :, 0, :32], z, z,
                              torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # the verify rows' in-flight keys and values must have q's shape
+    with pytest.raises(ValueError, match="k_new shape"):
         pfa.decode_attention(z[:, :, :2], z, z,
                              torch.zeros(1, dtype=torch.int32),
-                             k_new=z[:, :, :2], v_new=z[:, :, :2])
+                             k_new=z[:, :, :3], v_new=z[:, :, :2])
+    with pytest.raises(ValueError, match="k_cast shape"):
+        pfa.decode_attention(z[:, :, :2], z, z,
+                             torch.zeros(1, dtype=torch.int32),
+                             k_new=z[:, :, :2], v_new=z[:, :, :2],
+                             k_cast=z[:, :, 0])

@@ -207,9 +207,14 @@ def test_paged_decode_argument_errors():
         pfa.paged_decode_attention(q[..., :32], pool, pool, tables, lens)
     with pytest.raises(ValueError, match="block_tables"):
         pfa.paged_decode_attention(q, pool, pool, tables[0], lens)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # the verify rows' in-flight keys and values must have q's shape
+    with pytest.raises(ValueError, match="v_new shape"):
         pfa.paged_decode_attention(q[:, :, None], pool, pool, tables, lens,
-                                   k_new=q[:, :, None], v_new=q[:, :, None])
+                                   k_new=q[:, :, None], v_new=q)
+    with pytest.raises(ValueError, match="v_cast shape"):
+        pfa.paged_decode_attention(q[:, :, None], pool, pool, tables, lens,
+                                   k_new=q[:, :, None], v_new=q[:, :, None],
+                                   v_cast=q[:, :, None, :32])
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         pfa.paged_decode_attention(q, pool, pool, tables, lens,
                                    use_kernel=True)
