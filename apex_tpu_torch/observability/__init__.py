@@ -1,12 +1,25 @@
-"""Host-side observability for the port: the metrics registry and the
-request-lifecycle record the serving scheduler stamps."""
+"""Host-side observability for the port: the metrics registry with its
+strict-JSON and Prometheus exports, the request-lifecycle records and
+their flight-recorder ring and Chrome-trace export, the serving SLO
+tracker (goodput, burn rate, violation dumps) and the structured crash
+dump. The in-graph metrics, sinks, reporters, runtime listeners, health
+checks, fleet and perfwatch of ``apex_tpu.observability`` are not ported
+yet."""
 
+from apex_tpu_torch.observability.health import (CrashDump,
+                                                 decode_attribution)
 from apex_tpu_torch.observability.registry import (Counter, Gauge, Histogram,
                                                    MetricsRegistry,
                                                    get_registry, log_buckets)
 from apex_tpu_torch.observability.reqtrace import (LATENCY_BUCKETS_MS,
-                                                   RequestRecord)
+                                                   RequestRecord,
+                                                   RequestTrace,
+                                                   chrome_request_trace)
+from apex_tpu_torch.observability.slo import (SLOTarget, SLOTracker,
+                                              SLOViolationError)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "get_registry", "log_buckets", "LATENCY_BUCKETS_MS",
-           "RequestRecord"]
+           "get_registry", "log_buckets", "CrashDump", "decode_attribution",
+           "LATENCY_BUCKETS_MS", "RequestRecord", "RequestTrace",
+           "chrome_request_trace", "SLOTarget", "SLOTracker",
+           "SLOViolationError"]

@@ -6,20 +6,23 @@ plain Python accumulators for host-observed quantities such as the
 scheduler's ``serve/*`` family. A :class:`MetricsRegistry` is a named
 collection whose :meth:`~MetricsRegistry.snapshot` flattens everything to
 ``{name: float}``; :func:`get_registry` is the process-wide default.
-
-The fleet serialization (``to_dict``/``from_dict``) and the Prometheus
-exposition of the reference are not part of this slice.
+:meth:`~MetricsRegistry.to_dict` / :meth:`~MetricsRegistry.from_dict` carry
+a registry's typed state across a process boundary as strict JSON, and
+:meth:`~MetricsRegistry.render_prometheus` is its Prometheus text
+exposition.
 """
 
 from __future__ import annotations
 
 import bisect
 import math
+import re
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "get_registry", "DEFAULT_BUCKETS", "log_buckets"]
+           "get_registry", "DEFAULT_BUCKETS", "log_buckets",
+           "json_safe_float", "json_float"]
 
 # power-of-4 spread from sub-millisecond to minutes
 DEFAULT_BUCKETS: Tuple[float, ...] = tuple(4.0 ** e for e in range(-6, 6))
@@ -234,6 +237,9 @@ class MetricsRegistry:
         return self._get_or_create(name, Histogram,
                                    lambda: Histogram(name, buckets))
 
+    def names(self) -> Iterable[str]:
+        return tuple(self._metrics)
+
     def snapshot(self) -> Dict[str, float]:
         """Flat ``{name: value}`` over every metric; never-set gauges are
         skipped."""
@@ -247,6 +253,127 @@ class MetricsRegistry:
     def reset(self) -> None:
         for m in self._metrics.values():
             m.reset()
+
+    # -- typed serialization ------------------------------------------------
+    def to_dict(self) -> dict:
+        """A typed, strict-JSON-safe dict of the whole registry: each
+        metric's kind and full state (a flat :meth:`snapshot` cannot be
+        merged or rebuilt). Non-finite values are the strings ``"NaN"`` /
+        ``"Infinity"`` / ``"-Infinity"``; never-set gauges are skipped."""
+        with self._lock:
+            metrics = list(self._metrics.items())
+        out: dict = {"counters": {}, "gauges": {}, "histograms": {}}
+        for name, m in metrics:
+            if isinstance(m, Counter):
+                out["counters"][name] = json_safe_float(m.value)
+            elif isinstance(m, Gauge):
+                if m.is_set:
+                    out["gauges"][name] = json_safe_float(m.value)
+            elif isinstance(m, Histogram):
+                out["histograms"][name] = {
+                    "bounds": list(m.bounds),
+                    "counts": list(m._counts),
+                    "sum": json_safe_float(m._sum),
+                    "count": int(m._count),
+                    "min": json_safe_float(m._min),
+                    "max": json_safe_float(m._max),
+                }
+        return out
+
+    @classmethod
+    def from_dict(cls, doc: dict) -> "MetricsRegistry":
+        """Rebuild a registry from :meth:`to_dict` output. Histograms
+        restore their bucket counts and the observed min, max and sum, so
+        :meth:`Histogram.percentile` answers the same after a round trip."""
+        reg = cls()
+        for name, value in doc.get("counters", {}).items():
+            reg.counter(name).inc(json_float(value))
+        for name, value in doc.get("gauges", {}).items():
+            reg.gauge(name).set(json_float(value))
+        for name, h in doc.get("histograms", {}).items():
+            hist = reg.histogram(name, h["bounds"])
+            _restore_histogram(hist, h)
+        return reg
+
+    def render_prometheus(self) -> str:
+        """The registry in Prometheus text exposition format. Characters
+        outside ``[a-zA-Z0-9_:]`` in names become underscores
+        (``serve/ttft_ms`` -> ``serve_ttft_ms``); histograms emit the
+        cumulative ``_bucket{le="..."}`` series ending in ``le="+Inf"``
+        plus ``_sum``/``_count``; never-set gauges are skipped; non-finite
+        values are spelled ``NaN``/``+Inf``/``-Inf``."""
+        with self._lock:
+            metrics = list(self._metrics.items())
+        lines: List[str] = []
+        for name, m in metrics:
+            pn = _prometheus_name(name)
+            if isinstance(m, Counter):
+                lines.append(f"# TYPE {pn} counter")
+                lines.append(f"{pn} {_prometheus_value(m.value)}")
+            elif isinstance(m, Gauge):
+                if not m.is_set:
+                    continue
+                lines.append(f"# TYPE {pn} gauge")
+                lines.append(f"{pn} {_prometheus_value(m.value)}")
+            elif isinstance(m, Histogram):
+                lines.append(f"# TYPE {pn} histogram")
+                running = 0
+                for bound, c in zip(m.bounds, m._counts):
+                    running += c
+                    lines.append(f'{pn}_bucket{{le="{bound:g}"}} {running}')
+                lines.append(f'{pn}_bucket{{le="+Inf"}} {m.count}')
+                lines.append(f"{pn}_sum {_prometheus_value(m.sum)}")
+                lines.append(f"{pn}_count {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def json_safe_float(value: float) -> Any:
+    """Strict-JSON spelling of one float: non-finite values become the
+    strings ``"NaN"``/``"Infinity"``/``"-Infinity"``, so
+    ``json.dump(..., allow_nan=False)`` round-trips."""
+    value = float(value)
+    if math.isnan(value):
+        return "NaN"
+    if math.isinf(value):
+        return "Infinity" if value > 0 else "-Infinity"
+    return value
+
+
+def json_float(value: Any) -> float:
+    """Inverse of :func:`json_safe_float` (``float`` parses the string
+    spellings natively)."""
+    return float(value)
+
+
+def _restore_histogram(hist: Histogram, doc: dict) -> None:
+    """Overwrite ``hist``'s state from a serialized dict whose ``bounds``
+    already match (``from_dict`` creates it that way)."""
+    counts = [int(c) for c in doc["counts"]]
+    if len(counts) != len(hist.bounds) + 1:
+        raise ValueError(
+            f"histogram {hist.name!r}: {len(counts)} counts for "
+            f"{len(hist.bounds)} bounds (+1 overflow expected)")
+    hist._counts = counts
+    hist._sum = json_float(doc["sum"])
+    hist._count = int(doc["count"])
+    hist._min = json_float(doc["min"])
+    hist._max = json_float(doc["max"])
+
+
+_PROM_BAD_CHARS = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prometheus_name(name: str) -> str:
+    pn = _PROM_BAD_CHARS.sub("_", name)
+    return "_" + pn if pn[:1].isdigit() else pn
+
+
+def _prometheus_value(value: float) -> str:
+    if math.isnan(value):
+        return "NaN"
+    if math.isinf(value):
+        return "+Inf" if value > 0 else "-Inf"
+    return f"{value:g}"
 
 
 _DEFAULT: Optional[MetricsRegistry] = None

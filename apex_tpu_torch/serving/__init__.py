@@ -11,18 +11,25 @@ sampling and the speculative acceptance rule
 (:mod:`~apex_tpu_torch.serving.sampling`), host-side draft sources and a
 continuous slot batcher (:class:`~apex_tpu_torch.serving.scheduler
 .SlotScheduler`) emitting the ``serve/*`` metric family, with typed
-:class:`~apex_tpu_torch.serving.resilience.Rejection` s. The request record
-is re-exported for wiring convenience.
+:class:`~apex_tpu_torch.serving.resilience.Rejection` s, the SLO-driven
+:class:`~apex_tpu_torch.serving.resilience.BrownoutPolicy`, deadlines,
+cancel, drain, weight swaps and the quarantine engines' poison check. The
+request-trace and SLO types are re-exported for wiring convenience.
 """
 
-from apex_tpu_torch.observability.reqtrace import RequestRecord
+from apex_tpu_torch.observability.reqtrace import (RequestRecord,
+                                                   RequestTrace,
+                                                   chrome_request_trace)
+from apex_tpu_torch.observability.slo import (SLOTarget, SLOTracker,
+                                              SLOViolationError)
 from apex_tpu_torch.serving.cache import (AdmitPlan, BlockAllocator,
                                           KVCache, PagedKVCache,
                                           PoolExhausted, StepPlan,
                                           cache_bytes_per_slot,
                                           paged_block_bytes, store_roundtrip)
 from apex_tpu_torch.serving.engine import PagedServingEngine, ServingEngine
-from apex_tpu_torch.serving.resilience import REJECTION_REASONS, Rejection
+from apex_tpu_torch.serving.resilience import (REJECTION_REASONS,
+                                               BrownoutPolicy, Rejection)
 from apex_tpu_torch.serving.sampling import sample_tokens, verify_tokens
 from apex_tpu_torch.serving.scheduler import (Completion, DraftSource,
                                               NGramDraftSource, Request,
@@ -34,4 +41,5 @@ __all__ = ["KVCache", "cache_bytes_per_slot", "store_roundtrip",
            "PagedServingEngine", "Rejection", "REJECTION_REASONS",
            "sample_tokens", "verify_tokens", "Completion", "Request",
            "SlotScheduler", "DraftSource", "NGramDraftSource",
-           "RequestRecord"]
+           "RequestRecord", "RequestTrace", "chrome_request_trace",
+           "SLOTarget", "SLOTracker", "SLOViolationError", "BrownoutPolicy"]

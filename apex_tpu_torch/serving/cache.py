@@ -135,6 +135,12 @@ class KVCache:
                        torch.full(shape[:-1], _MIN_SCALE, device=dev))
         return cls(k, v, lengths)
 
+    def nbytes(self) -> int:
+        """Total cache bytes (the number capacity planning divides)."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.k, self.v, self.lengths) + ((self.k_scale, self.v_scale)
+                                             if self.quantized else ()))
+
     def _store(self, x: torch.Tensor):
         return _store(x, self.k.dtype, self.quantized)
 

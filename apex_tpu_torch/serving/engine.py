@@ -25,11 +25,18 @@ pass over the cached prefix (the decode kernels at ``q_len = k + 1``), the
 acceptance rule (:func:`~apex_tpu_torch.serving.sampling.verify_tokens`)
 and a ``k + 1``-token cache append; each slot emits 1 to ``k + 1`` tokens.
 
+With ``quarantine=True`` both engines check each step's sampling-path
+logits: ``poison`` (``(max_seqs,)`` fp32, zeros by default; NaN for a slot
+is the deterministic fault injection) is added to them, ``finite =
+all(isfinite(logits))`` a slot is computed on the device and comes back in
+the step's one host copy beside the tokens, and :attr:`last_finite` holds
+it. The scheduler retires a non-finite slot alone. With
+``quarantine=False`` the steps are exactly the plain ones.
+
 The JAX engines compile their steps ahead of time and donate the cache.
 These run eagerly and write the cache in place (see
-:mod:`apex_tpu_torch.serving.cache`). ``quarantine`` (on both engines, with
-``verify``'s ``poison``) and the paged engine's ``mean_context`` come with
-later slices.
+:mod:`apex_tpu_torch.serving.cache`). The paged engine's ``mean_context``
+(it only priced the TPU kernel's cost estimate) has no counterpart.
 """
 
 from __future__ import annotations
@@ -65,6 +72,8 @@ class ServingEngine:
         ``torch.int8`` (quantized cache with per-(position, head) scales).
       top_k: top-k sampling cutoff (0 = full vocab).
       rng_seed: seed of the engine's sampling generator.
+      quarantine: add the poison argument and the per-slot finite check
+        to :meth:`decode` and :meth:`verify` (module docstring).
       speculate_k: drafts a :meth:`verify` step scores a slot (0: no
         verify step); ``speculate_k + 1 <= max_len``.
       device: where the cache and the steps live (default ``"cuda"``;
@@ -74,7 +83,8 @@ class ServingEngine:
     def __init__(self, model, params: Optional[Mapping] = None, *,
                  max_seqs: int, max_len: int, prefill_len: int,
                  cache_dtype=torch.bfloat16, top_k: int = 0,
-                 rng_seed: int = 0, speculate_k: int = 0, device="cuda"):
+                 rng_seed: int = 0, quarantine: bool = False,
+                 speculate_k: int = 0, device="cuda"):
         cfg = model.cfg
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -98,10 +108,15 @@ class ServingEngine:
         self.max_len = int(max_len)
         self.prefill_len = int(prefill_len)
         self.top_k = int(top_k)
+        self.quarantine = bool(quarantine)
+        self.last_finite: Optional[np.ndarray] = None
         self.swaps = 0
+        self._overhead: Optional[int] = None
         self.cache = self._create_cache(cache_dtype)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(rng_seed))
+        self._zero_poison = (torch.zeros(self.max_seqs, device=self.device)
+                             if self.quarantine else None)
 
     def _create_cache(self, cache_dtype):
         cfg = self.model.cfg
@@ -167,16 +182,48 @@ class ServingEngine:
                                            active=act)
         return logits
 
+    def _poison(self, poison: Optional[np.ndarray]
+                ) -> Optional[torch.Tensor]:
+        """The step's poison vector on the device (None on a plain
+        engine, which refuses one: the fault would be silently
+        dropped)."""
+        if not self.quarantine:
+            if poison is not None:
+                raise ValueError(
+                    "poison injection requires a quarantine engine "
+                    f"({type(self).__name__}(..., quarantine=True)); on a "
+                    "plain engine the fault would be silently dropped")
+            return None
+        if poison is None:
+            return self._zero_poison
+        return torch.as_tensor(
+            np.asarray(poison, np.float32).reshape(self.max_seqs),
+            device=self.device)
+
     def decode(self, tokens: np.ndarray, temperatures: np.ndarray,
-               active: Optional[np.ndarray] = None) -> np.ndarray:
+               active: Optional[np.ndarray] = None,
+               poison: Optional[np.ndarray] = None) -> np.ndarray:
         """One decode step for every slot: returns the next token per
         slot. ``active`` (``(max_seqs,)`` bool, default all): slots outside
-        it keep a frozen cursor, so free slots never grow a prefix."""
+        it keep a frozen cursor, so free slots never grow a prefix.
+
+        ``poison`` (quarantine engines only, ``(max_seqs,)`` fp32, default
+        zeros) is added to each slot's logits before sampling; afterwards
+        :attr:`last_finite` holds each slot's finite flag, fetched in the
+        same copy as the tokens."""
+        pvec = self._poison(poison)
         logits = self.decode_logits(tokens, active)
         temps = torch.as_tensor(np.asarray(temperatures, np.float32),
                                 device=self.device)
+        if pvec is None:
+            toks = sample_tokens(logits, self.generator, temps, self.top_k)
+            return toks.cpu().numpy()
+        logits = logits + pvec[:, None]
+        finite = torch.isfinite(logits).all(dim=-1)
         toks = sample_tokens(logits, self.generator, temps, self.top_k)
-        return toks.cpu().numpy()
+        toks, finite = self._fetch(toks[:, None], finite)
+        self.last_finite = finite.astype(bool)
+        return toks[:, 0]
 
     def _check_speculative(self) -> None:
         if not self.speculate_k:
@@ -198,23 +245,43 @@ class ServingEngine:
             window, drafts, np.asarray(temperatures, np.float32).reshape(S),
             np.asarray(active, np.bool_).reshape(S)))
 
-    def _accept(self, logits, drafts, temps, active):
-        """The acceptance rule over the verify logits, and each slot's
-        count (accepted drafts + 1; 0 outside ``active``), on the
-        device."""
+    def _accept(self, logits, drafts, temps, active, pvec):
+        """The acceptance rule over the verify logits (``pvec`` added
+        first on a quarantine engine), each slot's count (accepted drafts
+        + 1; 0 outside ``active``) and, with ``pvec``, its finite flag
+        over the whole window, on the device: ``(toks, counts)`` or
+        ``(toks, counts, finite)``."""
+        finite = ()
+        if pvec is not None:
+            logits = logits + pvec[:, None, None]
+            finite = (torch.isfinite(logits).all(dim=(-2, -1)),)
         toks, accepted = verify_tokens(logits, drafts, self.generator, temps,
                                        self.top_k)
-        return toks, torch.where(active, accepted + 1, 0).to(torch.int32)
+        return (toks, torch.where(active, accepted + 1, 0).to(torch.int32),
+                *finite)
 
     @staticmethod
-    def _fetch(toks, counts):
-        """Tokens and counts on the host, in one copy (the step's sync)."""
-        host = torch.cat([toks, counts[:, None]], dim=1).cpu().numpy()
-        return host[:, :-1], host[:, -1]
+    def _fetch(toks, *columns):
+        """``toks (S, n)`` and per-slot ``columns`` (counts, finite flags)
+        on the host in one copy, the step's sync: ``(toks, *columns)`` as
+        int32 numpy arrays."""
+        host = torch.cat([toks] + [c[:, None].to(toks.dtype)
+                                   for c in columns], dim=1).cpu().numpy()
+        n = toks.shape[1]
+        return (host[:, :n],) + tuple(host[:, n + i]
+                                      for i in range(len(columns)))
+
+    def _harvest(self, fetched):
+        """Tokens and counts of a fetched verify step; the finite flags,
+        where fetched, into :attr:`last_finite`."""
+        if len(fetched) == 3:
+            self.last_finite = fetched[2].astype(bool)
+        return fetched[0], fetched[1]
 
     def verify(self, tokens: np.ndarray, drafts: np.ndarray,
                temperatures: np.ndarray,
-               active: Optional[np.ndarray] = None):
+               active: Optional[np.ndarray] = None,
+               poison: Optional[np.ndarray] = None):
         """One speculative verify step for every slot: ``tokens
         (max_seqs,)`` each slot's last emitted token, ``drafts (max_seqs,
         speculate_k)`` the proposals after it. Returns ``(tokens
@@ -223,8 +290,11 @@ class ServingEngine:
         outside ``active``, else the accepted drafts + 1), and its cursor
         has advanced by exactly ``counts[s]``. The whole window is written;
         the rejected rows sit above the cursor, where no read reaches
-        them. Requires ``speculate_k > 0`` at construction."""
+        them. Requires ``speculate_k > 0`` at construction. ``poison``
+        follows :meth:`decode`'s contract; :attr:`last_finite` then flags
+        each slot's whole verify window."""
         self._check_speculative()
+        pvec = self._poison(poison)
         if active is None:
             active = np.ones(self.max_seqs, np.bool_)
         window, drafts, temps, act = self._verify_inputs(
@@ -232,9 +302,9 @@ class ServingEngine:
         with torch.no_grad():
             logits, (k_new, v_new), _ = self.model.verify_forward(
                 window, self.cache)
-            toks, counts = self._accept(logits, drafts, temps, act)
-            self.cache.append_k(k_new, v_new, counts)
-        return self._fetch(toks, counts)
+            out = self._accept(logits, drafts, temps, act, pvec)
+            self.cache.append_k(k_new, v_new, out[1])
+        return self._harvest(self._fetch(*out))
 
     def release_slot(self, slot: int) -> None:
         """Zero ``slot``'s write cursor: a retired slot stops paying
@@ -274,6 +344,39 @@ class ServingEngine:
                                     self.max_len, cfg.head_dim,
                                     self.cache.k.dtype)
 
+    def overhead_bytes(self) -> Optional[int]:
+        """Device memory a decode step needs beside the cache (weights,
+        logits, temporaries): the CUDA allocator's peak over one decode
+        step with every slot inactive, less the cache's bytes. It counts
+        every tensor the process holds on the card at that moment, so
+        measure with nothing else resident. Measured once and kept. None
+        on the CPU, which has no allocator statistics (the reference's
+        answer when the backend reports no memory analysis)."""
+        if self.device.type != "cuda":
+            return None
+        if self._overhead is None:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self.decode_logits(np.zeros(self.max_seqs, np.int64),
+                               np.zeros(self.max_seqs, np.bool_))
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            self._overhead = max(0, int(peak) - self.cache.nbytes())
+        return self._overhead
+
+    def suggest_max_seqs(self, hbm_bytes: int,
+                         reserve_fraction: float = 0.1) -> int:
+        """Sequence slots that fit ``hbm_bytes``: the step's non-cache
+        footprint (:meth:`overhead_bytes`, or the parameters' bytes where
+        it is None) and a ``reserve_fraction`` margin held back, the rest
+        divided by the bytes of one slot's cache."""
+        overhead = self.overhead_bytes()
+        if overhead is None:
+            overhead = sum(t.numel() * t.element_size()
+                           for t in self.model.state_dict().values())
+        avail = int(hbm_bytes * (1.0 - reserve_fraction)) - overhead
+        return max(0, avail // self.bytes_per_slot())
+
 
 class PagedServingEngine(ServingEngine):
     """The paged engine: the dense engine's call contract over a global
@@ -294,16 +397,13 @@ class PagedServingEngine(ServingEngine):
       prefix_suffix_cap: the longest un-shared prompt tail (tokens) served
         through per-token decode steps on a prefix hit; a hit whose tail
         is longer takes the cold prefill. Default: ``block_size``.
-
-    ``quarantine`` and ``mean_context`` (which only priced the TPU
-    kernel's cost estimate) have no counterpart yet.
     """
 
     def __init__(self, model, params: Optional[Mapping] = None, *,
                  max_seqs: int, max_len: int, prefill_len: int,
                  num_blocks: int, block_size: int,
                  cache_dtype=torch.bfloat16, top_k: int = 0,
-                 rng_seed: int = 0,
+                 rng_seed: int = 0, quarantine: bool = False,
                  prefix_suffix_cap: Optional[int] = None,
                  speculate_k: int = 0, device="cuda"):
         if block_size < 1:
@@ -322,7 +422,8 @@ class PagedServingEngine(ServingEngine):
         super().__init__(model, params, max_seqs=max_seqs, max_len=max_len,
                          prefill_len=prefill_len, cache_dtype=cache_dtype,
                          top_k=top_k, rng_seed=rng_seed,
-                         speculate_k=speculate_k, device=device)
+                         quarantine=quarantine, speculate_k=speculate_k,
+                         device=device)
         self.prefill_blocks = self.prefill_len // self.block_size
         self.allocator = BlockAllocator(
             self.num_blocks, self.block_size,
@@ -429,7 +530,8 @@ class PagedServingEngine(ServingEngine):
 
     def verify(self, tokens: np.ndarray, drafts: np.ndarray,
                temperatures: np.ndarray,
-               active: Optional[np.ndarray] = None):
+               active: Optional[np.ndarray] = None,
+               poison: Optional[np.ndarray] = None):
         """The paged verify step, :meth:`ServingEngine.verify`'s contract.
         The block bookkeeping happens here: every block the ``speculate_k
         + 1``-token window touches is made slot-private and writable first
@@ -439,6 +541,7 @@ class PagedServingEngine(ServingEngine):
         :attr:`last_failed`, their window aims at the null block and their
         count comes back 0; the host cursors advance by the counts."""
         self._check_speculative()
+        pvec = self._poison(poison)
         if active is None:
             active = np.ones(self.max_seqs, np.bool_)
         active = np.asarray(active, bool)
@@ -464,9 +567,9 @@ class PagedServingEngine(ServingEngine):
             logits, (k_new, v_new), _ = self.model.verify_forward(
                 window, self.cache, block_tables=tables, lengths=lengths,
                 cow_src=cow[0], cow_dst=cow[1])
-            toks, counts = self._accept(logits, drafts, temps, act)
+            out = self._accept(logits, drafts, temps, act, pvec)
             self.cache.append_k(k_new, v_new, block_ids, offsets)
-        toks, counts = self._fetch(toks, counts)
+        toks, counts = self._harvest(self._fetch(*out))
         slots = np.flatnonzero(ok)
         alloc.advance_counts(list(slots), counts[slots].tolist())
         return toks, counts

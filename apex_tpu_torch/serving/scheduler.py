@@ -29,8 +29,31 @@ tokens a slot, one step scores them all, and each slot emits its accepted
 prefix plus one correction or bonus token. The ``serve/spec_*`` metrics
 track the acceptance rate.
 
-The other resilience knobs (bounded queue, deadlines, cancel, quarantine,
-drain, brownout, fault plans) come with later slices.
+**Resilience** (the policy objects live in
+:mod:`apex_tpu_torch.serving.resilience`): ``max_queue=`` bounds the
+queue, so an over-limit :meth:`~SlotScheduler.submit` returns a typed
+:class:`~apex_tpu_torch.serving.resilience.Rejection`;
+``default_deadline_ms=`` and a request's ``deadline_ms`` expire it while
+queued and mid-flight (``"expired"``), and :meth:`~SlotScheduler.cancel`
+removes one by id; a quarantine engine's non-finite slot retires alone
+(``"poisoned"``, with a
+:class:`~apex_tpu_torch.observability.health.CrashDump` flight record);
+``brownout=`` sheds or caps admissions at an SLO burn rate over its
+threshold; :meth:`~SlotScheduler.drain` and
+:meth:`~SlotScheduler.swap_params` roll the weights; ``fault_plan=``
+scripts serving chaos (:class:`~apex_tpu_torch.elastic.faults.FaultPlan`);
+an engine fault retires every in-flight request ``"error"`` before it
+propagates. ``trace=`` (a
+:class:`~apex_tpu_torch.observability.reqtrace.RequestTrace`) keeps
+retired records with their per-tick stamps, and ``slo=`` (an
+:class:`~apex_tpu_torch.observability.slo.SLOTracker`) ingests each
+retirement. All of it is host work: with every knob on, a step launches
+what a bare scheduler's step launches and copies to the host once.
+
+The reference's ``run(no_recompile=True)`` wraps the loop in an XLA
+compile-storm guard. Its counterpart here is a CUDA-graph recapture
+guard, which comes with the graph capture of the serving steps (ROADMAP
+queue A7); until then ``run`` has no such keyword.
 """
 
 from __future__ import annotations
@@ -38,10 +61,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from apex_tpu_torch.observability.health import CrashDump
 from apex_tpu_torch.observability.registry import get_registry
 from apex_tpu_torch.observability.reqtrace import (LATENCY_BUCKETS_MS,
                                                    RequestRecord)
@@ -93,20 +117,25 @@ class NGramDraftSource(DraftSource):
 class Request:
     """One generation request. ``temperature`` <= 0 is greedy;
     ``eos_token`` (optional) stops generation early; ``max_new_tokens``
-    always bounds it."""
+    always bounds it. ``deadline_ms`` (optional, > 0, from submission)
+    expires the request while queued and mid-flight; the scheduler's
+    ``default_deadline_ms`` applies when it is None."""
     prompt: Sequence[int]
     max_new_tokens: int = 16
     temperature: float = 0.0
     eos_token: Optional[int] = None
     request_id: Optional[int] = None
+    deadline_ms: Optional[float] = None
 
 
 @dataclasses.dataclass
 class Completion:
     """A finished request: the generated tokens (prompt excluded), why
-    generation stopped (``"eos"`` | ``"length"`` | ``"capacity"``), and
+    generation stopped (``"eos"`` | ``"length"`` | ``"capacity"`` |
+    ``"expired"`` | ``"cancelled"`` | ``"poisoned"`` | ``"error"``), and
     the measured latencies (``tpot_ms`` is None for single-token
-    requests)."""
+    requests). A request retired before admission has no slot-side
+    latencies and no tokens."""
     request_id: int
     tokens: List[int]
     finish_reason: str
@@ -122,6 +151,14 @@ class _Active:
     generated: List[int]
     position: int            # prompt_len + len(generated), vs cache capacity
     record: RequestRecord
+    deadline_t: Optional[float] = None  # perf_counter seconds, absolute
+
+
+# retirement reasons with a counter of their own beside serve/retired
+_REASON_COUNTERS = {"expired": "serve/expired",
+                    "cancelled": "serve/cancelled",
+                    "poisoned": "serve/poisoned",
+                    "error": "serve/errors"}
 
 
 class SlotScheduler:
@@ -129,15 +166,33 @@ class SlotScheduler:
     call), or :meth:`run` for a closed batch. ``registry`` defaults to
     the process-wide one.
 
+    ``trace`` (a :class:`~apex_tpu_torch.observability.reqtrace
+    .RequestTrace`) keeps retired records for the Chrome-trace export and
+    the flight recorder; ``slo`` (an :class:`~apex_tpu_torch.observability
+    .slo.SLOTracker`) ingests each retirement. The resilience knobs:
+    ``max_queue`` (the admission bound), ``default_deadline_ms`` (the
+    deadline of requests that set none), ``brownout`` (a
+    :class:`~apex_tpu_torch.serving.resilience.BrownoutPolicy`),
+    ``fault_plan`` (a :class:`~apex_tpu_torch.elastic.faults.FaultPlan`;
+    a poison plan needs a quarantine engine and is refused otherwise) and
+    ``dump_dir`` (where the poison quarantine's CrashDumps land).
+
     ``speculate_k=k`` (the engine built with the same ``k``) steps the
     engine's ``verify`` instead of ``decode``: ``draft_source`` (default
     :class:`NGramDraftSource`) proposes ``k`` tokens a slot and each slot
     emits 1 to ``k + 1`` tokens a step. A retirement mid-harvest (eos,
-    length, capacity) abandons only tokens whose KV sits above the cursor,
-    which advanced by the accepted count alone."""
+    length, capacity, a deadline, quarantine) abandons only tokens whose
+    KV sits above the cursor, which advanced by the accepted count
+    alone."""
 
-    def __init__(self, engine, registry=None, *, speculate_k: int = 0,
+    def __init__(self, engine, registry=None, trace=None, slo=None, *,
+                 max_queue: Optional[int] = None,
+                 default_deadline_ms: Optional[float] = None,
+                 brownout=None, fault_plan=None, dump_dir: str = ".",
+                 speculate_k: int = 0,
                  draft_source: Optional[DraftSource] = None):
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if speculate_k:
             if getattr(engine, "speculate_k", 0) != speculate_k:
                 raise ValueError(
@@ -149,33 +204,58 @@ class SlotScheduler:
             raise ValueError(
                 "draft_source without speculate_k: pass speculate_k=k "
                 "(matching the engine's) to enable speculative decoding")
+        if default_deadline_ms is not None and default_deadline_ms <= 0:
+            raise ValueError("default_deadline_ms must be positive, "
+                             f"got {default_deadline_ms}")
+        if (fault_plan is not None
+                and getattr(fault_plan, "poison_logits", None)
+                and not engine.quarantine):
+            raise ValueError(
+                "fault_plan schedules poison_logits but the engine has no "
+                "quarantine check: the fault would be silently dropped; "
+                "build the engine with quarantine=True")
+        self.engine = engine
+        self._reg = registry if registry is not None else get_registry()
+        self.trace = trace
+        self.slo = slo
+        self.max_queue = max_queue
+        self.default_deadline_ms = default_deadline_ms
+        self.brownout = brownout
+        self.fault_plan = fault_plan
+        self.dump_dir = dump_dir
         self.speculate_k = int(speculate_k)
         self.draft_source = draft_source if draft_source is not None \
             else (NGramDraftSource() if speculate_k else None)
         self._spec_drafted = 0
         self._spec_accepted = 0
-        self.engine = engine
-        self._reg = registry if registry is not None else get_registry()
         self.queue: collections.deque = collections.deque()
         self.free: List[int] = list(range(engine.max_seqs))[::-1]
         self.active: Dict[int, _Active] = {}
         self.completed: List[Completion] = []
-        self.steps = 0              # decode steps executed
+        self.steps = 0              # decode steps executed (fault keying)
+        self.poison_dumps: List[str] = []
         self._tokens = np.zeros(engine.max_seqs, np.int64)
         self._temps = np.zeros(engine.max_seqs, np.float32)
         self._next_id = 0
         self._in_flight_ids = set()
+        self._draining = False
+        # a scheduler without deadlines skips the per-step queue walk
+        self._any_deadlines = default_deadline_ms is not None
         self._tok_count = 0
         self._tok_t0: Optional[float] = None
+        # paged engines: the allocator's copy-on-write count at the last
+        # step, so serve/blocks_cow_copied emits deltas
         self._cow_seen = 0
 
     # -- submission ---------------------------------------------------------
 
-    def submit(self, request: Request):
-        """Enqueue ``request`` and return its id, or a
-        :class:`~apex_tpu_torch.serving.resilience.Rejection` when a paged
-        engine's pool could never hold its prompt. A malformed request
-        raises here, never mid-step."""
+    def submit(self, request: Request) -> Union[int, Rejection]:
+        """Enqueue ``request`` and return its id, or a falsy
+        :class:`~apex_tpu_torch.serving.resilience.Rejection` under
+        backpressure (``draining`` during :meth:`drain`, ``queue_full`` at
+        ``max_queue``, ``pool_exhausted`` for a paged engine's pool that
+        could never hold the prompt, ``shed`` by the brownout). A
+        malformed request raises here, never mid-step."""
         if len(request.prompt) == 0:
             raise ValueError("empty prompt")
         if len(request.prompt) > self.engine.prefill_len:
@@ -187,10 +267,23 @@ class SlotScheduler:
                 f"max_new_tokens must be >= 1, got "
                 f"{request.max_new_tokens} (the prefill always samples "
                 "one token)")
+        if request.deadline_ms is not None and request.deadline_ms <= 0:
+            raise ValueError(
+                f"deadline_ms must be positive, got "
+                f"{request.deadline_ms} (None means no deadline)")
         if (request.request_id is not None
                 and request.request_id in self._in_flight_ids):
             raise ValueError(
                 f"request_id {request.request_id} is already in flight")
+        if self._draining:
+            self._reg.counter("serve/rejected").inc()
+            return Rejection("draining", request.request_id,
+                             "scheduler is draining in-flight requests")
+        if (self.max_queue is not None
+                and len(self.queue) >= self.max_queue):
+            self._reg.counter("serve/rejected").inc()
+            return Rejection("queue_full", request.request_id,
+                             f"queue at max_queue={self.max_queue}")
         alloc = getattr(self.engine, "allocator", None)
         if alloc is not None:
             # a prompt that could never fit the whole pool is refused here
@@ -203,10 +296,27 @@ class SlotScheduler:
                     "pool_exhausted", request.request_id,
                     f"prompt needs {need} blocks but the pool only has "
                     f"{alloc.num_blocks - 1} allocatable")
+        if self.brownout is not None:
+            engaged = self.brownout.engaged()
+            self._reg.gauge("serve/brownout").set(1.0 if engaged else 0.0)
+            if engaged:
+                if self.brownout.shed:
+                    self._reg.counter("serve/shed").inc()
+                    return Rejection(
+                        "shed", request.request_id,
+                        "SLO burn rate over the brownout threshold")
+                capped = self.brownout.cap(request.max_new_tokens)
+                if capped != request.max_new_tokens:
+                    # cap a copy: the caller's request must not carry a
+                    # passing brownout's cut into its retries
+                    request = dataclasses.replace(
+                        request, max_new_tokens=capped)
         if request.request_id is None:
             request.request_id = self._next_id
         self._next_id = max(self._next_id, request.request_id) + 1
         self._in_flight_ids.add(request.request_id)
+        if request.deadline_ms is not None:
+            self._any_deadlines = True
         record = RequestRecord(request_id=request.request_id,
                                prompt_len=len(request.prompt),
                                submit_t=time.perf_counter())
@@ -217,11 +327,36 @@ class SlotScheduler:
     def pending(self) -> int:
         return len(self.queue) + len(self.active)
 
-    # -- the loop -----------------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def _deadline_t(self, request: Request,
+                    record: RequestRecord) -> Optional[float]:
+        ms = request.deadline_ms if request.deadline_ms is not None \
+            else self.default_deadline_ms
+        return None if ms is None else record.submit_t + ms / 1e3
+
+    # -- retirement ---------------------------------------------------------
+
+    def _observe(self, record: RequestRecord) -> None:
+        if self.trace is not None:
+            self.trace.append(record)
+        if self.slo is not None:
+            self.slo.observe(record)
 
     def _retire(self, slot: int, reason: str, now: float) -> None:
         st = self.active.pop(slot)
-        self.engine.release_slot(slot)
+        # the books below (record, slot, completion, id) must be set right
+        # whatever the release does: on the "error" path the engine is
+        # already known broken and its own fault propagates; on any other
+        # path a failed release re-raises after them
+        release_exc = None
+        try:
+            self.engine.release_slot(slot)
+        except Exception as exc:
+            if reason != "error":
+                release_exc = exc
         self.free.append(slot)
         self._in_flight_ids.discard(st.request.request_id)
         rec = st.record
@@ -233,12 +368,76 @@ class SlotScheduler:
             queue_wait_ms=rec.queue_wait_ms, ttft_ms=rec.ttft_ms,
             tpot_ms=rec.tpot_ms, e2e_ms=rec.e2e_ms))
         self._reg.counter("serve/retired").inc()
+        if reason in _REASON_COUNTERS:
+            self._reg.counter(_REASON_COUNTERS[reason]).inc()
         for name, value in (("serve/queue_wait_ms", rec.queue_wait_ms),
                             ("serve/ttft_ms", rec.ttft_ms),
                             ("serve/tpot_ms", rec.tpot_ms),
                             ("serve/e2e_ms", rec.e2e_ms)):
             if value is not None:
                 self._reg.histogram(name, LATENCY_BUCKETS_MS).observe(value)
+        self._observe(rec)
+        if release_exc is not None:
+            raise release_exc
+
+    def _retire_queued(self, request: Request, record: RequestRecord,
+                       reason: str, now: float) -> None:
+        """Retire a request that never held a slot (expired or cancelled
+        in the queue, or its prefill raised): no tokens, no slot-side
+        latencies, not counted as ``serve/retired`` (a freed slot) but
+        under its reason's counter, and still seen by the trace and the
+        SLO tracker (an expired request must hurt goodput)."""
+        record.retire_t = now
+        record.finish_reason = reason
+        self._in_flight_ids.discard(request.request_id)
+        self.completed.append(Completion(
+            request.request_id, [], reason, e2e_ms=record.e2e_ms))
+        if reason in _REASON_COUNTERS:
+            self._reg.counter(_REASON_COUNTERS[reason]).inc()
+        self._observe(record)
+
+    def _expire_queued(self, now: float) -> None:
+        if not self._any_deadlines:
+            return
+        kept: collections.deque = collections.deque()
+        while self.queue:
+            req, rec = self.queue.popleft()
+            deadline = self._deadline_t(req, rec)
+            if deadline is not None and now >= deadline:
+                self._retire_queued(req, rec, "expired", now)
+            else:
+                kept.append((req, rec))
+        self.queue = kept
+
+    def _quarantine(self, slot: int, now: float) -> None:
+        """Retire only the poisoned slot (``"poisoned"``, released like
+        any retirement) and write a CrashDump flight record
+        (``poison_dump_step<N>.json``); every other slot keeps decoding
+        untouched."""
+        st = self.active[slot]
+        rec = st.record
+        self._retire(slot, "poisoned", now)
+        records = ([r.to_dict() for r in self.trace.last(16)]
+                   if self.trace is not None else [rec.to_dict()])
+        dump = CrashDump.from_payload(self.steps, dict(self._reg.snapshot()),
+                                      requests=records)
+        dump.config = {"slot": int(slot),
+                       "request_id": int(st.request.request_id),
+                       "prompt_len": int(rec.prompt_len),
+                       "generated": int(rec.generated),
+                       "finish_reason": "poisoned"}
+        self.poison_dumps.append(dump.write(self.dump_dir,
+                                            prefix="poison_dump"))
+
+    def _abort_in_flight(self) -> None:
+        """A prefill or step raised: retire every in-flight request
+        ``"error"`` (records stamped, slots released where the engine
+        still can, completions visible) before the fault propagates."""
+        now = time.perf_counter()
+        for slot in list(self.active):
+            self._retire(slot, "error", now)
+
+    # -- the loop -----------------------------------------------------------
 
     def _finish_reason(self, st: _Active, tok: int) -> Optional[str]:
         req = st.request
@@ -250,12 +449,15 @@ class SlotScheduler:
             return "capacity"
         return None
 
-    def _record(self, tok: int, st: _Active, slot: int, now: float) -> None:
+    def _record(self, tok: int, st: _Active, slot: int, now: float,
+                is_tick: bool) -> None:
         st.generated.append(tok)
         st.position += 1
         self._tokens[slot] = tok
         self._tok_count += 1
         st.record.last_token_t = now
+        if is_tick and self.trace is not None:
+            st.record.decode_ts.append(now)
         reason = self._finish_reason(st, tok)
         if reason is not None:
             self._retire(slot, reason, now)
@@ -275,6 +477,12 @@ class SlotScheduler:
         admitted = 0
         while self.queue and self.free:
             req, rec = self.queue.popleft()
+            now = time.perf_counter()
+            deadline = self._deadline_t(req, rec)
+            if deadline is not None and now >= deadline:
+                # expired while waiting: never spend a prefill on it
+                self._retire_queued(req, rec, "expired", now)
+                continue
             if (hasattr(self.engine, "can_admit")
                     and not self.engine.can_admit(req.prompt)):
                 # block-pool pressure: in-flight sequences hold the blocks;
@@ -282,7 +490,7 @@ class SlotScheduler:
                 self.queue.appendleft((req, rec))
                 break
             slot = self.free.pop()
-            rec.admit_t = time.perf_counter()
+            rec.admit_t = now
             rec.slot = slot
             try:
                 first = self.engine.prefill(req.prompt, slot,
@@ -294,10 +502,16 @@ class SlotScheduler:
                 self.free.append(slot)
                 self.queue.appendleft((req, rec))
                 break
+            except Exception:
+                # the popped request must not vanish: retire it "error"
+                # (the slot never held a cursor) and let the fault through
+                self.free.append(slot)
+                self._retire_queued(req, rec, "error", now)
+                raise
             # prefill() syncs on the sampled token: this stamp is the
-            # honest first-token time
-            rec.first_token_t = time.perf_counter()
-            st = _Active(req, [], len(req.prompt), rec)
+            # honest first-token time (the prefill samples it)
+            rec.prefill_done_t = rec.first_token_t = time.perf_counter()
+            st = _Active(req, [], len(req.prompt), rec, deadline_t=deadline)
             self.active[slot] = st
             self._temps[slot] = req.temperature
             self._reg.counter("serve/admitted").inc()
@@ -315,52 +529,36 @@ class SlotScheduler:
             admitted += 1
             # the prefill sampled the first token: the request may even
             # complete here (max_new_tokens == 1)
-            self._record(first, st, slot, rec.first_token_t)
+            self._record(first, st, slot, rec.first_token_t, is_tick=False)
         return admitted
 
     def step(self) -> int:
-        """Admit whatever fits, then run ONE decode step for the whole
-        slot grid (skipped when nothing is active). Returns the number of
-        tokens generated, prefill first tokens included."""
+        """Expire what is overdue, admit whatever fits (not while
+        draining), then run ONE decode (or verify) step for the whole slot
+        grid (skipped when nothing is active). Returns the number of
+        tokens generated, prefill first tokens included. An engine fault
+        retires every in-flight request ``"error"`` before it
+        propagates."""
         if self._tok_t0 is None:
             self._tok_t0 = time.perf_counter()
         before = self._tok_count
-        self._admit()
-        if self.active:
-            # a slot at capacity retires before the step: its append would
-            # be dropped, so one more step would decode against a hole
-            now = time.perf_counter()
-            for slot in list(self.active):
-                if self.active[slot].position >= self.engine.max_len:
-                    self._retire(slot, "capacity", now)
-        if self.active:
-            mask = np.zeros(self.engine.max_seqs, np.bool_)
-            mask[list(self.active)] = True
-            if self.speculate_k:
-                nxt, counts = self.engine.verify(
-                    self._tokens, self._build_drafts(), self._temps, mask)
-            else:
-                nxt = self.engine.decode(self._tokens, self._temps, mask)
-            self.steps += 1
-            self._reg.counter("serve/decode_steps").inc()
-            # one stamp for the whole grid's tick (decode() and verify()
-            # synced on the fetched tokens)
-            now = time.perf_counter()
-            if not self.speculate_k:
+        self._expire_queued(time.perf_counter())
+        try:
+            if not self._draining:
+                self._admit()
+            if self.active:
+                # a slot at capacity retires before the step: its append
+                # would be dropped, so one more step would decode against
+                # a hole
+                now = time.perf_counter()
                 for slot in list(self.active):
-                    self._record(int(nxt[slot]), self.active[slot], slot,
-                                 now)
-            else:
-                self._harvest(nxt, counts, int(mask.sum()), now)
-            # paged engines: a slot the exhausted pool could not give a
-            # block retires "capacity". Its token is valid (the current
-            # token is merged in flight) but its KV was dropped, so one
-            # more step would decode against a hole. A failed verify
-            # window aimed at the null block and its count came back 0: it
-            # emitted nothing this step
-            for slot in getattr(self.engine, "last_failed", ()):
-                if slot in self.active:
-                    self._retire(slot, "capacity", now)
+                    if self.active[slot].position >= self.engine.max_len:
+                        self._retire(slot, "capacity", now)
+            if self.active:
+                self._decode_step()
+        except Exception:
+            self._abort_in_flight()
+            raise
         generated = self._tok_count - before
         self._reg.counter("serve/generated_tokens").inc(generated)
         self._reg.gauge("serve/queue_depth").set(len(self.queue))
@@ -385,42 +583,166 @@ class SlotScheduler:
                 self._tok_count / elapsed)
         return generated
 
-    def _harvest(self, nxt: np.ndarray, counts: np.ndarray, n_active: int,
-                 now: float) -> None:
-        """A verify step's tokens: each slot its accepted prefix plus one
-        correction or bonus token, ``nxt[slot, :counts[slot]]``, until a
-        retirement stops it; then the ``serve/spec_*`` metrics."""
-        self._reg.counter("serve/spec_steps").inc()
-        drafted = n_active * self.speculate_k
-        self._spec_drafted += drafted
-        self._reg.counter("serve/spec_drafted").inc(drafted)
+    def _decode_step(self) -> None:
+        """One decode or verify step over the active slots and its
+        harvest: the fault plan's hooks first, then the quarantine (a
+        non-finite slot retires alone, its token discarded), the paged
+        pool's failed slots, and mid-flight deadlines."""
+        step_idx = self.steps + 1  # this step, 1-based
+        poison = None
+        if self.fault_plan is not None:
+            self.fault_plan.before_decode(step_idx)
+            pslot = self.fault_plan.poison_slot(step_idx)
+            if pslot is not None:
+                poison = np.zeros(self.engine.max_seqs, np.float32)
+                poison[pslot] = np.nan
+        mask = np.zeros(self.engine.max_seqs, np.bool_)
+        mask[list(self.active)] = True
+        counts = None
+        if self.speculate_k:
+            nxt, counts = self.engine.verify(
+                self._tokens, self._build_drafts(), self._temps, mask,
+                poison=poison)
+        else:
+            nxt = self.engine.decode(self._tokens, self._temps, mask,
+                                     poison=poison)
+        self.steps = step_idx
+        self._reg.counter("serve/decode_steps").inc()
+        finite = self.engine.last_finite if self.engine.quarantine else None
+        # one stamp for the whole grid's tick (the step synced on its
+        # fetched tokens)
+        now = time.perf_counter()
+        if counts is not None:
+            self._reg.counter("serve/spec_steps").inc()
+            drafted = int(mask.sum()) * self.speculate_k
+            self._spec_drafted += drafted
+            self._reg.counter("serve/spec_drafted").inc(drafted)
         accepted = 0
         # a snapshot: _record may retire and free slots mid-harvest
         for slot in list(self.active):
-            st = self.active[slot]
+            if finite is not None and not finite[slot]:
+                self._quarantine(slot, now)
+                continue
+            if counts is None:
+                self._record(int(nxt[slot]), self.active[slot], slot, now,
+                             is_tick=True)
+                continue
+            # the accepted prefix plus one correction or bonus token
             accepted += max(0, int(counts[slot]) - 1)
+            st = self.active[slot]
             for j in range(int(counts[slot])):
-                self._record(int(nxt[slot, j]), st, slot, now)
+                self._record(int(nxt[slot, j]), st, slot, now, is_tick=True)
                 if slot not in self.active:
                     break
-        self._spec_accepted += accepted
-        if accepted:
-            self._reg.counter("serve/spec_accepted").inc(accepted)
-        if self._spec_drafted:
-            self._reg.gauge("serve/spec_accept_rate").set(
-                self._spec_accepted / self._spec_drafted)
+        if counts is not None:
+            self._spec_accepted += accepted
+            if accepted:
+                self._reg.counter("serve/spec_accepted").inc(accepted)
+            if self._spec_drafted:
+                self._reg.gauge("serve/spec_accept_rate").set(
+                    self._spec_accepted / self._spec_drafted)
+        # paged engines: a slot the exhausted pool could not give a block
+        # retires "capacity". Its token is valid (the current token is
+        # merged in flight) but its KV was dropped, so one more step would
+        # decode against a hole. A failed verify window aimed at the null
+        # block and its count came back 0: it emitted nothing this step
+        for slot in getattr(self.engine, "last_failed", ()):
+            if slot in self.active:
+                self._retire(slot, "capacity", now)
+        # mid-flight deadlines: overdue survivors of the harvest retire now
+        for slot in list(self.active):
+            st = self.active[slot]
+            if st.deadline_t is not None and now >= st.deadline_t:
+                self._retire(slot, "expired", now)
+
+    # -- resilience surface -------------------------------------------------
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel one request by id, queued (it never admits) or
+        mid-flight (retired now, ``"cancelled"``, slot released). False
+        for an unknown or finished id: a second cancel is a no-op."""
+        now = time.perf_counter()
+        for i, (req, rec) in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                self._retire_queued(req, rec, "cancelled", now)
+                return True
+        for slot, st in list(self.active.items()):
+            if st.request.request_id == request_id:
+                self._retire(slot, "cancelled", now)
+                return True
+        return False
+
+    def drain(self, deadline_s: Optional[float] = None
+              ) -> Dict[int, Completion]:
+        """Stop admitting (a :meth:`submit` meanwhile gets
+        ``Rejection(reason="draining")``), step until every in-flight
+        request finishes, and return this drain's completions. Queued
+        requests stay queued, to be served after a weight swap.
+        ``deadline_s`` bounds the wait: the leftovers retire
+        ``"expired"`` (a server-side failure, against goodput). Admission
+        resumes on return; ``serve/drains`` counts calls."""
+        self._draining = True
+        t0 = time.perf_counter()
+        n0 = len(self.completed)
+        try:
+            while self.active:
+                if (deadline_s is not None
+                        and time.perf_counter() - t0 >= deadline_s):
+                    now = time.perf_counter()
+                    for slot in list(self.active):
+                        self._retire(slot, "expired", now)
+                    break
+                self.step()
+        finally:
+            self._draining = False
+        self._reg.counter("serve/drains").inc()
+        return {c.request_id: c for c in self.completed[n0:]}
+
+    def swap_params(self, new_params) -> None:
+        """Hot weight swap through the engine's ``swap_params``, counted
+        as ``serve/swaps``. In-flight requests keep their old-weight KV
+        prefix and finish under the new weights; :meth:`drain` first for
+        a clean boundary."""
+        self.engine.swap_params(new_params)
+        self._reg.counter("serve/swaps").inc()
+
+    def drain_completed(self) -> List[Completion]:
+        """Pop and return the completion buffer (a long-lived server
+        driving :meth:`step` must collect it)."""
+        out, self.completed = self.completed, []
+        return out
 
     def run(self, requests: Sequence[Request],
             max_steps: Optional[int] = None) -> Dict[int, Completion]:
         """Submit ``requests``, loop :meth:`step` until all complete (or
         ``max_steps``), and return ``{request_id: Completion}`` for the
-        completions of this run."""
+        completions of this run.
+
+        A closed batch knows the rest of its work, so the queue bound
+        paces it: a request that would meet ``queue_full`` waits on the
+        host and is submitted as the queue drains, without counting as a
+        rejection. ``shed``, ``draining`` and ``pool_exhausted`` are
+        final: the request is dropped, as for a live caller."""
         n0 = len(self.completed)
-        for req in requests:
-            self.submit(req)
+        waiting = collections.deque(requests)
+
+        def feed():
+            while waiting:
+                if (self.max_queue is not None
+                        and len(self.queue) >= self.max_queue):
+                    return  # a paced retry is not a refused submission
+                res = self.submit(waiting[0])
+                if isinstance(res, Rejection) \
+                        and res.reason == "queue_full":
+                    return
+                waiting.popleft()  # admitted, or finally rejected
+
+        feed()
         steps = 0
-        while self.pending:
+        while self.pending or waiting:
             self.step()
+            feed()
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break

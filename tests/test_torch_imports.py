@@ -49,7 +49,11 @@ def test_port_has_the_slice_modules():
                 "apex_tpu_torch/ops/xentropy.py",
                 "apex_tpu_torch/ops/dropout.py",
                 "apex_tpu_torch/optimizers/fused_adam.py",
-                "apex_tpu_torch/amp/scaler.py"):
+                "apex_tpu_torch/amp/scaler.py",
+                "apex_tpu_torch/observability/slo.py",
+                "apex_tpu_torch/observability/health.py",
+                "apex_tpu_torch/observability/reqtrace.py",
+                "apex_tpu_torch/elastic/faults.py"):
         assert (REPO / rel).is_file(), rel
 
 
@@ -70,6 +74,10 @@ def test_import_with_jax_blocked():
         "from apex_tpu_torch.amp import DynamicLossScale, all_finite\n"
         "from apex_tpu_torch.normalization import fused_layer_norm_affine\n"
         "from apex_tpu_torch.observability import get_registry\n"
+        "from apex_tpu_torch.observability import SLOTracker, RequestTrace\n"
+        "from apex_tpu_torch.observability import CrashDump\n"
+        "from apex_tpu_torch.serving import BrownoutPolicy\n"
+        "from apex_tpu_torch.elastic import FaultPlan\n"
         "assert _kernels._LIB is None, 'a kernel was built at import'\n"
         "assert 'triton' not in sys.modules\n"
         "print('ok')\n")
