@@ -30,6 +30,13 @@ takes that gradient in its own launch instead (the fold: per-batch-head
 partials from the tensor-core body, then a fixed-order sum over the
 batch-heads that share a bias slice), counted as ``flash_dbias_fold``.
 
+The flash kernels take every head dim ``d % 8 == 0`` from 8 to 256, each
+run at the body width :func:`flash_width` gives (d rounded up to a
+multiple of 16, or of 32 past 128): the loads zero-fill the columns past d
+and the stores write the first d (``csrc/flash_width.cuh``). Their two
+sources are compiled once per group of widths (:data:`_FLASH_PARTS`), the
+groups side by side, each with its own entry points.
+
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have two bodies,
 chosen by the inputs' dtype: bf16 runs on the tensor cores (``mma.sync``
 tiles staged by ``cp.async``, ``csrc/mma.cuh``; the inputs must be 16-byte
@@ -70,7 +77,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "flash_fwd",
+__all__ = ["LAUNCHES", "reset_launches", "build", "flash_width", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dq_retaken", "flash_bwd_dkv",
            "flash_dbias", "dbias_folds", "decode_attention", "decode_splits",
            "decode_dim_ok", "paged_decode_attention", "ln_fwd", "ln_bwd",
@@ -83,7 +90,12 @@ _BUILD = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu",
            "decode_attention.cu", "paged_decode_attention.cu",
            "layer_norm.cu")
-_HEADERS = ("common.cuh", "mma.cuh", "rounding.cuh", "decode.cuh")
+_HEADERS = ("common.cuh", "mma.cuh", "rounding.cuh", "decode.cuh",
+            "flash_width.cuh")
+# the sources built once per group of body widths (-DAPEX_FLASH_PART=i),
+# and the groups: csrc/flash_width.cuh's table, which this must match
+_FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_dbias.cu")
+_FLASH_PARTS = ((16, 32, 48, 64), (80, 96, 112, 160), (128, 192), (224, 256))
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v writes each kernel's registers, shared memory and spills into
 # the build log (build_log), without changing the code
@@ -91,8 +103,8 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# head dims of the flash kernels (the decode kernels': decode_dim_ok)
-_HEAD_DIMS = (32, 64, 128)
+# the widest head dim of the flash kernels (csrc/flash_width.cuh)
+_FLASH_MAX_D = 256
 # positions a segment-id range covers (csrc/mma.cuh::kIdTile)
 ID_TILE = 64
 # csrc/decode.cuh::kMaxD: the widest head dim of the decode kernels
@@ -149,30 +161,50 @@ def _source_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _jobs() -> Tuple[Tuple[str, str, Tuple[str, ...]], ...]:
+    """``(name, source, extra flags)`` of each ``nvcc`` the build starts:
+    one a source, and one a group of widths for the flash sources (named
+    ``<source>#p<group>``)."""
+    jobs = []
+    for src in SOURCES:
+        if src in _FLASH_SOURCES:
+            jobs += [(f"{src}#p{i}", src, (f"-DAPEX_FLASH_PART={i}",))
+                     for i in range(len(_FLASH_PARTS))]
+        else:
+            jobs.append((src, src, ()))
+    return tuple(jobs)
+
+
 def _compile(lib_path: Path) -> None:
     nvcc = _nvcc()
     _BUILD.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}"
-    objs = [_BUILD / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    jobs = _jobs()
+    objs = [_BUILD / f"{name.replace('#', '_').replace('.cu', '')}.{tag}.o"
+            for name, _, _ in jobs]
     t0 = time.perf_counter()
 
-    def run(src: str, obj: Path) -> Tuple[int, str, float]:
+    def run(job, obj: Path) -> Tuple[int, str, float]:
+        _, src, extra = job
         done = subprocess.run(
-            [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)],
+            [nvcc, *_ARCH, *_FLAGS, *extra, "-c", str(_CSRC / src), "-o",
+             str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         return (done.returncode, done.stdout.decode(errors="replace"),
                 time.perf_counter() - t0)
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        runs = list(pool.map(run, SOURCES, objs))
-    failed = [(src, log) for src, (rc, log, _) in zip(SOURCES, runs) if rc]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        runs = list(pool.map(run, jobs, objs))
+    failed = [(job[0], log) for job, (rc, log, _) in zip(jobs, runs) if rc]
     if failed:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         raise RuntimeError("nvcc failed:\n" + "\n".join(
-            f"--- {src}\n{log}" for src, log in failed))
-    # each source's compiler output, headed by the seconds it took
+            f"--- {name}\n{log}" for name, log in failed))
+    # each job's compiler output, headed by the seconds it took
     lib_path.with_suffix(".log").write_text("".join(
-        f"--- {src} ({secs:.1f} s)\n{log}"
-        for src, (_, log, secs) in zip(SOURCES, runs)))
+        f"--- {job[0]} ({secs:.1f} s)\n{log}"
+        for job, (_, log, secs) in zip(jobs, runs)))
     tmp = lib_path.with_suffix(f".{tag}.tmp")
     link = subprocess.run(
         [nvcc, *_ARCH, "-shared", *map(str, objs), "-o", str(tmp)],
@@ -191,26 +223,32 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     bias = [P, I, I, I, I]  # pointer, heads, strides of batch, head, row
     seg = [P, P, I]  # q ids, kv ids, heads per id row
     rng = [P, P]  # the ids' per-tile ranges, q and kv
-    lib.apex_flash_fwd.argtypes = ([P] * 5 + [I] * 6 + [F] + bias + seg
-                                   + rng + drop + [P])
-    lib.apex_flash_fwd.restype = I
-    # ... + the count of re-taken scores (null, or a uint64)
-    lib.apex_flash_bwd_dq.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
-                                      + rng + drop + [P, P])
-    lib.apex_flash_bwd_dq.restype = I
-    # ... + the q and do row norms and the folded dbias's partials (bf16
-    # only)
-    lib.apex_flash_bwd_dkv.argtypes = ([P] * 8 + [I] * 6 + [F] + bias
-                                       + seg + rng + [P] * 3 + drop + [P])
-    lib.apex_flash_bwd_dkv.restype = I
+    # the flash entry points of each group of widths; ints n, sq, sk, d,
+    # the body width, dtype, causal
+    for part in range(len(_FLASH_PARTS)):
+        fwd = getattr(lib, f"apex_flash_fwd_p{part}")
+        fwd.argtypes = [P] * 5 + [I] * 7 + [F] + bias + seg + rng + drop + [P]
+        fwd.restype = I
+        # ... + the count of re-taken scores (null, or a uint64)
+        dq = getattr(lib, f"apex_flash_bwd_dq_p{part}")
+        dq.argtypes = ([P] * 7 + [I] * 7 + [F] + bias + seg + rng + drop
+                       + [P, P])
+        dq.restype = I
+        # ... + the q and do row norms and the folded dbias's partials
+        # (bf16 only)
+        dkv = getattr(lib, f"apex_flash_bwd_dkv_p{part}")
+        dkv.argtypes = ([P] * 8 + [I] * 7 + [F] + bias + seg + rng + [P] * 3
+                        + drop + [P])
+        dkv.restype = I
+        # ... + kept slices, batch-heads each reduces, their two strides,
+        # and whether the bias has full query rows
+        dbias = getattr(lib, f"apex_flash_dbias_p{part}")
+        dbias.argtypes = ([P] * 7 + [I] * 7 + [F] + bias + seg + [I] * 5
+                          + drop + [P])
+        dbias.restype = I
     # partials, db, kept, reduced, g_stride, r_stride, sk, stream
     lib.apex_flash_dbias_fold_sum.argtypes = [P, P] + [I] * 5 + [P]
     lib.apex_flash_dbias_fold_sum.restype = I
-    # ... + kept slices, batch-heads each reduces, their two strides, and
-    # whether the bias has full query rows
-    lib.apex_flash_dbias.argtypes = ([P] * 7 + [I] * 6 + [F] + bias + seg
-                                     + [I] * 5 + drop + [P])
-    lib.apex_flash_dbias.restype = I
     # ... + the partials' scratch and the arrival counters
     lib.apex_decode_attention.argtypes = [P] * 10 + [I] * 7 + [F, P]
     lib.apex_decode_attention.restype = I
@@ -268,9 +306,30 @@ def _check_common(name: str, tensors, device) -> None:
         _require(t.is_contiguous(), f"{name}: inputs must be contiguous")
 
 
-def _check_attention(name: str, q, k, v) -> Tuple[int, int, int, int]:
+def flash_width(d: int) -> int:
+    """The body width the flash kernels run head dim ``d`` at: ``d``
+    rounded up to a multiple of 16 (the k depth of the tensor cores'
+    m16n8k16 product) at or below 128, to a multiple of 32 above. ``d``
+    must be a multiple of 8 from 8 to 256, the reference's ``d % 8 == 0``
+    up to the widest body whose tiles fit a block's shared memory;
+    anything else raises ``NotImplementedError``."""
+    if d % 8 or not 8 <= d <= _FLASH_MAX_D:
+        raise NotImplementedError(
+            f"head dim {d} is not a multiple of 8 in [8, {_FLASH_MAX_D}]")
+    step = 16 if d <= 128 else 32
+    return -(-d // step) * step
+
+
+def _flash_entry(lib, name: str, width: int):
+    """The entry point ``name`` of the group of widths that holds
+    ``width`` (``csrc/flash_width.cuh``)."""
+    part = next(i for i, ws in enumerate(_FLASH_PARTS) if width in ws)
+    return getattr(lib, f"{name}_p{part}")
+
+
+def _check_attention(name: str, q, k, v) -> Tuple[int, int, int, int, int]:
     """Shape and dtype checks shared by the three flash kernels; returns
-    ``(n, sq, sk, d)``."""
+    ``(n, sq, sk, d, body width)``."""
     _require(q.dim() == 3 and k.dim() == 3 and v.dim() == 3,
              f"{name}: q, k, v must be rank 3 (n, s, d)")
     n, sq, d = q.shape
@@ -282,11 +341,12 @@ def _check_attention(name: str, q, k, v) -> Tuple[int, int, int, int]:
              and k.dtype == q.dtype and v.dtype == q.dtype,
              f"{name}: q/k/v must share one dtype of bf16/fp32, got "
              f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: head dim {d} is not one of {_HEAD_DIMS}")
+    try:
+        width = flash_width(d)
+    except NotImplementedError as err:
+        raise NotImplementedError(f"{name}: {err}") from None
     _require(n > 0 and sq > 0, f"{name}: empty batch or query")
-    return n, sq, sk, d
+    return n, sq, sk, d, width
 
 
 def _dropout_args(dropout_rate: float, seed: Optional[int]):
@@ -385,8 +445,8 @@ def _rng_args(segments, tile_ranges) -> Tuple:
 
 def _check_aligned(name: str, *tensors) -> None:
     """The tensor-core bodies stage bf16 rows with 16-byte ``cp.async``
-    copies: their inputs must start 16-byte aligned (rows of d 32, 64 or
-    128 bf16 then are). Raises otherwise; nothing falls back."""
+    copies: their inputs must start 16-byte aligned (rows of any d % 8 ==
+    0 bf16 then are). Raises otherwise; nothing falls back."""
     for t in tensors:
         _require(t.dtype != torch.bfloat16 or t.data_ptr() % 16 == 0,
                  f"{name}: bf16 inputs must be 16-byte aligned")
@@ -406,7 +466,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               tile_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q (n, sq, d)``, ``k``/``v`` ``(n, sk, d)`` (bf16 or fp32, one
-    dtype, d in {32, 64, 128}) -> ``(out (n, sq, d), lse (n, sq) fp32)``,
+    dtype, d as :func:`flash_width` takes) -> ``(out (n, sq, d), lse (n,
+    sq) fp32)``,
     with attention dropout at ``dropout_rate`` keyed by ``seed``, the score
     bias ``bias`` (see :func:`_bias_args`) added after the scale, and the
     segment ids ``segments`` (see :func:`_seg_args`) masking scores whose
@@ -414,7 +475,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     None to compute them."""
     _check_common("flash_fwd", (q, k, v, *_extras(bias, segments)),
                   q.device)
-    n, sq, sk, d = _check_attention("flash_fwd", q, k, v)
+    n, sq, sk, d, width = _check_attention("flash_fwd", q, k, v)
     _check_aligned("flash_fwd", q, k, v)
     bias_args = _bias_args("flash_fwd", bias, n, sq, sk)
     seg_args = _seg_args("flash_fwd", segments, n, sq, sk)
@@ -425,9 +486,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((n, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.apex_flash_fwd(
+        err = _flash_entry(lib, "apex_flash_fwd", width)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal),
+            lse.data_ptr(), n, sq, sk, d, width, _DTYPE_CODE[q.dtype],
+            int(causal),
             float(scale), *bias_args, *seg_args, *rng_args, *drop, stream)
     _check_launch("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
@@ -436,18 +498,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_bwd(name: str, q, k, v, do, lse, delta, bias,
                segments) -> Tuple:
-    """The backward kernels' checks; returns ``(n, sq, sk, d, bias
-    arguments, segment-id arguments)``."""
+    """The backward kernels' checks; returns ``(n, sq, sk, d, body width,
+    bias arguments, segment-id arguments)``."""
     _check_common(name, (q, k, v, do, lse, delta, *_extras(bias, segments)),
                   q.device)
-    n, sq, sk, d = _check_attention(name, q, k, v)
+    n, sq, sk, d, width = _check_attention(name, q, k, v)
     _require(tuple(do.shape) == (n, sq, d) and do.dtype == q.dtype,
              f"{name}: do {tuple(do.shape)} {do.dtype} does not match q")
     for t, what in ((lse, "lse"), (delta, "delta")):
         _require(tuple(t.shape) == (n, sq) and t.dtype == torch.float32,
                  f"{name}: {what} must be (n, sq) fp32, got "
                  f"{tuple(t.shape)} {t.dtype}")
-    return (n, sq, sk, d, _bias_args(name, bias, n, sq, sk),
+    return (n, sq, sk, d, width, _bias_args(name, bias, n, sq, sk),
             _seg_args(name, segments, n, sq, sk))
 
 
@@ -493,7 +555,7 @@ def flash_bwd_dq_retaken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_rate,
                   seed, bias, segments, tile_ranges,
                   retaken) -> torch.Tensor:
-    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+    n, sq, sk, d, width, bias_args, seg_args = _check_bwd(
         "flash_bwd_dq", q, k, v, do, lse, delta, bias, segments)
     _check_aligned("flash_bwd_dq", q, k, v, do)
     drop = _dropout_args(dropout_rate, seed)
@@ -502,10 +564,10 @@ def _flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_rate,
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.apex_flash_bwd_dq(
+        err = _flash_entry(lib, "apex_flash_bwd_dq", width)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, sq, sk, d,
-            _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
+            width, _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
             *seg_args, *rng_args, *drop,
             None if retaken is None else retaken.data_ptr(), stream)
     _check_launch("flash_bwd_dq", err)
@@ -533,7 +595,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch-head a slice the body writes ``dbias`` itself). dK and dV are
     the same bits either way."""
     name = "flash_bwd_dkv"
-    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+    n, sq, sk, d, width, bias_args, seg_args = _check_bwd(
         name, q, k, v, do, lse, delta, bias, segments)
     _check_aligned(name, q, k, v, do)
     _require(not need_dbias or (bias is not None
@@ -560,10 +622,11 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (n, sk), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.apex_flash_bwd_dkv(
+        err = _flash_entry(lib, "apex_flash_bwd_dkv", width)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            n, sq, sk, d, _DTYPE_CODE[q.dtype], int(causal), float(scale),
+            n, sq, sk, d, width, _DTYPE_CODE[q.dtype], int(causal),
+            float(scale),
             *bias_args, *seg_args, *rng_args,
             *([t.data_ptr() for t in norms] or [None, None]),
             None if part is None else part.data_ptr(), *drop, stream)
@@ -633,7 +696,7 @@ def flash_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "flash_dbias"
     _require(bias is not None, f"{name}: needs the bias whose gradient it "
                                "is")
-    n, sq, sk, d, bias_args, seg_args = _check_bwd(
+    n, sq, sk, d, width, bias_args, seg_args = _check_bwd(
         name, q, k, v, do, lse, delta, bias, segments)
     kept, reduced, g_stride, r_stride = _dbias_split(bias, n)
     drop = _dropout_args(dropout_rate, seed)
@@ -641,10 +704,10 @@ def flash_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     db = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.apex_flash_dbias(
+        err = _flash_entry(lib, "apex_flash_dbias", width)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), db.data_ptr(), n, sq, sk, d,
-            _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
+            width, _DTYPE_CODE[q.dtype], int(causal), float(scale), *bias_args,
             *seg_args, kept, reduced, g_stride, r_stride,
             int(bias.shape[2] > 1), *drop, stream)
     _check_launch(name, err)

@@ -15,8 +15,10 @@
 //   ds     = p * (dp_eff - delta)     (the undropped p, as the reference),
 // and produce dq = scale * ds k (flash_bwd_dq), dv = p_eff^T do and
 // dk = scale * ds^T q (flash_bwd_dkv), in the inputs' dtype, bf16 or fp32,
-// d in {32, 64, 128}. The dropout keep mask is regenerated from the counter
-// hash of common.cuh, the same bits as the forward's. Like the TPU kernels,
+// every d % 8 == 0 from 8 to 256, each run at a body width W whose columns
+// past d the loads zero-fill and the stores skip (flash_width.cuh). The
+// dropout keep mask is regenerated from the counter hash of common.cuh,
+// the same bits as the forward's. Like the TPU kernels,
 // ds is rounded to k's dtype before the dS K product, and p_eff to do's
 // dtype and ds to q's dtype before the dkv products; dk's scale is applied
 // after its fp32 sum, as the reference's.
@@ -62,9 +64,10 @@
 // operands of dV += P_eff^T dO and dK += dS^T Q (do and q as B operands
 // through ldmatrix.trans); lse and delta are per column of the transposed
 // tile. The dK and dV accumulators (16 keys x d fp32 a warp) stay in
-// registers for the whole loop. At d 128 a key group has two warps, each
-// holding half of dK's and dV's columns, and each takes a q tile in 16-row
-// quarters, so the transposed scores' registers fit beside them.
+// registers for the whole loop. Past width 80 a key group has two warps,
+// each holding half of dK's and dV's columns; past width 64 each warp takes
+// a q tile in 16-row quarters, so the transposed scores' registers fit
+// beside the accumulators.
 // A (q tile, key tile) pair whose segment-id ranges are disjoint
 // (mma.cuh::tiles_meet) is never loaded: it would add exact zeros.
 // P_eff and dS are rounded to bf16 where the plain version rounds them:
@@ -122,6 +125,7 @@
 // read or compared per score. The SIMT bodies skip no tile for its ids.
 
 #include "common.cuh"
+#include "flash_width.cuh"
 #include "mma.cuh"
 #include "rounding.cuh"
 
@@ -138,51 +142,67 @@ constexpr int kPerWarp = kRows / kWarps;
 
 // fp32 shared memory of either kernel: the owned 64-row pair of tiles, the
 // streamed 32-row pair (padded), and the streamed tile's lse and delta
-// and, with segment ids, the streamed tile's ids
-template <int D, bool kSeg>
+// and, with segment ids, the streamed tile's ids; W the body width
+template <int W, bool kSeg>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (2 * kRows * D + 2 * kTile * (D + 1) + 2 * kTile) +
+  return sizeof(float) * (2 * kRows * W + 2 * kTile * (W + 1) + 2 * kTile) +
          (kSeg ? sizeof(int) * kTile : 0);
 }
 
-// rows [r0, r0 + rows) of a (len, D) slice, widened to fp32 into a row
-// stride `ld` (D or D + 1); rows at or past `len` are zero
-template <typename T, int D>
+// rows [r0, r0 + rows) of a (len, d) slice, widened to fp32 into W columns
+// of row stride `ld` (W or W + 1); rows at or past `len` are zero, and so
+// (kDyn, d a run-time width under W) are columns d..W-1
+template <typename T, int W, bool kDyn>
 __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int r0, int rows, int len) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * ld + c] =
-        (r0 + r < len) ? to_float(src[static_cast<size_t>(r0 + r) * D + c])
-                       : 0.f;
+                                      int r0, int rows, int len, int d) {
+  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+    const int r = i / W;
+    const int c = i % W;
+    if constexpr (kDyn)
+      dst[r * ld + c] =
+          (r0 + r < len && c < d)
+              ? to_float(src[static_cast<size_t>(r0 + r) * d + c])
+              : 0.f;
+    else
+      dst[r * ld + c] =
+          (r0 + r < len) ? to_float(src[static_cast<size_t>(r0 + r) * W + c])
+                         : 0.f;
   }
 }
 
-template <int D>
+template <int W>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
 #pragma unroll 16
-  for (int c = 0; c < D; ++c) s = fmaf(a[c], b[c], s);
+  for (int c = 0; c < W; ++c) s = fmaf(a[c], b[c], s);
   return s;
 }
 
-template <typename T, int D, bool kSeg>
+// whether lane's output dim lane + 32 dd of the SIMT bodies lies in the
+// first d (and so is read from the staged tiles and stored): every one at
+// a fixed width, a multiple of 32
+template <int W, bool kDyn>
+__device__ __forceinline__ bool lane_dim(int lane, int dd, int d) {
+  return !(kDyn || W % 32 != 0) || lane + dd * 32 < d;
+}
+
+template <typename T, int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, int causal, float scale, ScoreBias bias,
-                    Segments seg, Dropout dr) {
-  constexpr int kDPL = D / 32;  // output dims per lane
+                    int sq, int sk, int d, int causal, float scale,
+                    ScoreBias bias, Segments seg, Dropout dr) {
+  constexpr int kDPL = (W + 31) / 32;  // output dims per lane
+  if constexpr (!kDyn) d = W;
   extern __shared__ float smem[];
-  float* qs = smem;                      // kRows x D
-  float* dos = qs + kRows * D;           // kRows x D
-  float* ks = dos + kRows * D;           // kTile x (D + 1)
-  float* vs = ks + kTile * (D + 1);      // kTile x (D + 1)
+  float* qs = smem;                      // kRows x W
+  float* dos = qs + kRows * W;           // kRows x W
+  float* ks = dos + kRows * W;           // kTile x (W + 1)
+  float* vs = ks + kTile * (W + 1);      // kTile x (W + 1)
   // the (padded) lse and delta slots are unused here: ids follow them
-  int* kid = reinterpret_cast<int*>(vs + kTile * (D + 1) + 2 * kTile);
+  int* kid = reinterpret_cast<int*>(vs + kTile * (W + 1) + 2 * kTile);
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kRows;
@@ -190,12 +210,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int offset = sk - sq;  // causal: col <= row + offset is visible
   const size_t qbase = static_cast<size_t>(bh) * sq;
-  const T* kb = k + static_cast<size_t>(bh) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh) * sk * D;
+  const T* kb = k + static_cast<size_t>(bh) * sk * d;
+  const T* vb = v + static_cast<size_t>(bh) * sk * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
-  stage<T, D>(qs, D, q + qbase * D, q0, kRows, sq);
-  stage<T, D>(dos, D, dout + qbase * D, q0, kRows, sq);
+  stage<T, W, kDyn>(qs, W, q + qbase * d, q0, kRows, sq, d);
+  stage<T, W, kDyn>(dos, W, dout + qbase * d, q0, kRows, sq, d);
 
   float row_lse[kPerWarp], row_delta[kPerWarp], acc[kPerWarp][kDPL];
   int qid[kPerWarp];  // the rows' query ids (kSeg)
@@ -217,16 +237,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < kv_end; j0 += kTile) {
     __syncthreads();  // the previous tile is consumed; q and do are staged
-    stage<T, D>(ks, D + 1, kb, j0, kTile, sk);
-    stage<T, D>(vs, D + 1, vb, j0, kTile, sk);
+    stage<T, W, kDyn>(ks, W + 1, kb, j0, kTile, sk, d);
+    stage<T, W, kDyn>(vs, W + 1, vb, j0, kTile, sk, d);
     if (kSeg && threadIdx.x < kTile) {
       const int c = j0 + threadIdx.x;
       kid[threadIdx.x] = c < sk ? kv_ids[c] : 0;
     }
     __syncthreads();
     const int col = j0 + lane;
-    const float* kr = ks + lane * (D + 1);
-    const float* vr = vs + lane * (D + 1);
+    const float* kr = ks + lane * (W + 1);
+    const float* vr = vs + lane * (W + 1);
 #pragma unroll
     for (int rr = 0; rr < kPerWarp; ++rr) {
       const int r = rr * kWarps + warp;  // interleaved: balances causal work
@@ -234,10 +254,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // both conditions are uniform across the warp
       if (row >= sq) continue;
       if (causal && j0 > row + offset) continue;
-      float s = dot<D>(qs + r * D, kr) * scale;
+      float s = dot<W>(qs + r * W, kr) * scale;
       // the same global (b, h, row, col) entry as the forward and dkv read
       if (bias.p != nullptr && col < sk) s += bias_row(bias, bh, row)[col];
-      float dp = dot<D>(dos + r * D, vr);
+      float dp = dot<W>(dos + r * W, vr);
       bool valid = col < sk && (!causal || col <= row + offset);
       if (kSeg) valid = valid && qid[rr] == kid[lane];
       // a fully masked row has lse = +inf: exp(s - inf) == 0, never NaN
@@ -252,10 +272,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
       for (int j = 0; j < kTile; ++j) {
         const float dsj = __shfl_sync(kFullMask, ds, j);
-        const float* kj = ks + j * (D + 1) + lane;
+        const float* kj = ks + j * (W + 1) + lane;
 #pragma unroll
         for (int dd = 0; dd < kDPL; ++dd)
-          t[dd] = fmaf(dsj, kj[dd * 32], t[dd]);
+          if (lane_dim<W, kDyn>(lane, dd, d))
+            t[dd] = fmaf(dsj, kj[dd * 32], t[dd]);
       }
 #pragma unroll
       for (int dd = 0; dd < kDPL; ++dd) acc[rr][dd] += t[dd] * scale;
@@ -266,28 +287,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < kPerWarp; ++rr) {
     const int row = q0 + rr * kWarps + warp;
     if (row >= sq) continue;
-    T* out = dq + (qbase + row) * D;
+    T* out = dq + (qbase + row) * d;
 #pragma unroll
     for (int dd = 0; dd < kDPL; ++dd)
-      store_as(out + lane + dd * 32, acc[rr][dd]);
+      if (lane_dim<W, kDyn>(lane, dd, d))
+        store_as(out + lane + dd * 32, acc[rr][dd]);
   }
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int causal,
+                     T* __restrict__ dv, int sq, int sk, int d, int causal,
                      float scale, ScoreBias bias, Segments seg, Dropout dr) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = (W + 31) / 32;
+  if constexpr (!kDyn) d = W;
   extern __shared__ float smem[];
-  float* ks = smem;                      // kRows x D
-  float* vs = ks + kRows * D;            // kRows x D
-  float* qs = vs + kRows * D;            // kTile x (D + 1)
-  float* dos = qs + kTile * (D + 1);     // kTile x (D + 1)
-  float* lse_s = dos + kTile * (D + 1);  // kTile
+  float* ks = smem;                      // kRows x W
+  float* vs = ks + kRows * W;            // kRows x W
+  float* qs = vs + kRows * W;            // kTile x (W + 1)
+  float* dos = qs + kTile * (W + 1);     // kTile x (W + 1)
+  float* lse_s = dos + kTile * (W + 1);  // kTile
   float* delta_s = lse_s + kTile;        // kTile
   int* qid_s = reinterpret_cast<int*>(delta_s + kTile);  // kTile (kSeg)
 
@@ -298,12 +321,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int offset = sk - sq;
   const size_t qbase = static_cast<size_t>(bh) * sq;
   const size_t kbase = static_cast<size_t>(bh) * sk;
-  const T* qb = q + qbase * D;
-  const T* dob = dout + qbase * D;
+  const T* qb = q + qbase * d;
+  const T* dob = dout + qbase * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
-  stage<T, D>(ks, D, k + kbase * D, c0, kRows, sk);
-  stage<T, D>(vs, D, v + kbase * D, c0, kRows, sk);
+  stage<T, W, kDyn>(ks, W, k + kbase * d, c0, kRows, sk, d);
+  stage<T, W, kDyn>(vs, W, v + kbase * d, c0, kRows, sk, d);
 
   float dk_acc[kPerWarp][kDPL], dv_acc[kPerWarp][kDPL];
   int kid[kPerWarp];  // the owned keys' ids (kSeg)
@@ -324,8 +347,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i0 = i_begin; i0 < sq; i0 += kTile) {
     __syncthreads();  // the previous tile is consumed; k and v are staged
-    stage<T, D>(qs, D + 1, qb, i0, kTile, sq);
-    stage<T, D>(dos, D + 1, dob, i0, kTile, sq);
+    stage<T, W, kDyn>(qs, W + 1, qb, i0, kTile, sq, d);
+    stage<T, W, kDyn>(dos, W + 1, dob, i0, kTile, sq, d);
     if (threadIdx.x < kTile) {
       const int row = i0 + threadIdx.x;
       lse_s[threadIdx.x] = row < sq ? lse[qbase + row] : CUDART_INF_F;
@@ -336,8 +359,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = i0 + lane;
     const float row_lse = lse_s[lane];
     const float row_delta = delta_s[lane];
-    const float* qr = qs + lane * (D + 1);
-    const float* dor = dos + lane * (D + 1);
+    const float* qr = qs + lane * (W + 1);
+    const float* dor = dos + lane * (W + 1);
 #pragma unroll
     for (int kk = 0; kk < kPerWarp; ++kk) {
       const int c = kk * kWarps + warp;  // interleaved: balances causal work
@@ -345,9 +368,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // both conditions are uniform across the warp
       if (col >= sk) continue;
       if (causal && col > i0 + kTile - 1 + offset) continue;
-      float s = dot<D>(qr, ks + c * D) * scale;
+      float s = dot<W>(qr, ks + c * W) * scale;
       if (bias.p != nullptr && row < sq) s += bias_row(bias, bh, row)[col];
-      float dp = dot<D>(dor, vs + c * D);
+      float dp = dot<W>(dor, vs + c * W);
       bool valid = row < sq && (!causal || col <= row + offset);
       if (kSeg) valid = valid && qid_s[lane] == kid[kk];
       const float p = valid ? expf(s - row_lse) : 0.f;
@@ -366,10 +389,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < kTile; ++i) {
         const float pi = __shfl_sync(kFullMask, pr, i);
         const float dsi = __shfl_sync(kFullMask, ds, i);
-        const float* qi = qs + i * (D + 1) + lane;
-        const float* doi = dos + i * (D + 1) + lane;
+        const float* qi = qs + i * (W + 1) + lane;
+        const float* doi = dos + i * (W + 1) + lane;
 #pragma unroll
         for (int dd = 0; dd < kDPL; ++dd) {
+          if (!lane_dim<W, kDyn>(lane, dd, d)) continue;
           tv[dd] = fmaf(pi, doi[dd * 32], tv[dd]);
           tk[dd] = fmaf(dsi, qi[dd * 32], tk[dd]);
         }
@@ -386,10 +410,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kk = 0; kk < kPerWarp; ++kk) {
     const int col = c0 + kk * kWarps + warp;
     if (col >= sk) continue;
-    T* dkr = dk + (kbase + col) * D;
-    T* dvr = dv + (kbase + col) * D;
+    T* dkr = dk + (kbase + col) * d;
+    T* dvr = dv + (kbase + col) * d;
 #pragma unroll
     for (int dd = 0; dd < kDPL; ++dd) {
+      if (!lane_dim<W, kDyn>(lane, dd, d)) continue;
       store_as(dkr + lane + dd * 32, dk_acc[kk][dd]);
       store_as(dvr + lane + dd * 32, dv_acc[kk][dd]);
     }
@@ -408,21 +433,25 @@ constexpr int kBM = 64;  // q rows a streamed tile
 static_assert(kBM == mma::kIdTile && kBN == mma::kIdTile,
               "the id ranges are per 64-position tile");
 
-// Warps a block: four own 16 keys each, and at d 128 each key group has
-// two warps, each holding half of dK's and dV's columns (two 16 x 128 fp32
-// accumulators would not fit a warp's registers): both compute the
+// Warps a block: four own 16 keys each, and past width 80 each key group
+// has two warps, each holding half of dK's and dV's columns (two 16 x 128
+// fp32 accumulators would not fit a warp's registers): both compute the
 // group's transposed scores, each its half of the two products after them
-template <int D>
-__host__ __device__ constexpr int d_split() { return D > 64 ? 2 : 1; }
+// (at W 112 a half is 56 columns: two 8-wide n tiles at a time, then one).
+// At width 80 one warp holds both 16 x 80 accumulators beside 16-row
+// score tiles, and no score is computed twice (split, width 80 ran no
+// faster than width 96)
+template <int W>
+__host__ __device__ constexpr int d_split() { return W > 80 ? 2 : 1; }
 
-template <int D>
-__host__ __device__ constexpr int dkv_threads() { return 128 * d_split<D>(); }
+template <int W>
+__host__ __device__ constexpr int dkv_threads() { return 128 * d_split<W>(); }
 
 // K and V, two stages of the q and do tiles (padded rows), and two stages
 // of the q tile's lse, delta, query ids and q and do row norms
-template <int D>
+template <int W>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * (2 * kBN + 4 * kBM) * mma::ld<D>() +
+  return sizeof(bf16) * (2 * kBN + 4 * kBM) * mma::ld<W>() +
          sizeof(float) * 2 * 5 * kBM;
 }
 
@@ -430,8 +459,8 @@ constexpr size_t dkv_smem_bytes() {
 // flagged-score pass), shared with the dq body
 using namespace rounding;
 
-template <int D, bool kSeg, bool kDbias>
-__global__ void __launch_bounds__(dkv_threads<D>())
+template <int W, bool kDyn, bool kSeg, bool kDbias>
+__global__ void __launch_bounds__(dkv_threads<W>())
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -441,20 +470,22 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ q_norm,
                          const float* __restrict__ do_norm,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
-                         int sk, int causal, float scale, ScoreBias bias,
-                         Segments seg, const int* __restrict__ q_rng,
+                         int sk, int d, int causal, float scale,
+                         ScoreBias bias, Segments seg,
+                         const int* __restrict__ q_rng,
                          const int* __restrict__ kv_rng, Dropout dr,
                          float* __restrict__ db_part) {
-  constexpr int kThreads = dkv_threads<D>();
-  constexpr int kLd = mma::ld<D>();
-  constexpr int kKC = D / 16;  // k chunks of K Q^T and V dO^T
-  constexpr int kDW = D / d_split<D>();  // dK and dV columns a warp holds
+  constexpr int kThreads = dkv_threads<W>();
+  constexpr int kLd = mma::ld<W>();
+  constexpr int kKC = W / 16;  // k chunks of K Q^T and V dO^T
+  constexpr int kDW = W / d_split<W>();  // dK and dV columns a warp holds
   constexpr int kDT = kDW / 8;  // their 8-wide n tiles
-  // q rows a warp takes at once: at d 128 a quarter of the tile, so the
-  // transposed scores' registers fit beside the accumulators; with the
-  // fold at d 64 half of it, for the fold's registers (the same rows go
-  // into dK and dV in the same order, so neither moves by a bit)
-  constexpr int kRS = D > 64 ? 16 : (kDbias && D == 64 ? 32 : 64);
+  // q rows a warp takes at once: past width 64 a quarter of the tile, so
+  // the transposed scores' registers fit beside the accumulators; with the
+  // fold at width 64 half of it, for the fold's registers (the same rows
+  // go into dK and dV in the same order, so neither moves by a bit)
+  constexpr int kRS = W > 64 ? 16 : (kDbias && W == 64 ? 32 : 64);
+  if constexpr (!kDyn) d = W;
   constexpr int kRT = kRS / 8;  // 8-wide n tiles of the transposed scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // kBN x kLd
@@ -479,8 +510,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int offset = sk - sq;
   const size_t qbase = static_cast<size_t>(bh) * sq;
   const size_t kbase = static_cast<size_t>(bh) * sk;
-  const bf16* qb = q + qbase * D;
-  const bf16* dob = dout + qbase * D;
+  const bf16* qb = q + qbase * d;
+  const bf16* dob = dout + qbase * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
   const int n_tiles = (sq + kBM - 1) / kBM;
@@ -502,8 +533,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     return i;
   };
   auto stage_q = [&](int i, int st) {
-    mma::stage_tile<D, kThreads>(qs + st * kBM * kLd, qb, i * kBM, sq);
-    mma::stage_tile<D, kThreads>(dos + st * kBM * kLd, dob, i * kBM, sq);
+    mma::stage_tile<W, kThreads, kDyn>(qs + st * kBM * kLd, qb, i * kBM, sq,
+                                       d);
+    mma::stage_tile<W, kThreads, kDyn>(dos + st * kBM * kLd, dob, i * kBM,
+                                       sq, d);
     if (threadIdx.x < kBM) {
       // rows past sq read as 0: the masks zero their scores
       const int row = i * kBM + threadIdx.x;
@@ -519,8 +552,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     }
   };
 
-  mma::stage_tile<D, kThreads>(ks, k + kbase * D, c0, sk);
-  mma::stage_tile<D, kThreads>(vs, v + kbase * D, c0, sk);
+  mma::stage_tile<W, kThreads, kDyn>(ks, k + kbase * d, c0, sk, d);
+  mma::stage_tile<W, kThreads, kDyn>(vs, v + kbase * d, c0, sk, d);
   mma::cp_async_commit();
   int i = next_tile(first);
   if (i < n_tiles) stage_q(i, 0);
@@ -546,9 +579,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     const int kl = warp * 16 + (lane >> 2) + 8 * r;
     // the bound on the S (times scale) and dP_eff sums' error, per unit
     // norm of the q or do row (kFixKappa)
-    kn[r] = kFixKappa * scale * row_norm<D>(ks + kl * kLd);
+    kn[r] = kFixKappa * scale * row_norm<W>(ks + kl * kLd);
     vn[r] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) *
-            row_norm<D>(vs + kl * kLd);
+            row_norm<W>(vs + kl * kLd);
   }
   float dk_acc[kDT][4], dv_acc[kDT][4];
 #pragma unroll
@@ -593,19 +626,19 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int kc = 0; kc < kKC; ++kc) {
         uint32_t ak[4], av[4];
-        mma::ldmatrix_x4(ak, mma::frag_a_ptr<D>(ks, warp * 16, kc * 16,
+        mma::ldmatrix_x4(ak, mma::frag_a_ptr<W>(ks, warp * 16, kc * 16,
                                                 lane));
-        mma::ldmatrix_x4(av, mma::frag_a_ptr<D>(vs, warp * 16, kc * 16,
+        mma::ldmatrix_x4(av, mma::frag_a_ptr<W>(vs, warp * 16, kc * 16,
                                                 lane));
 #pragma unroll
         for (int np = 0; np < kRT / 2; ++np) {
           uint32_t b[4];
           float c[4][4] = {};
-          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(qt, r0 + np * 16,
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<W>(qt, r0 + np * 16,
                                                   kc * 16, lane));
           mma::mma_16816(c[0], ak, b[0], b[1]);
           mma::mma_16816(c[1], ak, b[2], b[3]);
-          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(dot, r0 + np * 16,
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<W>(dot, r0 + np * 16,
                                                   kc * 16, lane));
           mma::mma_16816(c[2], av, b[0], b[1]);
           mma::mma_16816(c[3], av, b[2], b[3]);
@@ -697,8 +730,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                                      key];
         const bool with_dp = ((fix_dp | fold) >> pos) & 1u;
         const Score sc = score_chain<true>(
-            fma_chain<D>(qt + rl * kLd, ks + kl * kLd),
-            with_dp ? fma_chain<D>(dot + rl * kLd, vs + kl * kLd) : 0.f,
+            fma_chain<W>(qt + rl * kLd, ks + kl * kLd),
+            with_dp ? fma_chain<W>(dot + rl * kLd, vs + kl * kLd) : 0.f,
             scale, bias0 != nullptr, bv, ls[rl], dl[rl], dr, keep);
         if (!kDbias || ((fix >> pos) & 1u)) set_elem(s, pos, sc.p_eff);
         if ((fix_dp >> pos) & 1u) {
@@ -735,16 +768,29 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int dn = 0; dn < kDW / 16; ++dn) {
           uint32_t b[4];
-          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<W>(
                                         dot, r0 + kc * 16, d0 + dn * 16,
                                         lane));
           mma::mma_16816(dv_acc[2 * dn], ap, b[0], b[1]);
           mma::mma_16816(dv_acc[2 * dn + 1], ap, b[2], b[3]);
-          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<W>(
                                         qt, r0 + kc * 16, d0 + dn * 16,
                                         lane));
           mma::mma_16816(dk_acc[2 * dn], as, b[0], b[1]);
           mma::mma_16816(dk_acc[2 * dn + 1], as, b[2], b[3]);
+        }
+        if constexpr (kDW % 16 != 0) {
+          // the last 8-wide n tile of a half of 40 or 56 columns
+          constexpr int dn = kDW / 16;
+          uint32_t b[2];
+          mma::ldmatrix_x2_trans(b, mma::frag_a_ptr<W>(
+                                        dot, r0 + kc * 16, d0 + dn * 16,
+                                        lane));
+          mma::mma_16816(dv_acc[2 * dn], ap, b[0], b[1]);
+          mma::ldmatrix_x2_trans(b, mma::frag_a_ptr<W>(
+                                        qt, r0 + kc * 16, d0 + dn * 16,
+                                        lane));
+          mma::mma_16816(dk_acc[2 * dn], as, b[0], b[1]);
         }
       }
     }
@@ -756,9 +802,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 
   if constexpr (kDbias) {
     // the four lanes of a key (t = 0..3) combine in a fixed order, and one
-    // writes the key's partial; at d 128 both warps of a key group hold the
-    // same sums, and the one with d0 == 0 writes. A key no q tile reached
-    // writes 0
+    // writes the key's partial; past width 80 both warps of a key group
+    // hold the same sums, and the one with d0 == 0 writes. A key no q tile
+    // reached writes 0
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float sum = db_acc[r];
@@ -772,10 +818,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int key = keys[r];
     if (key >= sk) continue;
-    bf16* dkr = dk + (kbase + key) * D + d0 + 2 * t;
-    bf16* dvr = dv + (kbase + key) * D + d0 + 2 * t;
+    bf16* dkr = dk + (kbase + key) * d + d0 + 2 * t;
+    bf16* dvr = dv + (kbase + key) * d + d0 + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < kDT; ++dn) {
+      if (kDyn && d0 + dn * 8 >= d) continue;  // the first d columns
       *reinterpret_cast<__nv_bfloat162*>(dkr + dn * 8) = __floats2bfloat162_rn(
           dk_acc[dn][2 * r] * scale, dk_acc[dn][2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dvr + dn * 8) = __floats2bfloat162_rn(
@@ -784,43 +831,46 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D, bool kSeg, bool kDbias>
+template <int W, bool kDyn, bool kSeg, bool kDbias>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* q_norm, const void* do_norm,
-                       void* dk, void* dv, int n, int sq, int sk, int causal,
-                       float scale, ScoreBias bias, Segments seg,
+                       void* dk, void* dv, int n, int sq, int sk, int d,
+                       int causal, float scale, ScoreBias bias, Segments seg,
                        const int* q_rng, const int* kv_rng, Dropout dr,
                        float* db_part, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+  const size_t smem = dkv_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<D, kSeg, kDbias>,
+      flash_bwd_dkv_mma_kernel<W, kDyn, kSeg, kDbias>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n, (sk + kBN - 1) / kBN);
-  constexpr int threads = dkv_threads<D>();
-  flash_bwd_dkv_mma_kernel<D, kSeg, kDbias><<<grid, threads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(q_norm), static_cast<const float*>(do_norm),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, scale,
-      bias, seg, q_rng, kv_rng, dr, db_part);
+  constexpr int threads = dkv_threads<W>();
+  flash_bwd_dkv_mma_kernel<W, kDyn, kSeg, kDbias>
+      <<<grid, threads, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const float*>(q_norm),
+          static_cast<const float*>(do_norm), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), sq, sk, d, causal, scale, bias, seg, q_rng,
+          kv_rng, dr, db_part);
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
+template <int W, bool kDyn, bool kSeg>
 cudaError_t launch_dkv_fold(bool fold, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, const void* q_norm,
                             const void* do_norm, void* dk, void* dv, int n,
-                            int sq, int sk, int causal, float scale,
+                            int sq, int sk, int d, int causal, float scale,
                             ScoreBias bias, Segments seg, const int* q_rng,
                             const int* kv_rng, Dropout dr, float* db_part,
                             cudaStream_t stream) {
-  return (fold ? launch_dkv<D, kSeg, true> : launch_dkv<D, kSeg, false>)(
-      q, k, v, dout, lse, delta, q_norm, do_norm, dk, dv, n, sq, sk, causal,
-      scale, bias, seg, q_rng, kv_rng, dr, db_part, stream);
+  return (fold ? launch_dkv<W, kDyn, kSeg, true>
+               : launch_dkv<W, kDyn, kSeg, false>)(
+      q, k, v, dout, lse, delta, q_norm, do_norm, dk, dv, n, sq, sk, d,
+      causal, scale, bias, seg, q_rng, kv_rng, dr, db_part, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -831,31 +881,32 @@ constexpr int kDqThreads = 128;  // 4 warps of 16 q rows
 
 // the q and do tiles, two stages of K and V (padded rows), and two stages
 // of the key tile's ids and of its K and V row norms (fp32)
-template <int D>
+template <int W>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * (2 * kBM + 4 * kBN) * mma::ld<D>() +
+  return sizeof(bf16) * (2 * kBM + 4 * kBN) * mma::ld<W>() +
          sizeof(float) * 2 * 3 * kBN;
 }
 
-template <int D, bool kSeg>
+template <int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kDqThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int sq, int sk, int causal,
-                        float scale, ScoreBias bias, Segments seg,
+                        bf16* __restrict__ dq, int sq, int sk, int d,
+                        int causal, float scale, ScoreBias bias, Segments seg,
                         const int* __restrict__ q_rng,
                         const int* __restrict__ kv_rng, Dropout dr,
                         unsigned long long* __restrict__ retaken) {
-  constexpr int kLd = mma::ld<D>();
-  constexpr int kKC = D / 16;   // k chunks of Q K^T and dO V^T
-  constexpr int kDT = D / 8;    // 8-wide n tiles of dQ
-  // keys a warp scores at once: half a tile at d 64 and 128, so the
+  constexpr int kLd = mma::ld<W>();
+  constexpr int kKC = W / 16;   // k chunks of Q K^T and dO V^T
+  constexpr int kDT = W / 8;    // 8-wide n tiles of dQ
+  // keys a warp scores at once: half a tile past width 32, so the
   // scores' registers leave room beside the dQ accumulator for three
-  // blocks an SM at d 64 (chip_smoke.py prints ptxas's count)
-  constexpr int kSub = D > 32 ? 32 : kBN;
+  // blocks an SM at width 64 (chip_smoke.py prints ptxas's count)
+  constexpr int kSub = W > 32 ? 32 : kBN;
+  if constexpr (!kDyn) d = W;
   constexpr int kST = kSub / 8;  // 8-wide n tiles of S and dP
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kBM x kLd
@@ -876,8 +927,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rows[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
   const int offset = sk - sq;  // causal: col <= row + offset is visible
   const size_t qbase = static_cast<size_t>(bh) * sq;
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
   // keys past kv_end are above the diagonal for every row of the tile
@@ -900,8 +951,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return j;
   };
   auto stage_kv = [&](int j, int st) {
-    mma::stage_tile<D, kDqThreads>(ks + st * kBN * kLd, kb, j * kBN, sk);
-    mma::stage_tile<D, kDqThreads>(vs + st * kBN * kLd, vb, j * kBN, sk);
+    mma::stage_tile<W, kDqThreads, kDyn>(ks + st * kBN * kLd, kb, j * kBN,
+                                         sk, d);
+    mma::stage_tile<W, kDqThreads, kDyn>(vs + st * kBN * kLd, vb, j * kBN,
+                                         sk, d);
     if (kSeg && threadIdx.x < kBN) {
       const int col = j * kBN + threadIdx.x;
       const bool in = col < sk;
@@ -915,14 +968,14 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int key = threadIdx.x % kBN;
     if (threadIdx.x < kBN)
       kn_s[st * kBN + key] =
-          kFixKappa * scale * row_norm<D>(ks + (st * kBN + key) * kLd);
+          kFixKappa * scale * row_norm<W>(ks + (st * kBN + key) * kLd);
     else
       vn_s[st * kBN + key] = kFixKappa * (dr.on ? dr.inv_keep : 1.f) *
-                             row_norm<D>(vs + (st * kBN + key) * kLd);
+                             row_norm<W>(vs + (st * kBN + key) * kLd);
   };
 
-  mma::stage_tile<D, kDqThreads>(qs, q + qbase * D, q0, sq);
-  mma::stage_tile<D, kDqThreads>(dos, dout + qbase * D, q0, sq);
+  mma::stage_tile<W, kDqThreads, kDyn>(qs, q + qbase * d, q0, sq, d);
+  mma::stage_tile<W, kDqThreads, kDyn>(dos, dout + qbase * d, q0, sq, d);
   mma::cp_async_commit();
   int j = next_tile(0);
   if (j < n_tiles) stage_kv(j, 0);
@@ -957,8 +1010,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int rl = warp * 16 + (lane >> 2) + 8 * r;
-    qn[r] = row_norm<D>(qs + rl * kLd);
-    don[r] = row_norm<D>(dos + rl * kLd);
+    qn[r] = row_norm<W>(qs + rl * kLd);
+    don[r] = row_norm<W>(dos + rl * kLd);
   }
   if (j < n_tiles) tile_norms(0);
 
@@ -999,15 +1052,15 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kc = 0; kc < kKC; ++kc) {
           uint32_t aq[4], ad[4];
-          mma::ldmatrix_x4(aq, mma::frag_a_ptr<D>(qs, warp * 16, kc * 16,
+          mma::ldmatrix_x4(aq, mma::frag_a_ptr<W>(qs, warp * 16, kc * 16,
                                                   lane));
-          mma::ldmatrix_x4(ad, mma::frag_a_ptr<D>(dos, warp * 16, kc * 16,
+          mma::ldmatrix_x4(ad, mma::frag_a_ptr<W>(dos, warp * 16, kc * 16,
                                                   lane));
 #pragma unroll
           for (int np = 0; np < kST / 2; ++np) {
             uint32_t b[4];
             float c[2][4] = {};
-            mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(kst, np * 16, kc * 16,
+            mma::ldmatrix_x4(b, mma::frag_bt_ptr<W>(kst, np * 16, kc * 16,
                                                     lane));
             mma::mma_16816(c[0], aq, b[0], b[1]);
             mma::mma_16816(c[1], aq, b[2], b[3]);
@@ -1017,7 +1070,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               s[2 * np + 1][e] += c[1][e];
               c[0][e] = c[1][e] = 0.f;
             }
-            mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(vst, np * 16, kc * 16,
+            mma::ldmatrix_x4(b, mma::frag_bt_ptr<W>(vst, np * 16, kc * 16,
                                                     lane));
             mma::mma_16816(c[0], ad, b[0], b[1]);
             mma::mma_16816(c[1], ad, b[2], b[3]);
@@ -1078,8 +1131,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool keep =
               !dr.on || dropout_keep(bh_key, row, col, dr.thresh);
           const Score sc = score_chain<true>(
-              fma_chain<D>(qs + rl * kLd, kst + cl * kLd),
-              fma_chain<D>(dos + rl * kLd, vst + cl * kLd), scale,
+              fma_chain<W>(qs + rl * kLd, kst + cl * kLd),
+              fma_chain<W>(dos + rl * kLd, vst + cl * kLd), scale,
               brow != nullptr,
               brow != nullptr ? brow[(hi ? brow_hi : 0) + col] : 0.f,
               hi ? row_lse[1] : row_lse[0], hi ? row_delta[1] : row_delta[0],
@@ -1098,9 +1151,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t a[4];
           mma::pack_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-          for (int dd = 0; dd < D / 16; ++dd) {
+          for (int dd = 0; dd < W / 16; ++dd) {
             uint32_t b[4];
-            mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(kst, kc * 16,
+            mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<W>(kst, kc * 16,
                                                          dd * 16, lane));
             mma::mma_16816(acc[2 * dd], a, b[0], b[1]);
             mma::mma_16816(acc[2 * dd + 1], a, b[2], b[3]);
@@ -1120,33 +1173,34 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = rows[r];
     if (row >= sq) continue;
-    bf16* out = dq + (qbase + row) * D + 2 * t;
+    bf16* out = dq + (qbase + row) * d + 2 * t;
 #pragma unroll
     for (int dd = 0; dd < kDT; ++dd)
-      *reinterpret_cast<__nv_bfloat162*>(out + dd * 8) =
-          __floats2bfloat162_rn(acc[dd][2 * r] * scale,
-                                acc[dd][2 * r + 1] * scale);
+      if (!kDyn || dd * 8 < d)  // the first d columns
+        *reinterpret_cast<__nv_bfloat162*>(out + dd * 8) =
+            __floats2bfloat162_rn(acc[dd][2 * r] * scale,
+                                  acc[dd][2 * r + 1] * scale);
   }
 }
 
-template <int D, bool kSeg>
+template <int W, bool kDyn, bool kSeg>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int n, int sq, int sk, int causal,
+                      void* dq, int n, int sq, int sk, int d, int causal,
                       float scale, ScoreBias bias, Segments seg,
                       const int* q_rng, const int* kv_rng, Dropout dr,
                       unsigned long long* retaken, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = dq_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<D, kSeg>,
+      flash_bwd_dq_mma_kernel<W, kDyn, kSeg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n, (sq + kBM - 1) / kBM);
-  flash_bwd_dq_mma_kernel<D, kSeg><<<grid, kDqThreads, smem, stream>>>(
+  flash_bwd_dq_mma_kernel<W, kDyn, kSeg><<<grid, kDqThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), sq, sk, causal, scale, bias, seg, q_rng,
+      static_cast<bf16*>(dq), sq, sk, d, causal, scale, bias, seg, q_rng,
       kv_rng, dr, retaken);
   return cudaGetLastError();
 }
@@ -1156,7 +1210,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 struct BwdArgs {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
-  int n, sq, sk, causal;
+  int n, sq, sk, d, causal;
   float scale;
   ScoreBias bias;
   Segments seg;
@@ -1169,54 +1223,56 @@ struct BwdArgs {
   float* db_part;  // bf16 dkv: the folded dbias's (n, sk) partials, or null
 };
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<D, kSeg>();
+  const size_t smem = bwd_smem_bytes<W, kSeg>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D, kSeg>,
+      flash_bwd_dq_kernel<T, W, kDyn, kSeg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n, (a.sq + kRows - 1) / kRows);
-  flash_bwd_dq_kernel<T, D, kSeg><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, W, kDyn, kSeg><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.sq, a.sk, a.causal, a.scale, a.bias, a.seg,
-      a.dr);
+      static_cast<T*>(a.dq), a.sq, a.sk, a.d, a.causal, a.scale, a.bias,
+      a.seg, a.dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<D, kSeg>();
+  const size_t smem = bwd_smem_bytes<W, kSeg>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, kSeg>,
+      flash_bwd_dkv_kernel<T, W, kDyn, kSeg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n, (a.sk + kRows - 1) / kRows);
-  flash_bwd_dkv_kernel<T, D, kSeg><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, W, kDyn, kSeg><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.causal,
-      a.scale, a.bias, a.seg, a.dr);
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.d,
+      a.causal, a.scale, a.bias, a.seg, a.dr);
   return cudaGetLastError();
 }
 
 // bf16 takes the tensor-core bodies, fp32 the SIMT bodies
-template <bool kDq, typename T, int D>
+template <bool kDq, typename T, int W, bool kDyn>
 cudaError_t launch_kind(const BwdArgs& a, cudaStream_t st) {
   const bool seg = a.seg.q != nullptr;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if constexpr (kDq && kBf16) {
     if (seg && (a.q_rng == nullptr || a.kv_rng == nullptr))
       return cudaErrorInvalidValue;
-    return (seg ? tc::launch_dq<D, true> : tc::launch_dq<D, false>)(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.n, a.sq, a.sk,
+    return (seg ? tc::launch_dq<W, kDyn, true>
+                : tc::launch_dq<W, kDyn, false>)(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.n, a.sq, a.sk, a.d,
         a.causal, a.scale, a.bias, a.seg, a.q_rng, a.kv_rng, a.dr,
         a.retaken, st);
   } else if constexpr (kDq) {
-    return seg ? launch_dq<T, D, true>(a, st) : launch_dq<T, D, false>(a, st);
+    return seg ? launch_dq<T, W, kDyn, true>(a, st)
+               : launch_dq<T, W, kDyn, false>(a, st);
   } else if constexpr (kBf16) {
     const bool fold = a.db_part != nullptr;
     // the fold takes a bias without query rows (row stride 0)
@@ -1224,42 +1280,40 @@ cudaError_t launch_kind(const BwdArgs& a, cudaStream_t st) {
         a.q_norm == nullptr || a.do_norm == nullptr ||
         (fold && (a.bias.p == nullptr || a.bias.sr != 0)))
       return cudaErrorInvalidValue;
-    return (seg ? tc::launch_dkv_fold<D, true> : tc::launch_dkv_fold<D, false>)(
+    return (seg ? tc::launch_dkv_fold<W, kDyn, true>
+                : tc::launch_dkv_fold<W, kDyn, false>)(
         fold, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_norm, a.do_norm,
-        a.dk, a.dv, a.n, a.sq, a.sk, a.causal, a.scale, a.bias, a.seg,
+        a.dk, a.dv, a.n, a.sq, a.sk, a.d, a.causal, a.scale, a.bias, a.seg,
         a.q_rng, a.kv_rng, a.dr, a.db_part, st);
   } else {
     if (a.db_part != nullptr) return cudaErrorInvalidValue;  // bf16 only
-    return seg ? launch_dkv<T, D, true>(a, st)
-               : launch_dkv<T, D, false>(a, st);
+    return seg ? launch_dkv<T, W, kDyn, true>(a, st)
+               : launch_dkv<T, W, kDyn, false>(a, st);
   }
 }
 
 template <bool kDq, typename T>
-cudaError_t launch_d(const BwdArgs& a, int d, cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch_kind<kDq, T, 32>(a, st);
-    case 64:
-      return launch_kind<kDq, T, 64>(a, st);
-    case 128:
-      return launch_kind<kDq, T, 128>(a, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(const BwdArgs& a, int w, cudaStream_t st) {
+  return width::dispatch(a.d, w, [&](auto wc, auto dyn) {
+    return launch_kind<kDq, T, decltype(wc)::value, decltype(dyn)::value>(
+        a, st);
+  });
 }
 
 template <bool kDq>
-int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
-  if (dtype == kFloat32) return launch_d<kDq, float>(a, d, st);
-  if (dtype == kBFloat16) return launch_d<kDq, __nv_bfloat16>(a, d, st);
+int dispatch(const BwdArgs& a, int w, int dtype, cudaStream_t st) {
+  if (dtype == kFloat32) return launch_d<kDq, float>(a, w, st);
+  if (dtype == kBFloat16) return launch_d<kDq, __nv_bfloat16>(a, w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace apex_port
 
-// C entry points, bound with ctypes. dtype: 0 fp32, 1 bf16 (q, k, v, do and
+// C entry points, bound with ctypes, two a group of widths
+// (flash_width.cuh: apex_flash_bwd_dq_p<group>, apex_flash_bwd_dkv_p<group>);
+// d is the head dim and w its body width (_kernels.py::flash_width), which
+// the group must hold. dtype: 0 fp32, 1 bf16 (q, k, v, do and
 // the outputs share it; lse and delta are fp32; bf16 needs q, k, v and do
 // 16-byte aligned, and bf16 dkv the fp32 (n, sq) row norms of q and do,
 // `q_norm` and `do_norm`, null for fp32). The bias, the segment ids, their
@@ -1270,20 +1324,16 @@ int dispatch(const BwdArgs& a, int d, int dtype, cudaStream_t st) {
 // fp32 tensor that takes each batch-head's sum of dS over the rows, per
 // key: the folded dbias, before apex_flash_dbias_fold_sum. Each returns the
 // cudaError_t of its launch (0 on success).
-extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, int n, int sq,
-                                 int sk, int d, int dtype, int causal,
-                                 float scale, const void* bias, int heads,
-                                 int sb, int sh, int sr, const void* q_ids,
-                                 const void* kv_ids, int seg_heads,
-                                 const void* q_rng, const void* kv_rng,
-                                 int dropout, unsigned seed, int thresh,
-                                 float inv_keep, void* retaken,
-                                 void* stream) {
+extern "C" int APEX_FLASH_ENTRY(apex_flash_bwd_dq)(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int n, int sq, int sk,
+    int d, int w, int dtype, int causal, float scale, const void* bias,
+    int heads, int sb, int sh, int sr, const void* q_ids, const void* kv_ids,
+    int seg_heads, const void* q_rng, const void* kv_rng, int dropout,
+    unsigned seed, int thresh, float inv_keep, void* retaken, void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, n, sq, sk,
-                  causal, scale,
+                  d, causal, scale,
                   ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
                   Segments{static_cast<const int*>(q_ids),
                            static_cast<const int*>(kv_ids), seg_heads},
@@ -1291,23 +1341,20 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                   static_cast<const int*>(q_rng),
                   static_cast<const int*>(kv_rng), nullptr, nullptr,
                   static_cast<unsigned long long*>(retaken), nullptr};
-  return dispatch<true>(a, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(a, w, dtype, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv, int n,
-                                  int sq, int sk, int d, int dtype, int causal,
-                                  float scale, const void* bias, int heads,
-                                  int sb, int sh, int sr, const void* q_ids,
-                                  const void* kv_ids, int seg_heads,
-                                  const void* q_rng, const void* kv_rng,
-                                  const void* q_norm, const void* do_norm,
-                                  void* db_part, int dropout, unsigned seed,
-                                  int thresh, float inv_keep, void* stream) {
+extern "C" int APEX_FLASH_ENTRY(apex_flash_bwd_dkv)(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int n, int sq,
+    int sk, int d, int w, int dtype, int causal, float scale,
+    const void* bias, int heads, int sb, int sh, int sr, const void* q_ids,
+    const void* kv_ids, int seg_heads, const void* q_rng, const void* kv_rng,
+    const void* q_norm, const void* do_norm, void* db_part, int dropout,
+    unsigned seed, int thresh, float inv_keep, void* stream) {
   using namespace apex_port;
   const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, n, sq, sk,
-                  causal, scale,
+                  d, causal, scale,
                   ScoreBias{static_cast<const float*>(bias), heads, sb, sh, sr},
                   Segments{static_cast<const int*>(q_ids),
                            static_cast<const int*>(kv_ids), seg_heads},
@@ -1315,5 +1362,5 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                   static_cast<const int*>(q_rng),
                   static_cast<const int*>(kv_rng), q_norm, do_norm, nullptr,
                   static_cast<float*>(db_part)};
-  return dispatch<false>(a, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(a, w, dtype, static_cast<cudaStream_t>(stream));
 }

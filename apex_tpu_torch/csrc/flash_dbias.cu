@@ -3,9 +3,10 @@
 //
 // Replaces: apex_tpu/ops/flash_attention.py::_dbias_kernel (launched by
 // _dbias_pallas). Given the inputs of flash_bwd_dq (q (n, sq, d), k/v (n, sk,
-// d), do (n, sq, d) in bf16 or fp32, d in {32, 64, 128}; the forward's lse
-// and delta = rowsum(do * out), (n, sq) fp32; the fp32 bias (bb, hb, sqb, sk)
-// as common.cuh::ScoreBias; optional segment ids and dropout), it recomputes
+// d), do (n, sq, d) in bf16 or fp32, every d % 8 == 0 from 8 to 256 at its
+// body width (flash_width.cuh); the forward's lse and delta = rowsum(do *
+// out), (n, sq) fp32; the fp32 bias (bb, hb, sqb, sk) as
+// common.cuh::ScoreBias; optional segment ids and dropout), it recomputes
 //   p  = exp(scale * q k^T + bias - lse), masked entries zeroed,
 //   dp = do v^T,  dp_eff = keep * dp / (1 - rate),
 //   ds = p * (dp_eff - delta)              (fp32, the undropped p)
@@ -55,6 +56,7 @@
 // floats (6.4 GB at the long-context shape), so tables stay here.
 
 #include "common.cuh"
+#include "flash_width.cuh"
 
 namespace apex_port {
 namespace {
@@ -65,25 +67,32 @@ constexpr int kRows = 64;   // rows a block owns: q rows (rows), keys (cols)
 constexpr int kTile = 32;   // keys (rows) or q rows (cols) of a tile
 constexpr int kPerWarp = kRows / kWarps;
 
-// rows [r0, r0 + rows) of a (len, D) slice, widened to fp32 into a row
-// stride `ld` (D or D + 1); rows at or past `len` are zero
-template <typename T, int D>
+// rows [r0, r0 + rows) of a (len, d) slice, widened to fp32 into W columns
+// of row stride `ld` (W or W + 1); rows at or past `len` are zero, and so
+// (kDyn, d a run-time width under W) are columns d..W-1
+template <typename T, int W, bool kDyn>
 __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int r0, int rows, int len) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * ld + c] =
-        (r0 + r < len) ? to_float(src[static_cast<size_t>(r0 + r) * D + c])
-                       : 0.f;
+                                      int r0, int rows, int len, int d) {
+  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+    const int r = i / W;
+    const int c = i % W;
+    if constexpr (kDyn)
+      dst[r * ld + c] =
+          (r0 + r < len && c < d)
+              ? to_float(src[static_cast<size_t>(r0 + r) * d + c])
+              : 0.f;
+    else
+      dst[r * ld + c] =
+          (r0 + r < len) ? to_float(src[static_cast<size_t>(r0 + r) * W + c])
+                         : 0.f;
   }
 }
 
-template <int D>
+template <int W>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
 #pragma unroll 16
-  for (int c = 0; c < D; ++c) s = fmaf(a[c], b[c], s);
+  for (int c = 0; c < W; ++c) s = fmaf(a[c], b[c], s);
   return s;
 }
 
@@ -91,7 +100,7 @@ struct DbiasArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   float* db;
-  int sq, sk, causal;
+  int sq, sk, d, causal;
   float scale;
   ScoreBias bias;
   Segments seg;
@@ -112,15 +121,17 @@ __device__ __forceinline__ float score_grad(Dropout dr, float s, float dp,
   return p * (dp - row_delta);
 }
 
-template <typename T, int D, bool kSeg>
+// W the body width, d the head dim (W itself without kDyn)
+template <typename T, int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 dbias_rows_kernel(const DbiasArgs a) {
+  const int d = kDyn ? a.d : W;
   extern __shared__ float smem[];
-  float* qs = smem;                      // kRows x D
-  float* dos = qs + kRows * D;           // kRows x D
-  float* ks = dos + kRows * D;           // kTile x (D + 1)
-  float* vs = ks + kTile * (D + 1);      // kTile x (D + 1)
-  int* kid = reinterpret_cast<int*>(vs + kTile * (D + 1));  // kTile (kSeg)
+  float* qs = smem;                      // kRows x W
+  float* dos = qs + kRows * W;           // kRows x W
+  float* ks = dos + kRows * W;           // kTile x (W + 1)
+  float* vs = ks + kTile * (W + 1);      // kTile x (W + 1)
+  int* kid = reinterpret_cast<int*>(vs + kTile * (W + 1));  // kTile (kSeg)
 
   const int g = blockIdx.x;
   const int q0 = blockIdx.y * kRows;
@@ -142,13 +153,14 @@ dbias_rows_kernel(const DbiasArgs a) {
     const size_t qbase = static_cast<size_t>(bh) * sq;
     const size_t kbase = static_cast<size_t>(bh) * sk;
     __syncthreads();  // the previous batch-head's tiles are consumed
-    stage<T, D>(qs, D, static_cast<const T*>(a.q) + qbase * D, q0, kRows, sq);
-    stage<T, D>(dos, D, static_cast<const T*>(a.dout) + qbase * D, q0, kRows,
-                sq);
-    stage<T, D>(ks, D + 1, static_cast<const T*>(a.k) + kbase * D, j0, kTile,
-                sk);
-    stage<T, D>(vs, D + 1, static_cast<const T*>(a.v) + kbase * D, j0, kTile,
-                sk);
+    stage<T, W, kDyn>(qs, W, static_cast<const T*>(a.q) + qbase * d, q0,
+                      kRows, sq, d);
+    stage<T, W, kDyn>(dos, W, static_cast<const T*>(a.dout) + qbase * d, q0,
+                      kRows, sq, d);
+    stage<T, W, kDyn>(ks, W + 1, static_cast<const T*>(a.k) + kbase * d, j0,
+                      kTile, sk, d);
+    stage<T, W, kDyn>(vs, W + 1, static_cast<const T*>(a.v) + kbase * d, j0,
+                      kTile, sk, d);
     if (kSeg && threadIdx.x < kTile) {
       const int c = j0 + threadIdx.x;
       kid[threadIdx.x] =
@@ -157,8 +169,8 @@ dbias_rows_kernel(const DbiasArgs a) {
     __syncthreads();
     const uint32_t bh_key = dropout_bh_key(a.dr, bh);
     const int* q_ids = kSeg ? seg_row(a.seg.q, a.seg.heads, bh, sq) : nullptr;
-    const float* kr = ks + lane * (D + 1);
-    const float* vr = vs + lane * (D + 1);
+    const float* kr = ks + lane * (W + 1);
+    const float* vr = vs + lane * (W + 1);
 #pragma unroll
     for (int rr = 0; rr < kPerWarp; ++rr) {
       const int rloc = rr * kWarps + warp;  // interleaved: balances causal
@@ -166,9 +178,9 @@ dbias_rows_kernel(const DbiasArgs a) {
       // both conditions are uniform across the warp
       if (row >= sq) continue;
       if (a.causal && j0 > row + offset) continue;
-      float s = dot<D>(qs + rloc * D, kr) * a.scale;
+      float s = dot<W>(qs + rloc * W, kr) * a.scale;
       if (col < sk) s += bias_row(a.bias, bh, row)[col];
-      const float dp = dot<D>(dos + rloc * D, vr);
+      const float dp = dot<W>(dos + rloc * W, vr);
       bool valid = col < sk && (!a.causal || col <= row + offset);
       if (kSeg) valid = valid && q_ids[row] == kid[lane];
       acc[rr] += score_grad(a.dr, s, dp, a.lse[qbase + row],
@@ -185,15 +197,16 @@ dbias_rows_kernel(const DbiasArgs a) {
   }
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 dbias_cols_kernel(const DbiasArgs a) {
+  const int d = kDyn ? a.d : W;
   extern __shared__ float smem[];
-  float* ks = smem;                      // kRows x D
-  float* vs = ks + kRows * D;            // kRows x D
-  float* qs = vs + kRows * D;            // kTile x (D + 1)
-  float* dos = qs + kTile * (D + 1);     // kTile x (D + 1)
-  float* lse_s = dos + kTile * (D + 1);  // kTile
+  float* ks = smem;                      // kRows x W
+  float* vs = ks + kRows * W;            // kRows x W
+  float* qs = vs + kRows * W;            // kTile x (W + 1)
+  float* dos = qs + kTile * (W + 1);     // kTile x (W + 1)
+  float* lse_s = dos + kTile * (W + 1);  // kTile
   float* delta_s = lse_s + kTile;        // kTile
   int* qid_s = reinterpret_cast<int*>(delta_s + kTile);  // kTile (kSeg)
 
@@ -217,8 +230,8 @@ dbias_cols_kernel(const DbiasArgs a) {
     const int bh = g * a.g_stride + r * a.r_stride;
     const size_t qbase = static_cast<size_t>(bh) * sq;
     const size_t kbase = static_cast<size_t>(bh) * sk;
-    const T* qb = static_cast<const T*>(a.q) + qbase * D;
-    const T* dob = static_cast<const T*>(a.dout) + qbase * D;
+    const T* qb = static_cast<const T*>(a.q) + qbase * d;
+    const T* dob = static_cast<const T*>(a.dout) + qbase * d;
     const int* q_ids = kSeg ? seg_row(a.seg.q, a.seg.heads, bh, sq) : nullptr;
     int kid[kPerWarp];  // the owned keys' ids in this batch (kSeg)
 #pragma unroll
@@ -229,13 +242,15 @@ dbias_cols_kernel(const DbiasArgs a) {
     }
     const uint32_t bh_key = dropout_bh_key(a.dr, bh);
     __syncthreads();  // the previous batch-head's tiles are consumed
-    stage<T, D>(ks, D, static_cast<const T*>(a.k) + kbase * D, c0, kRows, sk);
-    stage<T, D>(vs, D, static_cast<const T*>(a.v) + kbase * D, c0, kRows, sk);
+    stage<T, W, kDyn>(ks, W, static_cast<const T*>(a.k) + kbase * d, c0,
+                      kRows, sk, d);
+    stage<T, W, kDyn>(vs, W, static_cast<const T*>(a.v) + kbase * d, c0,
+                      kRows, sk, d);
 
     for (int i0 = i_begin; i0 < sq; i0 += kTile) {
       __syncthreads();  // the previous q tile is consumed; k, v are staged
-      stage<T, D>(qs, D + 1, qb, i0, kTile, sq);
-      stage<T, D>(dos, D + 1, dob, i0, kTile, sq);
+      stage<T, W, kDyn>(qs, W + 1, qb, i0, kTile, sq, d);
+      stage<T, W, kDyn>(dos, W + 1, dob, i0, kTile, sq, d);
       if (threadIdx.x < kTile) {
         const int row = i0 + threadIdx.x;
         lse_s[threadIdx.x] = row < sq ? a.lse[qbase + row] : CUDART_INF_F;
@@ -244,8 +259,8 @@ dbias_cols_kernel(const DbiasArgs a) {
       }
       __syncthreads();
       const int row = i0 + lane;
-      const float* qr = qs + lane * (D + 1);
-      const float* dor = dos + lane * (D + 1);
+      const float* qr = qs + lane * (W + 1);
+      const float* dor = dos + lane * (W + 1);
 #pragma unroll
       for (int kk = 0; kk < kPerWarp; ++kk) {
         const int c = kk * kWarps + warp;  // interleaved: balances causal
@@ -253,9 +268,9 @@ dbias_cols_kernel(const DbiasArgs a) {
         // both conditions are uniform across the warp
         if (col >= sk) continue;
         if (a.causal && col > i0 + kTile - 1 + offset) continue;
-        float s = dot<D>(qr, ks + c * D) * a.scale;
+        float s = dot<W>(qr, ks + c * W) * a.scale;
         if (row < sq) s += bias_row(a.bias, bh, row)[col];
-        const float dp = dot<D>(dor, vs + c * D);
+        const float dp = dot<W>(dor, vs + c * W);
         bool valid = row < sq && (!a.causal || col <= row + offset);
         if (kSeg) valid = valid && qid_s[lane] == kid[kk];
         acc[kk] += score_grad(a.dr, s, dp, lse_s[lane], delta_s[lane], valid,
@@ -290,80 +305,69 @@ dbias_fold_sum_kernel(const float* __restrict__ part, float* __restrict__ db,
   db[static_cast<size_t>(g) * sk + key] = sum;
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 cudaError_t launch(const DbiasArgs& a, int kept, int rows,
                    cudaStream_t stream) {
   if (rows) {
-    const size_t smem = sizeof(float) * (2 * kRows * D + 2 * kTile * (D + 1))
+    const size_t smem = sizeof(float) * (2 * kRows * W + 2 * kTile * (W + 1))
                         + (kSeg ? sizeof(int) * kTile : 0);
     cudaError_t err = cudaFuncSetAttribute(
-        dbias_rows_kernel<T, D, kSeg>,
+        dbias_rows_kernel<T, W, kDyn, kSeg>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid(kept, (a.sq + kRows - 1) / kRows,
                     (a.sk + kTile - 1) / kTile);
-    dbias_rows_kernel<T, D, kSeg><<<grid, kThreads, smem, stream>>>(a);
+    dbias_rows_kernel<T, W, kDyn, kSeg><<<grid, kThreads, smem, stream>>>(a);
   } else {
     const size_t smem =
-        sizeof(float) * (2 * kRows * D + 2 * kTile * (D + 1) + 2 * kTile) +
+        sizeof(float) * (2 * kRows * W + 2 * kTile * (W + 1) + 2 * kTile) +
         (kSeg ? sizeof(int) * kTile : 0);
     cudaError_t err = cudaFuncSetAttribute(
-        dbias_cols_kernel<T, D, kSeg>,
+        dbias_cols_kernel<T, W, kDyn, kSeg>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid(kept, (a.sk + kRows - 1) / kRows);
-    dbias_cols_kernel<T, D, kSeg><<<grid, kThreads, smem, stream>>>(a);
+    dbias_cols_kernel<T, W, kDyn, kSeg><<<grid, kThreads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_seg(const DbiasArgs& a, int kept, int rows,
-                       cudaStream_t st) {
-  return a.seg.q != nullptr ? launch<T, D, true>(a, kept, rows, st)
-                            : launch<T, D, false>(a, kept, rows, st);
-}
-
 template <typename T>
-cudaError_t launch_d(const DbiasArgs& a, int d, int kept, int rows,
+cudaError_t launch_d(const DbiasArgs& a, int w, int kept, int rows,
                      cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch_seg<T, 32>(a, kept, rows, st);
-    case 64:
-      return launch_seg<T, 64>(a, kept, rows, st);
-    case 128:
-      return launch_seg<T, 128>(a, kept, rows, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return width::dispatch(a.d, w, [&](auto wc, auto dyn) {
+    constexpr int W = decltype(wc)::value;
+    constexpr bool kDyn = decltype(dyn)::value;
+    return a.seg.q != nullptr ? launch<T, W, kDyn, true>(a, kept, rows, st)
+                              : launch<T, W, kDyn, false>(a, kept, rows, st);
+  });
 }
 
 }  // namespace
 }  // namespace apex_port
 
-// C entry point, bound with ctypes. dtype: 0 fp32, 1 bf16 (q, k, v, do); lse,
+// C entry point, bound with ctypes, one a group of widths
+// (flash_width.cuh: apex_flash_dbias_p<group>); d is the head dim and w its
+// body width. dtype: 0 fp32, 1 bf16 (q, k, v, do); lse,
 // delta, the bias and db are fp32. The bias, the segment ids and dropout as
 // in apex_flash_fwd. `kept` slices of db (bb * hb) each sum `reduced`
 // batch-heads, the r-th of slice g being g * g_stride + r * r_stride; `rows`
 // is 1 iff the bias has sq query rows (else 1 row). Returns the cudaError_t
 // of the launch (0 on success).
-extern "C" int apex_flash_dbias(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* db, int n, int sq,
-                                int sk, int d, int dtype, int causal,
-                                float scale, const void* bias, int heads,
-                                int sb, int sh, int sr, const void* q_ids,
-                                const void* kv_ids, int seg_heads, int kept,
-                                int reduced, int g_stride, int r_stride,
-                                int rows, int dropout, unsigned seed,
-                                int thresh, float inv_keep, void* stream) {
+extern "C" int APEX_FLASH_ENTRY(apex_flash_dbias)(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* db, int n, int sq, int sk,
+    int d, int w, int dtype, int causal, float scale, const void* bias,
+    int heads, int sb, int sh, int sr, const void* q_ids, const void* kv_ids,
+    int seg_heads, int kept, int reduced, int g_stride, int r_stride,
+    int rows, int dropout, unsigned seed, int thresh, float inv_keep,
+    void* stream) {
   using namespace apex_port;
   if (kept <= 0 || reduced <= 0 || static_cast<long long>(kept) * reduced != n)
     return static_cast<int>(cudaErrorInvalidValue);
   const DbiasArgs a{q, k, v, dout, static_cast<const float*>(lse),
                     static_cast<const float*>(delta), static_cast<float*>(db),
-                    sq, sk, causal, scale,
+                    sq, sk, d, causal, scale,
                     ScoreBias{static_cast<const float*>(bias), heads, sb, sh,
                               sr},
                     Segments{static_cast<const int*>(q_ids),
@@ -371,12 +375,14 @@ extern "C" int apex_flash_dbias(const void* q, const void* k, const void* v,
                     Dropout{dropout, seed, thresh, inv_keep}, reduced,
                     g_stride, r_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_d<float>(a, d, kept, rows, st);
-  if (dtype == kBFloat16) return launch_d<__nv_bfloat16>(a, d, kept, rows, st);
+  if (dtype == kFloat32) return launch_d<float>(a, w, kept, rows, st);
+  if (dtype == kBFloat16) return launch_d<__nv_bfloat16>(a, w, kept, rows, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The fold's second pass (dbias_fold_sum_kernel): `part` (n, sk) fp32 from
+#if APEX_FLASH_PART == 0
+// The fold's second pass (dbias_fold_sum_kernel), in the first group's
+// object alone (it takes no head dim): `part` (n, sk) fp32 from
 // apex_flash_bwd_dkv's db_part, `db` (kept, sk) fp32, the split as in
 // apex_flash_dbias. Returns the cudaError_t of the launch (0 on success).
 extern "C" int apex_flash_dbias_fold_sum(const void* part, void* db, int kept,
@@ -392,3 +398,4 @@ extern "C" int apex_flash_dbias_fold_sum(const void* part, void* db, int kept,
       g_stride, r_stride);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // APEX_FLASH_PART == 0

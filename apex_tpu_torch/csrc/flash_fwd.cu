@@ -3,7 +3,8 @@
 // Replaces: apex_tpu/ops/flash_attention.py::_fwd_kernel (launched by
 // _fwd_pallas). Computes O = softmax(scale * Q K^T [+ bias] [+ causal mask])
 // V and the per-row logsumexp, +inf on rows with no visible key, over
-// q (n, sq, d), k/v (n, sk, d) in bf16 or fp32, d in {32, 64, 128}, with an
+// q (n, sq, d), k/v (n, sk, d) in bf16 or fp32, every d % 8 == 0 from 8
+// to 256 (each run at a body width W, flash_width.cuh), with an
 // optional broadcast fp32 score bias (common.cuh::ScoreBias) added after
 // the scale and before the masks, as the TPU kernel adds it, and optional
 // packed-sequence segment ids (common.cuh::Segments) that mask a score
@@ -54,6 +55,7 @@
 // tiles above the causal diagonal, but not those the ids hide.
 
 #include "common.cuh"
+#include "flash_width.cuh"
 #include "mma.cuh"
 
 namespace apex_port {
@@ -64,24 +66,38 @@ constexpr int kBK = 32;        // keys per k/v tile: one per lane
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBQ / kWarps;
 
-template <int D, bool kSeg>
+template <int W, bool kSeg>
 constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D) +
+  return sizeof(float) * (kBQ * W + kBK * (W + 1) + kBK * W) +
          (kSeg ? sizeof(int) * kBK : 0);
 }
 
-template <typename T, int D, bool kSeg>
+// Element (r, c) of a row-major slice of run-time width d, widened to
+// fp32, or 0 for a row past len or a column past d (the fixed widths keep
+// their own loads below)
+template <typename T>
+__device__ __forceinline__ float load_elem(const T* src, int r, int c,
+                                           int len, int d) {
+  return r < len && c < d ? to_float(src[static_cast<size_t>(r) * d + c])
+                          : 0.f;
+}
+
+template <typename T, int W, bool kDyn, bool kSeg>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int causal,
+                 float* __restrict__ lse, int sq, int sk, int d, int causal,
                  float scale, ScoreBias bias, Segments seg, Dropout dr) {
-  constexpr int kDPL = D / 32;  // output dims per lane
+  // output dims per lane (lane + 32 dd); at a W not a multiple of 32 the
+  // last one's upper lanes hold none
+  constexpr int kDPL = (W + 31) / 32;
+  constexpr bool kRagged = W % 32 != 0;
+  if constexpr (!kDyn) d = W;
   extern __shared__ float smem[];
-  float* qs = smem;                     // kBQ x D
-  float* ks = qs + kBQ * D;             // kBK x (D + 1)
-  float* vs = ks + kBK * (D + 1);       // kBK x D
-  int* kid = reinterpret_cast<int*>(vs + kBK * D);  // kBK key ids (kSeg)
+  float* qs = smem;                     // kBQ x W
+  float* ks = qs + kBQ * W;             // kBK x (W + 1)
+  float* vs = ks + kBK * (W + 1);       // kBK x W
+  int* kid = reinterpret_cast<int*>(vs + kBK * W);  // kBK key ids (kSeg)
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBQ;
@@ -89,15 +105,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int offset = sk - sq;  // causal: col <= row + offset is visible
-  const T* qb = q + static_cast<size_t>(bh) * sq * D;
-  const T* kb = k + static_cast<size_t>(bh) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh) * sk * D;
+  const T* qb = q + static_cast<size_t>(bh) * sq * d;
+  const T* kb = k + static_cast<size_t>(bh) * sk * d;
+  const T* vb = v + static_cast<size_t>(bh) * sk * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
-  for (int i = tid; i < kBQ * D; i += kWarps * 32) {
-    const int r = i / D;
-    qs[i] = (q0 + r < sq) ? to_float(qb[static_cast<size_t>(q0) * D + i])
-                          : 0.f;
+  if constexpr (kDyn) {
+    for (int i = tid; i < kBQ * W; i += kWarps * 32)
+      qs[i] = load_elem<T>(qb, q0 + i / W, i % W, sq, d);
+  } else {
+    for (int i = tid; i < kBQ * W; i += kWarps * 32) {
+      const int r = i / W;
+      qs[i] = (q0 + r < sq) ? to_float(qb[static_cast<size_t>(q0) * W + i])
+                            : 0.f;
+    }
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPL];
@@ -121,13 +142,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < kv_end; j0 += kBK) {
     __syncthreads();  // the previous tile is consumed; the q tile is staged
-    for (int i = tid; i < kBK * D; i += kWarps * 32) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool in = j0 + r < sk;
-      const size_t g = static_cast<size_t>(j0 + r) * D + c;
-      ks[r * (D + 1) + c] = in ? to_float(kb[g]) : 0.f;
-      vs[r * D + c] = in ? to_float(vb[g]) : 0.f;
+    for (int i = tid; i < kBK * W; i += kWarps * 32) {
+      const int r = i / W;
+      const int c = i % W;
+      if constexpr (kDyn) {
+        ks[r * (W + 1) + c] = load_elem<T>(kb, j0 + r, c, sk, d);
+        vs[r * W + c] = load_elem<T>(vb, j0 + r, c, sk, d);
+      } else {
+        const bool in = j0 + r < sk;
+        const size_t g = static_cast<size_t>(j0 + r) * W + c;
+        ks[r * (W + 1) + c] = in ? to_float(kb[g]) : 0.f;
+        vs[r * W + c] = in ? to_float(vb[g]) : 0.f;
+      }
     }
     if (kSeg && tid < kBK) kid[tid] = j0 + tid < sk ? kv_ids[j0 + tid] : 0;
     __syncthreads();
@@ -139,11 +165,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // both conditions are uniform across the warp
       if (row >= sq) continue;
       if (causal && j0 > row + offset) continue;
-      const float* qr = qs + r * D;
-      const float* kr = ks + lane * (D + 1);
+      const float* qr = qs + r * W;
+      const float* kr = ks + lane * (W + 1);
       float s = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < D; ++c) s = fmaf(qr[c], kr[c], s);
+      for (int c = 0; c < W; ++c) s = fmaf(qr[c], kr[c], s);
       s *= scale;
       if (bias.p != nullptr && col < sk) s += bias_row(bias, bh, row)[col];
       bool valid = col < sk && (!causal || col <= row + offset);
@@ -165,10 +191,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
       for (int j = 0; j < kBK; ++j) {
         const float pj = __shfl_sync(kFullMask, pr, j);
-        const float* vr = vs + j * D + lane;
+        const float* vr = vs + j * W + lane;
 #pragma unroll
         for (int dd = 0; dd < kDPL; ++dd)
-          acc[rr][dd] = fmaf(pj, vr[dd * 32], acc[rr][dd]);
+          if (!kRagged || lane + dd * 32 < W)
+            acc[rr][dd] = fmaf(pj, vr[dd * 32], acc[rr][dd]);
       }
     }
   }
@@ -178,64 +205,51 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rr * kWarps + warp;
     if (row >= sq) continue;
     const float safe_l = l[rr] == 0.f ? 1.f : l[rr];
-    T* orow = o + (static_cast<size_t>(bh) * sq + row) * D;
+    T* orow = o + (static_cast<size_t>(bh) * sq + row) * d;
 #pragma unroll
     for (int dd = 0; dd < kDPL; ++dd)
-      store_as(orow + lane + dd * 32, acc[rr][dd] / safe_l);
+      if (!(kDyn || kRagged) || lane + dd * 32 < d)
+        store_as(orow + lane + dd * 32, acc[rr][dd] / safe_l);
     if (lane == 0)
       lse[static_cast<size_t>(bh) * sq + row] =
           l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(safe_l);
   }
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int W, bool kDyn, bool kSeg>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int n, int sq, int sk, int causal, float scale,
-                   ScoreBias bias, Segments seg, Dropout dr,
+                   void* lse, int n, int sq, int sk, int d, int causal,
+                   float scale, ScoreBias bias, Segments seg, Dropout dr,
                    cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<D, kSeg>();
+  const size_t smem = flash_smem_bytes<W, kSeg>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kSeg>,
+      flash_fwd_kernel<T, W, kDyn, kSeg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n, (sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D, kSeg><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_kernel<T, W, kDyn, kSeg><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, causal, scale, bias, seg, dr);
+      sq, sk, d, causal, scale, bias, seg, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_seg(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int n, int sq, int sk, int causal,
-                       float scale, ScoreBias bias, Segments seg, Dropout dr,
-                       cudaStream_t stream) {
-  return seg.q != nullptr
-             ? launch<T, D, true>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                                  bias, seg, dr, stream)
-             : launch<T, D, false>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                                   bias, seg, dr, stream);
-}
-
 template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int n, int sq, int sk, int causal,
-                     float scale, ScoreBias bias, Segments seg, Dropout dr,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_seg<T, 32>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                               bias, seg, dr, stream);
-    case 64:
-      return launch_seg<T, 64>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                               bias, seg, dr, stream);
-    case 128:
-      return launch_seg<T, 128>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                                bias, seg, dr, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(int d, int w, const void* q, const void* k,
+                     const void* v, void* o, void* lse, int n, int sq,
+                     int sk, int causal, float scale, ScoreBias bias,
+                     Segments seg, Dropout dr, cudaStream_t stream) {
+  return width::dispatch(d, w, [&](auto wc, auto dyn) {
+    constexpr int W = decltype(wc)::value;
+    constexpr bool kDyn = decltype(dyn)::value;
+    return seg.q != nullptr
+               ? launch<T, W, kDyn, true>(q, k, v, o, lse, n, sq, sk, d,
+                                          causal, scale, bias, seg, dr,
+                                          stream)
+               : launch<T, W, kDyn, false>(q, k, v, o, lse, n, sq, sk, d,
+                                           causal, scale, bias, seg, dr,
+                                           stream);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -253,23 +267,26 @@ static_assert(kBM == mma::kIdTile && kBN == mma::kIdTile,
               "the id ranges are per 64-position tile");
 
 // the q tile and two stages of K and V tiles, padded rows
-template <int D>
+template <int W>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * 5 * kBM * mma::ld<D>();
+  return sizeof(bf16) * 5 * kBM * mma::ld<W>();
 }
 
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int sq, int sk, int causal,
-                     float scale, ScoreBias bias, Segments seg,
-                     const int* __restrict__ q_rng,
-                     const int* __restrict__ kv_rng, Dropout dr) {
-  constexpr int kLd = mma::ld<D>();
-  constexpr int kKC = D / 16;  // k chunks of Q K^T
-  constexpr int kDT = D / 8;   // 8-wide n tiles of O
+// The tensor-core forward's body, W the body width, d the head dim (W
+// itself without kDyn); flash_fwd_mma_kernel and flash_fwd_mma_kernel3
+// below are its two launch configurations
+template <int W, bool kDyn, bool kSeg>
+__device__ __forceinline__ void fwd_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, int sq, int sk, int d, int causal, float scale,
+    ScoreBias bias, Segments seg, const int* __restrict__ q_rng,
+    const int* __restrict__ kv_rng, Dropout dr) {
+  constexpr int kLd = mma::ld<W>();
+  constexpr int kKC = W / 16;  // k chunks of Q K^T
+  constexpr int kDT = W / 8;   // 8-wide n tiles of O
   constexpr int kST = kBN / 8; // 8-wide n tiles of S
+  if constexpr (!kDyn) d = W;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kBM x kLd
   bf16* ks = qs + kBM * kLd;                     // 2 stages of kBN x kLd
@@ -285,8 +302,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rows[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
   const int offset = sk - sq;  // causal: col <= row + offset is visible
   const size_t qbase = static_cast<size_t>(bh) * sq;
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * d;
   const uint32_t bh_key = dropout_bh_key(dr, bh);
 
   // keys past kv_end are above the diagonal for every row of the tile
@@ -307,11 +324,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return j;
   };
   auto stage_kv = [&](int j, int st) {
-    mma::stage_tile<D, kThreads>(ks + st * kBN * kLd, kb, j * kBN, sk);
-    mma::stage_tile<D, kThreads>(vs + st * kBN * kLd, vb, j * kBN, sk);
+    mma::stage_tile<W, kThreads, kDyn>(ks + st * kBN * kLd, kb, j * kBN, sk,
+                                       d);
+    mma::stage_tile<W, kThreads, kDyn>(vs + st * kBN * kLd, vb, j * kBN, sk,
+                                       d);
   };
 
-  mma::stage_tile<D, kThreads>(qs, q + qbase * D, q0, sq);
+  mma::stage_tile<W, kThreads, kDyn>(qs, q + qbase * d, q0, sq, d);
   mma::cp_async_commit();
   int j = next_tile(0);
   if (j < n_tiles) stage_kv(j, 0);
@@ -339,7 +358,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[kKC][4];  // the warp's 16 q rows as A fragments
 #pragma unroll
   for (int kc = 0; kc < kKC; ++kc)
-    mma::ldmatrix_x4(qf[kc], mma::frag_a_ptr<D>(qs, warp * 16, kc * 16,
+    mma::ldmatrix_x4(qf[kc], mma::frag_a_ptr<W>(qs, warp * 16, kc * 16,
                                                 lane));
 
   int st = 0;
@@ -370,7 +389,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int np = 0; np < kST / 2; ++np) {
           uint32_t b[4];
           float c[2][4] = {};
-          mma::ldmatrix_x4(b, mma::frag_bt_ptr<D>(kt, np * 16, kc * 16,
+          mma::ldmatrix_x4(b, mma::frag_bt_ptr<W>(kt, np * 16, kc * 16,
                                                   lane));
           mma::mma_16816(c[0], qf[kc], b[0], b[1]);
           mma::mma_16816(c[1], qf[kc], b[2], b[3]);
@@ -451,9 +470,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t a[4];
         mma::pack_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < W / 16; ++dp) {
           uint32_t b[4];
-          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<D>(vt, kc * 16, dp * 16,
+          mma::ldmatrix_x4_trans(b, mma::frag_a_ptr<W>(vt, kc * 16, dp * 16,
                                                        lane));
           mma::mma_16816(acc[2 * dp], a, b[0], b[1]);
           mma::mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
@@ -473,67 +492,90 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = rows[r];
     if (row >= sq) continue;
     const float safe_l = l[r] == 0.f ? 1.f : l[r];
-    bf16* orow = o + (qbase + row) * D + 2 * t;
+    bf16* orow = o + (qbase + row) * d + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < kDT; ++dn)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8) =
-          __floats2bfloat162_rn(acc[dn][2 * r] / safe_l,
-                                acc[dn][2 * r + 1] / safe_l);
+      if (!kDyn || dn * 8 < d)  // the first d columns
+        *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8) =
+            __floats2bfloat162_rn(acc[dn][2 * r] / safe_l,
+                                  acc[dn][2 * r + 1] / safe_l);
     if (t == 0)
       lse[qbase + row] = l[r] == 0.f ? CUDART_INF_F : m[r] + logf(safe_l);
   }
 }
 
-template <int D, bool kSeg>
+template <int W, bool kDyn, bool kSeg>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int d,
+                     int causal, float scale, ScoreBias bias, Segments seg,
+                     const int* __restrict__ q_rng,
+                     const int* __restrict__ kv_rng, Dropout dr) {
+  fwd_mma_body<W, kDyn, kSeg>(q, k, v, o, lse, sq, sk, d, causal, scale,
+                              bias, seg, q_rng, kv_rng, dr);
+}
+
+// The body held to three blocks an SM, as the fixed width 64 reaches on its
+// own: the launch at a run-time d at widths 64 to 96 (left alone, ptxas
+// gave width 80 227 registers, two blocks, and made it slower than width
+// 96 at 168; below 64 the bound only raised the count). A kernel of its
+// own, since any explicit blocks-an-SM bound, 1 included, changes the
+// fixed widths' code (width 64: 200 registers, not 168)
+template <int W, bool kDyn, bool kSeg>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_fwd_mma_kernel3(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int d,
+                      int causal, float scale, ScoreBias bias, Segments seg,
+                      const int* __restrict__ q_rng,
+                      const int* __restrict__ kv_rng, Dropout dr) {
+  fwd_mma_body<W, kDyn, kSeg>(q, k, v, o, lse, sq, sk, d, causal, scale,
+                              bias, seg, q_rng, kv_rng, dr);
+}
+
+template <int W, bool kDyn, bool kSeg>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int n, int sq, int sk, int causal, float scale,
-                   ScoreBias bias, Segments seg, const int* q_rng,
-                   const int* kv_rng, Dropout dr, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+                   void* lse, int n, int sq, int sk, int d, int causal,
+                   float scale, ScoreBias bias, Segments seg,
+                   const int* q_rng, const int* kv_rng, Dropout dr,
+                   cudaStream_t stream) {
+  const auto kernel = [] {
+    if constexpr (kDyn && W >= 64 && W <= 96)
+      return flash_fwd_mma_kernel3<W, kDyn, kSeg>;
+    else
+      return flash_fwd_mma_kernel<W, kDyn, kSeg>;
+  }();
+  const size_t smem = smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D, kSeg>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n, (sq + kBM - 1) / kBM);
-  flash_fwd_mma_kernel<D, kSeg><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), sq, sk, causal, scale, bias, seg, q_rng,
+      static_cast<float*>(lse), sq, sk, d, causal, scale, bias, seg, q_rng,
       kv_rng, dr);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_seg(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int n, int sq, int sk, int causal,
-                       float scale, ScoreBias bias, Segments seg,
-                       const int* q_rng, const int* kv_rng, Dropout dr,
-                       cudaStream_t stream) {
-  return seg.q != nullptr
-             ? launch<D, true>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                               bias, seg, q_rng, kv_rng, dr, stream)
-             : launch<D, false>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                                bias, seg, q_rng, kv_rng, dr, stream);
-}
-
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int n, int sq, int sk, int causal,
-                     float scale, ScoreBias bias, Segments seg,
-                     const int* q_rng, const int* kv_rng, Dropout dr,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_seg<32>(q, k, v, o, lse, n, sq, sk, causal, scale, bias,
-                            seg, q_rng, kv_rng, dr, stream);
-    case 64:
-      return launch_seg<64>(q, k, v, o, lse, n, sq, sk, causal, scale, bias,
-                            seg, q_rng, kv_rng, dr, stream);
-    case 128:
-      return launch_seg<128>(q, k, v, o, lse, n, sq, sk, causal, scale,
-                             bias, seg, q_rng, kv_rng, dr, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(int d, int w, const void* q, const void* k,
+                     const void* v, void* o, void* lse, int n, int sq,
+                     int sk, int causal, float scale, ScoreBias bias,
+                     Segments seg, const int* q_rng, const int* kv_rng,
+                     Dropout dr, cudaStream_t stream) {
+  return width::dispatch(d, w, [&](auto wc, auto dyn) {
+    constexpr int W = decltype(wc)::value;
+    constexpr bool kDyn = decltype(dyn)::value;
+    return seg.q != nullptr
+               ? launch<W, kDyn, true>(q, k, v, o, lse, n, sq, sk, d, causal,
+                                       scale, bias, seg, q_rng, kv_rng, dr,
+                                       stream)
+               : launch<W, kDyn, false>(q, k, v, o, lse, n, sq, sk, d,
+                                        causal, scale, bias, seg, q_rng,
+                                        kv_rng, dr, stream);
+  });
 }
 
 }  // namespace tc
@@ -541,8 +583,11 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace apex_port
 
-// C entry point, bound with ctypes. dtype: 0 fp32 (the SIMT body), 1 bf16
-// (the tensor-core body; q, k, v 16-byte aligned). `bias` is null or an
+// C entry point, bound with ctypes, one a group of widths
+// (flash_width.cuh: apex_flash_fwd_p<group>). d is the head dim and w its
+// body width (_kernels.py::flash_width), which the group must hold. dtype:
+// 0 fp32 (the SIMT body), 1 bf16 (the tensor-core body; q, k, v 16-byte
+// aligned). `bias` is null or an
 // fp32 bias read as common.cuh::ScoreBias with `heads` and the strides
 // `sb`, `sh`, `sr`. `q_ids`/`kv_ids` are null or int32 segment ids
 // (b, sq)/(b, sk) read as common.cuh::Segments with `seg_heads` heads per
@@ -552,14 +597,12 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 // is on iff `dropout`; then `seed`, `thresh` and `inv_keep` are as in
 // common.cuh::Dropout. Returns the cudaError_t of the launch (0 on
 // success).
-extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int n, int sq, int sk,
-                              int d, int dtype, int causal, float scale,
-                              const void* bias, int heads, int sb, int sh,
-                              int sr, const void* q_ids, const void* kv_ids,
-                              int seg_heads, const void* q_rng,
-                              const void* kv_rng, int dropout, unsigned seed,
-                              int thresh, float inv_keep, void* stream) {
+extern "C" int APEX_FLASH_ENTRY(apex_flash_fwd)(
+    const void* q, const void* k, const void* v, void* o, void* lse, int n,
+    int sq, int sk, int d, int w, int dtype, int causal, float scale,
+    const void* bias, int heads, int sb, int sh, int sr, const void* q_ids,
+    const void* kv_ids, int seg_heads, const void* q_rng, const void* kv_rng,
+    int dropout, unsigned seed, int thresh, float inv_keep, void* stream) {
   using namespace apex_port;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ScoreBias bi{static_cast<const float*>(bias), heads, sb, sh, sr};
@@ -567,13 +610,13 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(kv_ids), seg_heads};
   const Dropout dr{dropout, seed, thresh, inv_keep};
   if (dtype == kFloat32)
-    return launch_d<float>(d, q, k, v, o, lse, n, sq, sk, causal, scale, bi,
-                           sg, dr, st);
+    return launch_d<float>(d, w, q, k, v, o, lse, n, sq, sk, causal, scale,
+                           bi, sg, dr, st);
   if (dtype == kBFloat16) {
     if (sg.q != nullptr && (q_rng == nullptr || kv_rng == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-    return tc::launch_d(d, q, k, v, o, lse, n, sq, sk, causal, scale, bi, sg,
-                        static_cast<const int*>(q_rng),
+    return tc::launch_d(d, w, q, k, v, o, lse, n, sq, sk, causal, scale, bi,
+                        sg, static_cast<const int*>(q_rng),
                         static_cast<const int*>(kv_rng), dr, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

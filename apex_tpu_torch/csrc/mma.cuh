@@ -23,15 +23,16 @@
 namespace apex_port {
 namespace mma {
 
-// bf16 elements a shared tile row holds beyond D: 16 bytes of pad, so the
-// eight 16-byte row reads of one ldmatrix 8x8 matrix fall in eight
-// distinct groups of four banks (row strides of 80, 144 and 272 bytes at
-// D 32, 64 and 128), and every row start stays 16-byte aligned for
-// cp.async
+// bf16 elements a shared tile row holds beyond its body width W: 16 bytes
+// of pad, so the eight 16-byte row reads of one ldmatrix 8x8 matrix fall
+// in eight distinct groups of four banks at every W the kernels take (a
+// multiple of 16: row strides of 2 W + 16 bytes, 48 at W 16, 80, 144 and
+// 272 at W 32, 64 and 128, 528 at W 256), and every row start stays
+// 16-byte aligned for cp.async
 constexpr int kPad = 8;
 
-template <int D>
-__host__ __device__ constexpr int ld() { return D + kPad; }
+template <int W>
+__host__ __device__ constexpr int ld() { return W + kPad; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -64,6 +65,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 matrices transposed: lanes 0..7 give the row addresses of
+// matrix 0, lanes 8..15 those of matrix 1 (the other lanes' are not read)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 
@@ -136,24 +147,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage rows [r0, r0 + 64) of a (len, D) bf16 slice into a padded
-// [64][ld<D>()] tile with cp.async, `kThreads` threads; rows at or past
-// `len` are zero-filled (their source address is the slice's start)
-template <int D, int kThreads>
+// Stage rows [r0, r0 + 64) of a (len, d) bf16 slice into a padded
+// [64][ld<W>()] tile of body width W with cp.async, `kThreads` threads;
+// rows at or past `len` are zero-filled (their source address is the
+// slice's start). Without kDyn, d is W; with it, d is a run-time multiple
+// of 8 below or at W (the slice's row stride), and columns d..W-1 are
+// zero-filled by the copy's src-size operand, so the products over the
+// body width add exact zeros
+template <int W, int kThreads, bool kDyn = false>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src, int r0,
-                                           int len) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  static_assert(64 * kChunks % kThreads == 0, "uneven tile staging");
+                                           int len, int d = W) {
+  constexpr int kChunks = W / 8;  // 16-byte chunks a row
+  constexpr int kTotal = 64 * kChunks;
+  const int stride = kDyn ? d : W;
 #pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+  for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
     const int i = it * kThreads + threadIdx.x;
+    // widths whose chunks do not split evenly over the threads (80 and 112
+    // over the dkv body's 256)
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
-    const bool in = r0 + r < len;
+    const bool in = r0 + r < len && (!kDyn || c < d);
     const __nv_bfloat16* g =
-        src + (in ? static_cast<size_t>(r0 + r) * D + c : 0);
-    cp_async_16(dst + r * ld<D>() + c, g, in);
+        src + (in ? static_cast<size_t>(r0 + r) * stride + c : 0);
+    cp_async_16(dst + r * ld<W>() + c, g, in);
   }
 }
 

@@ -41,15 +41,25 @@ or a paged :class:`~apex_tpu_torch.serving.cache.PagedKVCache` (the
 reference's paged legs: prefill into pool blocks, decode through block
 tables with copy-on-write first) and the speculative verify leg
 (:meth:`GPTModel.verify_forward`: each slot's last token and its drafts in
-one pass, both decode kernels at ``q_len = k + 1``). Still to come: remat,
-sequence parallelism, tp > 1 and the pipeline split.
+one pass, both decode kernels at ``q_len = k + 1``).
+
+Activation remat: ``GPTConfig.remat_policy`` (``"none"``, ``"full"``,
+``"selective"``, ``"offload"`` or a :class:`~apex_tpu_torch.remat.
+RematPolicy`; the deprecated ``remat=True`` means ``"full"``) and
+``remat_names`` are resolved once, in the constructor, as the reference
+resolves them. :meth:`GPTModel.transform` wraps each layer with the policy;
+under a name-based policy the layer tags its LayerNorm, QKV, projection and
+MLP outputs and the flash op its context and logsumexp
+(:data:`~apex_tpu_torch.remat.CHECKPOINT_NAMES`), and under ``none`` and
+``full`` it calls no tag. Still to come: sequence parallelism, tp > 1 and
+the pipeline split.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +72,7 @@ from apex_tpu_torch.ops.flash_attention import (decode_attention,
                                                 flash_attention,
                                                 paged_decode_attention)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.remat import RematPolicy, tag as _remat_tag
 from apex_tpu_torch.serving.cache import PagedKVCache, store_roundtrip
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
@@ -89,6 +100,16 @@ class GPTConfig:
     # is passed to forward/loss
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
+    # Per-layer activation rematerialization, as in the reference:
+    # ``remat_policy`` None | "none" | "full" | "selective" | "offload" | a
+    # remat.RematPolicy ("selective" keeps the registry-tagged GEMM and
+    # flash outputs and recomputes the LayerNorms, gelu and adds: see
+    # apex_tpu_torch/remat.py); ``remat: bool`` is the deprecated spelling,
+    # honoured (True -> "full") when remat_policy is None; ``remat_names``:
+    # a custom save-list for the name-based modes
+    remat: bool = False
+    remat_policy: Any = None
+    remat_names: Optional[Tuple[str, ...]] = None
 
     @property
     def ffn(self) -> int:
@@ -97,6 +118,26 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def _resolve_remat(cfg: GPTConfig) -> RematPolicy:
+    """The config's remat policy, resolved once (the legacy bool's
+    deprecation warning fires here), with ``remat_names`` folded in: the
+    reference's ``GPTModel.__init__`` checks and messages."""
+    policy = RematPolicy.resolve(cfg.remat_policy, legacy_bool=cfg.remat,
+                                 owner=type(cfg).__name__)
+    if cfg.remat_names is None:
+        return policy
+    if not policy.uses_names:
+        raise ValueError(
+            "remat_names requires a name-based remat_policy "
+            f"('selective' or 'offload'), got {policy.mode!r}")
+    if policy.names is not None and policy.names != tuple(cfg.remat_names):
+        raise ValueError(
+            "conflicting save-lists: remat_policy carries "
+            f"names={policy.names!r} but remat_names="
+            f"{tuple(cfg.remat_names)!r}; set the list in one place")
+    return dataclasses.replace(policy, names=tuple(cfg.remat_names))
 
 
 class _Norm(nn.Module):
@@ -163,6 +204,11 @@ class GPTModel(nn.Module):
             raise ValueError("hidden_size must divide num_attention_heads")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.remat_policy = _resolve_remat(cfg)
+        # tags only under a name-based policy: none and full run the
+        # untagged forward
+        self._tag = (_remat_tag if self.remat_policy.uses_names
+                     else (lambda x, name: x))
         self.embedding = _Embedding(cfg, dev)
         self.layers = nn.ModuleList(_Layer(cfg, dev)
                                     for _ in range(cfg.num_layers))
@@ -191,10 +237,13 @@ class GPTModel(nn.Module):
 
     def _ln(self, p: _Norm, x: torch.Tensor) -> torch.Tensor:
         # bf16 activations, fp32 LN params -> params cast, bf16 out
-        return fused_layer_norm_affine(
+        out = fused_layer_norm_affine(
             x, p.weight.to(x.dtype), p.bias.to(x.dtype),
             self.cfg.hidden_size, eps=self.cfg.layernorm_epsilon,
             use_kernel=self.cfg.use_kernel)
+        # not in the selective save-list: recomputing a LayerNorm is one
+        # kernel launch
+        return self._tag(out, "ln_out")
 
     def _split_heads(self, qkv: torch.Tensor):
         """``(..., 3*hidden)`` -> q, k, v ``(..., heads, head_dim)``. The
@@ -209,13 +258,16 @@ class GPTModel(nn.Module):
                    collect_kv: bool = False, bias=None):
         b, s, _ = x.shape
         qkv, _ = lp.qkv(x)
+        qkv = self._tag(qkv, "qkv_out")
         q, k, v = (t.transpose(1, 2) for t in self._split_heads(qkv))
         rate = self.cfg.attention_dropout if attn_seed is not None else 0.0
         ctx = flash_attention(q, k, v, bias=bias, causal=self.causal,
                               use_kernel=self.cfg.use_kernel,
-                              dropout_rate=rate, dropout_seed=attn_seed)
+                              dropout_rate=rate, dropout_seed=attn_seed,
+                              checkpoint_names=self.remat_policy.uses_names)
         ctx = ctx.transpose(1, 2).reshape(b, s, -1)
         out, _ = lp.proj(ctx)
+        out = self._tag(out, "attn_proj_out")
         if collect_kv:
             # prefill: the serving cache wants this layer's K/V
             return out, (k, v)
@@ -223,9 +275,12 @@ class GPTModel(nn.Module):
 
     def _mlp(self, lp: _Layer, x: torch.Tensor) -> torch.Tensor:
         h, _ = lp.fc1(x)
+        # tagged before gelu: the same bytes as its output, and only the
+        # elementwise gelu is left to recompute for fc2's weight gradient
+        h = self._tag(h, "mlp_fc1_out")
         h = F.gelu(h, approximate="tanh")
         out, _ = lp.fc2(h)
-        return out
+        return self._tag(out, "mlp_fc2_out")
 
     def _layer(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
                generator: Optional[torch.Generator] = None,
@@ -254,10 +309,11 @@ class GPTModel(nn.Module):
                   generator: Optional[torch.Generator] = None,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The layer stack and the final LayerNorm, every layer's
-        attention taking the additive score ``bias`` (if any). With a
-        ``generator`` and a non-zero dropout rate: train-mode dropout, one
-        attention seed per layer drawn first (the reference's
-        ``_layer_rngs``), then the hidden masks layer by layer."""
+        attention taking the additive score ``bias`` (if any), each layer
+        wrapped by the remat policy. With a ``generator`` and a non-zero
+        dropout rate: train-mode dropout, one attention seed per layer
+        drawn first (the reference's ``_layer_rngs``), then the hidden
+        masks layer by layer (the same masks under every policy)."""
         cfg = self.cfg
         if cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0:
             generator = None
@@ -266,8 +322,9 @@ class GPTModel(nn.Module):
             seeds = torch.randint(0, 2 ** 31 - 1, (len(self.layers),),
                                   generator=generator,
                                   device=generator.device).tolist()
+        layer_fn = self.remat_policy.wrap(self._layer)
         for lp, seed in zip(self.layers, seeds):
-            x = self._layer(lp, x, seed, generator, bias=bias)
+            x = layer_fn(lp, x, seed, generator, bias=bias)
         return self._ln(self.final_ln, x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:

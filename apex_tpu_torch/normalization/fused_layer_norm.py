@@ -35,6 +35,7 @@ from torch import nn
 
 from apex_tpu_torch import _kernels
 from apex_tpu_torch._device import resolve_device, use_kernel_for
+from apex_tpu_torch.remat import region_op
 
 __all__ = [
     "fused_layer_norm", "fused_layer_norm_affine",
@@ -113,7 +114,9 @@ class _FusedNorm(torch.autograd.Function):
     def forward(ctx, x2d, weight, bias, eps: float, rms: bool, out_dtype,
                 use_kernel: bool):
         fwd = _kernels.ln_fwd if use_kernel else _ln_fwd_plain
-        out, mean, invvar = fwd(x2d, weight, bias, eps, rms, out_dtype)
+        # one op of a name-based remat region (apex_tpu_torch/remat.py)
+        out, mean, invvar = region_op(fwd, x2d, weight, bias, eps, rms,
+                                      out_dtype)
         ctx.save_for_backward(x2d, mean, invvar, weight)
         ctx.rms = rms
         ctx.bias_dtype = None if bias is None else bias.dtype

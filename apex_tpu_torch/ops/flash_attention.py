@@ -53,9 +53,14 @@ Kernel selection follows the reference's ``use_pallas`` contract as
 ``use_kernel``: ``None`` runs the kernel iff the tensors lie on a CUDA
 device, ``True`` on CPU tensors raises, ``False`` runs the plain version.
 On CUDA there is no shape-based fallback: the kernels mask ragged lengths
-themselves, and whatever they do not take raises (the flash kernels take
-head dims 32, 64 and 128, the two decode kernels every multiple of 8 from
-8 to 256, the reference's ``d % 8 == 0``).
+themselves, and whatever they do not take raises (the flash and decode
+kernels take every head dim ``d % 8 == 0`` from 8 to 256, the reference's
+rule up to the widest body that fits a block's shared memory).
+
+Under a name-based remat policy (:mod:`apex_tpu_torch.remat`) the flash
+forward is one op of the recorded layer, and with ``checkpoint_names`` it
+tags its context ``flash_ctx`` and its logsumexp ``flash_lse``, so the
+backward reads both and the forward kernel is not run again.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ import torch
 
 from apex_tpu_torch import _kernels
 from apex_tpu_torch._device import use_kernel_for
+from apex_tpu_torch.remat import region_op, tag
 
 __all__ = ["flash_attention", "mha_reference", "decode_attention",
            "paged_decode_attention", "dropout_keep_mask", "NEG_INF"]
@@ -402,19 +408,24 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q3, k3, v3, bias4, q_ids, kv_ids, causal: bool,
                 scale: float, dropout_rate: float, seed, use_kernel: bool,
-                need_dbias: bool):
+                need_dbias: bool, checkpoint_names: bool = False):
         segments = None if q_ids is None else (q_ids, kv_ids)
         if use_kernel:
             ranges = (None if segments is None else
                       tuple(_kernels.seg_tile_ranges(i) for i in segments))
-            out, lse = _kernels.flash_fwd(
-                q3, k3, v3, causal, scale, dropout_rate, seed, bias=bias4,
-                segments=segments, tile_ranges=ranges)
+            out, lse = region_op(
+                _kernels.flash_fwd, q3, k3, v3, causal, scale, dropout_rate,
+                seed, bias=bias4, segments=segments, tile_ranges=ranges)
             ctx.tile_ranges = ranges
         else:
-            out, lse = _flash_fwd_plain(q3, k3, v3, causal, scale,
-                                        dropout_rate, seed, bias=bias4,
-                                        segments=segments)
+            out, lse = region_op(_flash_fwd_plain, q3, k3, v3, causal, scale,
+                                 dropout_rate, seed, bias=bias4,
+                                 segments=segments)
+        if checkpoint_names:
+            # both residuals of the backward: kept together, they keep the
+            # forward kernel out of the recompute
+            out = tag(out, "flash_ctx")
+            lse = tag(lse, "flash_lse")
         ctx.save_for_backward(q3, k3, v3, out, lse, bias4, q_ids, kv_ids)
         ctx.args = (causal, scale, dropout_rate, seed)
         ctx.use_kernel = use_kernel
@@ -448,7 +459,10 @@ class _FlashAttention(torch.autograd.Function):
                 dbias = _flash_dbias_plain(*args, **kw)
         if ctx.needs_input_grad[3] and not ctx.need_dbias:
             dbias = torch.zeros_like(bias4)
-        return (dq, dk, dv, dbias) + (None,) * 8
+        # None for the rest of the inputs given (checkpoint_names may be
+        # left to its default)
+        return (dq, dk, dv, dbias) + (None,) * (len(ctx.needs_input_grad)
+                                                - 4)
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False,
@@ -456,7 +470,7 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
                     use_kernel: Optional[bool] = None,
                     bias_requires_grad: bool = False,
                     dropout_rate: float = 0.0, dropout_seed=None,
-                    segment_ids=None):
+                    segment_ids=None, checkpoint_names: bool = False):
     """Fused attention over ``(b, h, s, d)`` tensors, differentiable.
 
     This is :class:`_FlashAttention`: the ``flash_fwd``/``flash_bwd_dq``/
@@ -480,7 +494,12 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
     self-attention or a ``(q_ids, kv_ids)`` pair; a score is visible only
     where the two ids are equal (with ``causal``, packed causal LM
     batches). Ids are compared as int32, exactly; ids outside int32 raise.
-    A query row whose id no key shares gets out 0."""
+    A query row whose id no key shares gets out 0.
+
+    ``checkpoint_names``: tag the context ``flash_ctx`` and the logsumexp
+    ``flash_lse`` (:mod:`apex_tpu_torch.remat`), so a name-based remat
+    policy keeps both and the forward kernel out of the recompute. Off by
+    default, so an untagged forward calls no tag."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -502,7 +521,7 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
         k.reshape(b * h, sk, d).contiguous(),
         v.reshape(b * h, sk, d).contiguous(), bias4, q_ids, kv_ids,
         bool(causal), float(softmax_scale), float(dropout_rate), seed,
-        kernel, bool(bias_requires_grad))
+        kernel, bool(bias_requires_grad), bool(checkpoint_names))
     return out.reshape(b, h, sq, d)
 
 

@@ -43,7 +43,15 @@ non-zero and prints no result. Phases, each fatal on failure:
    kernels at every head dim they take (d 8 to 256 in steps of 8, bf16 q
    over a bf16 cache at q_len 1 and 3, over int8 at one d of each
    lane-group width, fp32 past d 128, an empty slot in each), and d 4, 12
-   and 264 refused. Kernel, plain and library (SDPA
+   and 264 refused; the four flash kernels (``check_flash_head_dims``) at
+   every head dim from 8 to 256 in steps of 8, each at its body width
+   ``_kernels.flash_width(d)`` (4 batch-heads x 96 x 96, causal, bf16 and
+   fp32, bf16 with a ``(2, 2, 1, 96)`` bias, dropout 0.1 and the folded
+   dbias, fp32 with a ``(1, 2, 96, 96)`` table and ``flash_dbias``), each
+   launch repeated bit for bit, d 4, 12 and 264 refused, and
+   (``flash_dim_timings``) B1-B3 at 96 x 1024 x 1024, causal, bf16, at d
+   16, 64, 80, 96, 128 and 256 beside each d's bound: no d may be slower
+   than a larger one. Kernel, plain and library (SDPA
    forward, and SDPA backward for the dQ/dK/dV pair: yardsticks only, the
    port never calls SDPA; no PyTorch call reads a block table, so the paged
    kernel is timed beside the dense decode kernel instead) device times
@@ -168,7 +176,19 @@ non-zero and prints no result. Phases, each fatal on failure:
    then one step of each path with train-mode dropout (hidden and
    attention, 0.1, a generator on the card), which must agree too. Every
    GPT pass (prefill, decode step, training forward) must launch
-   ``ln_fwd`` 25 times, and every training backward ``ln_bwd`` 25 times;
+   ``ln_fwd`` 25 times, and every training backward ``ln_bwd`` 25 times.
+   Beside it, ``serve_small`` (after the dense serving phase) serves
+   ``examples/gpt_serve.py``'s default model (head dim 16) with its demo
+   requests, teacher-forced logits against the plain path; ``train_small``
+   trains ``examples/gpt_pretrain.py``'s model at one device (head dim 8)
+   for 5 steps, the losses against the plain path's; and ``train_remat``
+   runs ``bench.py::bench_gpt_remat``'s legs (``none``, ``selective``,
+   ``full``, ``offload``) on this step: step ms, tokens/s, peak memory,
+   launches, GEMMs and host copies a step, losses and step-0 grads equal
+   to ``none``'s bit for bit, peak memory ``none > selective > full``,
+   ``flash_fwd`` 12 a step (24 under ``full``), no GEMM run again under
+   ``selective`` or ``offload``, and a dropout step under ``full`` and
+   ``selective`` equal to ``none``'s;
 12. BERT-base pretraining at full width (google-research/bert's
    ``uncased_L-12_H-768_A-12``: vocab 30522, hidden 768, 12 layers, 12
    heads, ffn 3072, 512 positions, 2 token types, eps 1e-12; random
@@ -547,17 +567,20 @@ def retaken(torch, kern, what: str, args, kw: dict, visible: int,
           f"visible scores taken again ({count / visible:.3g})")
 
 
-# csrc/flash_fwd.cu and csrc/flash_bwd.cu: the bf16 tensor-core bodies and
-# their dynamic shared memory a block (bf16 rows of D + 8 elements: the
+# csrc/flash_fwd.cu and csrc/flash_bwd.cu: the bf16 tensor-core bodies (the
+# forward's kernel3 the launch held to three blocks an SM) and
+# their dynamic shared memory a block (bf16 rows of W + 8 elements, W the
+# body width: the
 # 64-row q tile and two stages of 64 keys of K and V; q, do and two stages
 # of K and V, plus two stages of 64 key ids and K and V norms, 4 bytes
 # each; K, V and two stages of q and do, plus two stages of 64 lse, delta,
 # query ids and q and do row norms)
-MMA_KERNELS = {"flash_fwd_mma_kernel": lambda d: 2 * 5 * 64 * (d + 8),
+MMA_KERNELS = {"flash_fwd_mma_kernel3": lambda w: 2 * 5 * 64 * (w + 8),
+               "flash_fwd_mma_kernel": lambda w: 2 * 5 * 64 * (w + 8),
                "flash_bwd_dq_mma_kernel":
-                   lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 3 * 64,
+                   lambda w: 2 * 6 * 64 * (w + 8) + 4 * 2 * 3 * 64,
                "flash_bwd_dkv_mma_kernel":
-                   lambda d: 2 * 6 * 64 * (d + 8) + 4 * 2 * 5 * 64}
+                   lambda w: 2 * 6 * 64 * (w + 8) + 4 * 2 * 5 * 64}
 
 
 # the template arguments of ln_bwd_warp_kernel<x, dy, w, values a lane> as
@@ -581,20 +604,22 @@ def mma_resources(kern) -> None:
         use = (f"{regs.group(1)} registers, spill {spill.group(1)}/"
                f"{spill.group(2)} bytes")
         name = re.search(r"(" + "|".join(MMA_KERNELS) + r")"
-                         r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", blk)
+                         r"ILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?", blk)
         row = re.search(r"ln_bwd_warp_kernelI((?:" + LN_BWD_TYPES
                         + r"){3})Li(\d+)E", blk)
         if name:
-            kname, d, seg, fold = name.groups()
-            found.append(f"{kname}<d {d}{', ids' if seg == '1' else ''}"
+            kname, w, dyn, seg, fold = name.groups()
+            found.append(f"{kname}<width {w}"
+                         f"{', d run-time' if dyn == '1' else ''}"
+                         f"{', ids' if seg == '1' else ''}"
                          f"{', dbias fold' if fold == '1' else ''}> {use}, "
-                         f"{MMA_KERNELS[kname](int(d))} B shared")
+                         f"{MMA_KERNELS[kname](int(w))} B shared")
         elif row:
             types = "/".join("fp32" if t == "f" else "bf16" for t in
                              re.findall(LN_BWD_TYPES, row.group(1)))
             ln.append(f"<{types}, {row.group(2)} a lane> {use}")
     print("ptxas -v, the tensor-core bodies (128 threads a block; the dkv "
-          "body 256 at d 128): "
+          "body 256 past width 64): "
           + ("; ".join(found) if found else
              "not in this build's log (built before this process)"))
     print("ptxas -v, ln_bwd_warp_kernel <x/dy/weight, values a lane> (256 "
@@ -1166,6 +1191,171 @@ def check_head_dims(torch, fa, cache_mod, kern) -> None:
           f"limit: decode_attention {worst['decode_attention']:.3g}, "
           f"paged_decode_attention {worst['paged_decode_attention']:.3g}; "
           f"d {DECODE_DIMS_OUT} raise NotImplementedError")
+
+
+FLASH_DIMS = tuple(range(8, 257, 8))
+FLASH_DIMS_OUT = (4, 12, 264)
+# the head-dim check's shape: (batch, heads, seq) and the folded dbias's
+# bias (2, 2, 1, 96) with dropout, bf16 inputs
+FLASH_DIMS_SHAPE = (2, 2, 96)
+FLASH_DIMS_DROPOUT = 0.1
+# the head-dim timings: GPT's attention shape at the head dims of the
+# reference's models (16: examples/gpt_serve.py; 64: GPT-2; 80: GPT-3 2.7B,
+# Pythia-2.8B, Phi-2; 96, 128, 256)
+FLASH_TIMING_DIMS = (16, 64, 80, 96, 128, 256)
+FLASH_HEAD_DIMS = ("d % 8 == 0, 8 to 256, each at the body width "
+                   "_kernels.flash_width(d): d rounded up to 16, or to 32 "
+                   "past 128")
+
+
+def check_flash_head_dims(torch, fa, kern, card: str) -> None:
+    """``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, the dbias
+    folded into ``flash_bwd_dkv`` and ``flash_dbias`` against their plain
+    versions at every head dim they take (:data:`FLASH_DIMS`), each at its
+    body width: 4 batch-heads x 96 x 96, causal, in bf16 and fp32, then in
+    bf16 with a ``(2, 2, 1, 96)`` bias and dropout 0.1 with the fold, and
+    in fp32 with a ``(1, 2, 96, 96)`` table and dropout 0.1 with
+    ``flash_dbias``. Each launch is repeated and must give the same bits;
+    :data:`FLASH_DIMS_OUT` must raise ``NotImplementedError`` in all three
+    kernels. Prints the worst share of the limit per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, h, s = FLASH_DIMS_SHAPE
+    n = b * h
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "fold": 0.0, "flash_dbias": 0.0}
+
+    def twice(what, launch):
+        first = launch()
+        first = first if isinstance(first, tuple) else (first,)
+        again = launch()
+        same_bits(torch, what, first, again if isinstance(again, tuple)
+                  else (again,))
+        return first
+
+    runs = 0
+    for d in FLASH_DIMS:
+        scale = d ** -0.5
+        cases = [(torch.bfloat16, None, 0.0), (torch.float32, None, 0.0),
+                 (torch.bfloat16, rand((b, h, 1, s), torch.float32),
+                  FLASH_DIMS_DROPOUT),
+                 (torch.float32, rand((1, h, s, s), torch.float32),
+                  FLASH_DIMS_DROPOUT)]
+        for dt, bias, rate in cases:
+            what = (f"d {d} (width {kern.flash_width(d)}) {str(dt)[6:]}"
+                    + (f", {tuple(bias.shape)} bias and dropout"
+                       if bias is not None else ""))
+            seed = 1313 if rate else None
+            q, k, v, do = (rand((n, s, d), dt) for _ in range(4))
+            tol = tol_for(torch, dt)
+            out_k, lse_k = twice(f"flash_fwd {what}", lambda: kern.flash_fwd(
+                q, k, v, True, scale, rate, seed, bias=bias))
+            out_p, lse_p = fa._flash_fwd_plain(q, k, v, True, scale, rate,
+                                               seed, bias=bias)
+            torch.cuda.synchronize()
+            errs = {"flash_fwd": close(torch, [(out_k, out_p)], tol,
+                                       fwd_slack(torch, fa, q, k, v, True,
+                                                 scale, rate, seed, bias))}
+            compare_lse(torch, lse_k, lse_p, TOL_LSE, f"flash_fwd {what}")
+            delta = (do.float() * out_p.float()).sum(dim=-1)
+            args = (q, k, v, do, lse_p, delta, True, scale, rate, seed)
+            (dq_k,) = twice(f"flash_bwd_dq {what}",
+                            lambda: kern.flash_bwd_dq(*args, bias=bias))
+            dk_k, dv_k = twice(f"flash_bwd_dkv {what}",
+                               lambda: kern.flash_bwd_dkv(*args, bias=bias))
+            dq_p = fa._flash_bwd_dq_plain(*args, bias=bias)
+            dk_p, dv_p = fa._flash_bwd_dkv_plain(*args, bias=bias)
+            torch.cuda.synchronize()
+            errs["flash_bwd_dq"] = close(torch, [(dq_k, dq_p)], tol)
+            errs["flash_bwd_dkv"] = close(torch, [(dk_k, dk_p), (dv_k, dv_p)],
+                                          tol)
+            if bias is not None and kern.dbias_folds(bias.shape, dt):
+                # check_fold_case repeats the folded launch and holds its
+                # dK/dV to the unfolded launch's bit for bit
+                errs["fold"] = check_fold_case(torch, fa, kern, what, args,
+                                               bias, None)
+            elif bias is not None:
+                errs["flash_dbias"] = check_dbias_case(torch, fa, kern, what,
+                                                       args, bias, None)
+            for kname, (err, share) in errs.items():
+                check(share <= 1, f"{kname} {what}: err {err:.3g}, "
+                                  f"{share:.3g} x the limit")
+                worst[kname] = max(worst[kname], share)
+            runs += 1
+    for d in FLASH_DIMS_OUT:
+        q = rand((n, s, d), torch.bfloat16)
+        lse = torch.zeros((n, s), device="cuda")
+        for kname, launch in (
+                ("flash_fwd", lambda: kern.flash_fwd(q, q, q, True, 1.0)),
+                ("flash_bwd_dq", lambda: kern.flash_bwd_dq(
+                    q, q, q, q, lse, lse, True, 1.0)),
+                ("flash_bwd_dkv", lambda: kern.flash_bwd_dkv(
+                    q, q, q, q, lse, lse, True, 1.0))):
+            try:
+                launch()
+            except NotImplementedError:
+                continue
+            fail(f"{kname} took head dim {d}")
+    print(f"flash head dims: {runs} runs of flash_fwd, flash_bwd_dq and "
+          f"flash_bwd_dkv over d {FLASH_DIMS[0]}..{FLASH_DIMS[-1]} step 8 "
+          f"({n} batch-heads x {s} x {s}, causal; bf16, fp32, bf16 with a "
+          f"({b}, {h}, 1, {s}) bias, dropout {FLASH_DIMS_DROPOUT} and the "
+          f"folded dbias, fp32 with a (1, {h}, {s}, {s}) table, dropout "
+          f"{FLASH_DIMS_DROPOUT} and flash_dbias), each launch repeated bit "
+          f"for bit, worst share of "
+          f"the limit: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; d {FLASH_DIMS_OUT} raise NotImplementedError [{card}]")
+
+
+def flash_dim_timings(torch, fa, kern, card: str) -> dict:
+    """``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at GPT's
+    attention shape (96 x 1024 x 1024, causal, bf16) at each head dim of
+    :data:`FLASH_TIMING_DIMS`: device ms beside the bound of the true d's
+    bytes and operations, and the body width. No d may be slower than a
+    larger one in any of the three kernels. Returns ``{kernel: {d: ms}}``."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n, sq, sk, _ = TRAIN_ATTN
+    times = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    pairs = n * (sq * (sq + 1) // 2)   # visible (row, col) pairs, causal
+    row_bytes = n * sq * 4
+    for d in FLASH_TIMING_DIMS:
+        q, k, v, do = (torch.randn((n, sq, d), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = kern.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, do, lse, delta, True, scale)
+        tile = nbytes_of(q)
+        work = {"flash_fwd": (4 * tile + row_bytes, 2 * 2 * pairs * d),
+                "flash_bwd_dq": (5 * tile + 2 * row_bytes, 3 * 2 * pairs * d),
+                "flash_bwd_dkv": (6 * tile + 2 * row_bytes,
+                                  4 * 2 * pairs * d)}
+        calls = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, True, scale),
+                 "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args),
+                 "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args)}
+        shown = []
+        for kname, fn in calls.items():
+            ms = device_ms(torch, fn, iters=20)
+            times[kname][d] = ms
+            b_ms, b_by = bound(*work[kname])
+            shown.append(f"{kname} {ms:.4f} ms (bound {b_ms:.4f} ms, "
+                         f"{b_by})")
+        print(f"flash head dim {d} (body width {kern.flash_width(d)}), "
+              f"{n} x {sq} x {sk} causal bf16: " + ", ".join(shown)
+              + f" [{card}]")
+        del q, k, v, do, out, lse, delta, args
+    for kname, by_d in times.items():
+        for i, d in enumerate(FLASH_TIMING_DIMS):
+            for wider in FLASH_TIMING_DIMS[i + 1:]:
+                check(by_d[d] <= by_d[wider],
+                      f"{kname}: head dim {d} ({by_d[d]:.4f} ms) is slower "
+                      f"than head dim {wider} ({by_d[wider]:.4f} ms)")
+    print("flash head-dim timings: no head dim slower than a larger one in "
+          "flash_fwd, flash_bwd_dq or flash_bwd_dkv")
+    return times
 
 
 def check_flash_train(torch, fa, kern, card: str):
@@ -3397,18 +3587,28 @@ def serve_chaos(torch, kern, card: str, model) -> dict:
 
 def step_counts(torch, fn) -> dict:
     """Device activities of one call of ``fn`` under ``torch.profiler``, by
-    name: kernels, and memcpys (their names say ``DtoH`` or ``HtoD``). A
-    window the profiler recorded no kernel in is taken again (PERF.md
-    §7)."""
+    name: kernels, and memcpys (their names say ``DtoH`` or ``HtoD``). The
+    window records a second call, after a warm-up call the profiler traces
+    and drops: a window that opened on the step itself now and then lost
+    the step's first events (PR 11: 17 launches and 4 host-to-device copies
+    of a verify step; PR 13: one variant's four windows read them once in
+    four). A window the profiler recorded no kernel in is taken again
+    (PERF.md §7)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
+        active = []   # the recorded step's events, read as its cycle ends
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: active.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         seen = {}
-        for e in prof.key_averages():
+        for e in active:
             if e.device_type == DeviceType.CUDA and "Memset" not in e.key:
                 seen[e.key] = seen.get(e.key, 0) + e.count
         if any("Memcpy" not in k for k in seen):
@@ -3423,10 +3623,10 @@ def step_totals(seen: dict) -> tuple:
             sum(n for k, n in seen.items() if "HtoD" in k))
 
 
-# one-step profiler windows a variant is read over; a window now and then
-# comes back short, its first events lost (never long: the step before it
-# ends in a sync, and nothing launches after its one copy), so the
-# largest reading of each count is the step's
+# one-step profiler windows a variant is read over (each after a warm-up
+# step); should a window still come back short, its first events lost
+# (never long: the step before it ends in a sync, and nothing launches
+# after its one copy), the largest reading of each count is the step's
 HOST_COST_WINDOWS = 4
 
 
@@ -3510,6 +3710,44 @@ def grad_rel(torch, got: dict, want: dict) -> tuple:
                for n, w in want.items())
 
 
+def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float):
+    """A step function of ``bench.py::_gpt_train_step``'s training step on
+    a ``GPTModel(cfg)`` loaded from ``init_state``: ``GPTModel.loss`` on
+    ``tokens`` (the targets too), backward of the scaled loss, unscale,
+    ``all_finite``, ``DynamicLossScale.update`` (init scale 2**12) and
+    ``FusedAdam(lr).step`` with the skip; with a dropout rate in ``cfg``,
+    the masks from a generator on the card seeded 0. The step returns
+    ``(loss, finite, unscaled grads)``."""
+    from apex_tpu_torch.amp import DynamicLossScale, all_finite
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model = GPTModel(cfg, device="cuda")
+    model.load_state_dict(init_state)
+    params = dict(model.named_parameters())
+    opt = FusedAdam(lr=lr)
+    opt_state = opt.init(params)
+    scaler = DynamicLossScale(init_scale=2.0 ** 12)
+    carry = {"ls": scaler.init(device="cuda")}
+    rate = max(cfg.hidden_dropout, cfg.attention_dropout)
+    gen = torch.Generator(device="cuda").manual_seed(0) if rate else None
+
+    def step():
+        ls = carry["ls"]
+        for p in params.values():
+            p.grad = None
+        loss = model.loss(tokens, tokens, generator=gen)
+        (loss * ls.loss_scale).backward()
+        grads = scaler.unscale(ls, {n: p.grad for n, p in params.items()})
+        finite = all_finite(grads)
+        carry["ls"] = scaler.update(ls, finite)
+        opt.step(grads, opt_state, params, grads_finite=finite)
+        return loss.detach(), finite, grads
+
+    step.generator = gen
+    return step
+
+
 def train(torch, kern, card: str):
     """GPT-small training steps at full width, the twin of
     ``bench.py::_gpt_train_step``: ``GPTModel.loss``, backward of the
@@ -3520,9 +3758,7 @@ def train(torch, kern, card: str):
     compared. Last, one step of each path with train-mode dropout. Returns
     the launch counts of the kernel path's steps."""
     import numpy as np
-    from apex_tpu_torch.amp import DynamicLossScale, all_finite
     from apex_tpu_torch.models import GPTConfig, GPTModel
-    from apex_tpu_torch.optimizers import FusedAdam
 
     cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
                     num_attention_heads=12, max_position_embeddings=1024)
@@ -3534,30 +3770,9 @@ def train(torch, kern, card: str):
     del init
 
     def trainer(use_kernel: bool, rate: float = 0.0):
-        model = GPTModel(dataclasses.replace(
+        return gpt_trainer(torch, dataclasses.replace(
             cfg, use_kernel=use_kernel, hidden_dropout=rate,
-            attention_dropout=rate), device="cuda")
-        model.load_state_dict(init_state)
-        params = dict(model.named_parameters())
-        opt = FusedAdam(lr=1e-4)
-        opt_state = opt.init(params)
-        scaler = DynamicLossScale(init_scale=2.0 ** 12)
-        carry = {"ls": scaler.init(device="cuda")}
-        gen = torch.Generator(device="cuda").manual_seed(0) if rate else None
-
-        def step():
-            ls = carry["ls"]
-            for p in params.values():
-                p.grad = None
-            loss = model.loss(tokens, tokens, generator=gen)
-            (loss * ls.loss_scale).backward()
-            grads = scaler.unscale(ls, {n: p.grad for n, p in params.items()})
-            finite = all_finite(grads)
-            carry["ls"] = scaler.update(ls, finite)
-            opt.step(grads, opt_state, params, grads_finite=finite)
-            return loss.detach(), finite, grads
-
-        return step
+            attention_dropout=rate), init_state, tokens, 1e-4)
 
     L = cfg.num_layers
     flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -3674,6 +3889,331 @@ def train(torch, kern, card: str):
           f" loss kernel path {loss_k:.6f}, plain path {loss_p:.6f}, |diff| "
           f"{err:.3g} (tol {TOL_TRAIN_LOSS}); grads, worst leaf {g_leaf}: "
           f"{g_err:.4g} (tol {TOL_TRAIN_GRAD}); launches {counts}")
+    return launches
+
+
+# examples/gpt_serve.py's default model and workload: hidden 64, 2 layers,
+# 4 heads (head dim 16), vocab 512, positions = max_len 64, 2 slots,
+# prefill window 16, 6 requests of its demo_requests() at max_new_tokens 8
+SERVE_SMALL = dict(vocab_size=512, hidden_size=64, num_layers=2,
+                   num_attention_heads=4, max_position_embeddings=64)
+SERVE_SMALL_ENGINE = dict(max_seqs=2, max_len=64, prefill_len=16)
+SERVE_SMALL_REQUESTS = 6
+SERVE_SMALL_NEW = 8
+# examples/gpt_pretrain.py's model on one device: hidden 32, 4 heads (head
+# dim 8), 2 layers a stage x 2 stages, seq 16, vocab 128, micro-batch 2 x
+# 4 micro-batches, Adam at lr 1e-3, 5 steps
+TRAIN_SMALL = dict(vocab_size=128, hidden_size=32, num_layers=4,
+                   num_attention_heads=4, max_position_embeddings=16)
+TRAIN_SMALL_BATCH = (2 * 4, 16)
+TRAIN_SMALL_STEPS = 5
+TRAIN_SMALL_LR = 1e-3
+
+
+def serve_small(torch, kern, card: str) -> dict:
+    """``examples/gpt_serve.py``'s default model (head dim 16) through the
+    port's ``ServingEngine`` and ``SlotScheduler`` with its demo requests:
+    every request completes, ``flash_fwd`` runs once a layer a prefill and
+    ``decode_attention`` once a layer a decode step; then teacher-forced
+    logits, the kernel path against the plain path, within
+    :data:`TOL_LOGITS`. Returns the run's launch counts."""
+    import numpy as np
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.serving import Request, ServingEngine, SlotScheduler
+
+    cfg = GPTConfig(**SERVE_SMALL)
+    model = GPTModel(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+
+    def engine(m):
+        return ServingEngine(m, **SERVE_SMALL_ENGINE,
+                             cache_dtype=torch.bfloat16, rng_seed=0,
+                             device="cuda")
+
+    rng = np.random.RandomState(0)
+    window = SERVE_SMALL_ENGINE["prefill_len"]
+    requests = [Request(prompt=rng.randint(1, cfg.vocab_size,
+                                           size=1 + i % window).tolist(),
+                        max_new_tokens=1 + SERVE_SMALL_NEW * (i + 1) // 2,
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                for i in range(SERVE_SMALL_REQUESTS)]
+    sched = SlotScheduler(engine(model))
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    L = cfg.num_layers
+    check(len(done) == len(requests), f"small serving: {len(done)} of "
+                                      f"{len(requests)} requests completed")
+    for req, c in zip(requests, (done[k] for k in sorted(done))):
+        check(len(c.tokens) == req.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in c.tokens),
+              f"small serving: request {c.request_id} gave {len(c.tokens)}"
+              " tokens or a token outside the vocab")
+    check(launches["flash_fwd"] == L * len(requests)
+          and launches["decode_attention"] == L * sched.steps,
+          f"small serving: flash_fwd {launches['flash_fwd']} / "
+          f"decode_attention {launches['decode_attention']} launches, not "
+          f"{L} a prefill / a decode step")
+    # teacher-forced: the kernel path against the plain path
+    plain = GPTModel(dataclasses.replace(cfg, use_kernel=False),
+                     device="cuda")
+    plain.load_state_dict(model.state_dict())
+    ek, ep = engine(model), engine(plain)
+    toks = np.zeros(ek.max_seqs, np.int64)
+    worst = 0.0
+    for slot in range(ek.max_seqs):
+        prompt = requests[slot].prompt
+        lk, lp = ek.prefill_logits(prompt, slot), ep.prefill_logits(prompt,
+                                                                    slot)
+        check(bool(torch.isfinite(lk).all()), "small serving: prefill "
+                                              "logits not finite")
+        worst = max(worst, max_err(torch, lk, lp))
+        toks[slot] = int(lk.argmax())
+    for _ in range(SERVE_SMALL_NEW):
+        lk, lp = ek.decode_logits(toks), ep.decode_logits(toks)
+        check(bool(torch.isfinite(lk).all()), "small serving: decode "
+                                              "logits not finite")
+        worst = max(worst, max_err(torch, lk, lp))
+        toks = lk.argmax(dim=-1).cpu().numpy()
+    check(worst <= TOL_LOGITS, f"small serving: teacher-forced logits err "
+                               f"{worst:.3g} > {TOL_LOGITS}")
+    tokens = sum(len(c.tokens) for c in done.values())
+    print(f"small serving (examples/gpt_serve.py's defaults: hidden 64, 2 "
+          f"layers, 4 heads, head dim {cfg.head_dim} at body width "
+          f"{kern.flash_width(cfg.head_dim)}, 2 slots): {len(done)} "
+          f"requests, {sched.steps} decode steps, {tokens} tokens in "
+          f"{wall:.3f} s; launches {launches}; teacher-forced logits kernel "
+          f"vs plain (prefill + {SERVE_SMALL_NEW} decode steps) max_abs_err "
+          f"{worst:.4g} (tol {TOL_LOGITS}) [{card}]")
+    return launches
+
+
+def train_small(torch, kern, card: str) -> dict:
+    """``examples/gpt_pretrain.py``'s model at one device (head dim 8):
+    :data:`TRAIN_SMALL_STEPS` steps of ``gpt_trainer`` (``FusedAdam``,
+    the dynamic loss scale) on the kernels, each launching the three flash
+    kernels once a layer, then the same steps on the plain path from the
+    same weights, whose losses must agree within :data:`TOL_TRAIN_LOSS`.
+    Returns the kernel path's launch counts."""
+    import numpy as np
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(**TRAIN_SMALL)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, TRAIN_SMALL_BATCH)).to("cuda")
+    init = GPTModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    losses = {}
+    launches = {name: 0 for name in kern.LAUNCHES}
+    for use_kernel in (True, False):
+        step = gpt_trainer(torch, dataclasses.replace(cfg,
+                                                      use_kernel=use_kernel),
+                           init_state, tokens, TRAIN_SMALL_LR)
+        run = []
+        for i in range(TRAIN_SMALL_STEPS):
+            kern.reset_launches()
+            loss, finite, _ = step()
+            torch.cuda.synchronize()
+            check(bool(finite) and bool(torch.isfinite(loss)),
+                  f"small training step {i} (use_kernel={use_kernel}): loss "
+                  "or grads not finite")
+            run.append(float(loss))
+            counts = dict(kern.LAUNCHES)
+            if use_kernel:
+                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    check(counts[name] == cfg.num_layers,
+                          f"small training step {i}: {name} launched "
+                          f"{counts[name]} times, not {cfg.num_layers}")
+                for name, n in counts.items():
+                    launches[name] += n
+            else:
+                check(sum(counts.values()) == 0,
+                      "small training: the plain path launched kernels")
+        losses[use_kernel] = run
+    err = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+    check(err <= TOL_TRAIN_LOSS, f"small training: losses kernel vs plain "
+                                 f"{err:.3g} > {TOL_TRAIN_LOSS}")
+    print(f"small training (examples/gpt_pretrain.py's model at one device: "
+          f"hidden 32, 4 layers, 4 heads, head dim {cfg.head_dim} at body "
+          f"width {kern.flash_width(cfg.head_dim)}, batch "
+          f"{TRAIN_SMALL_BATCH[0]} x seq {TRAIN_SMALL_BATCH[1]}, FusedAdam lr "
+          f"{TRAIN_SMALL_LR}): losses kernel path "
+          f"{[f'{x:.6f}' for x in losses[True]]}, plain path "
+          f"{[f'{x:.6f}' for x in losses[False]]}, max |diff| {err:.3g} (tol "
+          f"{TOL_TRAIN_LOSS}); launches {launches} [{card}]")
+    return launches
+
+
+# bench.py::bench_gpt_remat's legs on the port: GPT-small at batch 8 x
+# 1024 tokens, bf16, each policy from the same weights
+REMAT_LEGS = ("none", "selective", "full", "offload")
+REMAT_STEPS = 4          # a warm step, then the timed ones
+REMAT_COMPARE_STEPS = 3  # losses compared over these, grads at step 0
+GEMM_OPS = ("aten.mm.", "aten.addmm.", "aten.bmm.")
+
+
+def _gemm_counter(torch):
+    """A ``TorchDispatchMode`` that counts the GEMM ops run under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Gemms(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if str(func).startswith(GEMM_OPS):
+                self.count += 1
+            return func(*args, **(kwargs or {}))
+    return Gemms()
+
+
+def train_remat(torch, kern, card: str) -> dict:
+    """``bench.py::bench_gpt_remat``'s four legs (``none``, ``selective``,
+    ``full``, ``offload``) on the port's GPT-small training step, each from
+    the same weights: the median step after a warm one, tokens/s, the peak
+    memory over a step, the kernels' launches and the GEMMs a step (the
+    warm step, counted with a ``TorchDispatchMode``), and for ``offload``
+    its host copies a step. Every policy's losses over
+    :data:`REMAT_COMPARE_STEPS` steps and step 0's grads must equal
+    ``none``'s bit for bit (limit 0); peak memory must order ``none >
+    selective > full``; ``flash_fwd`` must launch 12 times a step under
+    ``none``, ``selective`` and ``offload`` and 24 under ``full``; no GEMM
+    may run again under ``selective`` or ``offload``. Then one step with
+    hidden and attention dropout 0.1 under ``full`` and ``selective``
+    against ``none``'s, bit for bit, from one generator seed, which each
+    leaves where ``none`` does. Returns the launch counts of all legs."""
+    import numpy as np
+    from apex_tpu_torch import remat
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
+                    num_attention_heads=12, max_position_embeddings=1024)
+    batch, seq = TRAIN_BH[0], TRAIN_ATTN[1]
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
+    init = GPTModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    L = cfg.num_layers
+    launches = {name: 0 for name in kern.LAUNCHES}
+    legs = {}
+    for mode in REMAT_LEGS:
+        step = gpt_trainer(torch, dataclasses.replace(cfg, remat_policy=mode),
+                           init_state, tokens, 1e-4)
+        losses, times = [], []
+        for i in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            copies = dict(remat.HOST_COPIES)
+            t0 = time.perf_counter()
+            if i == 0:
+                with _gemm_counter(torch) as gemms:
+                    loss, finite, grads = step()
+            else:
+                loss, finite, grads = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(bool(finite) and bool(torch.isfinite(loss)),
+                  f"remat {mode} step {i}: loss or grads not finite")
+            counts = dict(kern.LAUNCHES)
+            for name, n in counts.items():
+                launches[name] += n
+            losses.append(loss)
+            if i == 0:
+                # on the host, so that no leg's peak holds another's grads
+                grads0 = {n: g.detach().cpu() for n, g in grads.items()}
+                first = (counts, gemms.count,
+                         {k: remat.HOST_COPIES[k] - copies[k]
+                          for k in copies})
+            elif i == 1:
+                peak = torch.cuda.max_memory_allocated()
+            del grads
+        steady = sorted(times[1:])[len(times[1:]) // 2]
+        counts, n_gemm, host = first
+        legs[mode] = dict(losses=losses, grads0=grads0, ms=1e3 * steady,
+                          peak=peak, counts=counts, gemms=n_gemm, host=host)
+        print(f"remat {mode}: GPT-small ({batch} x {seq} tokens, bf16), "
+              f"median step {1e3 * steady:.3f} ms after a warm step "
+              f"({1e3 * times[0]:.3f} ms, counted), {batch * seq / steady:.1f}"
+              f" tokens/s, peak memory {peak / 2 ** 30:.3f} GiB ({peak} B), "
+              f"launches a step {counts}, GEMMs a step {n_gemm}"
+              + (f", host copies a step {host}" if mode == "offload" else "")
+              + f"; losses {[f'{float(x):.6f}' for x in losses]} [{card}]",
+              flush=True)
+        del step
+        torch.cuda.empty_cache()
+    base = legs["none"]
+    for mode in REMAT_LEGS:
+        leg = legs[mode]
+        check(leg["counts"]["flash_fwd"] == (2 * L if mode == "full" else L),
+              f"remat {mode}: flash_fwd launched {leg['counts']['flash_fwd']}"
+              f" times a step")
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            check(leg["counts"][name] == L, f"remat {mode}: {name} launched "
+                                            f"{leg['counts'][name]} times")
+        if mode in ("selective", "offload"):
+            check(leg["gemms"] == base["gemms"],
+                  f"remat {mode}: {leg['gemms']} GEMMs a step, none runs "
+                  f"{base['gemms']}: a GEMM ran again")
+        if mode == "none":
+            continue
+        same = all(torch.equal(a, b) for a, b in
+                   zip(leg["losses"][:REMAT_COMPARE_STEPS],
+                       base["losses"][:REMAT_COMPARE_STEPS]))
+        diff = max(abs(float(a) - float(b)) for a, b in
+                   zip(leg["losses"], base["losses"]))
+        g_err, g_leaf = grad_rel(torch, leg["grads0"], base["grads0"])
+        g_same = all(torch.equal(leg["grads0"][n], g)
+                     for n, g in base["grads0"].items())
+        print(f"remat {mode} vs none: losses over {REMAT_COMPARE_STEPS} steps"
+              f" max |diff| {diff:.3g}, step-0 grads worst leaf {g_leaf} "
+              f"{g_err:.3g} (limit 0: bit for bit), equal bit for bit: "
+              f"{same and g_same}; {leg['gemms'] - base['gemms']} GEMMs run "
+              f"again a step")
+        check(same and g_same, f"remat {mode}: losses or step-0 grads differ "
+                               f"from none's")
+    peaks = {m: legs[m]["peak"] for m in REMAT_LEGS}
+    check(peaks["none"] > peaks["selective"] > peaks["full"],
+          f"remat: peak memory does not order none > selective > full: "
+          f"{peaks}")
+    print("remat: peak memory orders none > selective > full: " + ", ".join(
+        f"{m} {p / 2 ** 30:.3f} GiB" for m, p in peaks.items()) + f" [{card}]")
+    del legs, base
+    torch.cuda.empty_cache()
+
+    # dropout under recompute: the same masks as none from one seed
+    ran = {}
+    for mode in ("none", "full", "selective"):
+        step = gpt_trainer(torch, dataclasses.replace(
+            cfg, remat_policy=mode, hidden_dropout=TRAIN_DROPOUT,
+            attention_dropout=TRAIN_DROPOUT), init_state, tokens, 1e-4)
+        kern.reset_launches()
+        loss, finite, grads = step()
+        torch.cuda.synchronize()
+        for name, n in kern.LAUNCHES.items():
+            launches[name] += n
+        check(bool(finite), f"remat {mode} with dropout: grads not finite")
+        ran[mode] = (loss, {n: g.detach().cpu() for n, g in grads.items()},
+                     step.generator.get_state())
+        del step, grads
+        torch.cuda.empty_cache()
+    for mode in ("full", "selective"):
+        loss, grads, state = ran[mode]
+        same = (torch.equal(loss, ran["none"][0])
+                and all(torch.equal(grads[n], g)
+                        for n, g in ran["none"][1].items())
+                and torch.equal(state, ran["none"][2]))
+        check(same, f"remat {mode} with dropout {TRAIN_DROPOUT}: the loss, "
+                    "grads or the generator's state differ from none's")
+    print(f"remat with hidden and attention dropout {TRAIN_DROPOUT}: full and"
+          f" selective equal none bit for bit (loss "
+          f"{float(ran['none'][0]):.6f}, every grad, the generator's state "
+          f"after the step)")
     return launches
 
 
@@ -4480,12 +5020,15 @@ def main() -> None:
     rows = [fwd_row, check_decode(torch, fa, cache_mod, kern, card), dq_row,
             dkv_row, check_paged(torch, fa, cache_mod, kern, card)]
     check_head_dims(torch, fa, cache_mod, kern)
+    check_flash_head_dims(torch, fa, kern, card)
+    flash_dim_timings(torch, fa, kern, card)
     rows += check_layer_norm(torch, ln, kern, card)
     check_flash_bias(torch, fa, kern, card)
     check_flash_segments(torch, fa, kern, card)
     check_flash_dq(torch, fa, kern, card)
     check_flash_dbias(torch, fa, kern, card)
     serving, dense_times = serve(torch, kern, card)
+    small_serving = serve_small(torch, kern, card)
     paged = serve_paged(torch, kern, card, dense_times)
     spec, spec_cursors = serve_spec(torch, kern, card, paged=False)
     paged_spec, paged_spec_cursors = serve_spec(torch, kern, card,
@@ -4499,14 +5042,21 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     training = train(torch, kern, card)
+    small_training = train_small(torch, kern, card)
+    remat_legs = train_remat(torch, kern, card)
+    torch.cuda.empty_cache()
     bert = train_bert(torch, kern, card)
     long, dbias_row = long_context(torch, fa, kern, card)
     rows.append(dbias_row)
-    print(f"launches on the main paths: serving {serving}, paged serving "
+    print(f"launches on the main paths: serving {serving}, small serving "
+          f"(d 16) {small_serving}, paged serving "
           f"{paged}, speculative serving (plain and speculative legs) "
           f"{spec}, paged speculative serving {paged_spec}, serving under "
           f"the SLO and the burst {goodput}, the chaos runs {chaos}, training "
-          f"({TRAIN_STEPS} steps, then one with dropout) {training}, BERT "
+          f"({TRAIN_STEPS} steps, then one with dropout) {training}, small "
+          f"training (d 8, {TRAIN_SMALL_STEPS} steps) {small_training}, the "
+          f"remat legs ({len(REMAT_LEGS)} x {REMAT_STEPS} steps, then 3 with "
+          f"dropout) {remat_legs}, BERT "
           f"training ({BERT_STEPS} steps) {bert}, long-context training "
           f"({LONG_STEPS} steps) {long}")
     for row in rows:
@@ -4514,13 +5064,16 @@ def main() -> None:
         names = ((row["name"], "flash_dbias_fold")
                  if row["name"] == "flash_dbias" else (row["name"],))
         row["launches"] = sum(path[name] for path in
-                              (serving, paged, spec, paged_spec, goodput,
-                               chaos, training, bert, long)
+                              (serving, small_serving, paged, spec,
+                               paged_spec, goodput, chaos, training,
+                               small_training, remat_legs, bert, long)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):
             row["head_dims"] = (f"d % 8 == 0, {DECODE_DIMS[0]} to "
                                 f"{DECODE_DIMS[-1]}")
+        if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            row["head_dims"] = FLASH_HEAD_DIMS
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "head_dims")

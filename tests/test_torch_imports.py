@@ -1,5 +1,5 @@
 """The PyTorch/CUDA port stands alone: no module of ``apex_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, the package imports with
+``chip_smoke.py`` or ``chip_ab.py``) imports JAX or the JAX package, the package imports with
 JAX blocked, and importing it builds no kernel."""
 
 import ast
@@ -30,7 +30,8 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py",
+                                                 "chip_ab.py"])
 def test_no_jax_or_apex_tpu_import(relpath):
     tree = ast.parse((REPO / relpath).read_text(), filename=relpath)
     bad = [m for m in _imported_modules(tree) if _forbidden(m)]
@@ -53,7 +54,9 @@ def test_port_has_the_slice_modules():
                 "apex_tpu_torch/observability/slo.py",
                 "apex_tpu_torch/observability/health.py",
                 "apex_tpu_torch/observability/reqtrace.py",
-                "apex_tpu_torch/elastic/faults.py"):
+                "apex_tpu_torch/elastic/faults.py",
+                "apex_tpu_torch/remat.py",
+                "apex_tpu_torch/csrc/flash_width.cuh"):
         assert (REPO / rel).is_file(), rel
 
 
@@ -78,6 +81,7 @@ def test_import_with_jax_blocked():
         "from apex_tpu_torch.observability import CrashDump\n"
         "from apex_tpu_torch.serving import BrownoutPolicy\n"
         "from apex_tpu_torch.elastic import FaultPlan\n"
+        "from apex_tpu_torch.remat import RematPolicy, tag, CHECKPOINT_NAMES\n"
         "assert _kernels._LIB is None, 'a kernel was built at import'\n"
         "assert 'triton' not in sys.modules\n"
         "print('ok')\n")
