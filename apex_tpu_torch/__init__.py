@@ -9,11 +9,14 @@ hand-written CUDA kernel for ``sm_90a`` under ``csrc/``, built at first
 use (:mod:`apex_tpu_torch._kernels`).
 
 The ported slices serve GPT from a dense or a paged KV cache, with or
-without speculative decoding, train it,
-and pretrain BERT (padding masks as the flash kernels' score bias, every
-LayerNorm on its own kernels): :mod:`apex_tpu_torch.models`,
+without speculative decoding, train it, pretrain BERT (padding masks as
+the flash kernels' score bias, every LayerNorm on its own kernels) and
+train ResNet-50 (cuDNN convs, batch norm in torch ops, as the reference
+leaves them to XLA), with amp policies, telemetry and a ``TrainConfig``
+that builds the pieces: :mod:`apex_tpu_torch.models`,
 :mod:`apex_tpu_torch.serving`, :mod:`apex_tpu_torch.normalization`,
-:mod:`apex_tpu_torch.optimizers` and :mod:`apex_tpu_torch.amp`. Public
+:mod:`apex_tpu_torch.optimizers`, :mod:`apex_tpu_torch.amp`,
+:mod:`apex_tpu_torch.parallel` and :mod:`apex_tpu_torch.config`. Public
 entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
 the plain PyTorch path.
 """

@@ -12,6 +12,13 @@ h)``, the MLM output bias ``(1, vocab)``); the port's layers are a
 GPT one by its token-type table (``embedding.tokentype``). Values pass bit
 for bit: bf16 leaves go through a ``uint16`` view, since
 ``torch.from_numpy`` refuses numpy's bf16 extension dtype.
+
+``resnet_params_from_jax`` and ``resnet_params_to_numpy`` do the same for
+ResNet-50: the ``ResNet50.init`` params and ``BatchNormState`` trees
+become one state dict of :class:`apex_tpu_torch.models.resnet.ResNet50`
+(parameters and BN buffers) and back. Conv weights go from HWIO to OIHW;
+the head's ``(classes, features)`` weight is unchanged; the BN counts are
+int64 buffers here, as torch's BN keeps them, and int32 on the JAX side.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "resnet_params_from_jax",
+           "resnet_params_to_numpy"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -131,3 +139,68 @@ def params_to_numpy(state_dict, cfg) -> dict:
                 node[leaf] = get(".".join(path + (leaf,)))
         tree["lm_head"]["bias"] = get("lm_head.bias")[None]
     return tree
+
+
+_BN_STATE = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def resnet_params_from_jax(params: dict, state: dict
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict (CPU tensors) of the port's ``ResNet50`` from the JAX
+    ``ResNet50.init`` pytrees ``(params, bn_state)`` with numpy leaves (a
+    ``BatchNormState`` node may be the named tuple or any 3-sequence)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk_params(node, prefix):
+        for key, sub in node.items():
+            name = prefix + key
+            if isinstance(sub, dict):
+                walk_params(sub, name + ".")
+                continue
+            arr = np.asarray(sub)
+            if key.startswith("conv"):       # HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            sd[name] = _to_torch(arr)
+
+    def walk_state(node, prefix):
+        for key, sub in node.items():
+            if isinstance(sub, dict):
+                walk_state(sub, prefix + key + ".")
+                continue
+            for leaf, arr in zip(_BN_STATE, sub):
+                t = _to_torch(arr)
+                sd[f"{prefix}{key}.{leaf}"] = (
+                    t.to(torch.int64) if leaf == "num_batches_tracked" else t)
+
+    walk_params(params, "")
+    walk_state(state, "")
+    return sd
+
+
+def resnet_params_to_numpy(state_dict) -> tuple:
+    """``(params, bn_state)`` in the JAX ``ResNet50`` layout (numpy leaves,
+    conv weights HWIO, each BN's state a ``(running_mean, running_var,
+    num_batches_tracked)`` tuple with an int32 count) from the port's
+    state dict."""
+    params: dict = {}
+    state: dict = {}
+    for name, t in state_dict.items():
+        *path, leaf = name.split(".")
+        if leaf in _BN_STATE:
+            node = state
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            entry = list(node.get(path[-1], (None, None, None)))
+            arr = _to_numpy(t)
+            entry[_BN_STATE.index(leaf)] = (
+                arr.astype(np.int32) if leaf == "num_batches_tracked"
+                else arr)
+            node[path[-1]] = tuple(entry)
+            continue
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        arr = _to_numpy(t)
+        node[leaf] = arr.transpose(2, 3, 1, 0) if leaf.startswith(
+            "conv") else arr
+    return params, state

@@ -10,22 +10,31 @@ between old and new state (:func:`select_tree`), so no step waits on a
 ``.item()``. The state is two 0-d tensors.
 
 Trees are ``dict``/``list``/``tuple`` of tensors (:mod:`torch.utils._pytree`).
-The reference's telemetry hooks (loss-scale and overflow metrics, health
-observers) come with the observability slice.
+Every scale update records ``amp/loss_scale``, ``amp/overflow_count`` and
+``amp/skipped_steps`` into an open in-step collector
+(:mod:`apex_tpu_torch.observability.ingraph`); with none open it adds
+nothing. :func:`scaled_value_and_grad` is the functional ``amp.scale_loss``
+step. The reference's health observers on the grad tree wait for the
+health port (queue item A7); its "off" tier, the only one the port has,
+adds nothing. Reducing the finite flag across model-parallel axes
+(``axis_names``) is multi-GPU work (A5) and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Sequence, Union
 
 import torch
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
 from apex_tpu_torch._device import resolve_device
-from torch.utils._pytree import tree_leaves, tree_map
+from apex_tpu_torch.observability import ingraph as _metrics
 
 __all__ = ["LossScaleState", "DynamicLossScale", "StaticLossScale",
-           "NoOpLossScale", "make_loss_scale", "all_finite", "select_tree"]
+           "NoOpLossScale", "make_loss_scale", "all_finite", "select_tree",
+           "scaled_value_and_grad"]
 
 
 class LossScaleState(NamedTuple):
@@ -39,9 +48,21 @@ def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
-def all_finite(tree: Any) -> torch.Tensor:
+def _one_device(axis_names, what: str) -> None:
+    if axis_names:
+        raise NotImplementedError(
+            f"{what} over model-parallel axes {axis_names!r}: the port runs "
+            "on one device; cross-device reduction comes with multi-GPU "
+            "(A5)")
+
+
+def all_finite(tree: Any,
+               axis_names: Union[None, str, Sequence[str]] = None
+               ) -> torch.Tensor:
     """One boolean 0-d tensor: every floating leaf of ``tree`` is finite
-    (the reference's fused finite-check; no host sync)."""
+    (the reference's fused finite-check; no host sync). ``axis_names``
+    must be empty: the port runs on one device (A5)."""
+    _one_device(axis_names, "all_finite")
     leaves = [x for x in tree_leaves(tree) if _is_float(x)]
     if not leaves:
         return torch.tensor(True)
@@ -53,6 +74,20 @@ def select_tree(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
     return tree_map(lambda t, f: torch.where(pred, torch.as_tensor(t),
                                              torch.as_tensor(f)),
                     on_true, on_false)
+
+
+def _record_scale_metrics(scale: torch.Tensor,
+                          grads_finite: torch.Tensor) -> None:
+    """Telemetry of every scale update, the reference's replacement for
+    apex's overflow print. Thunked: with no collector open this adds no
+    aten call."""
+    _metrics.record("amp/loss_scale", lambda: scale.to(torch.float32),
+                    reduce="mean")
+    overflowed = lambda: 1.0 - grads_finite.to(torch.float32)  # noqa: E731
+    _metrics.record("amp/overflow_count", overflowed, reduce="sum")
+    # the skip is the whole optimizer step, so per step these coincide;
+    # separate series because static scaling skips without backing off
+    _metrics.record("amp/skipped_steps", overflowed, reduce="max")
 
 
 def _init_state(scale: float, device) -> LossScaleState:
@@ -134,6 +169,7 @@ class DynamicLossScale:
                         min=self.min_scale))
         new_unskipped = torch.where(grads_finite, unskipped_if_finite,
                                     torch.zeros_like(state.unskipped))
+        _record_scale_metrics(new_scale, grads_finite)
         return LossScaleState(loss_scale=new_scale,
                               unskipped=new_unskipped.to(torch.int32))
 
@@ -163,6 +199,7 @@ class StaticLossScale:
 
     def update(self, state: LossScaleState,
                grads_finite: torch.Tensor) -> LossScaleState:
+        _record_scale_metrics(state.loss_scale, grads_finite)
         return state
 
 
@@ -185,3 +222,45 @@ def make_loss_scale(spec: Union[None, float, str],
     if scale <= 0.0:
         raise ValueError(f"loss scale must be positive, got {scale}")
     return StaticLossScale(scale=scale)
+
+
+def scaled_value_and_grad(
+    fun: Callable,
+    loss_scale: Union[DynamicLossScale, StaticLossScale],
+    has_aux: bool = False,
+    axis_names: Union[None, str, Sequence[str]] = None,
+    grad_dtype: torch.dtype = torch.float32,
+):
+    """The functional ``with amp.scale_loss(...) as scaled:
+    scaled.backward()``.
+
+    Returns ``step(state, params, *args, **kwargs) -> (value, aux, grads,
+    grads_finite, new_state)``. ``params`` is a tree of leaf tensors that
+    require grad (``dict(model.named_parameters())``, read by ``fun``
+    directly or through ``torch.func.functional_call``); ``fun(params,
+    *args, **kwargs)`` returns the loss, or ``(loss, aux)`` with
+    ``has_aux``. The grads are ``torch.autograd.grad`` of ``value.float() *
+    loss_scale``, unscaled into ``grad_dtype`` (the "master" grads), in
+    the tree of ``params`` (zeros for a parameter the loss does not read,
+    as JAX returns); nothing accumulates into ``.grad``. ``new_state`` has
+    the scale already updated. Gate the optimizer on ``grads_finite``
+    (``OptimizerBase.step(..., grads_finite=)``).
+    """
+    _one_device(axis_names, "scaled_value_and_grad")
+
+    def step(state: LossScaleState, params: Any, *args, **kwargs):
+        out = fun(params, *args, **kwargs)
+        value, aux = out if has_aux else (out, None)
+        scaled = value.to(torch.float32) * state.loss_scale
+        leaves, spec = tree_flatten(params)
+        grads = torch.autograd.grad(scaled, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        grads = loss_scale.unscale(state, tree_unflatten(list(grads), spec),
+                                   cast_to=grad_dtype)
+        finite = all_finite(grads)
+        new_state = loss_scale.update(state, finite)
+        aux = tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
+                       else x, aux)
+        return value.detach(), aux, grads, finite, new_state
+
+    return step

@@ -1,0 +1,242 @@
+"""The training config tree of the port, at one device.
+
+Counterpart of ``apex_tpu/config.py``: one typed dataclass tree that
+*builds* the pieces of a trainer (the amp policy, the loss scale, the
+model, the optimizer) and serializes to JSON (``to_dict``/``from_dict``,
+tuples restored). The fields are the reference's, so a config written by
+either package reads in the other.
+
+What needs an unported piece raises ``NotImplementedError`` naming its
+queue item: tensor, pipeline or context parallelism above 1, sequence
+parallelism and its comm overlap, ZeRO, ``fastpath``, the microbatch
+calculator, the samplers and the mesh (multi-GPU, A5); LAMB, NovoGrad and
+Adagrad (A4); the health watchdog (A7). Unknown names raise the
+reference's ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+__all__ = ["ModelConfig", "ParallelConfig", "BatchConfig", "OptimizerConfig",
+           "TrainConfig"]
+
+# optimizers with a ZeRO variant in the reference
+ZERO_CAPABLE_OPTIMIZERS = ("adam", "adamw", "lamb")
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (queue item "
+                               f"{item}); the port trains on one device")
+
+
+def _zero_enabled(v) -> bool:
+    """Normalize ``OptimizerConfig.zero``: the legacy bool or the stage
+    spelling ``"off" | 1 | "1"``; stage 1 is the only one the reference
+    implements."""
+    if v in (False, 0, None) or v == "off":
+        return False
+    if v in (True, 1) or v == "1":
+        return True
+    raise ValueError(
+        f"unsupported zero={v!r}; expected off|1 (bools accepted)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Network sizes (Megatron's ``_add_network_size_args``)."""
+    name: str = "gpt"                 # "gpt" | "bert" | "resnet50"
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 1024
+    ffn_hidden_size: Optional[int] = None
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    num_classes: int = 1000           # resnet head
+    # activation remat (gpt/bert): remat_policy None | "none" | "full" |
+    # "selective" | "offload"; remat is the deprecated bool ("full")
+    remat: bool = False
+    remat_policy: Optional[str] = None
+    remat_names: Optional[Tuple[str, ...]] = None
+    # Megatron sequence parallelism and its ring-overlapped GEMMs: tp > 1
+    sequence_parallel: bool = False
+    tp_comm_overlap: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh axes; the port runs all of them at 1."""
+    tensor_model_parallel_size: int = 1
+    pipeline_model_parallel_size: int = 1
+    virtual_pipeline_model_parallel_size: Optional[int] = None
+    context_parallel_size: int = 1
+    dcn_data_parallel: Optional[bool] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Batch sizing."""
+    global_batch_size: int = 64
+    micro_batch_size: int = 8
+    rampup_batch_size: Optional[Tuple[int, int, int]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer selection."""
+    name: str = "adam"                # adam|adamw|sgd|lamb|novograd|adagrad
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    momentum: float = 0.9             # sgd
+    flat: bool = False                # wrap in FlatOptimizer
+    zero: Any = False                 # ZeRO stage: off | 1 (A5)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = ModelConfig()
+    parallel: ParallelConfig = ParallelConfig()
+    batch: BatchConfig = BatchConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    opt_level: str = "O2"             # amp policy preset
+    half_dtype: str = "bfloat16"
+    seed: int = 1234
+    # the numerics watchdog (A7)
+    health_level: str = "off"
+    health_on_nonfinite: str = "skip"
+    health_consecutive: int = 1
+    health_dump_dir: str = "."
+    # DP gradient-sync bucketing (A5)
+    ddp_bucket_bytes: Any = None
+
+    # -- serialization ------------------------------------------------------
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        d = dict(d)
+        for field, sub in (("model", ModelConfig),
+                           ("parallel", ParallelConfig),
+                           ("batch", BatchConfig),
+                           ("optimizer", OptimizerConfig)):
+            if field in d and isinstance(d[field], dict):
+                sub_d = dict(d[field])
+                if field == "optimizer" and "betas" in sub_d:
+                    sub_d["betas"] = tuple(sub_d["betas"])
+                if field == "batch" and sub_d.get("rampup_batch_size"):
+                    sub_d["rampup_batch_size"] = tuple(
+                        sub_d["rampup_batch_size"])
+                if field == "model" and sub_d.get("remat_names"):
+                    sub_d["remat_names"] = tuple(sub_d["remat_names"])
+                d[field] = sub(**sub_d)
+        return cls(**d)
+
+    # -- builders -----------------------------------------------------------
+    def _one_device(self) -> None:
+        p = self.parallel
+        for name, size in (("tensor", p.tensor_model_parallel_size),
+                           ("pipeline", p.pipeline_model_parallel_size),
+                           ("context", p.context_parallel_size)):
+            if size > 1:
+                raise _unported(f"{name} parallelism (size {size})", "A5")
+        if self.model.sequence_parallel or self.model.tp_comm_overlap:
+            raise _unported("sequence parallelism and tp_comm_overlap",
+                            "A5")
+
+    def build_policy(self):
+        from apex_tpu_torch.amp import get_policy
+        half = (torch.bfloat16 if self.half_dtype == "bfloat16"
+                else torch.float16)
+        return get_policy(self.opt_level, half_dtype=half)
+
+    def build_scaler(self):
+        """The loss-scale object the policy implies (may be a no-op)."""
+        from apex_tpu_torch.amp import make_loss_scale
+        return make_loss_scale(self.build_policy().loss_scale)
+
+    def build_model(self, device="cuda"):
+        """The model on ``device`` (default the card), parameters
+        allocated and not initialized: call its ``init(generator)`` or load
+        a state dict."""
+        self._one_device()
+        pol = self.build_policy()
+        m = self.model
+        if m.name == "gpt":
+            from apex_tpu_torch.models import GPTConfig, GPTModel
+            return GPTModel(GPTConfig(
+                vocab_size=m.vocab_size, hidden_size=m.hidden_size,
+                num_layers=m.num_layers,
+                num_attention_heads=m.num_attention_heads,
+                max_position_embeddings=m.max_position_embeddings,
+                ffn_hidden_size=m.ffn_hidden_size,
+                params_dtype=pol.param_dtype,
+                compute_dtype=pol.compute_dtype,
+                hidden_dropout=m.hidden_dropout,
+                attention_dropout=m.attention_dropout, remat=m.remat,
+                remat_policy=m.remat_policy, remat_names=m.remat_names),
+                device=device)
+        if m.name == "bert":
+            from apex_tpu_torch.models import BertConfig, BertModel
+            return BertModel(BertConfig(
+                vocab_size=m.vocab_size, hidden_size=m.hidden_size,
+                num_layers=m.num_layers,
+                num_attention_heads=m.num_attention_heads,
+                max_position_embeddings=m.max_position_embeddings,
+                remat=m.remat, remat_policy=m.remat_policy,
+                remat_names=m.remat_names,
+                compute_dtype=pol.compute_dtype), device=device)
+        if m.name == "resnet50":
+            from apex_tpu_torch.models import ResNet50, ResNetConfig
+            return ResNet50(ResNetConfig(
+                num_classes=m.num_classes, compute_dtype=pol.compute_dtype,
+                params_dtype=pol.param_dtype), device=device)
+        raise ValueError(f"unknown model {m.name!r}")
+
+    def build_optimizer(self):
+        from apex_tpu_torch import optimizers as opt
+
+        o = self.optimizer
+        if _zero_enabled(o.zero):
+            if o.name not in ZERO_CAPABLE_OPTIMIZERS:
+                raise ValueError(
+                    f"no ZeRO variant of {o.name!r} (capable: "
+                    f"{'|'.join(ZERO_CAPABLE_OPTIMIZERS)})")
+            raise _unported(f"ZeRO ({o.name})", "A5")
+        if o.name in ("adam", "adamw"):
+            inner = opt.FusedAdam(lr=o.lr, betas=o.betas, eps=o.eps,
+                                  adam_w_mode=o.name == "adamw",
+                                  weight_decay=o.weight_decay)
+        elif o.name == "sgd":
+            inner = opt.FusedSGD(lr=o.lr, momentum=o.momentum,
+                                 weight_decay=o.weight_decay)
+        elif o.name in ("lamb", "novograd", "adagrad"):
+            raise _unported(f"the {o.name} optimizer", "A4")
+        else:
+            raise ValueError(f"unknown optimizer {o.name!r}")
+        return opt.FlatOptimizer(inner) if o.flat else inner
+
+    def fastpath(self, **kw) -> "TrainConfig":
+        raise _unported("fastpath (ZeRO, bucketed sync, sequence "
+                        "parallelism)", "A5")
+
+    def build_health(self):
+        raise _unported("the numerics watchdog (HealthConfig)", "A7")
+
+    def build_microbatch_calculator(self, data_parallel_size: int):
+        raise _unported("the microbatch calculator", "A5")
+
+    def build_sampler(self, total_samples: int, consumed_samples: int,
+                      data_parallel_rank: int, data_parallel_size: int,
+                      shuffle: bool = False):
+        raise _unported("the Megatron pretraining samplers", "A5")
+
+    def initialize_mesh(self, devices=None):
+        raise _unported("the device mesh (parallel_state)", "A5")

@@ -14,8 +14,13 @@ in place (the port's counterpart of the reference's donated buffers) and
 returns them. With ``grads_finite`` (:func:`apex_tpu_torch.amp.all_finite`)
 an overflow step keeps the old params *and* state, step count included,
 selected on the device with ``torch.where``: no ``.item()`` per step.
-The reference's grad-norm and health telemetry come with the observability
-slice.
+``step`` records ``optim/grad_norm`` (:func:`global_grad_norm` of the grads
+it is handed) into an open in-step collector
+(:mod:`apex_tpu_torch.observability.ingraph`), thunked, so with none open
+the norm is never computed. The reference's health observers on the grads
+and the new params wait for the health port (queue item A7); the port's
+level is "off", whose reference tier adds nothing. ``as_optax`` (an optax
+shim) is not ported.
 """
 
 from __future__ import annotations
@@ -23,11 +28,40 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import TreeSpec, tree_leaves, tree_map
 
 from apex_tpu_torch.amp.scaler import select_tree
+from apex_tpu_torch.observability import ingraph as _metrics
 
-__all__ = ["OptimizerBase", "bias_correction", "tree_zeros_like_f32"]
+__all__ = ["OptimizerBase", "bias_correction", "tree_zeros_like_f32",
+           "tree_unzip", "global_grad_norm", "tree_global_norm"]
+
+
+def tree_global_norm(tree: Any) -> torch.Tensor:
+    """Global L2 norm over every floating leaf, each squared and summed in
+    fp32: the port's copy of ``multi_tensor_apply.tree_global_norm``
+    (``amp_C.multi_tensor_l2norm``'s global output). An empty tree gives
+    a CPU fp32 zero."""
+    leaves = [x for x in tree_leaves(tree)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    sq = [torch.sum(x.to(torch.float32) ** 2) for x in leaves]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def global_grad_norm(grads: Any) -> torch.Tensor:
+    """Global L2 norm of a grad tree, accumulated in fp32 (the quantity
+    LAMB's global grad-norm clip computes)."""
+    return tree_global_norm(grads)
+
+
+def tree_unzip(out: Any, treedef: TreeSpec, k: int) -> Tuple[Any, ...]:
+    """Split a tree whose leaves are k-tuples into k trees of ``treedef``.
+    ``k`` is explicit so empty trees (no leaves) still unzip."""
+    leaves = treedef.flatten_up_to(out)
+    return tuple(treedef.unflatten([leaf[i] for leaf in leaves])
+                 for i in range(k))
 
 
 def tree_zeros_like_f32(params: Any) -> Any:
@@ -59,6 +93,8 @@ class OptimizerBase:
     def step(self, grads: Any, state: Any, params: Any,
              grads_finite: Optional[torch.Tensor] = None,
              **kw) -> Tuple[Any, Any]:
+        _metrics.record("optim/grad_norm", lambda: global_grad_norm(grads),
+                        reduce="mean")
         new_params, new_state = self._step(grads, state, params, **kw)
         if grads_finite is not None:
             # skip = old params AND old state (the step count does not

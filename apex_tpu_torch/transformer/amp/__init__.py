@@ -1,0 +1,5 @@
+"""Model-parallel-aware loss scaling of the port (one device)."""
+
+from apex_tpu_torch.transformer.amp.grad_scaler import GradScaler  # noqa: F401
+
+__all__ = ["GradScaler"]
