@@ -19,6 +19,18 @@ become one state dict of :class:`apex_tpu_torch.models.resnet.ResNet50`
 (parameters and BN buffers) and back. Conv weights go from HWIO to OIHW;
 the head's ``(classes, features)`` weight is unchanged; the BN counts are
 int64 buffers here, as torch's BN keeps them, and int32 on the JAX side.
+
+The ops' parameters: ``mlp_params_from_jax`` turns the JAX ``MLP.init``
+list of ``(w, b)`` pairs into the port ``MLP``'s state dict
+(``weight_i``/``bias_i``), and ``module_params_from_jax`` a nested dict
+(``FusedDense``, ``FusedDenseGeluDense``, ``SelfMultiheadAttn``,
+``EncdecMultiheadAttn``) into a state dict of dotted names (``qkv.weight``,
+``dense1.bias``, ...). ``optimizer_state_from_jax`` turns a JAX optimizer
+state (``LAMBState``, ``MixedPrecisionLambState``, ``NovoGradState``,
+``AdagradState``, or any of the port's state named tuples with the same
+fields) into the port's, its dict trees in the key order of the port's
+parameter tree ``like`` (the port's optimizers pair state and parameter
+leaves by position, and JAX sorts dict keys).
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_numpy", "resnet_params_from_jax",
-           "resnet_params_to_numpy"]
+           "resnet_params_to_numpy", "mlp_params_from_jax",
+           "module_params_from_jax", "optimizer_state_from_jax"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -204,3 +217,58 @@ def resnet_params_to_numpy(state_dict) -> tuple:
         node[leaf] = arr.transpose(2, 3, 1, 0) if leaf.startswith(
             "conv") else arr
     return params, state
+
+
+def mlp_params_from_jax(layers) -> Dict[str, torch.Tensor]:
+    """The port ``MLP``'s state dict from the JAX ``MLP.init`` list of
+    ``(weight, bias)`` pairs (bias ``None`` without biases)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, (w, b) in enumerate(layers):
+        sd[f"weight_{i}"] = _to_torch(w)
+        if b is not None:
+            sd[f"bias_{i}"] = _to_torch(b)
+    return sd
+
+
+def module_params_from_jax(tree: dict, prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """A state dict of dotted names from a nested dict of arrays (the JAX
+    ``FusedDense``, ``FusedDenseGeluDense`` and attention modules'
+    ``init`` trees)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            sd.update(module_params_from_jax(sub, f"{prefix}{key}."))
+        else:
+            sd[prefix + key] = _to_torch(sub)
+    return sd
+
+
+def _tree_like(tree, like):
+    """``tree`` (numpy leaves) as CPU tensors, its dicts in ``like``'s key
+    order (``like`` None: as they come)."""
+    if isinstance(tree, dict):
+        keys = list(like.keys()) if isinstance(like, dict) else list(tree)
+        return {k: _tree_like(tree[k], like[k] if isinstance(like, dict)
+                              else None) for k in keys}
+    if isinstance(tree, (list, tuple)):
+        likes = like if isinstance(like, (list, tuple)) else [None] * len(
+            tree)
+        return type(tree)(_tree_like(t, l) for t, l in zip(tree, likes))
+    return _to_torch(tree)
+
+
+def optimizer_state_from_jax(state, cls, like=None):
+    """The port's optimizer state ``cls`` (a named tuple of the JAX
+    state's field names) from a JAX optimizer state with numpy leaves;
+    the step count becomes an int32 0-d tensor, each tree's dicts take
+    the key order of the port's parameter tree ``like``."""
+    out = {}
+    for field in cls._fields:
+        value = getattr(state, field)
+        if field == "step":
+            out[field] = torch.tensor(int(np.asarray(value)),
+                                      dtype=torch.int32)
+        else:
+            out[field] = _tree_like(value, like)
+    return cls(**out)

@@ -9,8 +9,8 @@ either package reads in the other.
 What needs an unported piece raises ``NotImplementedError`` naming its
 queue item: tensor, pipeline or context parallelism above 1, sequence
 parallelism and its comm overlap, ZeRO, ``fastpath``, the microbatch
-calculator, the samplers and the mesh (multi-GPU, A5); LAMB, NovoGrad and
-Adagrad (A4); the health watchdog (A7). Unknown names raise the
+calculator, the samplers and the mesh (multi-GPU, A5); the health watchdog
+(A7). Unknown names raise the
 reference's ``ValueError``.
 """
 
@@ -217,8 +217,14 @@ class TrainConfig:
         elif o.name == "sgd":
             inner = opt.FusedSGD(lr=o.lr, momentum=o.momentum,
                                  weight_decay=o.weight_decay)
-        elif o.name in ("lamb", "novograd", "adagrad"):
-            raise _unported(f"the {o.name} optimizer", "A4")
+        elif o.name == "lamb":
+            inner = opt.FusedLAMB(lr=o.lr, betas=o.betas, eps=o.eps,
+                                  weight_decay=o.weight_decay)
+        elif o.name == "novograd":
+            inner = opt.FusedNovoGrad(lr=o.lr, betas=o.betas, eps=o.eps,
+                                      weight_decay=o.weight_decay)
+        elif o.name == "adagrad":
+            inner = opt.FusedAdagrad(lr=o.lr, weight_decay=o.weight_decay)
         else:
             raise ValueError(f"unknown optimizer {o.name!r}")
         return opt.FlatOptimizer(inner) if o.flat else inner

@@ -75,7 +75,8 @@ from apex_tpu_torch._device import use_kernel_for
 from apex_tpu_torch.remat import region_op, tag
 
 __all__ = ["flash_attention", "mha_reference", "decode_attention",
-           "paged_decode_attention", "dropout_keep_mask", "NEG_INF"]
+           "paged_decode_attention", "dropout_keep_mask", "supports_flash",
+           "supports_paged", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -106,6 +107,25 @@ def _int32_ids(ids, device) -> torch.Tensor:
         if ids.is_floating_point() and bool((ids != ids.round()).any()):
             raise ValueError("segment ids must be whole numbers")
     return ids.to(torch.int32).contiguous()
+
+
+def supports_flash(sq: int, sk: int, d: int, block_q: int,
+                   block_k: int) -> bool:
+    """Whether the flash kernels take these shapes: any ``sq, sk >= 1``
+    and every head dim ``d % 8 == 0`` from 8 to 256 (the kernels mask
+    ragged lengths themselves, so the block sizes, which gate the
+    reference's Pallas tiling, are accepted for its signature and do not
+    matter)."""
+    return (sq >= 1 and sk >= 1 and d % 8 == 0
+            and 8 <= d <= _kernels._FLASH_MAX_D)
+
+
+def supports_paged(block_size: int, d: int) -> bool:
+    """Whether the paged decode kernel takes a pool of ``block_size``-token
+    blocks at head dim ``d``: any ``block_size >= 1`` (the reference's
+    ``block_size % 128 == 0`` is its Pallas tiling) and the head dims of
+    :func:`~apex_tpu_torch._kernels.decode_dim_ok`."""
+    return block_size >= 1 and _kernels.decode_dim_ok(d)
 
 
 def _norm_segment_ids(segment_ids, sq: int, sk: int, device=None):

@@ -7,6 +7,8 @@ the backward. Loss with smoothing ``s``: ``logsumexp - (1 - s) *
 logit[label] - s * mean(logits)``; grad ``softmax - ((1 - s) * onehot + s /
 classes)``; both zeroed where ``label == padding_idx``. The default
 ``padding_idx`` is 0, as in the reference; GPT passes ``None``.
+``SoftmaxCrossEntropyLoss.apply`` is the class-style call of apex's
+``apex.contrib.xentropy``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["softmax_cross_entropy_loss"]
+__all__ = ["softmax_cross_entropy_loss", "SoftmaxCrossEntropyLoss"]
 
 
 class _SoftmaxXentropy(torch.autograd.Function):
@@ -64,3 +66,15 @@ def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     losses = _SoftmaxXentropy.apply(logits, labels.long(), float(smoothing),
                                     padding_idx)
     return losses if half_to_float else losses.to(logits.dtype)
+
+
+class SoftmaxCrossEntropyLoss:
+    """``SoftmaxCrossEntropyLoss.apply(logits, labels, smoothing,
+    padding_idx, half_to_float)``: :func:`softmax_cross_entropy_loss`
+    under the reference's class-style name."""
+
+    @staticmethod
+    def apply(logits, labels, smoothing=0.0, padding_idx=0,
+              half_to_float=False):
+        return softmax_cross_entropy_loss(logits, labels, smoothing,
+                                          padding_idx, half_to_float)

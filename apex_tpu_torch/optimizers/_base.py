@@ -31,28 +31,19 @@ import torch
 from torch.utils._pytree import TreeSpec, tree_leaves, tree_map
 
 from apex_tpu_torch.amp.scaler import select_tree
+from apex_tpu_torch.multi_tensor_apply.multi_tensor_apply import (
+    tree_global_norm)
 from apex_tpu_torch.observability import ingraph as _metrics
 
-__all__ = ["OptimizerBase", "bias_correction", "tree_zeros_like_f32",
+__all__ = ["OptimizerBase", "bias_correction", "step_zero",
+           "tree_zeros_like_f32",
            "tree_unzip", "global_grad_norm", "tree_global_norm"]
-
-
-def tree_global_norm(tree: Any) -> torch.Tensor:
-    """Global L2 norm over every floating leaf, each squared and summed in
-    fp32: the port's copy of ``multi_tensor_apply.tree_global_norm``
-    (``amp_C.multi_tensor_l2norm``'s global output). An empty tree gives
-    a CPU fp32 zero."""
-    leaves = [x for x in tree_leaves(tree)
-              if isinstance(x, torch.Tensor) and x.is_floating_point()]
-    if not leaves:
-        return torch.zeros((), dtype=torch.float32)
-    sq = [torch.sum(x.to(torch.float32) ** 2) for x in leaves]
-    return torch.sqrt(torch.stack(sq).sum())
 
 
 def global_grad_norm(grads: Any) -> torch.Tensor:
     """Global L2 norm of a grad tree, accumulated in fp32 (the quantity
-    LAMB's global grad-norm clip computes)."""
+    LAMB's global grad-norm clip computes): :func:`~apex_tpu_torch.
+    multi_tensor_apply.tree_global_norm`."""
     return tree_global_norm(grads)
 
 
@@ -69,6 +60,14 @@ def tree_zeros_like_f32(params: Any) -> Any:
     the parameters' dtype."""
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def step_zero(params: Any) -> torch.Tensor:
+    """An optimizer state's int32 0-d step count, 0, on the parameters'
+    device."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else None
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def bias_correction(beta: float, step: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,9 @@ optimizer's. Two tiers:
   optimizer's ``step`` does.
 
 Only for optimizers whose math is elementwise over (grad, param, state):
-``FusedAdam`` and ``FusedSGD``.
+``FusedAdam``, ``FusedAdagrad`` and ``FusedSGD``. The per-tensor norms of
+LAMB, NovoGrad and LARC would span the whole buffer here (the reference's
+ZeRO tier keeps segment ids for them, A5).
 """
 
 from __future__ import annotations

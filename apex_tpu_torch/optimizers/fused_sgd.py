@@ -23,7 +23,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_leaves, tree_structure, tree_unflatten
 
-from apex_tpu_torch.optimizers._base import OptimizerBase, tree_zeros_like_f32
+from apex_tpu_torch.optimizers._base import (
+    OptimizerBase, step_zero, tree_zeros_like_f32)
 
 __all__ = ["FusedSGD", "SGDState"]
 
@@ -54,10 +55,7 @@ class FusedSGD(OptimizerBase):
         self.materialize_master_grads = materialize_master_grads
 
     def init(self, params: Any) -> SGDState:
-        leaves = tree_leaves(params)
-        device = leaves[0].device if leaves else None
-        return SGDState(step=torch.zeros((), dtype=torch.int32,
-                                         device=device),
+        return SGDState(step=step_zero(params),
                         momentum_buf=tree_zeros_like_f32(params))
 
     def _step(self, grads: Any, state: SGDState, params: Any,

@@ -255,7 +255,47 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``flash_dbias`` once); step time and a profile; the plain path batch by
    batch, whose loss, dQ/dK/dV, slopes' grads and slopes must agree; and
    ``bench_flash_long``'s own call (no bias, no ids), timed;
-16. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+16. ``train_lamb``: BERT-base pretraining as in 14 with the LAMB that
+   ``TrainConfig`` builds for ``OptimizerConfig(name="lamb")`` at NVIDIA's
+   BERT phase-1 values (lr 6e-3 held constant, betas (0.9, 0.999), eps
+   1e-6, weight decay 0.01, max grad norm 1.0), ``DynamicLossScale(
+   2**12)``: 4 steps, each launching the flash kernels 12 times and the
+   LayerNorm kernels 26 times, every loss finite, each step's new params
+   and LAMB state against the port's LAMB stepped on the CPU from the same
+   grads, params and state; a ``FusedMixedPrecisionLamb`` leg over bf16
+   copies of the params fed the scaled grads with the live loss scale,
+   its masters against ``FusedLAMB`` on fp32 copies fed the unscaled
+   grads; step ms, tokens/s, and the LAMB step's device ms, launches and
+   copies (no device-to-host copy) beside ``FusedAdam``'s on the same
+   grads;
+17. ``optim_legs``: one forward and backward of GPT-small at 8 x 1024
+   gives the grads; ``FusedNovoGrad`` (L2 and L-inf, both moment modes),
+   ``FusedAdagrad`` (both modes), ``LARC(FusedSGD)`` and
+   ``LARC(FusedAdam)`` 3 steps each on the card against the CPU,
+   ``FlatOptimizer(FusedAdagrad)`` bit for bit with the per-leaf run; the
+   ``multi_tensor_*`` flags (one injected ``inf``) and global norm
+   (against ``torch.linalg.vector_norm``); the native ``flatten``/
+   ``unflatten``/``gather_rows`` round trip with ``native_available()``
+   true; then ``bench_headline``'s ResNet-50 step for 3 steps under
+   ``LARC(FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4))`` (trust
+   0.02, clip), step 0's update against the CPU;
+18. ``transformer_ops``: a Transformer-big (fairseq's
+   ``transformer_vaswani_wmt_en_de_big``: embed 1024, 16 heads, FFN 4096,
+   shared vocab 32768, pad 1) encoder and decoder block over 28 sentences
+   of 128 source and 96 target tokens, bf16, attention dropout 0.1 from
+   seeds: ``SelfMultiheadAttn`` with norm-add and the padding mask, a
+   residual ``FusedDenseGeluDense`` behind a LayerNorm, a causal
+   ``SelfMultiheadAttn``, ``EncdecMultiheadAttn`` (96 against 128), the
+   FFN, final LayerNorms, the tied projection and
+   ``SoftmaxCrossEntropyLoss.apply(smoothing=0.1, padding_idx=1,
+   half_to_float=True)``: 3 launches of each flash kernel and 7 of each
+   LayerNorm kernel a forward and backward, the outputs, loss and grads
+   against ``use_kernel=False`` on the card, a profile, and B1-B3 timed
+   at the three attention shapes; ``FusedScaleMaskSoftmax`` at GPT-small's
+   causal and BERT's padded scores within one bf16 ulp of an fp32 softmax
+   (a fully masked row uniform); ``MLP([480, 1024, 1024, 512, 256, 1])``
+   at batch 1024, fp32, card against CPU;
+19. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -4667,6 +4707,28 @@ def bert_batch(torch, cfg):
     return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
 
 
+def bert_base(torch):
+    """BERT-base's config (google-research/bert ``uncased_L-12_H-768_A-12``:
+    vocab 30522, hidden 768, 12 layers, 12 heads, ffn 3072, 512 positions,
+    2 token types, eps 1e-12, the pooler and the sentence-order head)."""
+    from apex_tpu_torch.models import BertConfig
+    return BertConfig(vocab_size=30522, hidden_size=768, num_layers=12,
+                      num_attention_heads=12, ffn_hidden_size=3072,
+                      max_position_embeddings=512, num_token_types=2,
+                      layernorm_epsilon=1e-12, add_pooler=True,
+                      add_binary_head=True)
+
+
+def bert_launches(L: int) -> dict:
+    """The port's kernel launches of one BERT training step: each flash
+    kernel once a layer (non-causal, the padding bias), each LayerNorm
+    kernel 26 times, nothing else."""
+    return {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "flash_dbias": 0, "flash_dbias_fold": 0,
+            "ln_fwd": LN_PER_BERT_PASS, "ln_bwd": LN_PER_BERT_PASS,
+            "decode_attention": 0, "paged_decode_attention": 0}
+
+
 def train_bert(torch, kern, card: str):
     """BERT-base pretraining steps at full width (see the constants):
     ``BertModel.loss`` with every head, backward of the scaled loss,
@@ -4677,14 +4739,10 @@ def train_bert(torch, kern, card: str):
     nothing and agree on the losses and step 0's grads. Returns the launch
     counts of the kernel path's steps."""
     from apex_tpu_torch.amp import DynamicLossScale, all_finite
-    from apex_tpu_torch.models import BertConfig, BertModel
+    from apex_tpu_torch.models import BertModel
     from apex_tpu_torch.optimizers import FusedAdam
 
-    cfg = BertConfig(vocab_size=30522, hidden_size=768, num_layers=12,
-                     num_attention_heads=12, ffn_hidden_size=3072,
-                     max_position_embeddings=512, num_token_types=2,
-                     layernorm_epsilon=1e-12, add_pooler=True,
-                     add_binary_head=True)
+    cfg = bert_base(torch)
     batch = bert_batch(torch, cfg)
     real = int(batch["attention_mask"].sum())
     init = BertModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
@@ -4715,12 +4773,7 @@ def train_bert(torch, kern, card: str):
 
         return step
 
-    L = cfg.num_layers
-    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "flash_dbias": 0, "flash_dbias_fold": 0,
-            "ln_fwd": LN_PER_BERT_PASS,
-            "ln_bwd": LN_PER_BERT_PASS, "decode_attention": 0,
-            "paged_decode_attention": 0}
+    want = bert_launches(cfg.num_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step = trainer(True)
@@ -4788,6 +4841,812 @@ def train_bert(torch, kern, card: str):
           f"at step 0, {TOL_BERT_LOSS[1]} after); step 0's unscaled grads, "
           f"worst leaf {g_leaf}: ||kernel - plain|| / ||plain|| {g_err:.4g} "
           f"(tol {TOL_BERT_GRAD})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7 (cont.): the rest of the fused optimizers and the Transformer ops
+# ---------------------------------------------------------------------------
+
+# NVIDIA's BERT phase-1 LAMB (DeepLearningExamples, run_pretraining.py):
+# lr 6e-3 (held constant here), betas (0.9, 0.999), eps 1e-6, weight
+# decay 0.01, max grad norm 1.0 (FusedLAMB's default)
+LAMB = dict(lr=6e-3, betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01)
+LAMB_STEPS = 4
+# a LAMB step on the card against the same step on the CPU from the same
+# grads, params and state: the elementwise arithmetic rounds alike (IEEE
+# sqrt and division on both), the norms (the clip's, the trust ratios')
+# sum in other orders (~1e-7 of a norm), so each leaf lands within ~1e-6
+# of its largest magnitude; the limit, of each leaf's max |CPU|
+TOL_LAMB_STEP = 1e-5
+# FusedMixedPrecisionLamb's masters fed scaled grads and the live (power
+# of two) scale, against FusedLAMB on fp32 copies fed the unscaled grads:
+# the same products on the same card, so equal; the limit, as above
+TOL_MP_LAMB = 1e-6
+
+
+def leaf_err(torch, got: dict, want: dict) -> tuple:
+    """The worst leaf's ``max |got - want| / max |want|`` over two name ->
+    tensor maps (any devices), and the leaf's name."""
+    return max((float((got[n].detach().float().cpu() - w.float().cpu())
+                      .abs().max() / w.float().abs().max().clamp(
+                          min=1e-30)), n) for n, w in want.items())
+
+
+def state_err(torch, got, want) -> tuple:
+    """:func:`leaf_err` over every tree of two optimizer states (named
+    tuples of a step count and name -> tensor maps); the step counts must
+    be equal."""
+    check(int(got.step) == int(want.step),
+          f"optimizer step counts {int(got.step)} and {int(want.step)}")
+    return max(leaf_err(torch, getattr(got, f), getattr(want, f)) + (f,)
+               for f in want._fields if f != "step")
+
+
+def to_cpu(torch, tree):
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def optimizer_cost(torch, fn) -> tuple:
+    """``(device ms, host ms, kernel launches, DtoH copies, HtoD copies)``
+    of one call of ``fn``: the kernels' time as :func:`device_ms` sums it,
+    the host clock around synchronized calls (an optimizer step is host
+    bound: its device time is a share of it), the counts of
+    :func:`step_counts`."""
+    kernels, dtoh, htod = step_totals(step_counts(torch, fn))
+    return (device_ms(torch, fn, iters=3), 1e3 * _host_time(torch, fn, 3),
+            kernels, dtoh, htod)
+
+
+def train_lamb(torch, kern, card: str) -> dict:
+    """BERT-base pretraining (``train_bert``'s model and batch: 16 x 512,
+    bf16 compute over fp32 params, ``DynamicLossScale(2**12)``) with the
+    LAMB ``TrainConfig`` builds for ``OptimizerConfig(name="lamb",
+    **LAMB)``, :data:`LAMB_STEPS` steps, each launching each flash kernel
+    12 times and each LayerNorm kernel 26 times. Each step's new params
+    and LAMB state against the port's LAMB stepped on the CPU from the
+    same grads, params and state (:data:`TOL_LAMB_STEP`); every loss
+    finite; beside it a ``FusedMixedPrecisionLamb`` leg over bf16 copies
+    of the params fed the scaled grads with ``grad_scale`` the live loss
+    scale, its masters against ``FusedLAMB`` on fp32 copies fed the
+    unscaled grads (:data:`TOL_MP_LAMB`) and its bf16 params equal to the
+    masters rounded. Then the LAMB step's device ms, launches and copies
+    (no device-to-host copy) beside ``FusedAdam``'s (``train_bert``'s
+    optimizer) on the same grads. Returns the steps' launch counts."""
+    from apex_tpu_torch.amp import DynamicLossScale, all_finite
+    from apex_tpu_torch.config import OptimizerConfig, TrainConfig
+    from apex_tpu_torch.models import BertModel
+    from apex_tpu_torch.optimizers import (FusedAdam, FusedLAMB,
+                                           FusedMixedPrecisionLamb)
+
+    cfg = bert_base(torch)
+    batch = bert_batch(torch, cfg)
+    real = int(batch["attention_mask"].sum())
+    opt = TrainConfig(optimizer=OptimizerConfig(
+        name="lamb", **LAMB)).build_optimizer()
+    check(type(opt) is FusedLAMB and (
+        opt.lr, (opt.beta1, opt.beta2), opt.eps, opt.weight_decay,
+        opt.max_grad_norm, opt.adam_w_mode) == (
+        LAMB["lr"], LAMB["betas"], LAMB["eps"], LAMB["weight_decay"], 1.0,
+        True), f"train_lamb: TrainConfig built {opt!r}, {vars(opt)}")
+    torch.cuda.empty_cache()
+    model = BertModel(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    scaler = DynamicLossScale(init_scale=2.0 ** 12)
+    ls = scaler.init(device="cuda")
+    cpu_opt = FusedLAMB(**LAMB)
+    # the mixed-precision leg: bf16 model params, and FusedLAMB over fp32
+    # copies of their values
+    mp, ref = FusedMixedPrecisionLamb(**LAMB), FusedLAMB(**LAMB)
+    mp_params = {n: p.detach().to(torch.bfloat16) for n, p in params.items()}
+    mp_state = mp.init(mp_params)
+    ref_params = {n: p.float() for n, p in mp_params.items()}
+    ref_state = ref.init(ref_params)
+    want = bert_launches(cfg.num_layers)
+    launches = {name: 0 for name in kern.LAUNCHES}
+    losses, times, step_errs, mp_errs = [], [], [], []
+    for i in range(LAMB_STEPS):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        loss = model.loss(**batch)
+        (loss * ls.loss_scale).backward()
+        loss = loss.detach()
+        scaled = {n: p.grad for n, p in params.items()}
+        grads = scaler.unscale(ls, scaled)
+        finite = all_finite(grads)
+        torch.cuda.synchronize()
+        fwd_bwd = time.perf_counter() - t0
+        counts = dict(kern.LAUNCHES)
+        check(counts == want, f"train_lamb step {i}: launches {counts}, "
+                              f"want {want}")
+        check(bool(finite) and bool(torch.isfinite(loss)),
+              f"train_lamb step {i}: loss {float(loss)} or grads not finite")
+        for name, n in counts.items():
+            launches[name] += n
+        before = to_cpu(torch, (params, state, grads, finite))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step(grads, state, params, grads_finite=finite)
+        torch.cuda.synchronize()
+        times.append(fwd_bwd + time.perf_counter() - t0)
+        losses.append(float(loss))
+        p_cpu, s_cpu, g_cpu, f_cpu = before
+        cpu_opt.step(g_cpu, s_cpu, p_cpu, grads_finite=f_cpu)
+        step_errs.append(max(leaf_err(torch, params, p_cpu) + ("params",),
+                             state_err(torch, state, s_cpu)))
+        mp.step(scaled, mp_state, mp_params, grads_finite=finite,
+                grad_scale=ls.loss_scale)
+        ref.step(grads, ref_state, ref_params, grads_finite=finite)
+        mp_errs.append(max(leaf_err(torch, mp_state.master_params,
+                                    ref_params) + ("masters",),
+                           state_err(torch, mp_state, ref_state)))
+        check(all(torch.equal(mp_params[n], m.to(torch.bfloat16))
+                  for n, m in mp_state.master_params.items()),
+              f"train_lamb step {i}: the bf16 params are not the masters "
+              "rounded")
+        ls = scaler.update(ls, finite)
+        del before, p_cpu, s_cpu, g_cpu, scaled
+        print(f"train_lamb step {i}: loss {losses[-1]:.6f}, "
+              f"{1e3 * times[-1]:.3f} ms (host clock, synchronized), the "
+              f"card's LAMB step against the CPU's: worst "
+              f"{step_errs[-1][1]} {step_errs[-1][2]} {step_errs[-1][0]:.3g}"
+              f" of its max (tol {TOL_LAMB_STEP}); mixed-precision masters "
+              f"against FusedLAMB: worst {mp_errs[-1][1]} "
+              f"{mp_errs[-1][2]} {mp_errs[-1][0]:.3g} (tol {TOL_MP_LAMB}) "
+              f"[{card}]")
+        check(step_errs[-1][0] <= TOL_LAMB_STEP,
+              f"train_lamb step {i}: the card's LAMB step vs the CPU's "
+              f"{step_errs[-1]}")
+        check(mp_errs[-1][0] <= TOL_MP_LAMB,
+              f"train_lamb step {i}: mixed-precision LAMB vs FusedLAMB "
+              f"{mp_errs[-1]}")
+    del mp_params, mp_state, ref_params, ref_state
+    torch.cuda.empty_cache()
+
+    lamb_cost = optimizer_cost(torch, lambda: opt.step(
+        grads, state, params, grads_finite=finite))
+    adam = FusedAdam(lr=1e-4)
+    adam_params = {n: p.detach().clone() for n, p in params.items()}
+    adam_state = adam.init(adam_params)
+    adam_cost = optimizer_cost(torch, lambda: adam.step(
+        grads, adam_state, adam_params, grads_finite=finite))
+    for name, cost in (("FusedLAMB", lamb_cost), ("FusedAdam", adam_cost)):
+        check(cost[3] == 0, f"train_lamb: a {name} step makes {cost[3]} "
+                            "device-to-host copies")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_n = BERT_BH[0] * BERT_ATTN[1]
+    print(f"train_lamb: BERT-base with LAMB (lr {LAMB['lr']}, betas "
+          f"{LAMB['betas']}, eps {LAMB['eps']}, weight decay "
+          f"{LAMB['weight_decay']}, max grad norm 1.0; batch {BERT_BH[0]} x "
+          f"{BERT_ATTN[1]}, {real} real tokens, bf16 compute, fp32 params), "
+          f"losses {[f'{x:.6f}' for x in losses]}, median step "
+          f"{1e3 * steady:.3f} ms after the first ({1e3 * times[0]:.3f} ms), "
+          f"{tokens_n / steady:.1f} tokens/s ({real / steady:.1f} real); "
+          f"the optimizer step alone, (device ms, host ms, launches, DtoH, "
+          f"HtoD): FusedLAMB ({lamb_cost[0]:.3f}, {lamb_cost[1]:.3f}, "
+          f"{lamb_cost[2]}, {lamb_cost[3]}, {lamb_cost[4]}), FusedAdam on the "
+          f"same grads ({adam_cost[0]:.3f}, {adam_cost[1]:.3f}, "
+          f"{adam_cost[2]}, {adam_cost[3]}, {adam_cost[4]}); launches "
+          f"{launches} [{card}]")
+    del model, params, state, grads, adam_params, adam_state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the optimizer legs on GPT-small's grads (train's batch, 8 x 1024)
+GPT_SMALL = dict(vocab_size=32768, hidden_size=768, num_layers=12,
+                 num_attention_heads=12, max_position_embeddings=1024)
+OPTIM_LEG_STEPS = 3
+# each leg on the card against the same optimizer on the CPU from the same
+# params and grads, of each leaf's max |CPU|: elementwise arithmetic alike,
+# the per-tensor norms summed in other orders
+TOL_OPTIM_LEG = 1e-5
+# bench_headline's step under LARC(FusedSGD(momentum=0.9)) at the
+# reference's defaults (trust 0.02, clip), step 0's update card vs CPU
+LARC_RESNET_STEPS = 3
+
+
+def optim_legs(torch, kern, card: str) -> dict:
+    """One forward and backward of GPT-small at ``train``'s batch gives
+    the grads (each flash kernel 12 launches, each LayerNorm kernel 25);
+    on them each leg runs :data:`OPTIM_LEG_STEPS` steps (the grads times
+    1, 2, 3) on the card and the same on the CPU (:data:`TOL_OPTIM_LEG`):
+    ``FusedNovoGrad`` at ``norm_type`` 2 and 0 in both moment modes,
+    ``FusedAdagrad`` in both modes, ``LARC(FusedSGD)`` and
+    ``LARC(FusedAdam)``; ``FlatOptimizer(FusedAdagrad)`` must equal the
+    per-leaf run bit for bit. The ``multi_tensor_*`` functions on the
+    grads (the flags, with one injected ``inf``; the global norm against
+    ``torch.linalg.vector_norm``) and the native ``flatten``/``unflatten``
+    /``gather_rows`` round-tripped, with ``native_available()`` true. Then
+    ``bench_headline``'s ResNet-50 step (256 x 224 x 224 bf16) for
+    :data:`LARC_RESNET_STEPS` steps under ``LARC(FusedSGD(lr=0.1,
+    momentum=0.9, weight_decay=1e-4))``, step 0's update against the CPU.
+    Returns the launch counts of the GPT pass."""
+    import numpy as np
+    import torch.nn.functional as F
+    from apex_tpu_torch import _native
+    from apex_tpu_torch.amp import DynamicLossScale, all_finite
+    from apex_tpu_torch.models import (GPTConfig, GPTModel, ResNet50,
+                                       ResNetConfig)
+    from apex_tpu_torch.multi_tensor_apply import (multi_tensor_axpby,
+                                                   multi_tensor_l2norm,
+                                                   multi_tensor_scale)
+    from apex_tpu_torch.optimizers import (LARC, FlatOptimizer,
+                                           FusedAdagrad, FusedAdam,
+                                           FusedNovoGrad, FusedSGD)
+
+    cfg = GPTConfig(**GPT_SMALL)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, TRAIN_BH[:1] + TRAIN_ATTN[1:2])).to("cuda")
+    model = GPTModel(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    model.loss(tokens, tokens).backward()
+    torch.cuda.synchronize()
+    launches = dict(kern.LAUNCHES)
+    L = cfg.num_layers
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == L, f"optim_legs: {name} launched "
+                                   f"{launches[name]} times, not {L}")
+    for name in ("ln_fwd", "ln_bwd"):
+        check(launches[name] == LN_PER_GPT_PASS,
+              f"optim_legs: {name} launched {launches[name]} times")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    check(bool(all_finite(grads)), "optim_legs: GPT grads not finite")
+    p_cpu, g_cpu = to_cpu(torch, (params, grads))
+    legs = {
+        "novograd l2": lambda: FusedNovoGrad(lr=1e-2, weight_decay=1e-3),
+        "novograd l2 reg_inside_moment": lambda: FusedNovoGrad(
+            lr=1e-2, weight_decay=1e-3, reg_inside_moment=True),
+        "novograd linf": lambda: FusedNovoGrad(lr=1e-2, weight_decay=1e-3,
+                                               norm_type=0),
+        "novograd linf reg_inside_moment": lambda: FusedNovoGrad(
+            lr=1e-2, weight_decay=1e-3, norm_type=0, reg_inside_moment=True),
+        "adagrad": lambda: FusedAdagrad(lr=1e-2, weight_decay=1e-3),
+        "adagrad_w_mode": lambda: FusedAdagrad(lr=1e-2, weight_decay=1e-3,
+                                               adagrad_w_mode=True),
+        "LARC(FusedSGD)": lambda: LARC(FusedSGD(lr=0.1, momentum=0.9,
+                                                weight_decay=1e-4)),
+        "LARC(FusedAdam)": lambda: LARC(FusedAdam(lr=1e-3,
+                                                  weight_decay=1e-2)),
+    }
+    results = {}
+    for name, make in legs.items():
+        runs = []
+        for dev_params, dev_grads in ((params, grads), (p_cpu, g_cpu)):
+            opt = make()
+            p = {n: t.clone() for n, t in dev_params.items()}
+            st = opt.init(p)
+            for i in range(OPTIM_LEG_STEPS):
+                opt.step({n: g * float(i + 1) for n, g in dev_grads.items()},
+                         st, p)
+            runs.append((p, st))
+        (p_card, s_card), (p_host, s_host) = runs
+        results[name] = max(leaf_err(torch, p_card, p_host) + ("params",),
+                            state_err(torch, s_card, s_host))
+        check(results[name][0] <= TOL_OPTIM_LEG,
+              f"optim_legs {name}: card vs CPU {results[name]}")
+        if name.startswith("adagrad"):
+            flat = FlatOptimizer(make())
+            fp = {n: t.clone() for n, t in params.items()}
+            fst = flat.init(fp)
+            for i in range(OPTIM_LEG_STEPS):
+                flat.step({n: g * float(i + 1) for n, g in grads.items()},
+                          fst, fp)
+            check(all(torch.equal(fp[n], p_card[n]) for n in fp),
+                  f"optim_legs: FlatOptimizer({name}) differs from the "
+                  "per-leaf run")
+            results[f"FlatOptimizer({name}) vs per-leaf"] = (
+                0.0, "every leaf", "bit for bit")
+            del flat, fp, fst
+        del runs, p_card, s_card, p_host, s_host
+        torch.cuda.empty_cache()
+    print(f"optim_legs: GPT-small grads (8 x 1024, bf16 compute), "
+          f"{OPTIM_LEG_STEPS} steps each, card vs CPU, worst leaf's max "
+          f"|diff| / max |CPU| (tol {TOL_OPTIM_LEG}): " + "; ".join(
+              f"{name} {err:.3g} ({leaf}, {what})"
+              for name, (err, leaf, what) in results.items())
+          + f" [{card}]")
+
+    # the multi_tensor functions on the grads
+    first = next(iter(grads))
+    poisoned = dict(grads)
+    poisoned[first] = grads[first].clone()
+    poisoned[first].view(-1)[0] = float("inf")
+    half, ok = multi_tensor_scale(grads, 0.5)
+    _, bad = multi_tensor_scale(poisoned, 0.5)
+    same, ok2 = multi_tensor_axpby(2.0, grads, -1.0, grads)
+    _, bad2 = multi_tensor_axpby(2.0, poisoned, -1.0, grads)
+    check(bool(ok) and bool(ok2) and not bool(bad) and not bool(bad2),
+          f"optim_legs: finite flags {bool(ok)}, {bool(ok2)}, with an inf "
+          f"{bool(bad)}, {bool(bad2)}")
+    check(all(torch.equal(half[n], g * 0.5) and torch.equal(same[n], g)
+              for n, g in grads.items()),
+          "optim_legs: multi_tensor_scale or axpby values differ")
+    gnorm, per = multi_tensor_l2norm(grads, per_tensor=True)
+    want = torch.linalg.vector_norm(torch.cat([g.reshape(-1)
+                                               for g in grads.values()]))
+    norm_err = abs(float(gnorm) / float(want) - 1)
+    per_err = max(abs(float(per[n]) / float(torch.linalg.vector_norm(g))
+                      - 1) for n, g in grads.items())
+    check(max(norm_err, per_err) <= TOL_GRAD_NORM,
+          f"optim_legs: multi_tensor_l2norm {float(gnorm)} vs vector_norm "
+          f"{float(want)}: {norm_err:.3g}, per tensor {per_err:.3g}")
+
+    # the native host packing
+    check(_native.native_available(), "optim_legs: the native library did "
+                                      "not build (g++)")
+    arrays = [g_cpu[n].numpy() for n in list(g_cpu)[:8]]
+    packed = _native.flatten(arrays)
+    back = _native.unflatten(packed, arrays)
+    table = g_cpu["embedding.word.weight"].numpy()
+    idx = np.random.RandomState(1).randint(0, table.shape[0], 4096)
+    rows = _native.gather_rows(table, idx)
+    check(packed.nbytes == sum(a.nbytes for a in arrays)
+          and all(np.array_equal(a, b) for a, b in zip(arrays, back))
+          and np.array_equal(rows, table[idx]),
+          "optim_legs: native flatten/unflatten/gather_rows round trip")
+    print(f"optim_legs: multi_tensor_scale/axpby flags True, with one inf "
+          f"False; multi_tensor_l2norm {float(gnorm):.6f} against "
+          f"vector_norm {float(want):.6f} ({norm_err:.3g}, per tensor worst "
+          f"{per_err:.3g}; tol {TOL_GRAD_NORM}); native_available True, "
+          f"flatten/unflatten of {len(arrays)} arrays ({packed.nbytes} "
+          f"bytes) and gather_rows of {idx.size} rows round-tripped "
+          f"[{card}]")
+    del params, grads, p_cpu, g_cpu, poisoned, half, same, per
+    torch.cuda.empty_cache()
+
+    # bench_headline's ResNet-50 step under LARC(FusedSGD)
+    rcfg = ResNetConfig(num_classes=1000, compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(HEADLINE_BATCH, HEADLINE_IMG,
+                                   HEADLINE_IMG, 3).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    labels = torch.from_numpy(rng.randint(0, 1000, HEADLINE_BATCH)).to(
+        "cuda")
+    net = ResNet50(rcfg, device="cuda").init(torch.Generator().manual_seed(0))
+    rparams = dict(net.named_parameters())
+
+    def make_larc():
+        return LARC(FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4))
+
+    opt = make_larc()
+    ost = opt.init(rparams)
+    scaler = DynamicLossScale(init_scale=2.0 ** 12)
+    ls = scaler.init(device="cuda")
+    kern.reset_launches()
+    losses, times = [], []
+    for i in range(LARC_RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in rparams.values():
+            p.grad = None
+        loss = F.cross_entropy(net(x), labels)
+        (loss * ls.loss_scale).backward()
+        loss = loss.detach()
+        g = scaler.unscale(ls, {n: p.grad for n, p in rparams.items()})
+        finite = all_finite(g)
+        copy_s = 0.0
+        if i == 0:       # the state before step 0, for the CPU (untimed)
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            host = to_cpu(torch, (rparams, ost, g, finite))
+            copy_s = time.perf_counter() - c0
+        ls = scaler.update(ls, finite)
+        opt.step(g, ost, rparams, grads_finite=finite)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0 - copy_s)
+        losses.append(float(loss))
+        check(bool(finite) and np.isfinite(losses[-1]),
+              f"optim_legs ResNet-50 LARC step {i}: loss {losses[-1]} or "
+              "grads not finite")
+        if i == 0:
+            hp, hs, hg, hf = host
+            make_larc().step(hg, hs, hp, grads_finite=hf)
+            larc_err = max(leaf_err(torch, rparams, hp) + ("params",),
+                           state_err(torch, ost, hs))
+            check(larc_err[0] <= TOL_OPTIM_LEG,
+                  f"optim_legs ResNet-50 LARC step 0 card vs CPU {larc_err}")
+            del host, hp, hs, hg
+    check(sum(kern.LAUNCHES.values()) == 0,
+          "optim_legs: the ResNet-50 LARC steps launched the port's kernels")
+    print(f"optim_legs: ResNet-50 (bench_headline, {HEADLINE_BATCH} x "
+          f"{HEADLINE_IMG}^2 bf16) under LARC(FusedSGD(lr 0.1, momentum 0.9,"
+          f" weight decay 1e-4), trust 0.02, clip): losses "
+          f"{[f'{v:.4f}' for v in losses]}, steps "
+          f"{[f'{1e3 * t:.3f}' for t in times]} ms (host clock, "
+          f"synchronized), step 0's update card vs CPU worst {larc_err[1]} "
+          f"{larc_err[2]} {larc_err[0]:.3g} (tol {TOL_OPTIM_LEG}) [{card}]")
+    del net, rparams, opt, ost, x, labels, g
+    torch.cuda.empty_cache()
+    return launches
+
+
+# fairseq's transformer_vaswani_wmt_en_de_big: embed 1024, 16 heads (d 64),
+# FFN 4096, a shared 32768 vocab, pad index 1; 28 sentences of 128 source
+# and 96 target tokens (3584 source tokens, --max-tokens 3584 of its
+# scaling-NMT recipe); attention dropout 0.1 from a seed, bf16 compute
+BIG = dict(embed=1024, heads=16, ffn=4096, vocab=32768, pad=1, batch=28,
+           src=128, tgt=96)
+BIG_DROPOUT = 0.1
+BIG_SEEDS = (11, 12, 13)          # the three attention modules' dropout
+# a block of each kernel's three flash launches, each LayerNorm kernel's
+# seven (the four pre-norms, the two FFN norms' ... see big_forward)
+BIG_LAUNCHES = {"flash_fwd": 3, "flash_bwd_dq": 3, "flash_bwd_dkv": 3,
+                "ln_fwd": 7, "ln_bwd": 7}
+# the kernel path against use_kernel=False on the card, bf16: the block
+# outputs and every grad as relative norms, the loss absolute. The outputs
+# and the loss take BERT's limits (the same kernels at the same d); the
+# grads 5e-2: the pre-norms' bias grads are sums over 2688-3584 rows
+# whose terms cancel, so the one-ulp bf16 differences of the two
+# forwards (B1 rounds P before P V where the plain version rounds the
+# normalized P) come out larger relative to them (0.0276 at the decoder
+# cross-attention's norm bias, PERF.md §6). Both
+# paths' distance to an fp32 run of the plain path is printed beside it.
+TOL_BIG_OUT = 2e-2
+TOL_BIG_LOSS = 1e-2
+TOL_BIG_GRAD = 5e-2
+# FusedScaleMaskSoftmax at GPT-small's causal scores and BERT's padded
+# ones (b, heads, sq, sk), bf16 out against an fp32 softmax of the same
+# masked scores on the card: within one bf16 ulp of the fp32 value (its
+# rounding moves it by at most half of one), exact where the fp32 value
+# is 0 (a dropped score)
+SOFTMAX_SHAPES = {"GPT-small causal": (8, 12, 1024, 1024),
+                  "BERT padding": (16, 12, 512, 512)}
+
+
+def bf16_ulps(torch, got, ref) -> float:
+    """The largest ``|got - ref|`` in units of the bf16 ulp at ``ref``
+    (``inf`` where ``ref`` is 0 and ``got`` is not)."""
+    _, exp = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), exp - 8)   # |ref| in [2^(e-1), 2^e)
+    diff = (got.float() - ref).abs()
+    ratio = torch.where(ref == 0, torch.where(diff == 0, 0.0, float("inf")),
+                        diff / ulp)
+    return float(ratio.max())
+# apex's MLP test sizes, batch 1024, fp32, card against CPU (GEMMs sum in
+# other orders): relative norm of outputs and grads. With ReLU, a
+# pre-activation within rounding of 0 may take the other side on the
+# other device and move that sample's share of a layer's grad (1.1e-3 of
+# the norm, PERF.md §6): the ReLU MLP is held on
+# its output, and forward and backward are held with the sigmoid, which
+# has no kink
+MLP_SIZES = (480, 1024, 1024, 512, 256, 1)
+MLP_BATCH = 1024
+TOL_MLP = 1e-5
+
+
+def big_model(torch, use_kernel, state=None):
+    """The Transformer-big encoder and decoder block (:data:`BIG`) as an
+    ``nn.ModuleDict`` on the card, drawn from a seed or loaded from
+    ``state``."""
+    from torch import nn
+    from apex_tpu_torch.normalization import FusedLayerNorm
+    from apex_tpu_torch.ops import (EncdecMultiheadAttn,
+                                    FusedDenseGeluDense, SelfMultiheadAttn)
+    e, h, f = BIG["embed"], BIG["heads"], BIG["ffn"]
+    attn = dict(dropout=BIG_DROPOUT, include_norm_add=True, device="cuda",
+                use_kernel=use_kernel)
+    norm = dict(device="cuda", use_kernel=use_kernel)
+    m = nn.ModuleDict({
+        "embed": nn.ParameterDict({"weight": nn.Parameter(torch.empty(
+            BIG["vocab"], e, device="cuda"))}),
+        "enc_attn": SelfMultiheadAttn(e, h, **attn),
+        "enc_ln": FusedLayerNorm(e, **norm),
+        "enc_ffn": FusedDenseGeluDense(e, f, e, device="cuda"),
+        "enc_final": FusedLayerNorm(e, **norm),
+        "dec_self": SelfMultiheadAttn(e, h, **attn),
+        "dec_cross": EncdecMultiheadAttn(e, h, **attn),
+        "dec_ln": FusedLayerNorm(e, **norm),
+        "dec_ffn": FusedDenseGeluDense(e, f, e, device="cuda"),
+        "dec_final": FusedLayerNorm(e, **norm)})
+    if state is not None:
+        m.load_state_dict(state)
+        return m
+    gen = torch.Generator().manual_seed(0)
+    for name in ("enc_attn", "enc_ffn", "dec_self", "dec_cross", "dec_ffn"):
+        m[name].init(gen)
+    with torch.no_grad():
+        m["embed"]["weight"].copy_(torch.randn(
+            BIG["vocab"], e, generator=gen) * e ** -0.5)
+    return m
+
+
+def big_batch(torch):
+    """28 source sentences of 128 tokens and target sentences of 96 (the
+    teacher-forced input and the shifted output), lengths drawn from
+    ``RandomState(0)``, padded with index 1."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    b, s, t, pad = BIG["batch"], BIG["src"], BIG["tgt"], BIG["pad"]
+    src = rng.randint(2, BIG["vocab"], (b, s))
+    tgt = rng.randint(2, BIG["vocab"], (b, t + 1))
+    src_len = rng.randint(s // 2, s + 1, b)
+    tgt_len = rng.randint(t // 2, t + 1, b)
+    src_len[0], tgt_len[0] = s, t
+    src[np.arange(s)[None, :] >= src_len[:, None]] = pad
+    tgt[np.arange(t + 1)[None, :] >= tgt_len[:, None]] = pad
+    out = dict(src=src, tgt_in=tgt[:, :-1], tgt_out=tgt[:, 1:])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for k, v in out.items()}
+
+
+def big_forward(torch, m, batch, dtype=None):
+    """The block's forward: the encoder (``SelfMultiheadAttn`` with
+    norm-add and the source padding mask, then ``x + FFN(LN(x))``, a final
+    LN), the decoder (a causal ``SelfMultiheadAttn`` with norm-add and the
+    target padding mask, ``EncdecMultiheadAttn`` with norm-add over the
+    encoder output and the source mask, ``y + FFN(LN(y))``, a final LN),
+    the tied output projection and ``SoftmaxCrossEntropyLoss.apply(...,
+    smoothing=0.1, padding_idx=1, half_to_float=True)`` summed over the
+    target tokens that are not padding, computed in ``dtype`` (default
+    bf16). Returns ``(encoder out, decoder out, loss)``."""
+    from apex_tpu_torch.ops import SoftmaxCrossEntropyLoss
+    dt, pad = dtype or torch.bfloat16, BIG["pad"]
+    emb = m["embed"]["weight"]
+    src_mask = batch["src"] == pad
+    x = emb[batch["src"]].to(dt).transpose(0, 1)              # (S, B, E)
+    x = m["enc_attn"](x, key_padding_mask=src_mask,
+                      dropout_seed=BIG_SEEDS[0])
+    x = x + m["enc_ffn"](m["enc_ln"](x))
+    enc = m["enc_final"](x)
+    y = emb[batch["tgt_in"]].to(dt).transpose(0, 1)           # (T, B, E)
+    y = m["dec_self"](y, key_padding_mask=batch["tgt_in"] == pad,
+                      attn_mask_causal=True, dropout_seed=BIG_SEEDS[1])
+    y = m["dec_cross"](y, enc, key_padding_mask=src_mask,
+                       dropout_seed=BIG_SEEDS[2])
+    y = y + m["dec_ffn"](m["dec_ln"](y))
+    dec = m["dec_final"](y)
+    logits = dec.transpose(0, 1).reshape(-1, BIG["embed"]) @ emb.to(dt).t()
+    labels = batch["tgt_out"].reshape(-1)
+    losses = SoftmaxCrossEntropyLoss.apply(logits, labels, 0.1, pad, True)
+    return enc, dec, losses.sum() / (labels != pad).sum()
+
+
+def big_kernel_timings(torch, fa, kern, card: str) -> None:
+    """B1-B3 at the block's three attention shapes (448 batch-heads, d 64,
+    bf16, the padding bias): encoder self 128 x 128, decoder causal self
+    96 x 96, cross 96 x 128; kernel and plain device ms and SDPA's with
+    the same float mask, beside the bound over the visible pairs."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, h, d = BIG["batch"], BIG["heads"], BIG["embed"] // BIG["heads"]
+    n = b * h
+    lengths = torch.randint(BIG["src"] // 2, BIG["src"] + 1, (b,),
+                            generator=gen, device="cuda")
+    for what, sq, sk, causal in (("encoder self", BIG["src"], BIG["src"],
+                                  False),
+                                 ("decoder causal self", BIG["tgt"],
+                                  BIG["tgt"], True),
+                                 ("cross", BIG["tgt"], BIG["src"], False)):
+        q, do = (torch.randn((n, sq, d), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((n, sk, d), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        bias = torch.where(torch.arange(sk, device="cuda")[None, :]
+                           < lengths[:, None] * sk // BIG["src"], 0.0,
+                           -10000.0)[:, None, None, :]
+        scale = d ** -0.5
+        out, lse = kern.flash_fwd(q, k, v, causal, scale, bias=bias)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        kernel = {"flash_fwd": lambda: kern.flash_fwd(q, k, v, causal, scale,
+                                                      bias=bias),
+                  "flash_bwd_dq": lambda: kern.flash_bwd_dq(*args, bias=bias),
+                  "flash_bwd_dkv": lambda: kern.flash_bwd_dkv(*args,
+                                                              bias=bias)}
+        plain_fn = {"flash_fwd": lambda: fa._flash_fwd_plain(
+            q, k, v, causal, scale, bias=bias),
+            "flash_bwd_dq": lambda: fa._flash_bwd_dq_plain(*args, bias=bias),
+            "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_plain(*args,
+                                                             bias=bias)}
+        ms = {name: device_ms(torch, fn) for name, fn in kernel.items()}
+        plain = {name: device_ms(torch, fn, iters=5)
+                 for name, fn in plain_fn.items()}
+        q4, k4, v4, do4 = (t.view(b, h, -1, d) for t in (q, k, v, do))
+        mask = bias.to(torch.bfloat16)
+        if causal:
+            mask = mask + torch.where(torch.ones(sq, sk, dtype=torch.bool,
+                                                 device="cuda").tril(),
+                                      0.0, -10000.0).to(torch.bfloat16)
+        lib_fwd = device_ms(torch, lambda: torch.nn.functional
+                            .scaled_dot_product_attention(q4, k4, v4,
+                                                          attn_mask=mask))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask)
+        lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do4, retain_graph=True))
+        pairs = n * (sq * (sq + 1) // 2 if causal else sq * sk)
+        rows = n * sq * 4
+        work = {"flash_fwd": (2 * nbytes_of(q) + 2 * nbytes_of(k) + rows
+                              + nbytes_of(bias), 2 * 2 * pairs * d),
+                "flash_bwd_dq": (3 * nbytes_of(q) + 2 * nbytes_of(k)
+                                 + 2 * rows + nbytes_of(bias),
+                                 3 * 2 * pairs * d),
+                "flash_bwd_dkv": (2 * nbytes_of(q) + 4 * nbytes_of(k)
+                                  + 2 * rows + nbytes_of(bias),
+                                  4 * 2 * pairs * d)}
+        for name in kernel:
+            b_ms, b_by = bound(*work[name])
+            print(f"transformer_ops {name} at the {what} shape ({n} x {sq} x"
+                  f" {sk}, d {d}, bf16, padding bias"
+                  f"{', causal' if causal else ''}): kernel {ms[name]:.4f} "
+                  f"ms, plain {plain[name]:.4f} ms, SDPA with a float mask "
+                  f"{'fwd' if name == 'flash_fwd' else 'bwd (dq+dk+dv)'} "
+                  f"{lib_fwd if name == 'flash_fwd' else lib_bwd:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+        del q, k, v, do, qg, kg, vg, sdpa
+
+
+def transformer_ops(torch, fa, kern, card: str) -> dict:
+    """A Transformer-big encoder and decoder block (:data:`BIG`,
+    ``big_forward``) forward and backward on the kernel path, which must
+    launch :data:`BIG_LAUNCHES`, against ``use_kernel=False`` on the card
+    from one state dict (the same dropout seeds): the block outputs, the
+    loss and every grad (``TOL_BIG_*``); the step's host-clock time and a
+    profile by kernel; B1-B3 at the block's shapes
+    (``big_kernel_timings``). Then ``FusedScaleMaskSoftmax``, causal at
+    GPT-small's scores (8 x 12 x 1024 x 1024 bf16, scale 1/8) and with a
+    padding mask at BERT's (16 x 12 x 512 x 512, one query row fully
+    masked), each within one bf16 ulp of an fp32 softmax and the
+    masked row uniform; and ``MLP(MLP_SIZES)`` at batch 1024, forward and
+    backward in fp32, card against CPU (:data:`TOL_MLP`). Returns the
+    kernel path's launch counts."""
+    import numpy as np
+    from apex_tpu_torch.ops import AttnMaskType, FusedScaleMaskSoftmax, MLP
+
+    batch = big_batch(torch)
+    init = big_model(torch, None)
+    state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    runs = {}
+    for use_kernel, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                              (False, torch.float32)):
+        m = big_model(torch, use_kernel, state)
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        enc, dec, loss = big_forward(torch, m, batch, dtype)
+        loss.backward()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = dict(kern.LAUNCHES)
+        loss = loss.detach()
+        check(bool(torch.isfinite(loss)), f"transformer_ops: loss {loss}")
+        runs[use_kernel, dtype] = (enc.detach(), dec.detach(), float(loss),
+                                   {n: p.grad.detach() for n, p in
+                                    m.named_parameters()}, counts, elapsed)
+        if use_kernel:
+            def step():
+                for p in m.parameters():
+                    p.grad = None
+                big_forward(torch, m, batch)[2].backward()
+
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            profile_step(torch, "transformer_ops block forward + backward "
+                                "(28 x 128 / 96 tokens, bf16)", step, card,
+                         iters=2, top=12)
+        del m
+        torch.cuda.empty_cache()
+    enc_k, dec_k, loss_k, grads_k, launches, _ = runs[True, torch.bfloat16]
+    enc_p, dec_p, loss_p, grads_p, plain_counts, plain_s = runs[
+        False, torch.bfloat16]
+    grads_32 = runs[False, torch.float32][3]
+    want = {name: BIG_LAUNCHES.get(name, 0) for name in kern.LAUNCHES}
+    check(launches == want, f"transformer_ops: launches {launches}, want "
+                            f"{want}")
+    check(sum(plain_counts.values()) == 0,
+          f"transformer_ops: the plain path launched {plain_counts}")
+    out_err = max(float((a.float() - b.float()).norm() / b.float().norm())
+                  for a, b in ((enc_k, enc_p), (dec_k, dec_p)))
+    loss_err = abs(loss_k - loss_p)
+    g_err, g_leaf = grad_rel(torch, grads_k, grads_p)
+    worst3 = sorted(((float((grads_k[n] - w).norm() / w.norm().clamp(
+        min=1e-30)), n) for n, w in grads_p.items()), reverse=True)[:3]
+    to_fp32 = [grad_rel(torch, g, grads_32) for g in (grads_k, grads_p)]
+    print(f"transformer_ops: Transformer-big block (embed {BIG['embed']}, "
+          f"{BIG['heads']} heads, FFN {BIG['ffn']}, vocab {BIG['vocab']}; "
+          f"{BIG['batch']} x {BIG['src']} source / {BIG['tgt']} target "
+          f"tokens, bf16, attention dropout {BIG_DROPOUT}), kernel path vs "
+          f"use_kernel=False: block outputs {out_err:.4g} (relative norm, "
+          f"tol {TOL_BIG_OUT}), loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"({loss_err:.3g}, tol {TOL_BIG_LOSS}), grads worst leaves "
+          f"{[(n, round(e, 5)) for e, n in worst3]} (tol {TOL_BIG_GRAD}); "
+          f"each path's grads against an fp32 plain run, worst leaf: kernel "
+          f"{to_fp32[0][1]} {to_fp32[0][0]:.4g}, plain {to_fp32[1][1]} "
+          f"{to_fp32[1][0]:.4g}; forward + backward "
+          f"{[f'{1e3 * t:.3f}' for t in times]} ms (host clock, "
+          f"synchronized), the plain path {1e3 * plain_s:.3f} ms; "
+          f"launches {launches} [{card}]")
+    check(out_err <= TOL_BIG_OUT, f"transformer_ops block outputs {out_err}")
+    check(loss_err <= TOL_BIG_LOSS, f"transformer_ops loss {loss_err}")
+    check(g_err <= TOL_BIG_GRAD, f"transformer_ops grads {g_leaf} {g_err}")
+    del runs, grads_k, grads_p, grads_32
+    torch.cuda.empty_cache()
+    big_kernel_timings(torch, fa, kern, card)
+
+    # FusedScaleMaskSoftmax at GPT-small's and BERT's scores
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    worst = {}
+    for what, shape in SOFTMAX_SHAPES.items():
+        kind = (AttnMaskType.causal if "causal" in what
+                else AttnMaskType.padding)
+        scale = 0.125
+        x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(
+            torch.bfloat16)
+        sq, sk = shape[-2:]
+        if kind == AttnMaskType.causal:
+            mask = torch.ones(sq, sk, dtype=torch.bool,
+                              device="cuda").triu(1)[None, None]
+        else:
+            lengths = torch.randint(sk // 2, sk + 1, (shape[0],),
+                                    generator=gen, device="cuda")
+            mask = (torch.arange(sk, device="cuda")[None, :]
+                    >= lengths[:, None])[:, None, None, :].expand(
+                shape[0], 1, sq, sk).clone()
+            mask[-1, 0, 7, :] = True               # a fully masked row
+        sm = FusedScaleMaskSoftmax(input_in_bf16=True, attn_mask_type=kind,
+                                   scale=scale)
+        out = sm(x, mask)
+        ref = torch.softmax((x.float() * scale).masked_fill(mask, -10000.0),
+                            dim=-1)
+        worst[what] = bf16_ulps(torch, out, ref)
+        check(out.dtype == torch.bfloat16 and worst[what] <= 1.0,
+              f"transformer_ops: FusedScaleMaskSoftmax {what}: "
+              f"{worst[what]:.3g} bf16 ulps from an fp32 softmax")
+        if kind == AttnMaskType.padding:
+            row = out[-1, :, 7].float()
+            check(bool((row == 1.0 / sk).all()),
+                  "transformer_ops: a fully masked row is not uniform")
+        del x, mask, out, ref
+    torch.cuda.empty_cache()
+
+    # apex's MLP test sizes, card against CPU at fp32
+    rng = np.random.RandomState(23)
+    x = torch.from_numpy(rng.randn(MLP_BATCH, MLP_SIZES[0]).astype(
+        np.float32))
+    w = torch.from_numpy(rng.randn(MLP_BATCH, MLP_SIZES[-1]).astype(
+        np.float32))
+    mlp_state = MLP(MLP_SIZES, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    mlp_err = {}
+    for activation in ("relu", "sigmoid"):
+        mlp_runs = []
+        for device in ("cuda", "cpu"):
+            mlp = MLP(MLP_SIZES, activation=activation, device=device)
+            mlp.load_state_dict(mlp_state)
+            xd = x.to(device).clone().requires_grad_()
+            out = mlp(xd)
+            (out * w.to(device)).sum().backward()
+            mlp_runs.append([out.detach().cpu(), xd.grad.cpu()]
+                            + [p.grad.cpu() for p in mlp.parameters()])
+        errs = [float((a - b).norm() / b.norm().clamp(min=1e-30))
+                for a, b in zip(*mlp_runs)]
+        mlp_err[activation] = (errs[0], max(errs[1:]))
+    check(max(mlp_err["relu"][0], *mlp_err["sigmoid"]) <= TOL_MLP,
+          f"transformer_ops: MLP card vs CPU (output, worst grad) {mlp_err}")
+    print(f"transformer_ops: FusedScaleMaskSoftmax bf16 against an fp32 "
+          f"softmax, worst |diff| in bf16 ulps of the fp32 value {worst} "
+          f"(tol 1), the fully masked row uniform; MLP{list(MLP_SIZES)} at "
+          f"batch {MLP_BATCH}, fp32, card vs CPU, relative norms (output, "
+          f"worst grad): {mlp_err} (tol {TOL_MLP} but the ReLU grads) "
+          f"[{card}]")
     return launches
 
 
@@ -5471,6 +6330,9 @@ def main() -> None:
     resnet = train_resnet(torch, kern, card)
     bert = train_bert(torch, kern, card)
     long, dbias_row = long_context(torch, fa, kern, card)
+    lamb = train_lamb(torch, kern, card)
+    legs = optim_legs(torch, kern, card)
+    big = transformer_ops(torch, fa, kern, card)
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -5483,8 +6345,10 @@ def main() -> None:
           f"dropout) {remat_legs}, TrainConfig training ({CONFIG_STEPS} "
           f"steps) {config_training}, ResNet-50 training (bench_headline, "
           f"{HEADLINE_WARMUP + HEADLINE_STEPS} steps) {resnet}, BERT "
-          f"training ({BERT_STEPS} steps) {bert}, long-context training "
-          f"({LONG_STEPS} steps) {long}")
+          f"training ({BERT_STEPS} steps) {bert}, BERT with LAMB "
+          f"({LAMB_STEPS} steps) {lamb}, the optimizer legs' GPT pass "
+          f"{legs}, the Transformer-big block (one forward and backward) "
+          f"{big}, long-context training ({LONG_STEPS} steps) {long}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
@@ -5493,7 +6357,7 @@ def main() -> None:
                               (serving, small_serving, paged, spec,
                                paged_spec, goodput, chaos, training,
                                small_training, remat_legs, config_training,
-                               resnet, bert, long)
+                               resnet, bert, lamb, legs, big, long)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):
