@@ -13,12 +13,37 @@ without speculative decoding, train it, pretrain BERT (padding masks as
 the flash kernels' score bias, every LayerNorm on its own kernels) and
 train ResNet-50 (cuDNN convs, batch norm in torch ops, as the reference
 leaves them to XLA), with amp policies, telemetry and a ``TrainConfig``
-that builds the pieces: :mod:`apex_tpu_torch.models`,
-:mod:`apex_tpu_torch.serving`, :mod:`apex_tpu_torch.normalization`,
-:mod:`apex_tpu_torch.optimizers`, :mod:`apex_tpu_torch.amp`,
-:mod:`apex_tpu_torch.parallel` and :mod:`apex_tpu_torch.config`. Public
+that builds the pieces, and carry the rest of the one-device surface: the
+RNN family (:mod:`apex_tpu_torch.RNN`), the RNN-T transducer, focal loss
+and the fused convs (:mod:`apex_tpu_torch.ops`), 2:4 sparsity
+(:mod:`apex_tpu_torch.contrib.sparsity`), and the tp=1 RNG tracker and
+vocab-parallel cross-entropy (:mod:`apex_tpu_torch.transformer`). Public
 entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
 the plain PyTorch path.
+
+The subpackages resolve on first attribute access, as the reference's do
+(``apex_tpu/__init__.py:32-44``): ``import apex_tpu_torch`` imports none
+of them, builds no kernel and needs no card. The reference's
+``utils``, ``checkpoint``, ``pyprof`` and ``reparameterization`` are not
+ported, and raise ``AttributeError`` here.
 """
 
+import importlib as _importlib
+
 __version__ = "0.1.0"
+
+_LAZY_SUBMODULES = (
+    "amp", "optimizers", "normalization", "ops", "parallel", "transformer",
+    "contrib", "fp16_utils", "models", "multi_tensor_apply", "RNN",
+    "config", "observability", "remat", "serving", "elastic",
+)
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        return _importlib.import_module(f"apex_tpu_torch.{name}")
+    raise AttributeError(f"module 'apex_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY_SUBMODULES))

@@ -31,6 +31,11 @@ state (``LAMBState``, ``MixedPrecisionLambState``, ``NovoGradState``,
 fields) into the port's, its dict trees in the key order of the port's
 parameter tree ``like`` (the port's optimizers pair state and parameter
 leaves by position, and JAX sorts dict keys).
+
+``rnn_params_from_jax`` turns the JAX ``ApexRNN.init`` dict (``l0``,
+``l0_rev``, ... each holding ``w_ih``, ``w_hh``, ...) into the port
+``ApexRNN``'s state dict (``l0.w_ih``, ...); ``rnn_params_to_numpy`` is
+the inverse.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import torch
 
 __all__ = ["params_from_jax", "params_to_numpy", "resnet_params_from_jax",
            "resnet_params_to_numpy", "mlp_params_from_jax",
-           "module_params_from_jax", "optimizer_state_from_jax"]
+           "module_params_from_jax", "optimizer_state_from_jax",
+           "rnn_params_from_jax", "rnn_params_to_numpy"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -242,6 +248,22 @@ def module_params_from_jax(tree: dict, prefix: str = ""
         else:
             sd[prefix + key] = _to_torch(sub)
     return sd
+
+
+def rnn_params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The port ``ApexRNN``'s state dict from the JAX ``ApexRNN.init``
+    dict of ``l{layer}[_rev]`` leaf dicts (numpy leaves)."""
+    return module_params_from_jax(params)
+
+
+def rnn_params_to_numpy(state_dict) -> dict:
+    """The JAX ``ApexRNN`` params layout (numpy leaves) from the port's
+    state dict."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        layer, leaf = name.split(".")
+        tree.setdefault(layer, {})[leaf] = _to_numpy(t)
+    return tree
 
 
 def _tree_like(tree, like):

@@ -7,6 +7,8 @@ in instrumented code, ``reap``/``collecting`` around a step). The sinks,
 reporters, runtime listeners, health checks, fleet and perfwatch of
 ``apex_tpu.observability`` are not ported yet."""
 
+from apex_tpu_torch.observability import (health, ingraph,  # noqa: F401
+                                          registry, reqtrace, slo)
 from apex_tpu_torch.observability.health import (CrashDump,
                                                  decode_attribution)
 from apex_tpu_torch.observability.ingraph import (Metrics, aggregate,
@@ -27,4 +29,5 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "LATENCY_BUCKETS_MS", "RequestRecord", "RequestTrace",
            "chrome_request_trace", "SLOTarget", "SLOTracker",
            "SLOViolationError", "Metrics", "aggregate", "collecting",
-           "reap", "record", "recording"]
+           "reap", "record", "recording",
+           "health", "ingraph", "registry", "reqtrace", "slo"]

@@ -1,0 +1,27 @@
+"""Transformer enums, a copy of ``apex_tpu/transformer/enums.py``
+(``reference:apex/transformer/enums.py``)."""
+
+import enum
+
+__all__ = ["LayerType", "AttnType", "AttnMaskType", "ModelType"]
+
+
+class LayerType(enum.Enum):
+    encoder = 1
+    decoder = 2
+
+
+class AttnType(enum.Enum):
+    self_attn = 1
+    cross_attn = 2
+
+
+class AttnMaskType(enum.Enum):
+    padding = 1
+    causal = 2
+
+
+class ModelType(enum.Enum):
+    """``reference:apex/transformer/enums.py:41``."""
+    encoder_or_decoder = 1
+    encoder_and_decoder = 2

@@ -43,7 +43,7 @@ def _require_tp1(world_size: int) -> None:
     if world_size != 1:
         raise NotImplementedError(
             f"tensor parallelism (world_size={world_size}) lands with the "
-            "multi-GPU slice; the port runs tp=1")
+            "multi-GPU slice (queue item A5b); the port runs tp=1")
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

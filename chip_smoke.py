@@ -295,7 +295,40 @@ non-zero and prints no result. Phases, each fatal on failure:
    causal and BERT's padded scores within one bf16 ulp of an fp32 softmax
    (a fully masked row uniform); ``MLP([480, 1024, 1024, 512, 256, 1])``
    at batch 1024, fp32, card against CPU;
-19. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+19. ``rnnt``: one MLPerf RNN-T training step (mlcommons/training
+   ``rnn_speech_recognition/pytorch``, ``baseline_v3-1023sp.yaml``: 240
+   features, an encoder of 2 + 3 LSTM layers of 1024 around a time
+   stacking by 2, a 512 embedding and 2 LSTM layers of 512, the joint's
+   projections to 512, ``TransducerJoint(relu=True)``, a linear to 1024
+   classes, ``TransducerLoss``; batch 16, 534 frames, T 267, 125 labels,
+   bf16 compute over fp32 params, ``FusedAdam``): 3 steps with finite
+   losses, step ms, peak memory and a profile; the loss and step 0's
+   grads against fp32 compute on the card; the transducer loss's forward
+   and backward (host clock and device) and the joint; the encoder's
+   first LSTM stack against cuDNN's ``nn.LSTM`` (a yardstick only); the
+   transducer loss and an LSTM layer against the CPU at a reduced size;
+20. ``retinanet_head``: MLPerf RetinaNet's classification head
+   (mlcommons/training ``single_stage_detector``: ResNeXt50-32x4d FPN at
+   800 x 800, P3-P7, 9 anchors, the 264 OpenImages classes) at batch 8,
+   bf16: 4 ``conv_bias_relu`` and a ``conv_bias`` to 9 x 264 a level,
+   ``focal_loss`` (alpha 0.25, gamma 2) on targets ~1% positive, ~5%
+   ignored, the rest all-negative: forward + backward ms, focal loss's
+   own, a profile, peak memory; the loss and grads against fp32 on the
+   card; ``focal_loss`` on the class axis padded to 272; the frozen-BN
+   convs at a res2 block's shapes and the masked conv at P3, timed; each
+   op against the CPU at batch 1 on P5;
+21. ``asp_gpt``: GPT-small as in 11 under ASP: masks on the card equal to
+   the CPU's bit for bit, pruned, ``FusedAdam`` wrapped by
+   ``init_optimizer_for_pruning``, 3 steps and one forced to overflow,
+   every pruned entry 0 and every group of 4 at most 2 nonzeros after
+   each; step ms and launches beside the unmasked step's; ``permute=True``
+   on one layer's ``fc1`` weight;
+22. ``tp1_gpt``: ``model_parallel_seed(1234)``, one GPT-small layer with
+   dropout from ``get_rng_tracker().fork()``, under ``checkpoint`` bit for
+   bit the unwrapped layer (and recomputed), a second fork new masks;
+   ``vocab_parallel_cross_entropy`` on GPT-small's logits against
+   ``softmax_cross_entropy_loss`` and the smoothing formula;
+23. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -309,6 +342,7 @@ import dataclasses
 import hashlib
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -565,38 +599,125 @@ def compare_lse(torch, lse_k, lse_p, tol: float, what: str,
     return err
 
 
-def device_ms(torch, fn, iters: int = 10, show: str = "") -> float:
-    """Device time per call of ``fn``: the kernels it launches, summed under
-    ``torch.profiler`` over ``iters`` calls. Kernel, plain and library
-    calls are all timed so, since a call's host dispatch can outlast its
-    kernels (CUDA events around back-to-back calls would then time the
-    host). With ``show``, prints the kernels that took the most time, so
-    the backend is on record."""
+# On an H100, torch.profiler's windows here lose the device records of
+# their first launches: none early in a run, up to ~20 later, whatever the
+# sleep before the first call (5, 20, 80 ms) or a warm-up step traced and
+# dropped (PERF.md). So every window opens with PROFILE_PRIMERS launches on
+# a one-element tensor and a synchronize, which take that loss and are left
+# out of what is read. A window in which a launch call past them has no
+# kernel, or that holds fewer kernels than calls or fewer of the port's
+# kernels than its wrappers counted, is taken again, and the third such
+# window fails the run.
+PROFILE_TRIES = 3
+PROFILE_PRIMERS = 256
+# the host's launch calls, as the profiler records the CUDA runtime's and
+# driver's API: each must have its kernel on the device, by correlation id
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+# the namespace of every kernel in the port's CUDA sources (apex_tpu_torch/
+# csrc), as the profiler names them
+PORT_NAMESPACE = "apex_port::"
+# over the run: windows read, windows taken again, and the most primer
+# records one window lost (printed before the last lines)
+PROFILER_STATS = {"windows": 0, "retaken": 0, "primers_lost": 0}
+
+
+def profile_window(torch, fn, iters: int, what: str) -> tuple:
+    """``(rows, wall ms, primers lost)`` of ``iters`` calls of ``fn`` in one
+    ``torch.profiler`` window recording CUDA activity alone (host events
+    slow a step of ~100k launches to seconds), from its raw events
+    (``key_averages()`` left a kernel out of a serving window whose every
+    launch call had its kernel): ``rows`` are ``(name, device ms a call,
+    count a call)`` of what the calls ran on the device (kernels, copies,
+    memsets), most time first; the wall time a call is the host's
+    ``perf_counter`` over the calls and their synchronize; ``primers
+    lost`` the primer launches whose records the window lost.
+
+    A window is short when a launch call of the calls has no kernel of its
+    correlation id, when the primers' records hold another kernel than
+    theirs, or when it holds fewer kernels than calls or fewer of the
+    port's kernels than its wrappers counted (one a launch;
+    ``flash_dbias_fold`` is left out, as it counts a mode of a
+    ``flash_bwd_dkv`` launch that folds in that kernel when it takes one
+    split)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import _kernels as kern
+
+    def wrapped() -> int:
+        return sum(n for name, n in kern.LAUNCHES.items()
+                   if name != "flash_dbias_fold")
+
+    primer = torch.zeros(1, device="cuda")
+    for attempt in range(PROFILE_TRIES):
+        counted = wrapped()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMERS):
+                primer.add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+        counted = wrapped() - counted
+        events = list(prof.profiler.kineto_results.events())
+        device = [e for e in events if e.device_type() == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", bool)()]
+        ran = {e.correlation_id() for e in device
+               if not e.name().startswith(("Memcpy", "Memset"))}
+        calls = sorted((e for e in events if e.name() in LAUNCH_CALLS),
+                       key=lambda e: e.start_ns())
+        primed = {e.correlation_id() for e in calls[:PROFILE_PRIMERS]}
+        calls = calls[PROFILE_PRIMERS:]
+        primers_lost = len(primed - ran)
+        missing = [i for i, e in enumerate(calls)
+                   if e.correlation_id() not in ran]
+        primer_names = {e.name() for e in device
+                        if e.correlation_id() in primed}
+        read = [e for e in device if e.correlation_id() not in primed]
+        kernels = sum(not e.name().startswith(("Memcpy", "Memset"))
+                      for e in read)
+        port = sum(PORT_NAMESPACE in e.name() for e in read)
+        PROFILER_STATS["windows"] += 1
+        PROFILER_STATS["primers_lost"] = max(PROFILER_STATS["primers_lost"],
+                                             primers_lost)
+        if (not missing and len(primer_names) <= 1 and kernels >= iters
+                and port >= counted):
+            rows = {}
+            for e in read:
+                ns, c = rows.get(e.name(), (0, 0))
+                rows[e.name()] = (ns + e.duration_ns(), c + 1)
+            return sorted(((name, ns / 1e6 / iters, c / iters)
+                           for name, (ns, c) in rows.items()),
+                          key=lambda r: -r[1]), wall_ms, primers_lost
+        PROFILER_STATS["retaken"] += 1
+        print(f"{what}: profiler window {attempt + 1} of {PROFILE_TRIES} "
+              f"over {iters} calls is short: {primers_lost} of "
+              f"{PROFILE_PRIMERS} primer records lost, {len(missing)} of "
+              f"{len(calls)} launch calls with no kernel (at {missing[:8]}"
+              f"{' ...' * (len(missing) > 8)}), {kernels} kernels read, "
+              f"{port} of the port's for {counted} counted by its wrappers, "
+              f"{len(primer_names)} kernel names among the primers'")
+    check(False, f"{what}: {PROFILE_TRIES} profiler windows in a row lost "
+                 "device events")
+
+
+def device_ms(torch, fn, iters: int = 10, show: str = "") -> float:
+    """Device time per call of ``fn``: the kernels it launches, summed over
+    ``iters`` calls in a ``profile_window`` after two warm-up calls.
+    Kernel, plain and library calls are all timed so, since a call's host
+    dispatch can outlast its kernels (CUDA events around back-to-back
+    calls would then time the host). With ``show``, prints the kernels
+    that took the most time, so the backend is on record."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total), reverse=True)
+    rows, _, _ = profile_window(torch, fn, iters, show or "device_ms")
     if show:
         print(f"{show} ran: " + "; ".join(
-            f"{key[:60]} {t / 1e3 / iters:.4f} ms" for t, key in kernels[:4]))
-    if not kernels:
-        # the profiler now and then records no kernel at all in a window
-        # (seen on an H100 in this script, never when the same calls were
-        # profiled alone): time with CUDA events instead, and say so
-        ms = event_ms(torch, fn, iters)
-        print(f"{show or 'device_ms'}: torch.profiler recorded no device "
-              f"time; CUDA events read {ms:.4f} ms a call")
-        return ms
-    return sum(t for t, _ in kernels) / 1e3 / iters
+            f"{key[:60]} {ms:.4f} ms" for key, ms, _ in rows[:4]))
+    return sum(ms for _, ms, _ in rows)
 
 
 def event_ms(torch, fn, iters: int = 3) -> float:
@@ -2433,8 +2554,11 @@ def serve_paged(torch, kern, card: str, dense_times: dict):
                         max_len=PAGED["max_len"],
                         prefill_len=PAGED["prefill_len"],
                         cache_dtype=torch.bfloat16, rng_seed=0, device="cuda")
+    # 10 timed turns and a prompt a slot, then the profile's warm-up and up
+    # to PROFILE_TRIES windows of 5
     fresh = iter([rng.randint(0, cfg.vocab_size, size=PAGED["prefill_len"]
-                              ).tolist() for _ in range(30)])
+                              ).tolist()
+                  for _ in range(11 + PAGED["max_seqs"] + 5 * PROFILE_TRIES)])
 
     def timed(fn) -> float:
         torch.cuda.synchronize()
@@ -3779,14 +3903,17 @@ def grad_rel(torch, got: dict, want: dict) -> tuple:
                for n, w in want.items())
 
 
-def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float):
+def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
+                opt_wrap=None):
     """A step function of ``bench.py::_gpt_train_step``'s training step on
     a ``GPTModel(cfg)`` loaded from ``init_state``: ``GPTModel.loss`` on
     ``tokens`` (the targets too), backward of the scaled loss, unscale,
     ``all_finite``, ``DynamicLossScale.update`` (init scale 2**12) and
-    ``FusedAdam(lr).step`` with the skip; with a dropout rate in ``cfg``,
-    the masks from a generator on the card seeded 0. The step returns
-    ``(loss, finite, unscaled grads)``."""
+    ``FusedAdam(lr).step`` with the skip (``opt_wrap(FusedAdam(lr))`` with
+    ``opt_wrap``); with a dropout rate in ``cfg``, the masks from a
+    generator on the card seeded 0. The step returns ``(loss, finite,
+    unscaled grads)``; ``step.params`` are the model's parameters and
+    ``step.carry["ls"]`` the loss-scale state."""
     from apex_tpu_torch.amp import DynamicLossScale, all_finite
     from apex_tpu_torch.models import GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
@@ -3795,6 +3922,8 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float):
     model.load_state_dict(init_state)
     params = dict(model.named_parameters())
     opt = FusedAdam(lr=lr)
+    if opt_wrap is not None:
+        opt = opt_wrap(opt)
     opt_state = opt.init(params)
     scaler = DynamicLossScale(init_scale=2.0 ** 12)
     carry = {"ls": scaler.init(device="cuda")}
@@ -3814,6 +3943,8 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float):
         return loss.detach(), finite, grads
 
     step.generator = gen
+    step.params = params
+    step.carry = carry
     return step
 
 
@@ -6226,34 +6357,915 @@ def long_context(torch, fa, kern, card: str):
     return launches, row
 
 
+# MLPerf Training's RNN-T (mlcommons/training
+# rnn_speech_recognition/pytorch, configs/baseline_v3-1023sp.yaml): 240
+# input features (80 filterbanks spliced by 3), an encoder of 2 LSTM
+# layers of 1024, a time stacking by 2, then 3 LSTM layers of 1024; a
+# prediction network of a 512 embedding over the 1023 sentence pieces and
+# the blank (last), then 2 LSTM layers of 512; the joint's two projections
+# to 512, ReLU, a linear to 1024 classes. Batch 16, 534 frames (~16 s of
+# audio after the splicing), 125 labels a row; f_len and y_len drawn from
+# the seed between half and full
+RNNT = dict(features=240, enc=1024, pre_layers=2, stack=2, post_layers=3,
+            pred=512, pred_layers=2, joint=512, classes=1024, batch=16,
+            frames=534, labels=125)
+RNNT_STEPS = 3
+RNNT_LR = 1e-3
+# the card-vs-CPU legs of the RNN-T phase, at a size the CPU runs quickly
+RNNT_SMALL = dict(batch=2, frames=30, labels=10, classes=16)
+RNNT_LSTM_SMALL = (20, 3, 32, 64)          # T, B, input, hidden
+TOL_CARD_CPU = 1e-5     # fp32 on both: the same ops, sums in other orders
+# bf16 compute against fp32 compute from the same weights: h and c are
+# rounded to bf16 every step (534 + 267 + 126 steps deep) and the joint's
+# activations once. At random init the loss is the log-softmax over
+# near-uniform logits, which bf16 barely moves: within 1e-4 relative
+# (the first H100 run of this check read 3.2e-7); each grad leaf within
+# 5% by relative norm (read: 0.79%, the embedding)
+TOL_RNNT_LOSS = 1e-4
+TOL_RNNT_GRAD = 5e-2
+
+
+def rnnt_model(torch, cfg: dict, device: str, seed: int = 0):
+    """The RNN-T model as ``nn.Module`` parameters on ``device``, drawn
+    from ``seed`` on the host: ``LSTM``s of :mod:`apex_tpu_torch.RNN`
+    (uniform in +-1/sqrt(hidden)), the embedding N(0, 1), the projections
+    uniform in +-1/sqrt(fan_in)."""
+    from torch import nn
+    from apex_tpu_torch.RNN import LSTM
+
+    gen = torch.Generator().manual_seed(seed)
+    m = nn.Module()
+    m.pre = LSTM(cfg["features"], cfg["enc"], cfg["pre_layers"],
+                 device=device).init(gen)
+    m.post = LSTM(cfg["enc"] * cfg["stack"], cfg["enc"], cfg["post_layers"],
+                  device=device).init(gen)
+    m.pred = LSTM(cfg["pred"], cfg["pred"], cfg["pred_layers"],
+                  device=device).init(gen)
+
+    def param(*shape, fan_in=None):
+        if fan_in is None:
+            vals = torch.randn(shape, generator=gen)
+        else:
+            bound = fan_in ** -0.5
+            vals = torch.rand(shape, generator=gen) * (2 * bound) - bound
+        return nn.Parameter(vals.to(device))
+
+    m.embed = param(cfg["classes"], cfg["pred"])
+    m.enc_w = param(cfg["joint"], cfg["enc"], fan_in=cfg["enc"])
+    m.enc_b = param(cfg["joint"], fan_in=cfg["enc"])
+    m.pred_w = param(cfg["joint"], cfg["pred"], fan_in=cfg["pred"])
+    m.pred_b = param(cfg["joint"], fan_in=cfg["pred"])
+    m.out_w = param(cfg["classes"], cfg["joint"], fan_in=cfg["joint"])
+    m.out_b = param(cfg["classes"], fan_in=cfg["joint"])
+    return m
+
+
+def rnnt_batch(torch, cfg: dict, device: str, seed: int = 0):
+    """Features ``(frames, batch, features)`` N(0, 1), labels in the
+    pieces (never the blank), ``f_len`` (after the stacking) and ``y_len``
+    between half and full, from ``RandomState(seed)``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b, t, u = cfg["batch"], cfg["frames"] // cfg["stack"], cfg["labels"]
+    feats = rng.randn(cfg["frames"], b, cfg["features"]).astype(np.float32)
+    labels = rng.randint(0, cfg["classes"] - 1, (b, u))
+    f_len = rng.randint(t // 2, t + 1, b)
+    y_len = rng.randint(u // 2, u + 1, b)
+    f_len[0], y_len[0] = t, u
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (feats, labels, f_len, y_len))
+
+
+def rnnt_logits(torch, m, cfg: dict, feats, labels, f_len, y_len, dtype):
+    """The joint's fp32 logits ``(B, T, U + 1, classes)``: the encoder,
+    the time stacking, the prediction network over the blank and the
+    labels, both projections (fp32 products cast to ``dtype``),
+    ``transducer_joint(relu=True)`` and the output linear (fp32
+    products)."""
+    from apex_tpu_torch.RNN import _linear
+    from apex_tpu_torch.ops import transducer_joint
+
+    x, _ = m.pre(feats.to(dtype))
+    t, b, h = x.shape
+    s = cfg["stack"]
+    x = x.reshape(t // s, s, b, h).permute(0, 2, 1, 3).reshape(t // s, b,
+                                                                s * h)
+    enc, _ = m.post(x)
+    blank = cfg["classes"] - 1
+    tokens = torch.cat([torch.full_like(labels[:, :1], blank), labels], 1)
+    g, _ = m.pred(m.embed[tokens].to(dtype).transpose(0, 1))
+    f = _linear(enc.transpose(0, 1), m.enc_w, m.enc_b)
+    gp = _linear(g.transpose(0, 1), m.pred_w, m.pred_b)
+    joint = transducer_joint(f, gp, f_len, y_len + 1, relu=True)
+    return torch.matmul(joint.float(), m.out_w.t()) + m.out_b
+
+
+def rnnt_loss(torch, m, cfg, batch, dtype):
+    from apex_tpu_torch.ops import transducer_loss
+    feats, labels, f_len, y_len = batch
+    logits = rnnt_logits(torch, m, cfg, feats, labels, f_len, y_len, dtype)
+    return transducer_loss(logits, labels, f_len, y_len,
+                           blank_idx=cfg["classes"] - 1).mean()
+
+
+def rnnt_small_holds(torch, card: str) -> None:
+    """The transducer loss (forward and closed-form backward) and one LSTM
+    layer on the card against the CPU at a reduced size, fp32."""
+    import numpy as np
+    from apex_tpu_torch.ops import transducer_loss
+    from apex_tpu_torch.RNN import LSTM
+
+    cfg = dict(RNNT, **RNNT_SMALL)
+    rng = np.random.RandomState(1)
+    b, t, u, v = (cfg["batch"], cfg["frames"], cfg["labels"],
+                  cfg["classes"])
+    x = torch.from_numpy(rng.randn(b, t, u + 1, v).astype(np.float32))
+    args = (torch.from_numpy(rng.randint(0, v - 1, (b, u))),
+            torch.tensor([t, t // 2]), torch.tensor([u, u - 3]))
+    w = torch.from_numpy(rng.randn(b).astype(np.float32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        xx = x.to(dev).requires_grad_(True)
+        loss = transducer_loss(xx, *(a.to(dev) for a in args),
+                               blank_idx=v - 1)
+        (loss * w.to(dev)).sum().backward()
+        got[dev] = (loss.detach().cpu(), xx.grad.cpu())
+    l_err = float((got["cuda"][0] - got["cpu"][0]).abs().max()
+                  / got["cpu"][0].abs().max())
+    g_err = float((got["cuda"][1] - got["cpu"][1]).abs().max()
+                  / got["cpu"][1].abs().max())
+    check(l_err <= TOL_CARD_CPU and g_err <= TOL_CARD_CPU,
+          f"rnnt: transducer loss card vs CPU {l_err:.3g}, grad "
+          f"{g_err:.3g} > {TOL_CARD_CPU}")
+    T, B, I, H = RNNT_LSTM_SMALL
+    xs = torch.from_numpy(rng.randn(T, B, I).astype(np.float32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lstm = LSTM(I, H, 1, device=dev).init(
+            torch.Generator().manual_seed(3))
+        xx = xs.to(dev).requires_grad_(True)
+        out, (h, c) = lstm(xx)
+        (out.sum() + (c * c).sum()).backward()
+        runs[dev] = [out.detach(), h.detach(), c.detach(), xx.grad] + [
+            p.grad for p in lstm.parameters()]
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(runs["cuda"], runs["cpu"]))
+    check(worst <= TOL_CARD_CPU, f"rnnt: LSTM layer card vs CPU {worst:.3g}"
+                                 f" > {TOL_CARD_CPU}")
+    print(f"rnnt: card vs CPU (fp32), transducer loss {b} x {t} x {u + 1} x "
+          f"{v}: loss {l_err:.3g}, grad {g_err:.3g}; LSTM {I}->{H} over "
+          f"{T} x {B}, outputs, states and grads {worst:.3g} (tol "
+          f"{TOL_CARD_CPU}) [{card}]")
+
+
+def rnnt(torch, kern, card: str) -> dict:
+    """One RNN-T training step at MLPerf Training's widths (``RNNT``), bf16
+    compute over fp32 params, ``FusedAdam``: ``RNNT_STEPS`` steps with
+    finite losses, step ms, peak memory and a profile; the loss and
+    step 0's grads against an fp32 run on the card; the transducer's
+    forward and backward, the joint, and the encoder's first LSTM stack
+    against cuDNN's ``nn.LSTM`` (a yardstick only); the small holds
+    against the CPU. Returns the port-kernel launches of the steps (none:
+    the RNN-T path is torch ops and cuBLAS GEMMs, as the reference leaves
+    it to XLA)."""
+    from apex_tpu_torch.ops import transducer_joint, transducer_loss
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = RNNT
+    rnnt_small_holds(torch, card)
+    batch = rnnt_batch(torch, cfg, "cuda")
+    model = rnnt_model(torch, cfg, "cuda")
+    params = dict(model.named_parameters())
+    opt = FusedAdam(lr=RNNT_LR)
+    state = opt.init(params)
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        loss = rnnt_loss(torch, model, cfg, batch, torch.bfloat16)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        out = (loss.detach(), {n: g.clone() for n, g in grads.items()})
+        opt.step(grads, state, params)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    losses, times = [], []
+    for i in range(RNNT_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            grads0 = grads
+        del grads
+    launches = dict(kern.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(v) for v in losses),
+          f"rnnt: losses not finite {losses}")
+    check(sum(launches.values()) == 0,
+          f"rnnt: the RNN-T step launched the port's kernels {launches}")
+    step_ms = 1e3 * min(times[1:])
+    t_enc = cfg["frames"] // cfg["stack"]
+    print(f"rnnt: MLPerf RNN-T step (batch {cfg['batch']}, {cfg['frames']} "
+          f"frames -> T {t_enc}, U+1 {cfg['labels'] + 1}, {cfg['classes']} "
+          f"classes, bf16 compute, fp32 params, FusedAdam): losses "
+          f"{[round(v, 4) for v in losses]}, step {step_ms:.3f} ms (the "
+          f"best of steps 1-{RNNT_STEPS - 1}; step 0 {1e3 * times[0]:.3f} "
+          f"ms; host clock, synchronized), peak memory {peak:.3f} GiB "
+          f"[{card}]")
+    busy_ms, kernels = profile_step(torch, "rnnt step", step, card,
+                                    iters=1, top=4)
+    print(f"rnnt: one step's device busy {busy_ms:.3f} ms = "
+          f"{100 * busy_ms / step_ms:.1f}% of the unprofiled step's "
+          f"{step_ms:.3f} ms, {kernels:.0f} device launches [{card}]")
+
+    # step 0's loss and grads against fp32 compute from the same weights
+    ref = rnnt_model(torch, cfg, "cuda")
+    loss32 = rnnt_loss(torch, ref, cfg, batch, torch.float32)
+    loss32.backward()
+    loss32 = float(loss32.detach())
+    l_err = abs(losses[0] - loss32) / abs(loss32)
+    g_err, g_leaf = grad_rel(torch, grads0, {n: p.grad for n, p in
+                                             ref.named_parameters()})
+    del ref, grads0
+    torch.cuda.empty_cache()
+    check(l_err <= TOL_RNNT_LOSS, f"rnnt: bf16 loss vs fp32 {l_err:.3g} > "
+                                  f"{TOL_RNNT_LOSS}")
+    check(g_err <= TOL_RNNT_GRAD, f"rnnt: bf16 grads vs fp32, {g_leaf} "
+                                  f"{g_err:.3g} > {TOL_RNNT_GRAD}")
+    print(f"rnnt: step 0 bf16 vs fp32 on the card: loss {losses[0]:.6f} vs "
+          f"{loss32:.6f}, relative {l_err:.4g} (tol {TOL_RNNT_LOSS});"
+          f" grads, worst leaf {g_leaf}: {g_err:.4g} (tol {TOL_RNNT_GRAD})")
+
+    # the transducer alone, on the step's logits
+    feats, labels, f_len, y_len = batch
+    with torch.no_grad():
+        logits = rnnt_logits(torch, model, cfg, feats, labels, f_len, y_len,
+                             torch.bfloat16)
+    logits.requires_grad_(True)
+    blank = cfg["classes"] - 1
+
+    def loss_fwd():
+        return transducer_loss(logits, labels, f_len, y_len, blank)
+
+    def loss_fwd_bwd():
+        logits.grad = None
+        loss_fwd().sum().backward()
+
+    fwd_host = 1e3 * _host_time(torch, loss_fwd, 2)
+    both_host = 1e3 * _host_time(torch, loss_fwd_bwd, 2)
+    fwd_dev = device_ms(torch, loss_fwd, iters=1)
+    both_dev = device_ms(torch, loss_fwd_bwd, iters=1)
+    f = torch.randn(cfg["batch"], t_enc, cfg["joint"], device="cuda",
+                    dtype=torch.bfloat16)
+    g = torch.randn(cfg["batch"], cfg["labels"] + 1, cfg["joint"],
+                    device="cuda", dtype=torch.bfloat16)
+    joint_ms = device_ms(torch, lambda: transducer_joint(
+        f, g, f_len, y_len + 1, relu=True), iters=3)
+    del logits, f, g
+    torch.cuda.empty_cache()
+    print(f"rnnt: transducer loss at {cfg['batch']} x {t_enc} x "
+          f"{cfg['labels'] + 1} x {cfg['classes']} (fp32 logits, "
+          f"{t_enc + cfg['labels']} anti-diagonals each way): forward "
+          f"{fwd_host:.3f} ms host clock, {fwd_dev:.3f} ms device; forward "
+          f"+ backward {both_host:.3f} ms host, {both_dev:.3f} ms device; "
+          f"{100 * both_host / step_ms:.1f}% of the step's host time. The "
+          f"joint (bf16, ReLU, lengths) {joint_ms:.4f} ms device [{card}]")
+
+    # the encoder's first LSTM stack against cuDNN's nn.LSTM at its shape
+    x = torch.randn(cfg["frames"], cfg["batch"], cfg["features"],
+                    device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    cudnn = torch.nn.LSTM(cfg["features"], cfg["enc"], cfg["pre_layers"],
+                          device="cuda", dtype=torch.bfloat16)
+
+    def port_lstm():
+        out, _ = model.pre(x)
+        out.float().sum().backward()
+
+    def cudnn_lstm():
+        out, _ = cudnn(x)
+        out.float().sum().backward()
+
+    port_ms = 1e3 * _host_time(torch, port_lstm, 1)
+    lib_ms = 1e3 * _host_time(torch, cudnn_lstm, 3)
+    lib_dev = device_ms(torch, cudnn_lstm, iters=3)
+    del x, cudnn
+    print("rnnt: encoder's first LSTM stack (2 layers, 240 -> 1024, "
+          f"{cfg['frames']} x {cfg['batch']}, bf16), forward + backward: "
+          f"port {port_ms:.3f} ms host clock; cuDNN nn.LSTM {lib_ms:.3f} ms "
+          f"host clock, {lib_dev:.3f} ms device ({port_ms / lib_ms:.1f}x; "
+          f"cuDNN keeps c in fp32: a yardstick only) [{card}]")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+# MLPerf Training's RetinaNet (mlcommons/training single_stage_detector:
+# torchvision RetinaNet, ResNeXt50-32x4d FPN, 800 x 800, the 264 classes of
+# the OpenImages MLPerf subset, 9 anchors a position, focal alpha 0.25,
+# gamma 2): the classification head over P3-P7, batch 8, bf16, weights
+# N(0, 0.01) and the prior bias -log(99), as torchvision initializes them
+RETINA = dict(batch=8, levels=(100, 50, 25, 13, 7), channels=256, tower=4,
+              anchors=9, classes=264, padded=272, alpha=0.25, gamma=2.0)
+RETINA_TARGETS = (0.01, 0.05)     # shares positive, ignored (-2)
+RETINA_RES2 = (200, 256, 128)     # side, channels in, bottleneck width
+RETINA_ITERS = 3
+# bf16 compute against fp32 from the same weights and features, 5 conv
+# layers deep: the loss within 1e-3 relative (the first H100 run of this
+# check read 2.3e-4). A grad leaf's error, by relative norm, grows a layer
+# at a time from the loss down the tower: on each of three seeds the
+# class conv's leaves read ~0.5% and the first tower layer's ~10%
+# (PERF.md). It is not the logits' bf16 rounding at the prior
+# bias -log 99 (a step of 2**-5 there): with the class conv's output kept
+# in fp32 the tower's errors stay within ~8% of themselves. Each leaf is
+# held to its layer's limit, 1.5x the worst reading of that layer over
+# the seeds. The ops themselves are held against the CPU in fp32
+# (retina_small_holds); this check bounds bf16's precision loss
+RETINA_GRAD_SEEDS = (0, 1, 2)
+TOL_RETINA_LOSS = 1e-3
+TOL_RETINA_GRAD = {"cls": 8e-3, "tower.3": 6.5e-2, "tower.2": 0.10,
+                   "tower.1": 0.13, "tower.0": 0.15}
+
+
+def retina_params(torch, cfg: dict, device: str, classes: int,
+                  seed: int = 0):
+    gen = torch.Generator().manual_seed(seed)
+    c = cfg["channels"]
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen) * 0.01).to(
+            device).requires_grad_(True)
+
+    tower = [(normal(3, 3, c, c), torch.zeros(c, device=device,
+                                              requires_grad=True))
+             for _ in range(cfg["tower"])]
+    cls_w = normal(3, 3, c, cfg["anchors"] * classes)
+    cls_b = torch.full((cfg["anchors"] * classes,), -math.log(99.0),
+                       device=device, requires_grad=True)
+    return tower, cls_w, cls_b
+
+
+def retina_inputs(torch, cfg: dict, device: str, levels=None, batch=None,
+                  seed: int = 0):
+    """P3-P7 features N(0, 1), NHWC, and per-anchor targets: a share
+    positive (a class), a share ignored (-2), the rest all-negative (-1),
+    from ``RandomState(seed)``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = batch or cfg["batch"]
+    levels = levels or cfg["levels"]
+    feats = [torch.from_numpy(rng.randn(b, s, s, cfg["channels"]).astype(
+        np.float32)).to(device) for s in levels]
+    n = b * sum(s * s for s in levels) * cfg["anchors"]
+    u = rng.rand(n)
+    targets = np.full(n, -1, np.int64)
+    pos = u < RETINA_TARGETS[0]
+    targets[pos] = rng.randint(0, cfg["classes"], int(pos.sum()))
+    targets[(u >= RETINA_TARGETS[0])
+            & (u < RETINA_TARGETS[0] + RETINA_TARGETS[1])] = -2
+    targets = torch.from_numpy(targets.reshape(b, -1)).to(device)
+    return feats, targets, torch.tensor(float(max(pos.sum(), 1)),
+                                        device=device)
+
+
+def retina_head(torch, feats, tower, cls_w, cls_b, classes: int, dtype,
+                cls_dtype=None):
+    """The head's logits in ``dtype``; with ``cls_dtype``, the class conv
+    takes the tower's output cast to it."""
+    from apex_tpu_torch.ops import conv_bias, conv_bias_relu
+    outs = []
+    for x in feats:
+        h = x.to(dtype)
+        for w, b in tower:
+            h = conv_bias_relu(h, w, b, padding=1)
+        o = conv_bias(h.to(cls_dtype or dtype), cls_w, cls_b, padding=1)
+        outs.append(o.reshape(o.shape[0], -1, classes))
+    return torch.cat(outs, 1)
+
+
+def retina_small_holds(torch, card: str) -> None:
+    """Each op on the card against the CPU at batch 1 on P5, fp32."""
+    import numpy as np
+    from apex_tpu_torch import ops
+
+    cfg = RETINA
+    rng = np.random.RandomState(2)
+    s, c = cfg["levels"][2], cfg["channels"]
+    host = {"x": rng.randn(1, s, s, c), "w": rng.randn(3, 3, c, c) * 0.02,
+            "b": rng.randn(c) * 0.1, "scale": 1 + 0.1 * rng.randn(c),
+            "mask": (rng.rand(1, s, s, c) > 0.5) * 1.0,
+            "logits": 3 * rng.randn(1, s * s * cfg["anchors"],
+                                    cfg["classes"]),
+            "targets": rng.randint(-2, cfg["classes"],
+                                   (1, s * s * cfg["anchors"]))}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.from_numpy(v.astype(np.int64 if k == "targets"
+                                          else np.float32)).to(dev)
+             for k, v in host.items()}
+        logits = t["logits"].requires_grad_(True)
+        loss = ops.focal_loss(logits, t["targets"], torch.tensor(
+            50.0, device=dev), cfg["classes"], cfg["alpha"], cfg["gamma"])
+        loss.backward()
+        runs[dev] = {
+            "conv_bias": ops.conv_bias(t["x"], t["w"], t["b"], padding=1),
+            "conv_bias_relu": ops.conv_bias_relu(t["x"], t["w"], t["b"],
+                                                 padding=1),
+            "conv_bias_mask_relu": ops.conv_bias_mask_relu(
+                t["x"], t["w"], t["b"], t["mask"], padding=1),
+            "conv_frozen_scale_bias_relu": ops.conv_frozen_scale_bias_relu(
+                t["x"], t["w"], t["scale"], t["b"], stride=2, padding=1),
+            "focal_loss": loss.detach(), "focal_loss grad": logits.grad}
+    errs = {k: float((runs["cuda"][k].cpu() - v).abs().max()
+                     / v.abs().max().clamp(min=1e-30))
+            for k, v in runs["cpu"].items()}
+    worst = max(errs.values())
+    check(worst <= TOL_CARD_CPU, f"retinanet_head: card vs CPU {errs} > "
+                                 f"{TOL_CARD_CPU}")
+    print(f"retinanet_head: card vs CPU (fp32, batch 1 on P5 {s} x {s} x "
+          f"{c}), max |diff| / max |CPU|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {TOL_CARD_CPU}) [{card}]")
+
+
+def retina_tol(leaf: str) -> float:
+    """The bf16-vs-fp32 grad limit of ``leaf``'s layer."""
+    return TOL_RETINA_GRAD[leaf.rsplit(".", 1)[0]]
+
+
+def retina_precision(torch, cfg: dict, seed: int, cls_dtype=None) -> tuple:
+    """``(loss error, {leaf: grad error})`` of the head in bf16 (the class
+    conv's output in ``cls_dtype`` if given) against fp32, from seed
+    ``seed``'s weights and features: relative, the grads by norm."""
+    from apex_tpu_torch import ops
+    k = cfg["classes"]
+    feats, targets, npos = retina_inputs(torch, cfg, "cuda", seed=seed)
+    tower, cls_w, cls_b = retina_params(torch, cfg, "cuda", k, seed=seed)
+    leaves = [t for pair in tower for t in pair] + [cls_w, cls_b]
+    names = [f"tower.{i}.{kind}" for i in range(len(tower))
+             for kind in ("weight", "bias")] + ["cls.weight", "cls.bias"]
+    runs = []
+    for dtype, cdt in ((torch.bfloat16, cls_dtype),
+                       (torch.float32, None)):
+        logits = retina_head(torch, feats, tower, cls_w, cls_b, k, dtype,
+                             cdt)
+        loss = ops.focal_loss(logits, targets, npos, k, cfg["alpha"],
+                              cfg["gamma"])
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append((float(loss.detach()), grads))
+        del logits, loss
+    (loss, grads), (loss32, grads32) = runs
+    check(math.isfinite(loss), f"retinanet_head: seed {seed} loss {loss}")
+    errs = {n: float((g - r).norm() / r.norm())
+            for n, g, r in zip(names, grads, grads32)}
+    del runs, grads, grads32, feats, targets
+    torch.cuda.empty_cache()
+    return abs(loss - loss32) / abs(loss32), errs
+
+
+def retinanet_head(torch, kern, card: str) -> dict:
+    """MLPerf RetinaNet's classification head (``RETINA``) at batch 8,
+    bf16, channels-last: the tower of 4 ``conv_bias_relu`` and the
+    ``conv_bias`` to 9 x 264 over P3-P7, then ``focal_loss``; forward +
+    backward ms, focal loss's own, launches, busy share, peak memory; the
+    loss and grads against an fp32 run on the card on each of
+    ``RETINA_GRAD_SEEDS``, and on seed 0 with the class conv's output
+    kept in fp32 (printed, to show where the error arises); ``focal_loss``
+    again on the class axis padded to 272 (``num_real_classes`` 264), equal to
+    the unpadded call; ``conv_frozen_scale_bias_relu`` at a frozen-BN
+    ResNeXt res2 block's 1x1 and 3x3 (dense: the ops take no groups) and
+    ``conv_bias_mask_relu`` at P3 with a 0/1 mask, timed; the small holds
+    against the CPU. Returns the port-kernel launches (none: cuDNN and
+    torch ops, as the reference leaves them to XLA)."""
+    from apex_tpu_torch import ops
+
+    cfg = RETINA
+    retina_small_holds(torch, card)
+    k = cfg["classes"]
+    feats, targets, npos = retina_inputs(torch, cfg, "cuda")
+    tower, cls_w, cls_b = retina_params(torch, cfg, "cuda", k)
+    leaves = [t for pair in tower for t in pair] + [cls_w, cls_b]
+    anchors = targets.shape[1]
+
+    def loss_of(dtype):
+        logits = retina_head(torch, feats, tower, cls_w, cls_b, k, dtype)
+        return ops.focal_loss(logits, targets, npos, k, cfg["alpha"],
+                              cfg["gamma"])
+
+    def fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        loss = loss_of(torch.bfloat16)
+        loss.backward()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    loss = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = dict(kern.LAUNCHES)
+    head_ms = 1e3 * _host_time(torch, fwd_bwd, RETINA_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(math.isfinite(float(loss)), f"retinanet_head: loss {float(loss)}")
+    check(sum(launches.values()) == 0, f"retinanet_head launched the port's "
+                                       f"kernels {launches}")
+    print(f"retinanet_head: batch {cfg['batch']}, P3-P7 {cfg['levels']}, "
+          f"{anchors} anchors x {k} classes ({cfg['batch'] * anchors * k} "
+          f"logits, {int(float(npos))} positive), bf16: loss "
+          f"{float(loss):.6f}, forward + backward {head_ms:.3f} ms (host "
+          f"clock, synchronized), peak memory {peak:.3f} GiB [{card}]")
+    profile_step(torch, "retinanet head forward + backward", fwd_bwd, card,
+                 iters=1, top=8)
+
+    # bf16 against fp32 from the same weights and features, on each seed
+    errs = {}
+    for seed in RETINA_GRAD_SEEDS:
+        l_err, errs[seed] = retina_precision(torch, cfg, seed)
+        check(l_err <= TOL_RETINA_LOSS, f"retinanet_head: seed {seed}, bf16 "
+                                        f"loss vs fp32 {l_err:.3g} > "
+                                        f"{TOL_RETINA_LOSS}")
+        print(f"retinanet_head: seed {seed}, bf16 vs fp32 on the card: "
+              f"loss relative {l_err:.4g} (tol {TOL_RETINA_LOSS}); grads by "
+              "leaf: " + ", ".join(f"{n} {v:.4g} (tol {retina_tol(n)})"
+                                   for n, v in errs[seed].items()))
+        over = {n: v for n, v in errs[seed].items() if v > retina_tol(n)}
+        check(not over, f"retinanet_head: seed {seed}, bf16 grads vs fp32 "
+                        f"over their layer's limit {over}")
+    _, kept = retina_precision(torch, cfg, 0, cls_dtype=torch.float32)
+    print("retinanet_head: seed 0, the class conv's output kept in fp32, "
+          "grads by leaf against fp32: " + ", ".join(
+              f"{n} {v:.4g} ({v / errs[0][n]:.3f} x bf16's)"
+              for n, v in kept.items() if errs[0][n] > 0) + f" [{card}]")
+    for t in leaves:
+        t.grad = None
+
+    # focal loss alone, then with the class axis padded
+    with torch.no_grad():
+        logits = retina_head(torch, feats, tower, cls_w, cls_b, k,
+                             torch.bfloat16)
+    logits.requires_grad_(True)
+
+    def focal():
+        logits.grad = None
+        out = ops.focal_loss(logits, targets, npos, k, cfg["alpha"],
+                             cfg["gamma"])
+        out.backward()
+        return out
+
+    focal_ms = 1e3 * _host_time(torch, focal, RETINA_ITERS)
+    focal_dev = device_ms(torch, focal, iters=2)
+    plain = focal().detach()
+    g_plain = logits.grad.clone()
+    junk = 10 * torch.randn(*logits.shape[:-1], cfg["padded"] - k,
+                            device="cuda", dtype=logits.dtype)
+    padded = torch.cat([logits.detach(), junk], -1).requires_grad_(True)
+    loss_pad = ops.focal_loss(padded, targets, npos, k, cfg["alpha"],
+                              cfg["gamma"])
+    loss_pad.backward()
+    loss_pad = loss_pad.detach()
+    p_err = abs(float(loss_pad) - float(plain)) / abs(float(plain))
+    check(p_err <= TOL_CARD_CPU and bool((padded.grad[..., k:] == 0).all())
+          and torch.equal(padded.grad[..., :k], g_plain),
+          f"retinanet_head: the padded call {float(loss_pad)} against "
+          f"{float(plain)}, or its grads differ")
+    print(f"retinanet_head: focal_loss (bf16 logits, fp32 math) forward + "
+          f"backward {focal_ms:.3f} ms host clock, {focal_dev:.3f} ms device;"
+          f" padded to {cfg['padded']} classes, num_real_classes {k}: loss "
+          f"{float(loss_pad):.6f}, relative {p_err:.3g} to the unpadded "
+          f"call, the padding's grads 0, the rest equal bit for bit "
+          f"[{card}]")
+    del logits, padded, junk, g_plain
+    torch.cuda.empty_cache()
+
+    # a frozen-BN ResNeXt res2 block's convs and the masked conv at P3
+    side, cin, width = RETINA_RES2
+    gen = torch.Generator().manual_seed(4)
+    b = cfg["batch"]
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            "cuda", torch.bfloat16)
+
+    x = rand(b, side, side, cin).requires_grad_(True)
+    w1 = rand(1, 1, cin, width, scale=cin ** -0.5).float().requires_grad_()
+    w2 = rand(3, 3, width, width, scale=(9 * width) ** -0.5).float(
+        ).requires_grad_()
+    s1, b1 = torch.ones(width, device="cuda"), torch.zeros(width,
+                                                           device="cuda")
+
+    def res2():
+        h = ops.conv_frozen_scale_bias_relu(x, w1, s1, b1)
+        h = ops.conv_frozen_scale_bias_relu(h, w2, s1, b1, padding=1)
+        h.float().sum().backward()
+
+    p3 = cfg["levels"][0]
+    xm = rand(b, p3, p3, cfg["channels"]).requires_grad_(True)
+    wm = rand(3, 3, cfg["channels"], cfg["channels"], scale=0.02).float(
+        ).requires_grad_()
+    bm = torch.zeros(cfg["channels"], device="cuda", requires_grad=True)
+    mask = (torch.rand(b, p3, p3, cfg["channels"], generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda") > 0.5).to(
+        torch.bfloat16)
+
+    def masked():
+        ops.conv_bias_mask_relu(xm, wm, bm, mask, padding=1).float().sum(
+            ).backward()
+
+    res2_ms, masked_ms = (device_ms(torch, fn, iters=3)
+                          for fn in (res2, masked))
+    print(f"retinanet_head: conv_frozen_scale_bias_relu 1x1 {cin} -> {width}"
+          f" then 3x3 {width} -> {width} at {b} x {side} x {side}, forward +"
+          f" backward {res2_ms:.3f} ms device; conv_bias_mask_relu 3x3 at P3"
+          f" {b} x {p3} x {p3} x {cfg['channels']} with a 0/1 mask "
+          f"{masked_ms:.3f} ms device [{card}]")
+    del feats, tower, cls_w, cls_b, leaves, x, xm, mask
+    torch.cuda.empty_cache()
+    return launches
+
+
+ASP_STEPS = 3              # masked steps; then one forced to overflow
+ASP_UNMASKED_STEPS = 3     # the same step without ASP, in the same run
+ASP_PERMUTE_PASSES = 1     # greedy passes of the fc1 permutation search
+
+
+def asp_gpt(torch, kern, card: str) -> dict:
+    """GPT-small under ASP at ``_gpt_train_step``'s shape (8 x 1024,
+    ``FusedAdam``, ``DynamicLossScale``; B1-B3, B7, B8): the 2:4 masks
+    computed on the card, bit for bit those computed on the CPU from the
+    same weights; pruned, ``FusedAdam`` wrapped by
+    ``init_optimizer_for_pruning``, ``ASP_STEPS`` steps, then one forced to
+    overflow (an infinite loss scale): after each, every pruned
+    entry exactly 0 and every whitelisted group of 4 at most 2 nonzeros,
+    the overflow step's params unchanged. Step ms and launches beside the
+    unmasked step's; ``permute=True`` on one layer's ``fc1`` weight (the
+    retained magnitude at least the identity's, the search's host
+    seconds). Returns the launches of the masked steps."""
+    import numpy as np
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.contrib.sparsity.permutation import (
+        search_channel_permutation)
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(**GPT_SMALL)
+    batch, seq = TRAIN_BH[0], TRAIN_ATTN[1]
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
+    init = GPTModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    asp = ASP()
+    t0 = time.perf_counter()
+    masks = asp.compute_sparse_masks(init_state)
+    torch.cuda.synchronize()
+    mask_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_masks = asp.compute_sparse_masks({k: v.cpu() for k, v in
+                                          init_state.items()})
+    same = all(torch.equal(masks[n].cpu(), cpu_masks[n]) for n in masks)
+    pruned_names = [n for n, m in masks.items() if not bool(m.all())]
+    check(same, "asp_gpt: masks on the card differ from the CPU's")
+    check(len(pruned_names) == 4 * cfg.num_layers,
+          f"asp_gpt: {len(pruned_names)} leaves pruned, not "
+          f"{4 * cfg.num_layers}")
+    print(f"asp_gpt: 2:4 masks of {len(pruned_names)} leaves (qkv, proj, fc1,"
+          f" fc2 of each layer) in {mask_ms:.3f} ms on the card, bit for bit"
+          f" those computed on the CPU [{card}]")
+    asp.prune(init_state, masks)
+    off = {n: ~masks[n] for n in pruned_names}
+
+    def sparse_ok(params) -> bool:
+        ok = True
+        for n in pruned_names:
+            p = params[n].detach()
+            ok &= bool((p[off[n]] == 0).all())
+            ok &= bool(((p.reshape(-1, 4) != 0).sum(-1) <= 2).all())
+        return ok
+
+    def run(step, n_steps: int, what: str):
+        launches = {name: 0 for name in kern.LAUNCHES}
+        times = []
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            t0 = time.perf_counter()
+            loss, finite, grads = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del grads
+            check(bool(finite) and bool(torch.isfinite(loss)),
+                  f"asp_gpt: {what} step {i} loss {float(loss)} not finite")
+            for name, n in kern.LAUNCHES.items():
+                launches[name] += n
+        return launches, times
+
+    masked = gpt_trainer(torch, cfg, init_state, tokens, 1e-4,
+                         opt_wrap=lambda opt: asp.init_optimizer_for_pruning(
+                             opt, masks))
+    check(sparse_ok(masked.params), "asp_gpt: the pruned model is not 2:4")
+    launches, times = run(masked, ASP_STEPS, "masked")
+    check(sparse_ok(masked.params), "asp_gpt: a masked step left a pruned "
+                                    "entry nonzero or a group past 2 of 4")
+    before = {n: p.detach().clone() for n, p in masked.params.items()}
+    carry = masked.carry
+    carry["ls"] = carry["ls"]._replace(
+        loss_scale=torch.full_like(carry["ls"].loss_scale, math.inf))
+    kern.reset_launches()
+    _, finite, _ = masked()
+    for name, n in kern.LAUNCHES.items():
+        launches[name] += n
+    unchanged = all(torch.equal(before[n], p) for n, p in
+                    masked.params.items())
+    check(not bool(finite) and unchanged and sparse_ok(masked.params),
+          "asp_gpt: the overflow step was not skipped, or broke the 2:4 "
+          "pattern")
+    del before
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == (ASP_STEPS + 1) * cfg.num_layers,
+              f"asp_gpt: {name} launched {launches[name]} times")
+    masked_ms = 1e3 * min(times[1:])
+    del masked
+    torch.cuda.empty_cache()
+    plain = gpt_trainer(torch, cfg, init_state, tokens, 1e-4)
+    plain_launches, plain_times = run(plain, ASP_UNMASKED_STEPS, "unmasked")
+    del plain
+    torch.cuda.empty_cache()
+    plain_ms = 1e3 * min(plain_times[1:])
+    print(f"asp_gpt: {ASP_STEPS} masked steps and one overflow step (skipped,"
+          f" params unchanged), every pruned entry 0 and every group of 4 at"
+          f" most 2 nonzeros after each; step {masked_ms:.3f} ms against "
+          f"{plain_ms:.3f} ms unmasked (the best of steps 1-"
+          f"{ASP_STEPS - 1}, host clock); launches masked {launches}, "
+          f"unmasked {plain_launches} [{card}]")
+
+    name = "layers.0.fc1.weight"
+    w = init_state[name]
+    t0 = time.perf_counter()
+    perm, eff_id, eff_perm = search_channel_permutation(
+        w, method="greedy", max_passes=ASP_PERMUTE_PASSES)
+    search_s = time.perf_counter() - t0
+    check(eff_perm >= eff_id and sorted(perm.tolist()) == list(range(
+        w.shape[-1])), f"asp_gpt: the permutation lost magnitude "
+                       f"{eff_perm} < {eff_id}")
+    print(f"asp_gpt: permute=True on {name} {tuple(w.shape)} (greedy, "
+          f"{ASP_PERMUTE_PASSES} pass, 512 rows sampled): retained "
+          f"magnitude {eff_perm:.4f} against the identity's {eff_id:.4f} "
+          f"(x{eff_perm / eff_id:.5f}), {search_s:.2f} s of host numpy")
+    del init_state, masks, cpu_masks
+    torch.cuda.empty_cache()
+    return launches
+
+
+TP1_DROPOUT = 0.1
+TOL_TP1_XENT = 1e-5     # fp32 math on the same bf16 logits, other sums
+
+
+def tp1_gpt(torch, kern, card: str) -> dict:
+    """The tp=1 pieces on GPT-small: ``model_parallel_seed(1234)`` on the
+    card, one GPT-small layer (8 x 1024, bf16, hidden and attention
+    dropout 0.1) with its masks drawn from ``get_rng_tracker().fork()``:
+    wrapped in ``checkpoint``, the loss and every grad bit for bit those of
+    the unwrapped layer from the same generator state, and a second fork
+    new masks; then ``vocab_parallel_cross_entropy`` on GPT-small's logits
+    (8 x 1024 x 32768, bf16) against ``softmax_cross_entropy_loss`` at
+    smoothing 0 (loss and grads) and against the reference's smoothing
+    formula at 0.1, fp32 on the card. Returns the launches of the layer
+    runs and the logits' forward."""
+    import numpy as np
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import softmax_cross_entropy_loss
+    from apex_tpu_torch.transformer import tensor_parallel as tp
+
+    cfg = dataclasses.replace(GPTConfig(**GPT_SMALL),
+                              hidden_dropout=TP1_DROPOUT,
+                              attention_dropout=TP1_DROPOUT)
+    model = GPTModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    lp = model.layers[0]
+    batch, seq = TRAIN_BH[0], TRAIN_ATTN[1]
+    x = torch.randn(batch, seq, cfg.hidden_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).to(torch.bfloat16)
+
+    def layer(h, gen):
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                 device=gen.device))
+        return model._layer(lp, h, seed, gen)
+
+    def run(fn):
+        xx = x.clone().requires_grad_(True)
+        with tracker.fork() as gen:
+            out = fn(xx, gen)
+            loss = (out.float() ** 2).mean()
+            loss.backward()
+        grads = [xx.grad] + [p.grad.clone() for p in lp.parameters()]
+        for p in lp.parameters():
+            p.grad = None
+        return loss.detach(), grads
+
+    tp.model_parallel_seed(1234, device="cuda")
+    tracker = tp.get_rng_tracker()
+    states = tracker.get_states()
+    launches = {name: 0 for name in kern.LAUNCHES}
+    legs = {}
+    for what, fn in (("plain", layer), ("checkpoint", tp.checkpoint(layer))):
+        tracker.set_states(states)
+        kern.reset_launches()
+        legs[what] = run(fn)
+        torch.cuda.synchronize()
+        legs[what] += (dict(kern.LAUNCHES),)
+        for name, n in kern.LAUNCHES.items():
+            launches[name] += n
+    (l0, g0, c0), (l1, g1, c1) = legs["plain"], legs["checkpoint"]
+    same = torch.equal(l0, l1) and all(torch.equal(a, b)
+                                       for a, b in zip(g0, g1))
+    check(same, "tp1_gpt: checkpoint's loss or grads differ from the "
+                "unwrapped layer's")
+    check(c1["flash_fwd"] == 2 * c0["flash_fwd"] == 2 and
+          c1["ln_fwd"] == 2 * c0["ln_fwd"] == 4,
+          f"tp1_gpt: checkpoint did not recompute the layer ({c0}, {c1})")
+    kern.reset_launches()
+    l2, _ = run(tp.checkpoint(layer))
+    for name, n in kern.LAUNCHES.items():
+        launches[name] += n
+    check(not torch.equal(l2, l0), "tp1_gpt: a second fork gave the same "
+                                   "masks")
+    print(f"tp1_gpt: one GPT-small layer ({batch} x {seq}, bf16, dropout "
+          f"{TP1_DROPOUT} from get_rng_tracker().fork()): loss "
+          f"{float(l0):.6f}, under checkpoint {float(l1):.6f}, every grad "
+          f"bit for bit; launches {c0} and {c1}; a second fork {float(l2):.6f}"
+          f" [{card}]")
+    del legs, g0, g1
+
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
+    with torch.no_grad():
+        kern.reset_launches()
+        logits = model(tokens).to(torch.bfloat16)
+        for name, n in kern.LAUNCHES.items():
+            launches[name] += n
+    del model
+    results = {}
+    for what in ("vocab_parallel", "xentropy"):
+        # fp32 copies of the bf16 logits, so the grads are not rounded
+        lg = logits.float().requires_grad_(True)
+        if what == "vocab_parallel":
+            loss = tp.vocab_parallel_cross_entropy(lg, tokens)
+        else:
+            loss = softmax_cross_entropy_loss(
+                lg.reshape(-1, cfg.vocab_size), tokens.reshape(-1),
+                padding_idx=None, half_to_float=True).reshape(tokens.shape)
+        loss.sum().backward()
+        results[what] = (loss.detach(), lg.grad)
+        del lg
+    (lv, gv), (lx, gx) = results["vocab_parallel"], results["xentropy"]
+    l_err = float((lv - lx).abs().max() / lx.abs().max())
+    g_err = float((gv - gx).abs().max() / gx.abs().max())
+    del results, gv, gx
+    lf = logits.float()
+    with torch.no_grad():
+        ls = tp.vocab_parallel_cross_entropy(logits, tokens, 0.1)
+        lse = torch.logsumexp(lf, -1)
+        nll = lse - torch.gather(lf, -1, tokens[..., None])[..., 0]
+        want = 0.9 * nll + 0.1 * (lse - lf.mean(-1))
+    s_err = float((ls - want).abs().max() / want.abs().max())
+    del lf, logits
+    torch.cuda.empty_cache()
+    check(max(l_err, g_err, s_err) <= TOL_TP1_XENT,
+          f"tp1_gpt: vocab-parallel cross-entropy loss {l_err:.3g}, grads "
+          f"{g_err:.3g}, smoothed {s_err:.3g} > {TOL_TP1_XENT}")
+    print(f"tp1_gpt: vocab_parallel_cross_entropy on GPT-small's logits "
+          f"({batch} x {seq} x {cfg.vocab_size}, bf16) against "
+          f"softmax_cross_entropy_loss: loss {l_err:.3g}, grads {g_err:.3g};"
+          f" smoothing 0.1 against (1 - s) nll + s (lse - mean) in fp32: "
+          f"{s_err:.3g} (tol {TOL_TP1_XENT}, of the largest magnitude) "
+          f"[{card}]")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
-                 top: int = 8) -> None:
-    """Device busy time of ``fn`` under ``torch.profiler`` against its host
-    wall time, and the kernels that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+                 top: int = 8) -> tuple:
+    """Device busy time of ``fn`` in a ``profile_window`` (CUDA activity
+    alone) against its host wall time, and the kernels that take the most
+    device time; returns ``(busy ms, device launches)`` a call. ``fn`` is
+    called once, then ``iters`` times a window, up to ``PROFILE_TRIES``
+    windows."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    # device-side entries only: the kernels themselves, not the host ops
-    # that launched them (whose device time would count them twice)
-    rows = [(e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(key=lambda r: -r[1])
+    rows, wall_ms, primers_lost = profile_window(torch, fn, iters,
+                                                 f"profile {what}")
     busy_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
-    print(f"profile {what}: wall {wall_ms:.3f} ms (under the profiler), "
-          f"device busy {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%, "
-          f"{launches:.0f} device launches [{card}]")
+    print(f"profile {what}: wall {wall_ms:.3f} ms (CUDA activity "
+          f"recorded), device busy {busy_ms:.3f} ms = "
+          f"{100 * busy_ms / wall_ms:.1f}%, {launches:.0f} device launches "
+          f"read, {primers_lost} of {PROFILE_PRIMERS} primer records lost "
+          f"[{card}]")
     for key, ms, count in rows[:top]:
         print(f"profile {what}:   {ms:8.4f} ms  x{count:<5.0f} {key[:90]}")
+    return busy_ms, launches
 
 
 def _host_time(torch, fn, iters: int) -> float:
@@ -6281,6 +7293,15 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"device: {card}")
+    # wall seconds a group of phases takes, printed before the last lines
+    start = last = time.perf_counter()
+    seconds = {}
+
+    def lap(name: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        seconds[name] = now - last
+        last = now
 
     _, build_s = kern.build()
     secs = re.findall(r"^--- (\S+) \(([\d.]+) s\)", kern.build_log(), re.M)
@@ -6290,6 +7311,7 @@ def main() -> None:
                           or "not in this build's log"))
     mma_resources(kern)
     decode_resources(kern)
+    lap("build")
 
     print(f"kernel vs plain: limits (atol, rtol, relative norm) bf16 "
           f"{BF16_TOL}, fp32 {FP32_TOL}, flash_fwd's bf16 atol plus "
@@ -6308,6 +7330,7 @@ def main() -> None:
     check_flash_segments(torch, fa, kern, card)
     check_flash_dq(torch, fa, kern, card)
     check_flash_dbias(torch, fa, kern, card)
+    lap("kernel checks")
     serving, dense_times = serve(torch, kern, card)
     small_serving = serve_small(torch, kern, card)
     paged = serve_paged(torch, kern, card, dense_times)
@@ -6316,23 +7339,41 @@ def main() -> None:
                                                 paged=True)
     check_verify_kernels(torch, fa, cache_mod, kern, card, spec_cursors,
                          paged_spec_cursors)
+    lap("serving")
     model = spec_model(torch, torch.bfloat16)
     goodput = serve_goodput(torch, kern, card, model)
     chaos = serve_chaos(torch, kern, card, model)
     host_cost_off(torch, card, model)
     del model
     torch.cuda.empty_cache()
+    lap("serving host layer")
     training = train(torch, kern, card)
     small_training = train_small(torch, kern, card)
     remat_legs = train_remat(torch, kern, card)
     torch.cuda.empty_cache()
+    lap("GPT training")
     config_training = train_config(torch, kern, card)
+    lap("train_config")
     resnet = train_resnet(torch, kern, card)
+    lap("train_resnet")
     bert = train_bert(torch, kern, card)
+    lap("train_bert")
     long, dbias_row = long_context(torch, fa, kern, card)
+    lap("long_context")
     lamb = train_lamb(torch, kern, card)
+    lap("train_lamb")
     legs = optim_legs(torch, kern, card)
+    lap("optim_legs")
     big = transformer_ops(torch, fa, kern, card)
+    lap("transformer_ops")
+    speech = rnnt(torch, kern, card)
+    lap("rnnt")
+    retina = retinanet_head(torch, kern, card)
+    lap("retinanet_head")
+    sparse = asp_gpt(torch, kern, card)
+    lap("asp_gpt")
+    tp1 = tp1_gpt(torch, kern, card)
+    lap("tp1_gpt")
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -6348,7 +7389,10 @@ def main() -> None:
           f"training ({BERT_STEPS} steps) {bert}, BERT with LAMB "
           f"({LAMB_STEPS} steps) {lamb}, the optimizer legs' GPT pass "
           f"{legs}, the Transformer-big block (one forward and backward) "
-          f"{big}, long-context training ({LONG_STEPS} steps) {long}")
+          f"{big}, long-context training ({LONG_STEPS} steps) {long}, the "
+          f"RNN-T steps {speech}, the RetinaNet head {retina}, GPT-small "
+          f"under ASP ({ASP_STEPS} steps and an overflow step) {sparse}, "
+          f"the tp=1 layer and logits {tp1}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
@@ -6357,7 +7401,8 @@ def main() -> None:
                               (serving, small_serving, paged, spec,
                                paged_spec, goodput, chaos, training,
                                small_training, remat_legs, config_training,
-                               resnet, bert, lamb, legs, big, long)
+                               resnet, bert, lamb, legs, big, long,
+                               speech, retina, sparse, tp1)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):
@@ -6365,6 +7410,13 @@ def main() -> None:
                                 f"{DECODE_DIMS[-1]}")
         if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             row["head_dims"] = FLASH_HEAD_DIMS
+    print(f"profiler: {PROFILER_STATS['windows']} windows read, "
+          f"{PROFILER_STATS['retaken']} taken again, at most "
+          f"{PROFILER_STATS['primers_lost']} of {PROFILE_PRIMERS} primer "
+          "records lost in one")
+    print("wall seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; all {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "head_dims")

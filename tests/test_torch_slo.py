@@ -265,8 +265,11 @@ def test_crash_dump_config_from_a_dataclass():
 
 
 def test_decode_attribution_maps_registered_paths(monkeypatch):
-    monkeypatch.setitem(health._LEAF_PATHS, "grads", ["w0", "w1", "w2"])
-    monkeypatch.setitem(jax_health._LEAF_PATHS, "grads", ["w0", "w1", "w2"])
+    # fresh tables: a JAX optimizer step traced earlier in the process
+    # records its "params" tree in the module-wide one
+    monkeypatch.setattr(health, "_LEAF_PATHS", {"grads": ["w0", "w1", "w2"]})
+    monkeypatch.setattr(jax_health, "_LEAF_PATHS",
+                        {"grads": ("w0", "w1", "w2")})
     payload = {"health/grads/first_nonfinite_leaf": 1.0,
                "health/params/first_nonfinite_leaf": 0.0,
                "health/grads/abs_max": 5.0}
