@@ -17,9 +17,12 @@ that builds the pieces, and carry the rest of the one-device surface: the
 RNN family (:mod:`apex_tpu_torch.RNN`), the RNN-T transducer, focal loss
 and the fused convs (:mod:`apex_tpu_torch.ops`), 2:4 sparsity
 (:mod:`apex_tpu_torch.contrib.sparsity`), and the tp=1 RNG tracker and
-vocab-parallel cross-entropy (:mod:`apex_tpu_torch.transformer`). Public
-entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
-the plain PyTorch path.
+vocab-parallel cross-entropy (:mod:`apex_tpu_torch.transformer`). Across
+ranks of ``torch.distributed`` it lays out the reference's process groups
+(:mod:`apex_tpu_torch.transformer.parallel_state`) and trains with data
+parallelism and ZeRO-1 (:mod:`apex_tpu_torch.parallel`,
+:mod:`apex_tpu_torch.optimizers`). Public entry points default to
+``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
 
 The subpackages resolve on first attribute access, as the reference's do
 (``apex_tpu/__init__.py:32-44``): ``import apex_tpu_torch`` imports none

@@ -32,6 +32,14 @@ fields) into the port's, its dict trees in the key order of the port's
 parameter tree ``like`` (the port's optimizers pair state and parameter
 leaves by position, and JAX sorts dict keys).
 
+``zero_state_from_jax`` carries a JAX ``ZeroAdamState``/``ZeroLambState``
+(global arrays: the concatenation, rank by rank, of each rank's
+bucket-major shard) into one rank's port state, and
+``zero_state_to_numpy`` joins the ranks' port states back into the
+global arrays. The flat order is the parameter tree's leaf order: the two
+packages agree when the tree flattens alike in both (JAX sorts dict keys,
+torch keeps their order, so build the port's dicts with sorted keys).
+
 ``rnn_params_from_jax`` turns the JAX ``ApexRNN.init`` dict (``l0``,
 ``l0_rev``, ... each holding ``w_ih``, ``w_hh``, ...) into the port
 ``ApexRNN``'s state dict (``l0.w_ih``, ...); ``rnn_params_to_numpy`` is
@@ -48,7 +56,8 @@ import torch
 __all__ = ["params_from_jax", "params_to_numpy", "resnet_params_from_jax",
            "resnet_params_to_numpy", "mlp_params_from_jax",
            "module_params_from_jax", "optimizer_state_from_jax",
-           "rnn_params_from_jax", "rnn_params_to_numpy"]
+           "rnn_params_from_jax", "rnn_params_to_numpy",
+           "zero_state_from_jax", "zero_state_to_numpy"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -294,3 +303,47 @@ def optimizer_state_from_jax(state, cls, like=None):
         else:
             out[field] = _tree_like(value, like)
     return cls(**out)
+
+
+_ZERO_SHARDS = ("master", "exp_avg", "exp_avg_sq")
+
+
+def zero_state_from_jax(state, rank: int, world: int, device="cpu"):
+    """Rank ``rank`` of ``world``'s port ``ZeroAdamState`` from a JAX
+    ZeRO state with numpy leaves: its slice of each global shard array,
+    the step as an int32 0-d tensor and the bucket stamp as an int.
+    ``state`` may also be a dict of its fields."""
+    from apex_tpu_torch.optimizers.distributed_fused import ZeroAdamState
+    if not isinstance(state, dict):
+        state = {f: getattr(state, f) for f in ZeroAdamState._fields}
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=device),
+           "bucket_stamp": int(np.asarray(state["bucket_stamp"]))}
+    for field in _ZERO_SHARDS:
+        full = np.asarray(state[field], np.float32)
+        if full.shape[0] % world:
+            raise ValueError(f"{field} of {full.shape[0]} elements does not "
+                             f"split into {world} shards")
+        chunk = full.shape[0] // world
+        out[field] = torch.from_numpy(
+            full[rank * chunk:(rank + 1) * chunk].copy()).to(device)
+    return ZeroAdamState(**out)
+
+
+def zero_state_to_numpy(states) -> dict:
+    """The JAX layout of a ZeRO state from every rank's port state, in
+    rank order: ``{"step", "master", "exp_avg", "exp_avg_sq",
+    "bucket_stamp"}`` as numpy (the shards concatenated)."""
+    steps = {int(np.asarray(st.step)) for st in states}
+    stamps = {int(np.asarray(st.bucket_stamp)) for st in states}
+    if len(steps) != 1 or len(stamps) != 1:
+        raise ValueError(f"the ranks' states disagree: steps {steps}, "
+                         f"bucket stamps {stamps}")
+    out = {"step": np.asarray(steps.pop(), np.int32),
+           "bucket_stamp": np.asarray(stamps.pop(), np.int32)}
+    for field in _ZERO_SHARDS:
+        out[field] = np.concatenate([
+            np.asarray(getattr(st, field).cpu() if isinstance(
+                getattr(st, field), torch.Tensor) else getattr(st, field),
+                np.float32) for st in states])
+    return out

@@ -16,8 +16,11 @@ Every scale update records ``amp/loss_scale``, ``amp/overflow_count`` and
 nothing. :func:`scaled_value_and_grad` is the functional ``amp.scale_loss``
 step. The reference's health observers on the grad tree wait for the
 health port (queue item A7); its "off" tier, the only one the port has,
-adds nothing. Reducing the finite flag across model-parallel axes
-(``axis_names``) is multi-GPU work (A5) and raises.
+adds nothing. With ``axis_names`` (mesh axis names of
+:mod:`apex_tpu_torch.transformer.parallel_state`, or process groups) the
+finite flag is reduced with a MIN over each axis's group, so every rank
+keeps or skips the step together; an axis that is not bound raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Sequence, Union
 
 import torch
+import torch.distributed
 from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
                                  tree_unflatten)
 
@@ -48,25 +52,36 @@ def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
-def _one_device(axis_names, what: str) -> None:
-    if axis_names:
-        raise NotImplementedError(
-            f"{what} over model-parallel axes {axis_names!r}: the port runs "
-            "on one device; cross-device reduction comes with multi-GPU "
-            "(A5)")
+def _axis_list(axis_names) -> tuple:
+    if not axis_names:
+        return ()
+    if isinstance(axis_names, (str, torch.distributed.ProcessGroup)):
+        return (axis_names,)
+    return tuple(axis_names)
 
 
 def all_finite(tree: Any,
                axis_names: Union[None, str, Sequence[str]] = None
                ) -> torch.Tensor:
     """One boolean 0-d tensor: every floating leaf of ``tree`` is finite
-    (the reference's fused finite-check; no host sync). ``axis_names``
-    must be empty: the port runs on one device (A5)."""
-    _one_device(axis_names, "all_finite")
+    (the reference's fused finite-check; no host sync), reduced with a
+    MIN over the groups of ``axis_names`` when given."""
+    axes = _axis_list(axis_names)
+    if axes:
+        from apex_tpu_torch.transformer.parallel_state import resolve_axis
+        groups = [resolve_axis(ax) for ax in axes]
     leaves = [x for x in tree_leaves(tree) if _is_float(x)]
     if not leaves:
-        return torch.tensor(True)
-    return torch.stack([torch.isfinite(x).all() for x in leaves]).all()
+        finite = torch.tensor(True)
+    else:
+        finite = torch.stack([torch.isfinite(x).all() for x in leaves]).all()
+    if axes:
+        flag = finite.to(torch.int32)
+        for group in groups:
+            torch.distributed.all_reduce(
+                flag, op=torch.distributed.ReduceOp.MIN, group=group)
+        finite = flag.to(torch.bool)
+    return finite
 
 
 def select_tree(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
@@ -243,10 +258,10 @@ def scaled_value_and_grad(
     loss_scale``, unscaled into ``grad_dtype`` (the "master" grads), in
     the tree of ``params`` (zeros for a parameter the loss does not read,
     as JAX returns); nothing accumulates into ``.grad``. ``new_state`` has
-    the scale already updated. Gate the optimizer on ``grads_finite``
-    (``OptimizerBase.step(..., grads_finite=)``).
+    the scale already updated; ``grads_finite`` is reduced over
+    ``axis_names`` (:func:`all_finite`). Gate the optimizer on
+    ``grads_finite`` (``OptimizerBase.step(..., grads_finite=)``).
     """
-    _one_device(axis_names, "scaled_value_and_grad")
 
     def step(state: LossScaleState, params: Any, *args, **kwargs):
         out = fun(params, *args, **kwargs)
@@ -257,7 +272,7 @@ def scaled_value_and_grad(
                                     materialize_grads=True)
         grads = loss_scale.unscale(state, tree_unflatten(list(grads), spec),
                                    cast_to=grad_dtype)
-        finite = all_finite(grads)
+        finite = all_finite(grads, axis_names=axis_names)
         new_state = loss_scale.update(state, finite)
         aux = tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
                        else x, aux)

@@ -1,17 +1,21 @@
-"""The training config tree of the port, at one device.
+"""The training config tree of the port.
 
 Counterpart of ``apex_tpu/config.py``: one typed dataclass tree that
 *builds* the pieces of a trainer (the amp policy, the loss scale, the
-model, the optimizer) and serializes to JSON (``to_dict``/``from_dict``,
-tuples restored). The fields are the reference's, so a config written by
-either package reads in the other.
+model, the optimizer, the mesh) and serializes to JSON
+(``to_dict``/``from_dict``, tuples restored). The fields are the
+reference's, so a config written by either package reads in the other.
+``zero=1`` builds the ZeRO-1 optimizers over the bucket grid of
+``ddp_bucket_bytes``; :meth:`TrainConfig.initialize_mesh` lays out the
+process groups (:mod:`apex_tpu_torch.transformer.parallel_state`), and
+:meth:`TrainConfig.fastpath` is the reference's preset.
 
 What needs an unported piece raises ``NotImplementedError`` naming its
-queue item: tensor, pipeline or context parallelism above 1, sequence
-parallelism and its comm overlap, ZeRO, ``fastpath``, the microbatch
-calculator, the samplers and the mesh (multi-GPU, A5); the health watchdog
-(A7). Unknown names raise the
-reference's ``ValueError``.
+queue item: a model at tensor parallelism above 1, sequence parallelism
+and its comm overlap (A5b); at pipeline or context parallelism above 1,
+the microbatch calculator and the samplers (A5c); the health watchdog
+(A7a); ``ddp_bucket_bytes="auto"``, which pyprof's roofline tuner
+resolves (A7b). Unknown names raise the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ ZERO_CAPABLE_OPTIMIZERS = ("adam", "adamw", "lamb")
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (queue item "
-                               f"{item}); the port trains on one device")
+                               f"{item})")
 
 
 def _zero_enabled(v) -> bool:
@@ -70,7 +74,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh axes; the port runs all of them at 1."""
+    """Mesh axes; data parallelism is the size the world leaves."""
     tensor_model_parallel_size: int = 1
     pipeline_model_parallel_size: int = 1
     virtual_pipeline_model_parallel_size: Optional[int] = None
@@ -96,7 +100,9 @@ class OptimizerConfig:
     eps: float = 1e-8
     momentum: float = 0.9             # sgd
     flat: bool = False                # wrap in FlatOptimizer
-    zero: Any = False                 # ZeRO stage: off | 1 (A5)
+    # ZeRO stage over the data axis: off | 1 (bools accepted) builds
+    # DistributedFusedAdam/LAMB, per bucket when ddp_bucket_bytes is set
+    zero: Any = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +119,9 @@ class TrainConfig:
     health_on_nonfinite: str = "skip"
     health_consecutive: int = 1
     health_dump_dir: str = "."
-    # DP gradient-sync bucketing (A5)
+    # bytes a flat fp32 bucket of the DDP allreduce and the ZeRO
+    # reduce-scatter/all-gather; None: one bucket. "auto" is resolved by
+    # pyprof's roofline tuner in the reference (A7b), and raises here
     ddp_bucket_bytes: Any = None
 
     # -- serialization ------------------------------------------------------
@@ -139,17 +147,57 @@ class TrainConfig:
                 d[field] = sub(**sub_d)
         return cls(**d)
 
+    # -- presets ------------------------------------------------------------
+    _KEEP = object()   # fastpath(): no explicit bucket grid
+
+    def fastpath(self, *, bucket_bytes: Any = _KEEP) -> "TrainConfig":
+        """The reference's overlap preset, as a new config: ``zero=1``
+        (raises for an optimizer with no ZeRO variant), the bucket grid
+        (one set on the receiver is kept; an unset one becomes ``"auto"``,
+        which :meth:`build_optimizer` refuses until the tuner is ported,
+        A7b; ``bucket_bytes=`` pins it), ``remat_policy="selective"``
+        unless a policy (or the deprecated ``remat=True``, "full") is
+        set, and sequence parallelism with its comm overlap where the
+        mesh carries them (tp > 1, pp == 1; building such a model raises,
+        A5b)."""
+        if not _zero_enabled(self.optimizer.zero) \
+                and self.optimizer.name not in ZERO_CAPABLE_OPTIMIZERS:
+            raise ValueError(
+                f"fastpath needs a ZeRO-capable optimizer "
+                f"({'|'.join(ZERO_CAPABLE_OPTIMIZERS)}), got "
+                f"{self.optimizer.name!r}")
+        tp = self.parallel.tensor_model_parallel_size
+        pp = self.parallel.pipeline_model_parallel_size
+        sp_ok = tp > 1 and pp == 1
+        policy = self.model.remat_policy or (
+            "full" if self.model.remat else "selective")
+        model = dataclasses.replace(
+            self.model,
+            remat_policy=policy,
+            sequence_parallel=self.model.sequence_parallel or sp_ok,
+            tp_comm_overlap=self.model.tp_comm_overlap or sp_ok)
+        optimizer = (self.optimizer if _zero_enabled(self.optimizer.zero)
+                     else dataclasses.replace(self.optimizer, zero=1))
+        if bucket_bytes is TrainConfig._KEEP:
+            bucket_bytes = (self.ddp_bucket_bytes
+                            if self.ddp_bucket_bytes is not None
+                            else "auto")
+        return dataclasses.replace(self, model=model, optimizer=optimizer,
+                                   ddp_bucket_bytes=bucket_bytes)
+
     # -- builders -----------------------------------------------------------
     def _one_device(self) -> None:
         p = self.parallel
-        for name, size in (("tensor", p.tensor_model_parallel_size),
-                           ("pipeline", p.pipeline_model_parallel_size),
-                           ("context", p.context_parallel_size)):
+        for name, size, item in (
+                ("tensor", p.tensor_model_parallel_size, "A5b"),
+                ("pipeline", p.pipeline_model_parallel_size, "A5c"),
+                ("context", p.context_parallel_size, "A5c")):
             if size > 1:
-                raise _unported(f"{name} parallelism (size {size})", "A5")
+                raise _unported(f"a model at {name} parallelism (size "
+                                f"{size})", item)
         if self.model.sequence_parallel or self.model.tp_comm_overlap:
             raise _unported("sequence parallelism and tp_comm_overlap",
-                            "A5")
+                            "A5b")
 
     def build_policy(self):
         from apex_tpu_torch.amp import get_policy
@@ -209,7 +257,20 @@ class TrainConfig:
                 raise ValueError(
                     f"no ZeRO variant of {o.name!r} (capable: "
                     f"{'|'.join(ZERO_CAPABLE_OPTIMIZERS)})")
-            raise _unported(f"ZeRO ({o.name})", "A5")
+            if self.ddp_bucket_bytes == "auto":
+                raise _unported(
+                    'ddp_bucket_bytes="auto" (the reference resolves it '
+                    "with pyprof's tune_bucket_bytes; pass an int)", "A7b")
+            if o.name in ("adam", "adamw"):
+                return opt.DistributedFusedAdam(
+                    lr=o.lr, betas=o.betas, eps=o.eps,
+                    adam_w_mode=o.name == "adamw",
+                    weight_decay=o.weight_decay,
+                    bucket_bytes=self.ddp_bucket_bytes)
+            return opt.DistributedFusedLAMB(
+                lr=o.lr, betas=o.betas, eps=o.eps,
+                weight_decay=o.weight_decay,
+                bucket_bytes=self.ddp_bucket_bytes)
         if o.name in ("adam", "adamw"):
             inner = opt.FusedAdam(lr=o.lr, betas=o.betas, eps=o.eps,
                                   adam_w_mode=o.name == "adamw",
@@ -229,20 +290,29 @@ class TrainConfig:
             raise ValueError(f"unknown optimizer {o.name!r}")
         return opt.FlatOptimizer(inner) if o.flat else inner
 
-    def fastpath(self, **kw) -> "TrainConfig":
-        raise _unported("fastpath (ZeRO, bucketed sync, sequence "
-                        "parallelism)", "A5")
-
     def build_health(self):
-        raise _unported("the numerics watchdog (HealthConfig)", "A7")
+        raise _unported("the numerics watchdog (HealthConfig)", "A7a")
 
     def build_microbatch_calculator(self, data_parallel_size: int):
-        raise _unported("the microbatch calculator", "A5")
+        raise _unported("the microbatch calculator", "A5c")
 
     def build_sampler(self, total_samples: int, consumed_samples: int,
                       data_parallel_rank: int, data_parallel_size: int,
                       shuffle: bool = False):
-        raise _unported("the Megatron pretraining samplers", "A5")
+        raise _unported("the Megatron pretraining samplers", "A5c")
 
     def initialize_mesh(self, devices=None):
-        raise _unported("the device mesh (parallel_state)", "A5")
+        """:func:`~apex_tpu_torch.transformer.parallel_state.
+        initialize_model_parallel` with this config's sizes, after
+        ``torch.distributed.init_process_group``; returns the mesh."""
+        from apex_tpu_torch.transformer import parallel_state
+        return parallel_state.initialize_model_parallel(
+            tensor_model_parallel_size=
+            self.parallel.tensor_model_parallel_size,
+            pipeline_model_parallel_size=
+            self.parallel.pipeline_model_parallel_size,
+            virtual_pipeline_model_parallel_size=
+            self.parallel.virtual_pipeline_model_parallel_size,
+            context_parallel_size=self.parallel.context_parallel_size,
+            devices=devices,
+            dcn_data_parallel=self.parallel.dcn_data_parallel)

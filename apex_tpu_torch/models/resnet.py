@@ -47,7 +47,7 @@ class ResNetConfig:
     width: int = 64
     compute_dtype: torch.dtype = torch.bfloat16
     params_dtype: torch.dtype = torch.float32
-    bn_axis_name: Optional[str] = None  # cross-device BN: A5, raises
+    bn_axis_name: Optional[str] = None  # "data": BN statistics across ranks
     bn_momentum: float = 0.1
     # the BN normalize at compute precision when that is bf16 (statistics
     # stay fp32); fp16 keeps the fp32 apply, keep_batchnorm_fp32's case

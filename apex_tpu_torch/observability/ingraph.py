@@ -15,8 +15,11 @@ global_grad_norm(g))``) and an uninstrumented step makes no extra aten
 call and no extra launch. The reference's trace-time check becomes a
 call-time check here, since the port runs eagerly.
 
-:func:`aggregate` reduces across mesh axes in the reference; the port
-runs on one device, so it takes none (multi-GPU is queue item A5).
+:func:`aggregate` reduces every entry across ranks by its declared
+reduction, over the process groups that mesh axis names give
+(:mod:`apex_tpu_torch.transformer.parallel_state`): one all-reduce for
+each reduction kind and axis, on the card for an NCCL group and on the
+CPU for a gloo one.
 """
 
 from __future__ import annotations
@@ -165,11 +168,34 @@ def reap(fn: Callable) -> Callable:
 
 def aggregate(metrics: Metrics,
               axis_names: Union[None, str, Sequence[str]]) -> Metrics:
-    """The identity at one device (``None`` or empty axes); any axis
-    raises, since reducing across devices is multi-GPU work (queue item
-    A5)."""
+    """Every entry reduced across the groups of ``axis_names`` by its
+    declared reduction (``sum``, ``mean``, ``max``, ``min``); the result
+    is the same on every rank of the group. With ``None`` or empty axes
+    this is the identity. An axis that is not bound raises
+    ``ValueError``."""
     if not axis_names:
         return metrics
-    raise NotImplementedError(
-        f"aggregate over mesh axes {axis_names!r}: the port runs on one "
-        "device; cross-device reduction comes with multi-GPU (A5)")
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer.parallel_state import resolve_axis
+    axes = ((axis_names,) if isinstance(axis_names, (str, dist.ProcessGroup))
+            else tuple(axis_names))
+    groups = [resolve_axis(ax) for ax in axes]
+    ops = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    out = dict(metrics.values)
+    for mode in REDUCTIONS:
+        names = [k for k, m in metrics.modes.items() if m == mode]
+        if not names:
+            continue
+        for group in groups:
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if dist.get_backend(group) == "nccl"
+                   else torch.device("cpu"))
+            vec = torch.stack([out[k].to(dev, torch.float32)
+                               for k in names])
+            dist.all_reduce(vec, op=ops[mode], group=group)
+            if mode == "mean":
+                vec = vec / dist.get_world_size(group)
+            out.update(zip(names, vec.unbind()))
+    return Metrics(out, dict(metrics.modes))

@@ -1,11 +1,13 @@
 """Fused optimizers of the port: FusedAdam, FusedAdagrad, FusedSGD,
 FusedLAMB (and the mixed-precision LAMB over fp32 masters), FusedNovoGrad,
-the LARC wrapper and the flat-buffer tier FlatOptimizer. The reference's
-ZeRO optimizers (``DistributedFusedAdam``, ``DistributedFusedLAMB``) come
-with multi-GPU (A5)."""
+the LARC wrapper, the flat-buffer tier FlatOptimizer, and the ZeRO-1
+optimizers DistributedFusedAdam and DistributedFusedLAMB, whose state is
+sharded over the data-parallel group."""
 
 from apex_tpu_torch.optimizers._base import (  # noqa: F401
     OptimizerBase, global_grad_norm)
+from apex_tpu_torch.optimizers.distributed_fused import (  # noqa: F401
+    DistributedFusedAdam, DistributedFusedLAMB, ZeroAdamState, ZeroLambState)
 from apex_tpu_torch.optimizers.flat import (  # noqa: F401
     FlatOptimizer, FlatState)
 from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
@@ -28,4 +30,6 @@ __all__ = [
     "FusedNovoGrad", "NovoGradState",
     "FusedSGD", "SGDState",
     "LARC", "larc_transform_grads",
+    "DistributedFusedAdam", "ZeroAdamState",
+    "DistributedFusedLAMB", "ZeroLambState",
 ]

@@ -99,8 +99,16 @@ class OptimizerBase:
             # skip = old params AND old state (the step count does not
             # advance), as the reference skips optimizer.step() wholesale
             new_params = select_tree(grads_finite, new_params, params)
-            new_state = select_tree(grads_finite, new_state, state)
+            new_state = _select_tensors(grads_finite, new_state, state)
         for old, new in zip(tree_leaves((params, state)),
                             tree_leaves((new_params, new_state))):
-            old.copy_(new)
+            if isinstance(old, torch.Tensor):
+                old.copy_(new)
         return params, state
+
+
+def _select_tensors(pred: torch.Tensor, new: Any, old: Any) -> Any:
+    """:func:`select_tree` over the tensor leaves of a state; a host
+    constant of the state (ZeRO's ``bucket_stamp``) stays as it is."""
+    return tree_map(lambda n, o: torch.where(pred, n, o)
+                    if isinstance(n, torch.Tensor) else n, new, old)

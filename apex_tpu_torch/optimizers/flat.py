@@ -27,7 +27,7 @@ optimizer's. Two tiers:
 Only for optimizers whose math is elementwise over (grad, param, state):
 ``FusedAdam``, ``FusedAdagrad`` and ``FusedSGD``. The per-tensor norms of
 LAMB, NovoGrad and LARC would span the whole buffer here (the reference's
-ZeRO tier keeps segment ids for them, A5).
+ZeRO tier, ``distributed_fused.py``, keeps segment ids for them).
 """
 
 from __future__ import annotations

@@ -17,12 +17,18 @@ backward is ``g1 + 2 * x * g2`` in fp32. Written as ``xf = x.float();
 input for the backward (2.7 GiB for each byte an element at ResNet-50's
 batch 256).
 
-The cross-device sum (``axis_name``, ``axis_index_groups``) is multi-GPU
-work, queue item A5: any axis raises.
+Across ranks (``axis_name``, a mesh axis name or a ``ProcessGroup``;
+``axis_index_groups`` for subgroups), the local ``(s1, s2, count)`` go
+through one sum over the group, so the count-weighted statistics hold for
+uneven batches a rank, as in the reference. That sum is differentiable:
+its backward sums the grads of ``s1`` and ``s2`` over the group, the
+transpose of ``psum`` that the reference's AD gives (and the
+``allreduce(sum_dy, sum_dy_xmu)`` of apex's backward).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -38,13 +44,6 @@ class BatchNormState(NamedTuple):
     running_mean: torch.Tensor
     running_var: torch.Tensor
     num_batches_tracked: torch.Tensor
-
-
-def _one_device(axis_name, axis_index_groups) -> None:
-    if axis_name is not None or axis_index_groups is not None:
-        raise NotImplementedError(
-            f"sync_batch_norm over axis {axis_name!r}: the port runs on one "
-            "device; cross-device statistics come with multi-GPU (A5)")
 
 
 class _Sums(torch.autograd.Function):
@@ -89,22 +88,26 @@ def sync_batch_norm(
 ) -> Tuple[torch.Tensor, BatchNormState]:
     """Returns ``(out, new_state)`` in ``x``'s dtype; ``new_state`` holds
     new tensors (the running statistics, detached) in training and is
-    ``state`` in eval. ``channel_axis=1`` is NCHW, ``-1`` NHWC."""
-    _one_device(axis_name, axis_index_groups)
+    ``state`` in eval. ``channel_axis=1`` is NCHW, ``-1`` NHWC; an
+    ``axis_name`` that is not bound raises ``ValueError``."""
     c_ax = channel_axis % x.dim()
     red = tuple(i for i in range(x.dim()) if i != c_ax)
     stat_shape = [1] * x.dim()
     stat_shape[c_ax] = x.shape[c_ax]
 
     if training:
-        count = 1.0
-        for i in red:
-            count *= x.shape[i]
         s1, s2 = _Sums.apply(x, red)
+        count = s1.new_full((1,), float(math.prod(x.shape[i] for i in red)))
+        if axis_name is not None:
+            from apex_tpu_torch.parallel.distributed import grouped_psum
+            c = s1.shape[0]
+            summed = grouped_psum(torch.cat([s1, s2, count]), axis_name,
+                                  axis_index_groups)
+            s1, s2, count = summed[:c], summed[c:2 * c], summed[2 * c:]
         mean = s1 / count
         var = s2 / count - mean * mean  # biased, normalizes
         with torch.no_grad():
-            unbiased = var * count / max(count - 1.0, 1.0)
+            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
             new_state = BatchNormState(
                 running_mean=(1 - momentum) * state.running_mean
                 + momentum * mean,
@@ -150,8 +153,9 @@ class SyncBatchNorm(nn.Module):
     by each training-mode call, as torch's BN updates them.
     ``track_running_stats=False`` always normalizes with the batch's
     statistics and leaves the buffers alone. ``apply_dtype`` and
-    ``fuse_relu`` are :func:`sync_batch_norm`'s; ``forward(x, z=None)``.
-    ``axis_name`` must be None (A5)."""
+    ``fuse_relu`` are :func:`sync_batch_norm`'s, and so are
+    ``axis_name`` and ``axis_index_groups`` (resolved at each call);
+    ``forward(x, z=None)``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -162,9 +166,12 @@ class SyncBatchNorm(nn.Module):
                  apply_dtype: Optional[torch.dtype] = None,
                  device="cuda"):
         super().__init__()
-        _one_device(axis_name, axis_index_groups)
         dev = resolve_device(device)
         self.num_features = num_features
+        self.affine = affine
+        self.axis_name = axis_name
+        self.axis_index_groups = axis_index_groups
+        self.param_dtype = param_dtype
         self.eps = eps
         self.momentum = momentum
         self.track_running_stats = track_running_stats
@@ -205,8 +212,9 @@ class SyncBatchNorm(nn.Module):
         out, new_state = sync_batch_norm(
             x, self.weight, self.bias, self.state, training=use_batch_stats,
             momentum=self.momentum, eps=self.eps,
-            channel_axis=self.channel_axis, z=z, fuse_relu=self.fuse_relu,
-            apply_dtype=self.apply_dtype)
+            channel_axis=self.channel_axis, axis_name=self.axis_name,
+            axis_index_groups=self.axis_index_groups, z=z,
+            fuse_relu=self.fuse_relu, apply_dtype=self.apply_dtype)
         if use_batch_stats and self.track_running_stats:
             with torch.no_grad():
                 for buf, new in zip(self.state, new_state):

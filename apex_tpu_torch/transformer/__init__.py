@@ -1,11 +1,12 @@
-"""Megatron-style model-parallel toolkit of the port at one device: the
+"""Megatron-style model-parallel toolkit of the port: the
 tp=1 layers, RNG tracker and vocab-parallel cross-entropy, the grad
 scaler, the fused scale-mask softmax (also as ``functional``, as the
-reference aliases it) and the enums. ``parallel_state``,
-``pipeline_parallel``, ``context_parallel`` and ``expert_parallel`` come
-with multi-GPU (queue item A5)."""
+reference aliases it), the enums, and ``parallel_state``, the process
+groups of the (pipe, data, context, tensor) mesh. ``pipeline_parallel``,
+``context_parallel`` and ``expert_parallel`` come with queue item A5c."""
 
-from apex_tpu_torch.transformer import amp, tensor_parallel  # noqa: F401
+from apex_tpu_torch.transformer import (  # noqa: F401
+    amp, parallel_state, tensor_parallel)
 from apex_tpu_torch.transformer.enums import (  # noqa: F401
     AttnMaskType, AttnType, LayerType, ModelType)
 from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
@@ -13,5 +14,6 @@ from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
 # the `functional` namespace (reference:apex/transformer/functional)
 from apex_tpu_torch.ops import fused_softmax as functional  # noqa: F401
 
-__all__ = ["amp", "functional", "tensor_parallel", "AttnMaskType",
+__all__ = ["amp", "functional", "parallel_state", "tensor_parallel",
+           "AttnMaskType",
            "AttnType", "LayerType", "ModelType", "FusedScaleMaskSoftmax"]

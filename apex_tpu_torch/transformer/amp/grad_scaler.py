@@ -3,10 +3,13 @@
 Counterpart of ``apex_tpu/transformer/amp/grad_scaler.py``: a
 :class:`~apex_tpu_torch.amp.DynamicLossScale` whose finite flag is reduced
 over the model-parallel group before the scale update and the skip, so
-every shard keeps or skips the step together. The port runs on one
-device: there the synced flag is :func:`~apex_tpu_torch.amp.all_finite`,
-and an initialized ``torch.distributed`` group of more than one rank
-raises (multi-GPU is queue item A5).
+every shard keeps or skips the step together: a MIN of the finite flag
+over the groups of ``model_parallel_axes`` (mesh axis names of
+:mod:`apex_tpu_torch.transformer.parallel_state`), the reference's MAX
+all-reduce of ``found_inf``. Before ``initialize_model_parallel`` a
+single process has no model-parallel peers, so the flag is
+:func:`~apex_tpu_torch.amp.all_finite` of its own grads; with more than
+one rank the axes must be bound, or it raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -58,17 +61,20 @@ class GradScaler:
         return self._inner.unscale(state, grads, cast_to)
 
     def all_finite_synced(self, grads: Any) -> torch.Tensor:
-        """The finite flag over the model-parallel group: at one device,
-        :func:`all_finite` of ``grads``."""
+        """The finite flag of ``grads`` reduced over the model-parallel
+        group (the module's docstring)."""
+        from apex_tpu_torch.transformer import parallel_state
         dist = torch.distributed
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "GradScaler.all_finite_synced over a process group of "
-                f"{dist.get_world_size()} ranks: the port runs on one "
-                "device; the model-parallel reduction comes with "
-                "multi-GPU (A5)")
-        return all_finite(grads)
+        if not parallel_state.model_parallel_is_initialized():
+            if (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1):
+                raise ValueError(
+                    f"model-parallel axes {self.model_parallel_axes} are "
+                    "not bound: parallel_state is not initialized over a "
+                    f"world of {dist.get_world_size()} ranks (call "
+                    "initialize_model_parallel first)")
+            return all_finite(grads)
+        return all_finite(grads, axis_names=self.model_parallel_axes)
 
     def update(self, state: LossScaleState,
                grads_finite: torch.Tensor) -> LossScaleState:

@@ -328,7 +328,30 @@ non-zero and prints no result. Phases, each fatal on failure:
    bit the unwrapped layer (and recomputed), a second fork new masks;
    ``vocab_parallel_cross_entropy`` on GPT-small's logits against
    ``softmax_cross_entropy_loss`` and the smoothing formula;
-23. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+23. ``ddp_gpt`` (NCCL at world 1, ``parallel_state``'s mesh over one
+   rank): ``train``'s GPT-small step with its grads synced by
+   ``DistributedDataParallel(bucket_bytes=DEFAULT_BUCKET_BYTES)`` against
+   the same step unsynced, in turns: 4 losses and step 0's grads bit for
+   bit, step ms, buckets and bytes reduced a step, the NCCL kernels'
+   launches and device ms in a profile; ``accumulate_gradients`` over 2
+   microbatches of 4 x 1024 against the window by hand, bit for bit;
+24. ``zero_gpt`` (NCCL at world 1): the step with the ZeRO-1 Adam that
+   ``TrainConfig(zero=1, ddp_bucket_bytes=4 MiB)`` builds against
+   ``FusedAdam``, in turns: 5 losses within ``TOL_ZERO_LOSS``, step ms,
+   optimizer-state bytes a rank;
+25. ``dist_ranks``: two processes on the card over gloo (CUDA tensors; the
+   kernels built above, loaded by each rank;
+   ``apex_tpu_torch.parallel._spawn.RankPool``): DDP at 4 x 1024 a rank
+   against the world-1 step at 8 x 1024 within ``TOL_TRAIN_*``, both
+   ranks' grads alike; ZeRO at world 2 (a rank's shard half of world 1's,
+   its moments after step 0 within ``TOL_ZERO_MOMENTS`` of Adam's on the
+   DDP-averaged grads, 5 losses within ``TOL_TRAIN_LOSS`` of
+   ``zero_gpt``'s), then a NaN in
+   rank 1's grads making both ranks skip; ``SyncBatchNorm`` at a
+   ResNet-50 BN shape (2 x 128 x 64 x 56 x 56, and 96 + 160 images)
+   against the whole batch on one rank within ``TOL_SYNCBN``; the gloo
+   times printed as gloo over loopback, no multi-GPU speed;
+26. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -3904,16 +3927,20 @@ def grad_rel(torch, got: dict, want: dict) -> tuple:
 
 
 def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
-                opt_wrap=None):
+                opt_wrap=None, grad_sync=None, optimizer=None,
+                finite_axes=None):
     """A step function of ``bench.py::_gpt_train_step``'s training step on
     a ``GPTModel(cfg)`` loaded from ``init_state``: ``GPTModel.loss`` on
     ``tokens`` (the targets too), backward of the scaled loss, unscale,
     ``all_finite``, ``DynamicLossScale.update`` (init scale 2**12) and
     ``FusedAdam(lr).step`` with the skip (``opt_wrap(FusedAdam(lr))`` with
-    ``opt_wrap``); with a dropout rate in ``cfg``, the masks from a
-    generator on the card seeded 0. The step returns ``(loss, finite,
-    unscaled grads)``; ``step.params`` are the model's parameters and
-    ``step.carry["ls"]`` the loss-scale state."""
+    ``opt_wrap``; ``optimizer`` in place of ``FusedAdam(lr)``); with a
+    dropout rate in ``cfg``, the masks from a generator on the card seeded
+    0. ``grad_sync`` maps the scaled grads before the unscale (DDP's
+    ``sync_gradients``), and ``finite_axes`` reduces the finite flag
+    across ranks. The step returns ``(loss, finite, unscaled grads)``;
+    ``step.params`` are the model's parameters, ``step.opt_state`` the
+    optimizer's state and ``step.carry["ls"]`` the loss-scale state."""
     from apex_tpu_torch.amp import DynamicLossScale, all_finite
     from apex_tpu_torch.models import GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
@@ -3921,7 +3948,7 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
     model = GPTModel(cfg, device="cuda")
     model.load_state_dict(init_state)
     params = dict(model.named_parameters())
-    opt = FusedAdam(lr=lr)
+    opt = FusedAdam(lr=lr) if optimizer is None else optimizer
     if opt_wrap is not None:
         opt = opt_wrap(opt)
     opt_state = opt.init(params)
@@ -3936,14 +3963,18 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
             p.grad = None
         loss = model.loss(tokens, tokens, generator=gen)
         (loss * ls.loss_scale).backward()
-        grads = scaler.unscale(ls, {n: p.grad for n, p in params.items()})
-        finite = all_finite(grads)
+        grads = {n: p.grad for n, p in params.items()}
+        if grad_sync is not None:
+            grads = grad_sync(grads)
+        grads = scaler.unscale(ls, grads)
+        finite = all_finite(grads, axis_names=finite_axes)
         carry["ls"] = scaler.update(ls, finite)
         opt.step(grads, opt_state, params, grads_finite=finite)
         return loss.detach(), finite, grads
 
     step.generator = gen
     step.params = params
+    step.opt_state = opt_state
     step.carry = carry
     return step
 
@@ -7245,6 +7276,571 @@ def tp1_gpt(torch, kern, card: str) -> dict:
     return launches
 
 
+# -- data parallelism: NCCL at world 1 in this process, then two ranks ------
+DDP_STEPS = 4              # a warm step, then the timed ones
+DDP_MICRO = 2              # accumulate_gradients' window of 2 x 4 x 1024
+ZERO_STEPS = 5
+ZERO_BUCKET_BYTES = 4 << 20
+# ZeRO at world 1 against FusedAdam: the same fp32 arithmetic element for
+# element (the reduce-scatter and all-gather of one rank are copies and
+# the 1 / dp scale is 1.0), so the losses should agree bit for bit; the
+# limit allows one fp32 ulp of a ~10.4 loss (9.5e-7) a step over 5 steps,
+# for a vectorized kernel that rounded an update otherwise
+TOL_ZERO_LOSS = 5e-6
+# ZeRO at world 2: a rank's Adam moments after step 0 against the first
+# moments of the DDP-averaged grads (a plain all-reduce of the whole flat
+# grads, this rank's bucket slices), relative norm. Two ranks' sum is the
+# same in either order and the 1/2, the unscale and Adam's first step are
+# the same fp32 products, so the reading should be 0; the limit allows an
+# ulp a term. A missing or doubled 1 / dp moves m by 1.0 or 0.5, a shard
+# stepped on its own rank's grads by the grads' spread across ranks
+TOL_ZERO_MOMENTS = 1e-6
+DIST_WORLD = 2
+DIST_TIMEOUT = 600.0       # seconds a call of the two ranks may take
+# this torch's gloo takes CUDA tensors in all_reduce (sum, min, max),
+# reduce_scatter_tensor and all_gather_into_tensor, async too (probed on
+# torch 2.11.0+cu128 on the H100), so every two-rank check runs over gloo
+# on the card; two ranks on one card cannot share NCCL (ncclInvalidUsage)
+GLOO_CUDA_OPS = ("all_reduce", "reduce_scatter_tensor",
+                 "all_gather_into_tensor")
+# one rank's batch of ResNet-50's first bottleneck BN (NCHW, fp32), the
+# whole batch then 2 x 128; and an uneven split of the same 256 images
+SYNCBN_SHAPE = (128, 64, 56, 56)
+SYNCBN_UNEVEN = (96, 160)
+# synced BN against the whole batch on one rank, fp32, of each tensor's
+# largest magnitude: the statistics summed in other orders (two partial
+# sums and an all-reduce against one reduction), 802816 values a channel
+TOL_SYNCBN = 1e-5
+
+
+def gpt_small_setup(torch):
+    """GPT-small's config, ``train``'s init state (seed 0) and tokens
+    (8 x 1024 from ``RandomState(0)``)."""
+    import numpy as np
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(**GPT_SMALL)
+    batch, seq = TRAIN_BH[0], TRAIN_ATTN[1]
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
+    init = GPTModel(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    return cfg, init_state, tokens
+
+
+def check_gpt_counts(counts: dict, what: str, passes: int = 1) -> None:
+    """A GPT-small training step's launches: 12 of each flash kernel and
+    25 of each LayerNorm kernel a forward and backward."""
+    L = GPT_SMALL["num_layers"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts[name] == passes * L,
+              f"{what}: {name} launched {counts[name]} times, not "
+              f"{passes * L}")
+    for name in ("ln_fwd", "ln_bwd"):
+        check(counts[name] == passes * LN_PER_GPT_PASS,
+              f"{what}: {name} launched {counts[name]} times, not "
+              f"{passes * LN_PER_GPT_PASS}")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def timed_steps(torch, kern, step, n: int, what: str, launches=None,
+                passes: int = 1) -> tuple:
+    """``n`` synchronized steps: their losses, host-clock seconds and the
+    first step's unscaled grads; each step's launches checked and added
+    into ``launches``."""
+    losses, times, grads0 = [], [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        loss, finite, grads = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(kern.LAUNCHES)
+        check_gpt_counts(counts, f"{what} step {i}", passes)
+        check(bool(finite) and bool(torch.isfinite(loss)),
+              f"{what} step {i}: loss {float(loss)} or grads not finite")
+        if launches is not None:
+            add_counts(launches, counts)
+        losses.append(loss)
+        if i == 0:
+            grads0 = grads
+        del grads
+    return losses, times, grads0
+
+
+def median_ms(times) -> float:
+    later = sorted(times[1:])
+    return 1e3 * later[len(later) // 2]
+
+
+def ddp_gpt(torch, kern, card: str) -> dict:
+    """GPT-small's training step (``train``'s: 8 x 1024, FusedAdam,
+    ``DynamicLossScale``) with its grads synced by
+    ``DistributedDataParallel(bucket_bytes=DEFAULT_BUCKET_BYTES)`` over
+    NCCL at world 1, against the same step unsynced, in turns: losses and
+    step 0's grads bit for bit (one rank's all-reduce is a copy, the
+    average a multiply by 1.0), step ms, buckets and bytes reduced a step
+    (the ``ddp/*`` metrics) and the NCCL kernels' launches and device ms
+    in a profile of the synced step. Then ``accumulate_gradients`` over
+    two microbatches of 4 x 1024 against the same window by hand, unsynced:
+    the loss and grads bit for bit. Returns the synced runs' launches."""
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.observability import ingraph
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.distributed import DEFAULT_BUCKET_BYTES
+    from apex_tpu_torch.training import accumulate_gradients
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    ddp = DistributedDataParallel(bucket_bytes=DEFAULT_BUCKET_BYTES)
+    launches = {name: 0 for name in kern.LAUNCHES}
+    legs = {}
+    for what, sync in (("plain", None), ("ddp", ddp.sync_gradients)):
+        step = gpt_trainer(torch, cfg, init_state, tokens, 1e-4,
+                           grad_sync=sync)
+        with ingraph.collecting() as col:
+            legs[what] = timed_steps(torch, kern, step, DDP_STEPS,
+                                     f"ddp_gpt {what}",
+                                     launches if sync else None)
+            metrics = col.freeze().as_floats()
+        if sync is not None:
+            kern.reset_launches()
+            rows, wall_ms, _ = profile_window(torch, step, 2,
+                                              "profile ddp_gpt step")
+            add_counts(launches, kern.LAUNCHES)
+            ddp_metrics = metrics
+        del step
+        torch.cuda.empty_cache()
+    (l_p, t_p, g_p), (l_d, t_d, g_d) = legs["plain"], legs["ddp"]
+    same_losses = all(torch.equal(a, b) for a, b in zip(l_p, l_d))
+    same_grads = all(torch.equal(g_p[n], g_d[n]) for n in g_p)
+    check(same_losses and same_grads,
+          f"ddp_gpt: at world 1 the synced step's losses "
+          f"{[float(x) for x in l_d]} or step 0's grads differ from the "
+          f"unsynced step's {[float(x) for x in l_p]}")
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
+    busy = sum(r[1] for r in rows)
+    print(f"ddp_gpt: GPT-small ({TRAIN_BH[0]} x {TRAIN_ATTN[1]}) synced by "
+          f"DistributedDataParallel(bucket_bytes={DEFAULT_BUCKET_BYTES}) "
+          f"over NCCL at world 1: {DDP_STEPS} losses and step 0's grads "
+          f"bit for bit the unsynced step's; median step "
+          f"{median_ms(t_d):.3f} ms against {median_ms(t_p):.3f} unsynced "
+          f"(host clock, in turns), "
+          f"{ddp_metrics['ddp/num_buckets']:.0f} buckets of "
+          f"{ddp_metrics['ddp/bucket_bytes']:.0f} bytes, "
+          f"{ddp_metrics['ddp/allreduce_bytes'] / DDP_STEPS:.0f} bytes "
+          f"reduced a step [{card}]")
+    print(f"ddp_gpt: profile of the synced step: wall {wall_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms; NCCL kernels "
+          + (", ".join(f"{k[:60]} x{c:.0f} {ms:.4f} ms" for k, ms, c in nccl)
+             or "none (one rank's all-reduce launches no kernel)")
+          + f" [{card}]")
+    del legs, g_p, g_d
+    torch.cuda.empty_cache()
+
+    model = GPTModel(cfg, device="cuda")
+    model.load_state_dict(init_state)
+    params = dict(model.named_parameters())
+    leaves = list(params.values())
+    window = tokens.reshape(DDP_MICRO, -1, tokens.shape[1])
+
+    def loss_fn(p, mb):
+        return model.loss(mb, mb)
+
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    loss_a, grads_a = accumulate_gradients(
+        DistributedDataParallel(delay_allreduce=True,
+                                bucket_bytes=DEFAULT_BUCKET_BYTES),
+        loss_fn, params, window)
+    torch.cuda.synchronize()
+    acc_ms = 1e3 * (time.perf_counter() - t0)
+    check_gpt_counts(kern.LAUNCHES, "ddp_gpt accumulate_gradients",
+                     DDP_MICRO)
+    add_counts(launches, kern.LAUNCHES)
+    acc = [torch.zeros_like(p) for p in leaves]
+    loss_sum = None
+    for k in range(DDP_MICRO):
+        loss = loss_fn(params, window[k])
+        acc = [a + g for a, g in zip(acc, torch.autograd.grad(loss, leaves))]
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    same = torch.equal(loss_a, loss_sum / DDP_MICRO) and all(
+        torch.equal(grads_a[n], a / DDP_MICRO) for n, a in zip(params, acc))
+    check(same, "ddp_gpt: accumulate_gradients at world 1 differs from "
+                "the unsynced window")
+    print(f"ddp_gpt: accumulate_gradients over {DDP_MICRO} microbatches of "
+          f"{window.shape[1]} x {window.shape[2]}: loss "
+          f"{float(loss_a):.6f} and grads bit for bit the unsynced window's;"
+          f" {acc_ms:.3f} ms (host clock, first call) [{card}]")
+    del model, params, leaves, grads_a, acc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def state_bytes(torch, state) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state)
+               if isinstance(t, torch.Tensor))
+
+
+def zero_config():
+    """The ZeRO-1 config: adam (no weight decay, so the L2 and decoupled
+    modes agree with ``train``'s FusedAdam) at lr 1e-4, 4 MiB buckets."""
+    from apex_tpu_torch.config import OptimizerConfig, TrainConfig
+    return TrainConfig(optimizer=OptimizerConfig(
+        name="adam", lr=1e-4, weight_decay=0.0, zero=1),
+        ddp_bucket_bytes=ZERO_BUCKET_BYTES)
+
+
+def zero_gpt(torch, kern, card: str) -> tuple:
+    """GPT-small's training step with the ZeRO-1 Adam that
+    ``TrainConfig(zero=1, ddp_bucket_bytes=4 MiB)`` builds, over NCCL at
+    world 1, against ``FusedAdam`` in turns: 5 losses within
+    ``TOL_ZERO_LOSS``, step ms, optimizer-state bytes a rank, the
+    ``zero/*`` metrics. Returns the ZeRO run's launches, its losses, its
+    state bytes and the parameters' element count."""
+    from apex_tpu_torch.observability import ingraph
+    from apex_tpu_torch.optimizers import DistributedFusedAdam
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    zopt = zero_config().build_optimizer()
+    check(isinstance(zopt, DistributedFusedAdam)
+          and zopt.bucket_bytes == ZERO_BUCKET_BYTES,
+          f"zero_gpt: TrainConfig(zero=1) built {zopt!r}")
+    launches = {name: 0 for name in kern.LAUNCHES}
+    legs = {}
+    for what, opt in (("fused_adam", None), ("zero", zopt)):
+        step = gpt_trainer(torch, cfg, init_state, tokens, 1e-4,
+                           optimizer=opt)
+        with ingraph.collecting() as col:
+            losses, times, _ = timed_steps(torch, kern, step, ZERO_STEPS,
+                                           f"zero_gpt {what}",
+                                           launches if opt else None)
+            metrics = col.freeze().as_floats()
+        legs[what] = ([float(x) for x in losses], times,
+                      state_bytes(torch, step.opt_state), metrics)
+        del step
+        torch.cuda.empty_cache()
+    (l_a, t_a, b_a, _), (l_z, t_z, b_z, m_z) = legs["fused_adam"], \
+        legs["zero"]
+    err = max(abs(a - z) for a, z in zip(l_a, l_z))
+    check(err <= TOL_ZERO_LOSS, f"zero_gpt: ZeRO losses {l_z} against "
+                                f"FusedAdam's {l_a}: {err:.3g} > "
+                                f"{TOL_ZERO_LOSS}")
+    print(f"zero_gpt: GPT-small with TrainConfig(zero=1, ddp_bucket_bytes="
+          f"{ZERO_BUCKET_BYTES}) over NCCL at world 1: losses {l_z}, "
+          f"FusedAdam's {l_a}, max |diff| {err:.3g} (tol {TOL_ZERO_LOSS}"
+          f"{', bit for bit' if err == 0 else ''}); median step "
+          f"{median_ms(t_z):.3f} ms against {median_ms(t_a):.3f} (host "
+          f"clock, in turns); optimizer state {b_z} bytes a rank (fp32 "
+          f"master, m, v; zero/shard_bytes {m_z['zero/shard_bytes']:.0f}, "
+          f"{m_z['ddp/num_buckets']:.0f} buckets) against FusedAdam's "
+          f"{b_a} (m, v) [{card}]")
+    return launches, l_z, b_z, zopt._layout.total
+
+
+def _rank_setup():
+    """A two-rank body's start: the kernels the parent built, the mesh,
+    the parent's precision settings."""
+    import torch
+    from apex_tpu_torch import _kernels as kern
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    kern.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not ps.model_parallel_is_initialized():
+        ps.initialize_model_parallel()
+    return torch, kern
+
+
+def _grads_digest(grads: dict) -> str:
+    h = hashlib.sha256()
+    for g in grads.values():
+        h.update(g.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_ddp() -> dict:
+    """A rank's DDP step on its half of GPT-small's batch (4 x 1024),
+    synced over gloo on the card; rank 0 also takes the world-1 step on
+    the whole batch and compares its grads with the synced ones."""
+    torch, kern = _rank_setup()
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.distributed import DEFAULT_BUCKET_BYTES
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    rows = tokens.shape[0] // world
+    ddp = DistributedDataParallel(bucket_bytes=DEFAULT_BUCKET_BYTES)
+    step = gpt_trainer(torch, cfg, init_state,
+                       tokens[rank * rows:(rank + 1) * rows], 1e-4,
+                       grad_sync=ddp.sync_gradients)
+    launches = {}
+    losses, times, grads = timed_steps(torch, kern, step, 2,
+                                       f"rank {rank} ddp", launches)
+    out = {"losses": [float(x) for x in losses], "launches": launches,
+           "ms": 1e3 * times[1], "digest": _grads_digest(grads)}
+    raw = {n: torch.randn_like(p) for n, p in step.params.items()}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ddp.sync_gradients(raw)
+        torch.cuda.synchronize()
+    out["sync_ms"] = 1e3 * (time.perf_counter() - t0)
+    del step, raw
+    torch.cuda.empty_cache()
+    if rank == 0:
+        full = gpt_trainer(torch, cfg, init_state, tokens, 1e-4)
+        kern.reset_launches()
+        loss, _, want = full()
+        torch.cuda.synchronize()
+        add_counts(launches, kern.LAUNCHES)
+        out["full_loss"] = float(loss)
+        out["grad_err"] = grad_rel(torch, grads, want)
+        del full, want
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_moments_err(torch, zopt, grads: dict, state) -> tuple:
+    """A ZeRO rank's ``exp_avg`` and ``exp_avg_sq`` after its first step
+    against Adam's first moments of the DDP-averaged ``grads``: the whole
+    flat grads summed by one plain all-reduce over the optimizer's group,
+    scaled by 1 / dp, and cut to this rank's slice of every bucket;
+    ``(m error, v error)``, each ``||got - want|| / ||want||``."""
+    import torch.distributed as dist
+    from apex_tpu_torch.optimizers._flatten import ravel_span
+
+    lay = zopt._layout
+    flat = ravel_span(grads, lay, 0, lay.padded)
+    dist.all_reduce(flat, group=zopt._group())
+    flat = flat * (1.0 / dist.get_world_size(zopt._group()))
+    g = torch.cat([flat[off:off + n] for off, n in zopt._my_spans(lay)])
+    m = (1.0 - zopt.beta1) * g
+    v = (1.0 - zopt.beta2) * g * g
+
+    def rel(got, want) -> float:
+        return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+    return rel(state.exp_avg, m), rel(state.exp_avg_sq, v)
+
+
+def rank_zero() -> dict:
+    """A rank's ZeRO-1 steps (``zero_config``) on its half of the batch
+    over gloo on the card, its moments after the first checked by
+    :func:`zero_moments_err`, then a step whose grads rank 1 poisons with
+    a NaN: the finite flag reduced over "data" must make both ranks
+    skip."""
+    torch, kern = _rank_setup()
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    rows = tokens.shape[0] // dist.get_world_size()
+    poison = {"on": False}
+
+    def sync(grads):
+        if poison["on"] and rank == 1:
+            name = next(iter(grads))
+            grads = dict(grads, **{name: grads[name].clone()})
+            grads[name].view(-1)[0] = float("nan")
+        return grads
+
+    zopt = zero_config().build_optimizer()
+    step = gpt_trainer(torch, cfg, init_state,
+                       tokens[rank * rows:(rank + 1) * rows], 1e-4,
+                       grad_sync=sync, optimizer=zopt, finite_axes="data")
+    launches = {}
+    losses, times, grads = timed_steps(torch, kern, step, 1,
+                                       f"rank {rank} zero", launches)
+    st = step.opt_state
+    moments = zero_moments_err(torch, zopt, grads, st)
+    del grads
+    more, more_times, _ = timed_steps(torch, kern, step, ZERO_STEPS - 1,
+                                      f"rank {rank} zero, later", launches)
+    losses, times = losses + more, times + more_times
+    out = {"losses": [float(x) for x in losses], "launches": launches,
+           "ms": median_ms(times), "state_bytes": state_bytes(torch, st),
+           "shard": st.master.numel(), "moments": moments}
+    before = _grads_digest(step.params)
+    scale, count = float(step.carry["ls"].loss_scale), int(st.step)
+    poison["on"] = True
+    kern.reset_launches()
+    _, finite, _ = step()
+    torch.cuda.synchronize()
+    add_counts(launches, kern.LAUNCHES)
+    out["overflow"] = {
+        "finite": bool(finite), "kept": _grads_digest(step.params) == before,
+        "step": int(st.step) == count,
+        "scale": (scale, float(step.carry["ls"].loss_scale))}
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_syncbn() -> dict:
+    """SyncBatchNorm over "data" at one ResNet-50 BN shape, 2 x 128 images
+    and a 96 + 160 split, against the whole batch normalized on this rank
+    alone: forward, input grads, weight and bias grads summed over the
+    ranks, running statistics; and the times of both (gloo over
+    loopback)."""
+    torch, kern = _rank_setup()
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    rank = dist.get_rank()
+    n, c, h, w = SYNCBN_SHAPE
+    full = (n * dist.get_world_size(), c, h, w)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(full, device="cuda", generator=gen) * 2 + 0.5
+         ).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(full, device="cuda", generator=gen
+                     ).contiguous(memory_format=torch.channels_last)
+
+    def run(bn, xs, dys):
+        xs = xs.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bn(xs)
+        (out * dys).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), xs.grad, 1e3 * (time.perf_counter() - t0)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    out = {}
+    for case, splits in (("even", (n, n)), ("uneven", SYNCBN_UNEVEN)):
+        lo = sum(splits[:rank])
+        rows = slice(lo, lo + splits[rank])
+        # each timed on its second call, after a warm one; the
+        # statistics of the first are what the checks read
+        ref = SyncBatchNorm(c, device="cuda")
+        o_ref, dx_ref, _ = run(ref, x, dy)
+        ms_ref = run(SyncBatchNorm(c, device="cuda"), x, dy)[2]
+        bn = SyncBatchNorm(c, axis_name="data", device="cuda")
+        o, dx, _ = run(bn, x[rows], dy[rows])
+        ms = run(SyncBatchNorm(c, axis_name="data", device="cuda"),
+                 x[rows], dy[rows])[2]
+        dw, db = bn.weight.grad.clone(), bn.bias.grad.clone()
+        dist.all_reduce(dw)
+        dist.all_reduce(db)
+        out[case] = {
+            "rows": splits[rank], "ms": ms, "ms_one_rank": ms_ref,
+            "errs": {"out": rel(o, o_ref[rows]), "dx": rel(dx, dx_ref[rows]),
+                     "dweight": rel(dw, ref.weight.grad),
+                     "dbias": rel(db, ref.bias.grad),
+                     "running_mean": rel(bn.running_mean, ref.running_mean),
+                     "running_var": rel(bn.running_var, ref.running_var)}}
+    return out
+
+
+def dist_ranks(torch, kern, card: str, zero_losses, zero_bytes,
+               zero_total: int) -> dict:
+    """Two processes on the one card over gloo (CUDA tensors; a
+    correctness leg: its times are gloo over loopback, not a speed of
+    anything multi-GPU): DDP on 4 x 1024 a rank against the world-1 step
+    on 8 x 1024 (the averaged loss within ``TOL_TRAIN_LOSS``, the grads
+    within ``TOL_TRAIN_GRAD``, both ranks' grads bit for bit alike); ZeRO
+    at world 2 (each rank half of world 1's state, the losses within
+    ``TOL_TRAIN_LOSS`` of world 1's ZeRO run, step 0's moments within
+    ``TOL_ZERO_MOMENTS`` of the DDP-averaged grads') and a NaN on rank 1 making
+    both ranks skip; ``SyncBatchNorm`` at a ResNet-50 BN shape, even and
+    uneven, against the whole batch within ``TOL_SYNCBN``. Returns both
+    ranks' launches."""
+    from apex_tpu_torch.parallel._spawn import RankPool
+
+    print(f"dist_ranks: {DIST_WORLD} processes on one card over gloo; "
+          f"this torch's gloo takes CUDA tensors in "
+          f"{', '.join(GLOO_CUDA_OPS)}, so no check falls back to world 1;"
+          f" times below are gloo over loopback [{card}]")
+    t0 = time.perf_counter()
+    pool = RankPool(DIST_WORLD, backend="gloo", device="cuda",
+                    pg_timeout=DIST_TIMEOUT)
+    try:
+        start_s = time.perf_counter() - t0
+        ddp = pool.run(rank_ddp, timeout=DIST_TIMEOUT)
+        zero = pool.run(rank_zero, timeout=DIST_TIMEOUT)
+        bn = pool.run(rank_syncbn, timeout=DIST_TIMEOUT)
+    finally:
+        pool.close()
+    launches = {}
+    for out in ddp + zero:
+        add_counts(launches, out["launches"])
+
+    loss = sum(o["losses"][0] for o in ddp) / DIST_WORLD
+    full = ddp[0]["full_loss"]
+    g_err, g_leaf = ddp[0]["grad_err"]
+    check(len({o["digest"] for o in ddp}) == 1,
+          "dist_ranks: the two ranks' synced grads differ")
+    check(abs(loss - full) <= TOL_TRAIN_LOSS and g_err <= TOL_TRAIN_GRAD,
+          f"dist_ranks: two-rank DDP loss {loss} against the one-rank "
+          f"step's {full}, grads {g_leaf} {g_err:.3g}")
+    print(f"dist_ranks: DDP over gloo, 2 x {TRAIN_BH[0] // DIST_WORLD} x "
+          f"{TRAIN_ATTN[1]}: mean loss {loss:.6f} against the world-1 step's"
+          f" {full:.6f} on 8 x {TRAIN_ATTN[1]} (|diff| {abs(loss - full):.3g},"
+          f" tol {TOL_TRAIN_LOSS}); averaged grads against it, worst leaf "
+          f"{g_leaf}: {g_err:.4g} (tol {TOL_TRAIN_GRAD}); both ranks' grads "
+          f"bit for bit alike; step {ddp[0]['ms']:.1f} ms, the bucketed "
+          f"sync alone {ddp[0]['sync_ms']:.1f} ms (gloo over loopback); pool "
+          f"started in {start_s:.1f} s [{card}]")
+
+    losses = [sum(o["losses"][i] for o in zero) / DIST_WORLD
+              for i in range(ZERO_STEPS)]
+    err = max(abs(a - b) for a, b in zip(losses, zero_losses))
+    # each rank's shard is half of the world-1 vector (padded to even)
+    halves = all(o["shard"] == -(-zero_total // DIST_WORLD) for o in zero)
+    moments = [o["moments"] for o in zero]
+    m_err = max(max(mv) for mv in moments)
+    check(err <= TOL_TRAIN_LOSS and halves and m_err <= TOL_ZERO_MOMENTS,
+          f"dist_ranks: ZeRO at world 2 losses {losses} against world 1's "
+          f"{zero_losses} ({err:.3g}), state bytes "
+          f"{[o['state_bytes'] for o in zero]} against {zero_bytes}, step "
+          f"0's (m, v) by rank against the DDP-averaged grads' {moments}")
+    print(f"dist_ranks: ZeRO over gloo at world 2: step 0's moments against "
+          f"Adam's first moments of the DDP-averaged grads, (m, v) by rank "
+          f"{moments} (relative norm, tol {TOL_ZERO_MOMENTS}); mean losses "
+          f"{losses} against world 1's {zero_losses} (max |diff| {err:.3g}, "
+          f"tol {TOL_TRAIN_LOSS}); state {zero[0]['state_bytes']} bytes a rank "
+          f"against {zero_bytes} at world 1 (a shard of "
+          f"{zero[0]['shard']} elements); step {zero[0]['ms']:.1f} ms "
+          f"(gloo over loopback) [{card}]")
+    flows = [o["overflow"] for o in zero]
+    skipped = all(not f["finite"] and f["kept"] and f["step"]
+                  and f["scale"][1] == 0.5 * f["scale"][0] for f in flows)
+    check(skipped, f"dist_ranks: a NaN on rank 1 did not make both ranks "
+                   f"skip: {flows}")
+    print(f"dist_ranks: a NaN in rank 1's grads: both ranks' finite flag "
+          f"false, params and step count kept, the scale "
+          f"{flows[0]['scale'][0]:g} -> {flows[0]['scale'][1]:g} on both")
+
+    for case in ("even", "uneven"):
+        worst = max(max(o[case]["errs"].values()) for o in bn)
+        check(worst <= TOL_SYNCBN,
+              f"dist_ranks: SyncBatchNorm ({case}) against the whole batch: "
+              f"{[o[case]['errs'] for o in bn]} > {TOL_SYNCBN}")
+        print(f"dist_ranks: SyncBatchNorm, {case} "
+              f"{' + '.join(str(o[case]['rows']) for o in bn)} images of "
+              f"{SYNCBN_SHAPE[1:]} (fp32, NCHW channels-last) against the "
+              f"{sum(o[case]['rows'] for o in bn)} on one rank: worst "
+              f"{worst:.3g} (tol {TOL_SYNCBN}, of the largest magnitude; "
+              f"forward, input grads, weight and bias grads, running "
+              f"statistics); forward + backward "
+              f"{bn[0][case]['ms']:.1f} ms a rank (gloo over loopback) "
+              f"against {bn[0][case]['ms_one_rank']:.1f} for the whole "
+              f"batch on one rank [{card}]")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
                  top: int = 8) -> tuple:
     """Device busy time of ``fn`` in a ``profile_window`` (CUDA activity
@@ -7374,6 +7970,27 @@ def main() -> None:
     lap("asp_gpt")
     tp1 = tp1_gpt(torch, kern, card)
     lap("tp1_gpt")
+    # data parallelism: NCCL at world 1 in this process (the kernels are
+    # built, so the two ranks of dist_ranks load them), then two ranks
+    import tempfile
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/nccl",
+                                rank=0, world_size=1)
+        parallel_state.initialize_model_parallel()
+        ddp = ddp_gpt(torch, kern, card)
+        lap("ddp_gpt")
+        zero, zero_losses, zero_bytes, zero_total = zero_gpt(torch, kern,
+                                                             card)
+        lap("zero_gpt")
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ranks = dist_ranks(torch, kern, card, zero_losses, zero_bytes,
+                       zero_total)
+    lap("dist_ranks")
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -7392,17 +8009,21 @@ def main() -> None:
           f"{big}, long-context training ({LONG_STEPS} steps) {long}, the "
           f"RNN-T steps {speech}, the RetinaNet head {retina}, GPT-small "
           f"under ASP ({ASP_STEPS} steps and an overflow step) {sparse}, "
-          f"the tp=1 layer and logits {tp1}")
+          f"the tp=1 layer and logits {tp1}, GPT-small under DDP at world "
+          f"1 ({DDP_STEPS} + 2 profiled steps, the accumulation window) "
+          f"{ddp}, under ZeRO at world 1 ({ZERO_STEPS} steps) {zero}, the "
+          f"two ranks' DDP, ZeRO and overflow steps {ranks}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
                  if row["name"] == "flash_dbias" else (row["name"],))
-        row["launches"] = sum(path[name] for path in
+        row["launches"] = sum(path.get(name, 0) for path in
                               (serving, small_serving, paged, spec,
                                paged_spec, goodput, chaos, training,
                                small_training, remat_legs, config_training,
                                resnet, bert, lamb, legs, big, long,
-                               speech, retina, sparse, tp1)
+                               speech, retina, sparse, tp1, ddp, zero,
+                               ranks)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):

@@ -7,7 +7,8 @@ the transformer ``GradScaler`` vs the JAX package on the CPU.
   scale, a static scale, bf16 ``grad_dtype`` and a forced overflow (a
   3e38 scale over targets 1e3 larger); through
   ``torch.func.functional_call`` on a module; nothing left in ``.grad``;
-  ``axis_names`` raising;
+  ``axis_names`` that are not bound raising ``ValueError`` (the reduction
+  itself across ranks: ``tests/test_torch_sync_dist.py``);
 - ``ingraph``: ``record`` with no collector open evaluates nothing,
   ``collecting``/``reap``, sum and overwrite modes, the errors,
   ``recorded_names``, ``aggregate``, ``Metrics.as_floats``;
@@ -23,7 +24,7 @@ the transformer ``GradScaler`` vs the JAX package on the CPU.
   network casts and ``prep_param_lists``/``master_params_to_model_params``;
 - ``GradScaler``: a trajectory with an overflow against the JAX scaler's
   arithmetic, ``all_finite_synced`` at one device, and the raise over a
-  process group of two.
+  process group of two with no model-parallel axes bound.
 
 Tolerances: 1e-6 relative on fp32 values and grads (summation order
 only), 1e-5 on the grad norm's square root; scale states and finite flags
@@ -164,10 +165,14 @@ def test_scaled_value_and_grad_through_functional_call():
 
 
 def test_axis_names_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
-        tamp.scaled_value_and_grad(lambda p: p, tamp.DynamicLossScale(),
-                                   axis_names="data")
-    with pytest.raises(NotImplementedError, match="A5"):
+    step = tamp.scaled_value_and_grad(lambda p: p["a"].sum(),
+                                      tamp.DynamicLossScale(),
+                                      axis_names="data")
+    scaler = tamp.DynamicLossScale()
+    with pytest.raises(ValueError, match="not bound"):
+        step(scaler.init(device="cpu"),
+             {"a": torch.ones(2, requires_grad=True)})
+    with pytest.raises(ValueError, match="not bound"):
         tamp.all_finite({"a": torch.ones(2)}, axis_names=("tensor",))
     assert bool(tamp.all_finite({"a": torch.ones(2)}, axis_names=None))
     assert bool(tamp.all_finite({"a": torch.ones(2)}, axis_names=()))
@@ -209,7 +214,7 @@ def test_collecting_and_reap():
     out, m2 = ingraph.reap(lambda a: ingraph.record("a", a) or a + 1)(2.0)
     assert out == 3.0 and m2.as_floats() == {"a": 2.0}
     assert ingraph.aggregate(m2, None) is m2 and ingraph.aggregate(m2, ())
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="not bound"):
         ingraph.aggregate(m2, "data")
     assert ingraph.Metrics().as_floats() == {}
 
@@ -419,5 +424,5 @@ def test_grad_scaler_raises_over_a_process_group(monkeypatch):
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 1)
     assert bool(scaler.all_finite_synced(grads))
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="not bound"):
         scaler.all_finite_synced(grads)

@@ -23,13 +23,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "optimizers": {"A5a": {"DistributedFusedAdam", "DistributedFusedLAMB",
-                           "ZeroAdamState", "ZeroLambState"}},
-    "parallel": {"A5a": {"DistributedDataParallel", "Reducer",
-                         "allreduce_grads", "convert_syncbn_model",
-                         "create_syncbn_process_group"}},
-    "transformer": {"A5a": {"parallel_state"},
-                    "A5c": {"pipeline_parallel", "context_parallel",
+    "transformer": {"A5c": {"pipeline_parallel", "context_parallel",
                             "expert_parallel"}},
     "transformer.tensor_parallel": {"A5b": {
         "all_gather_matmul", "matmul_reduce_scatter", "broadcast_data",
@@ -66,7 +60,14 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "normalization", "observability", "ops", "optimizers",
             "parallel", "serving", "transformer",
             "transformer.tensor_parallel", "transformer.amp", "RNN",
-            "contrib.sparsity", "elastic", "config", "remat")
+            "contrib.sparsity", "elastic", "config", "remat",
+            "transformer.parallel_state", "parallel.distributed",
+            "optimizers.distributed_fused")
+# the modules A5a added, each importable with JAX and the JAX package
+# blocked
+A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
+               "parallel.distributed", "optimizers.distributed_fused",
+               "training")
 # subpackages of the JAX package the port does not have yet
 UNPORTED_SUBPACKAGES = {"utils": "A7a", "checkpoint": "A6", "pyprof": "A7b",
                         "reparameterization": "not queued"}
@@ -148,3 +149,22 @@ def test_contrib_lazy_names_match_the_reference():
     assert port._LAZY == ref._LAZY
     with pytest.raises(AttributeError):
         port.nothing_here
+
+
+@pytest.mark.parametrize("module", A5A_MODULES)
+def test_a5a_modules_import_without_jax(module):
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'apex_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"import apex_tpu_torch.{module} as mod\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None\n"
+        "            and (m in ('jax', 'apex_tpu')\n"
+        "                 or m.startswith(('jax.', 'apex_tpu.')))]\n"
+        "assert all(hasattr(mod, n) for n in mod.__all__)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -171,14 +171,19 @@ def test_sync_batch_norm_module_updates_buffers_in_place():
 
 
 def test_sync_batch_norm_axis_raises():
+    """An axis that is not bound (no parallel state here) raises at the
+    call; the module and the model take the axis at construction (the
+    reduction across ranks: ``tests/test_torch_sync_dist.py``)."""
     x = torch.zeros(2, 3, 4, 4)
     st = BatchNormState(torch.zeros(3), torch.ones(3), torch.tensor(0))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="not bound"):
         sync_batch_norm(x, None, None, st, axis_name="data")
-    with pytest.raises(NotImplementedError, match="A5"):
-        SyncBatchNorm(3, axis_name="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        ResNet50(ResNetConfig(bn_axis_name="data", **SMALL), device="cpu")
+    with pytest.raises(ValueError, match="not bound"):
+        SyncBatchNorm(3, axis_name="data", device="cpu")(x)
+    model = ResNet50(ResNetConfig(bn_axis_name="data", **SMALL),
+                     device="cpu")
+    with pytest.raises(ValueError, match="not bound"):
+        model(torch.zeros(2, 40, 40, 3))
 
 
 def test_statistics_save_only_the_input():
