@@ -6,12 +6,20 @@ pytree of the JAX package, with its leaves converted to numpy arrays, into
 a state dict for :class:`apex_tpu_torch.models.gpt.GPTModel` or
 :class:`apex_tpu_torch.models.bert.BertModel`; ``params_to_numpy`` is the
 inverse. The JAX layers are stacked ``(L, ...)`` and its tensor-parallel
-weights keep a leading shard dim of 1 at tp=1 (qkv weight ``(L, 1, 3h,
-h)``, the MLM output bias ``(1, vocab)``); the port's layers are a
-``ModuleList`` with plain ``(out, in)`` weights. A BERT tree is told from a
-GPT one by its token-type table (``embedding.tokentype``). Values pass bit
-for bit: bf16 leaves go through a ``uint16`` view, since
-``torch.from_numpy`` refuses numpy's bf16 extension dtype.
+weights keep a leading shard dim of tp (qkv weight ``(L, tp, 3h/tp, h)``,
+a Row bias ``(L, tp, h)`` of tp copies, the word embedding ``(tp, V/tp,
+h)``, the MLM output bias ``(tp, V/tp)``); the port's layers are a
+``ModuleList`` with plain ``(out, in)`` weights, each rank holding its own
+shard. ``params_from_jax(tree, cfg, tp_rank)`` takes rank ``tp_rank``'s
+shard of each such leaf (a Row bias: its copy), ``params_to_numpy`` gives
+one rank's tree with a shard dim of 1, and ``stack_tp_params`` joins
+every rank's state dict back into the whole tree. ``split_tp_state``
+cuts a tp = 1 state dict into rank ``r``'s shards by the law of the
+layers' ``init`` (:func:`apex_tpu_torch.models.gpt.tp_shard_dim`). A BERT
+tree is told from a GPT one by its token-type table
+(``embedding.tokentype``). Values pass bit for bit: bf16 leaves go
+through a ``uint16`` view, since ``torch.from_numpy`` refuses numpy's bf16
+extension dtype.
 
 ``resnet_params_from_jax`` and ``resnet_params_to_numpy`` do the same for
 ResNet-50: the ``ResNet50.init`` params and ``BatchNormState`` trees
@@ -53,7 +61,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy", "resnet_params_from_jax",
+__all__ = ["params_from_jax", "params_to_numpy", "stack_tp_params",
+           "split_tp_state", "resnet_params_from_jax",
            "resnet_params_to_numpy", "mlp_params_from_jax",
            "module_params_from_jax", "optimizer_state_from_jax",
            "rnn_params_from_jax", "rnn_params_to_numpy",
@@ -82,19 +91,20 @@ def _to_numpy(t: torch.Tensor):
     return t.numpy().copy()
 
 
-def _shard0(arr, what: str):
-    if arr.shape[0] != 1:
-        raise ValueError(f"{what}: leading shard dim {arr.shape[0]}; the "
-                         "port runs tp=1")
-    return arr[0]
+def params_from_jax(tree: dict, cfg, tp_rank: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+    """State dict (CPU tensors) of tensor rank ``tp_rank`` from the JAX
+    ``GPTModel.init`` or ``BertModel.init`` pytree with numpy leaves (its
+    tensor-parallel leaves stacked by rank, or a shard dim of 1 for
+    rank 0's view). ``cfg`` gives ``num_layers``."""
+    def shard(arr, what: str):
+        if not 0 <= tp_rank < arr.shape[0]:
+            raise ValueError(f"{what}: no shard {tp_rank} in a leading "
+                             f"shard dim of {arr.shape[0]}")
+        return arr[tp_rank]
 
-
-def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
-    """State dict (CPU tensors) from the JAX ``GPTModel.init`` or
-    ``BertModel.init`` pytree with numpy leaves. ``cfg`` gives
-    ``num_layers``."""
     sd: Dict[str, torch.Tensor] = {
-        "embedding.word.weight": _to_torch(_shard0(
+        "embedding.word.weight": _to_torch(shard(
             tree["embedding"]["word"]["weight"], "embedding.word.weight")),
         "embedding.position": _to_torch(tree["embedding"]["position"]),
         "final_ln.weight": _to_torch(tree["final_ln"]["weight"]),
@@ -108,7 +118,7 @@ def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
                     layers[name][leaf][i])
         for name in _LINEARS:
             for leaf in ("weight", "bias"):
-                sd[f"layers.{i}.{name}.{leaf}"] = _to_torch(_shard0(
+                sd[f"layers.{i}.{name}.{leaf}"] = _to_torch(shard(
                     layers[name][leaf][i], f"layers.{name}.{leaf}"))
     if "tokentype" in tree["embedding"]:
         sd["embedding.tokentype"] = _to_torch(tree["embedding"]["tokentype"])
@@ -117,8 +127,8 @@ def params_from_jax(tree: dict, cfg) -> Dict[str, torch.Tensor]:
             if node is not None:
                 for leaf in _LEAVES:
                     sd[".".join(path + (leaf,))] = _to_torch(node[leaf])
-        sd["lm_head.bias"] = _to_torch(_shard0(tree["lm_head"]["bias"],
-                                               "lm_head.bias"))
+        sd["lm_head.bias"] = _to_torch(shard(tree["lm_head"]["bias"],
+                                             "lm_head.bias"))
     return sd
 
 
@@ -132,9 +142,9 @@ def _get(tree: dict, path):
 
 def params_to_numpy(state_dict, cfg) -> dict:
     """The JAX pytree layout (numpy leaves, layers stacked, shard dim 1)
-    from a port state dict. bf16 leaves come back as their raw ``uint16``
-    bits (view them as numpy's bf16 extension dtype, which the port does
-    not import, to hand them to JAX)."""
+    from one rank's port state dict. bf16 leaves come back as their raw
+    ``uint16`` bits (view them as numpy's bf16 extension dtype, which the
+    port does not import, to hand them to JAX)."""
     def get(name):
         return _to_numpy(state_dict[name])
 
@@ -167,6 +177,39 @@ def params_to_numpy(state_dict, cfg) -> dict:
                 node[leaf] = get(".".join(path + (leaf,)))
         tree["lm_head"]["bias"] = get("lm_head.bias")[None]
     return tree
+
+
+def stack_tp_params(states, cfg) -> dict:
+    """The whole JAX pytree (numpy leaves) from every tensor rank's state
+    dict (or grads by parameter name), in rank order: the tensor-parallel
+    leaves stacked along their shard dim, the rest from rank 0."""
+    trees = [params_to_numpy(sd, cfg) for sd in states]
+
+    def join(nodes, path):
+        if isinstance(nodes[0], dict):
+            return {k: join([n[k] for n in nodes], path + (k,))
+                    for k in nodes[0]}
+        if path in (("embedding", "word", "weight"), ("lm_head", "bias")):
+            return np.concatenate(nodes, axis=0)
+        if path[0] == "layers" and path[1] in _LINEARS:
+            return np.concatenate(nodes, axis=1)
+        return nodes[0]
+
+    return join(trees, ())
+
+
+def split_tp_state(state_dict, cfg, tp: int, rank: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``tp``'s state dict from a tp = 1 one: each
+    tensor-parallel parameter's ``1/tp`` slice along its shard dim (the
+    layers' ``init`` law), a copy of the rest."""
+    from apex_tpu_torch.models.gpt import tp_shard_dim
+    out = {}
+    for name, t in state_dict.items():
+        dim = tp_shard_dim(name)
+        part = t if dim is None else t.chunk(tp, dim)[rank]
+        out[name] = part.detach().clone()
+    return out
 
 
 _BN_STATE = ("running_mean", "running_var", "num_batches_tracked")

@@ -10,12 +10,14 @@ reference's, so a config written by either package reads in the other.
 process groups (:mod:`apex_tpu_torch.transformer.parallel_state`), and
 :meth:`TrainConfig.fastpath` is the reference's preset.
 
-What needs an unported piece raises ``NotImplementedError`` naming its
-queue item: a model at tensor parallelism above 1, sequence parallelism
-and its comm overlap (A5b); at pipeline or context parallelism above 1,
-the microbatch calculator and the samplers (A5c); the health watchdog
-(A7a); ``ddp_bucket_bytes="auto"``, which pyprof's roofline tuner
-resolves (A7b). Unknown names raise the reference's ``ValueError``.
+A GPT model builds at tensor parallelism above 1, with sequence
+parallelism and its comm overlap, on the tensor group of the installed
+mesh (:meth:`TrainConfig.initialize_mesh` first). What needs an unported
+piece raises ``NotImplementedError`` naming its queue item: a model at
+pipeline or context parallelism above 1, the microbatch calculator and
+the samplers (A5c); the health watchdog (A7a); ``ddp_bucket_bytes=
+"auto"``, which pyprof's roofline tuner resolves (A7b). Unknown names
+raise the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -158,8 +160,7 @@ class TrainConfig:
         A7b; ``bucket_bytes=`` pins it), ``remat_policy="selective"``
         unless a policy (or the deprecated ``remat=True``, "full") is
         set, and sequence parallelism with its comm overlap where the
-        mesh carries them (tp > 1, pp == 1; building such a model raises,
-        A5b)."""
+        mesh carries them (tp > 1, pp == 1)."""
         if not _zero_enabled(self.optimizer.zero) \
                 and self.optimizer.name not in ZERO_CAPABLE_OPTIMIZERS:
             raise ValueError(
@@ -186,18 +187,13 @@ class TrainConfig:
                                    ddp_bucket_bytes=bucket_bytes)
 
     # -- builders -----------------------------------------------------------
-    def _one_device(self) -> None:
+    def _no_pipeline(self) -> None:
         p = self.parallel
-        for name, size, item in (
-                ("tensor", p.tensor_model_parallel_size, "A5b"),
-                ("pipeline", p.pipeline_model_parallel_size, "A5c"),
-                ("context", p.context_parallel_size, "A5c")):
+        for name, size in (("pipeline", p.pipeline_model_parallel_size),
+                           ("context", p.context_parallel_size)):
             if size > 1:
                 raise _unported(f"a model at {name} parallelism (size "
-                                f"{size})", item)
-        if self.model.sequence_parallel or self.model.tp_comm_overlap:
-            raise _unported("sequence parallelism and tp_comm_overlap",
-                            "A5b")
+                                f"{size})", "A5c")
 
     def build_policy(self):
         from apex_tpu_torch.amp import get_policy
@@ -213,8 +209,9 @@ class TrainConfig:
     def build_model(self, device="cuda"):
         """The model on ``device`` (default the card), parameters
         allocated and not initialized: call its ``init(generator)`` or load
-        a state dict."""
-        self._one_device()
+        a state dict. A GPT at tensor parallelism above 1 holds this
+        rank's shards of the installed mesh's tensor group."""
+        self._no_pipeline()
         pol = self.build_policy()
         m = self.model
         if m.name == "gpt":
@@ -225,11 +222,15 @@ class TrainConfig:
                 num_attention_heads=m.num_attention_heads,
                 max_position_embeddings=m.max_position_embeddings,
                 ffn_hidden_size=m.ffn_hidden_size,
+                tensor_model_parallel_size=
+                self.parallel.tensor_model_parallel_size,
                 params_dtype=pol.param_dtype,
                 compute_dtype=pol.compute_dtype,
                 hidden_dropout=m.hidden_dropout,
                 attention_dropout=m.attention_dropout, remat=m.remat,
-                remat_policy=m.remat_policy, remat_names=m.remat_names),
+                remat_policy=m.remat_policy, remat_names=m.remat_names,
+                sequence_parallel=m.sequence_parallel,
+                tp_comm_overlap=m.tp_comm_overlap),
                 device=device)
         if m.name == "bert":
             from apex_tpu_torch.models import BertConfig, BertModel

@@ -7,7 +7,7 @@ with token-type embeddings, a pooler over ``[CLS]``, the masked-LM head
 binary sentence-order head. Parameter names mirror the JAX pytree keys on
 top of GPT's: ``embedding.tokentype``, ``pooler.{weight,bias}``,
 ``lm_head.dense.*``, ``lm_head.ln.*``, ``lm_head.bias`` (the reference's
-``(tp, V/tp)`` layout at tp=1 is a ``(vocab,)`` vector here, see
+``(tp, V/tp)`` layout is this rank's ``(vocab / tp,)`` shard here, see
 :mod:`apex_tpu_torch._bridge`) and ``binary_head.*``.
 
 A ``(b, s)`` attention mask (1 attend, 0 pad) becomes the fp32 score bias
@@ -17,7 +17,14 @@ inside the flash kernels on the card. Every LayerNorm, the MLM head's
 included, runs the ``ln_fwd``/``ln_bwd`` kernels there. Numerics follow
 GPT's (see :mod:`apex_tpu_torch.models.gpt`); the pooler and the heads
 cast their fp32 parameters to the activation dtype before the product, as
-the reference does. tp = 1 only.
+the reference does.
+
+At tp > 1 the encoder is GPT's tensor-parallel stack (this rank's heads,
+sharded linears); the MLM head's dense and LayerNorm are replicated, its
+logits are this rank's vocab shard plus the vocab-sharded output bias,
+and the masked-LM loss is vocab-parallel cross-entropy. The pooler and
+the binary head are replicated. Sequence parallelism is refused: the
+reference's BERT adds the token types to the whole sequence.
 """
 
 from __future__ import annotations
@@ -77,8 +84,9 @@ class _LMHead(nn.Module):
         h, dt = cfg.hidden_size, cfg.params_dtype
         self.dense = _Dense(h, h, dt, device)
         self.ln = _Norm(h, dt, device)
-        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, dtype=dt,
-                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            cfg.vocab_size // cfg.tensor_model_parallel_size, dtype=dt,
+            device=device))
 
 
 class BertModel(GPTModel):
@@ -93,6 +101,9 @@ class BertModel(GPTModel):
     causal = False
 
     def __init__(self, config: BertConfig, device="cuda"):
+        if config.sequence_parallel:
+            raise ValueError("BertModel runs no sequence parallelism: its "
+                             "token types are added to the whole sequence")
         super().__init__(config, device)
         cfg = config
         dev = resolve_device(device)
@@ -152,7 +163,8 @@ class BertModel(GPTModel):
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         """The MLM head: gelu(dense) -> LayerNorm -> tied-embedding
-        logits (fp32) plus the output bias."""
+        logits (fp32) plus the output bias; at tp > 1 this rank's vocab
+        shard."""
         head = self.lm_head
         t = F.gelu(head.dense(h), approximate="tanh")
         logits = self.logits(self._ln(head.ln, t))
@@ -177,7 +189,9 @@ class BertModel(GPTModel):
         with ``binary_labels (b,)`` and a binary head, the sentence-order
         cross-entropy on the pooled ``[CLS]``."""
         h = self.encode(tokens, token_types, attention_mask, generator)
-        lm_loss = self._lm_loss(self.lm_logits(h), lm_labels, loss_mask)
+        lm_loss = self._lm_loss(
+            self.lm_logits(h), lm_labels, loss_mask,
+            vocab_parallel=self.cfg.tensor_model_parallel_size > 1)
         if binary_labels is None or not hasattr(self, "binary_head"):
             return lm_loss
         blogits = self.binary_head(self.pool(h)).float()

@@ -51,8 +51,31 @@ resolves them. :meth:`GPTModel.transform` wraps each layer with the policy;
 under a name-based policy the layer tags its LayerNorm, QKV, projection and
 MLP outputs and the flash op its context and logsumexp
 (:data:`~apex_tpu_torch.remat.CHECKPOINT_NAMES`), and under ``none`` and
-``full`` it calls no tag. Still to come: sequence parallelism, tp > 1 and
-the pipeline split.
+``full`` it calls no tag.
+
+Tensor parallelism (``tensor_model_parallel_size`` above 1, the ranks of
+the installed mesh's tensor group): QKV and fc1 are column-sharded, proj
+and fc2 row-sharded, the heads split ``heads / tp`` a rank, the word
+embedding and the tied head vocab-sharded; :meth:`GPTModel.logits`
+returns this rank's vocab shard and :meth:`GPTModel.loss` runs
+vocab-parallel cross-entropy. ``sequence_parallel`` runs the LayerNorms,
+dropout and residuals on ``(b, s / tp, h)`` sequence shards: ``embed``
+scatters the sequence, the ColumnParallel inputs gather it, the
+RowParallel outputs reduce-scatter it, and ``transform`` gathers it after
+the final LayerNorm. The LayerNorm parameters enter their region through
+:func:`~apex_tpu_torch.transformer.tensor_parallel.mappings.
+copy_to_tensor_model_parallel_region`, so ``loss.backward()`` leaves
+their grads summed over the tensor group (the JAX package sums them
+inside its LayerNorm's backward) and :meth:`GPTModel.sp_grad_sync` is the
+reference's no-op. ``tp_comm_overlap`` swaps the sequence-parallel
+gather and reduce-scatter for the ring-decomposed
+:mod:`~apex_tpu_torch.transformer.tensor_parallel.collective_matmul`.
+Dropout at tp > 1 follows the reference's streams: the attention seeds
+come from a generator folded with the tensor rank, and so do the hidden
+and embedding masks under sequence parallelism (each rank drops its own
+shard); without it the hidden masks are the caller's, the same on every
+rank. The serving legs refuse tp > 1 and sequence parallelism, as the
+reference does. Still to come: the pipeline split.
 """
 
 from __future__ import annotations
@@ -74,11 +97,54 @@ from apex_tpu_torch.ops.flash_attention import (decode_attention,
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.remat import RematPolicy, tag as _remat_tag
 from apex_tpu_torch.serving.cache import PagedKVCache, store_roundtrip
+from apex_tpu_torch.transformer.context_parallel import (
+    gather_from_sequence_parallel_region,
+    scatter_to_sequence_parallel_region)
+from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     init_method_normal)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region)
 
 __all__ = ["GPTConfig", "GPTModel"]
+
+# the stride between the tensor ranks' dropout seeds (golden ratio, as
+# model_parallel_seed's data-rank stride)
+_RANK_STRIDE = 0x9E3779B97F4A7C15
+# the parameters sharded along the vocab (BERT's MLM output bias too)
+_VOCAB_SHARDED = ("embedding.word.weight", "lm_head.bias")
+
+
+def tp_shard_dim(name: str) -> Optional[int]:
+    """The dim along which the tensor ranks split the parameter ``name``
+    of a GPT or BERT state dict: 0 for the vocab-sharded word embedding
+    and MLM output bias and the Column (qkv, fc1) weights and biases, 1
+    for the Row (proj, fc2) weights, ``None`` for what every rank holds
+    whole (the norms, the positions, the dense heads, and the Row biases,
+    which are copies)."""
+    layer, leaf = (name.split(".")[-2:] + [""])[:2]
+    if name in _VOCAB_SHARDED or layer in ("qkv", "fc1"):
+        return 0
+    if layer in ("proj", "fc2") and leaf == "weight":
+        return 1
+    return None
+
+
+def _fold_tensor_rank(generator: torch.Generator) -> torch.Generator:
+    """A generator for this tensor rank, split off ``generator``: one seed
+    drawn from it (which advances it alike on every rank, since the ranks
+    share it) plus the rank's stride. The reference folds the rank into
+    its key (``fold_in(key, rank + 1)``)."""
+    from apex_tpu_torch.transformer import parallel_state
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
+    rank = parallel_state.get_tensor_model_parallel_rank()
+    child = torch.Generator(device=generator.device)
+    child.manual_seed((seed + (rank + 1) * _RANK_STRIDE) % 2 ** 63)
+    return child
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +156,7 @@ class GPTConfig:
     num_attention_heads: int = 12
     max_position_embeddings: int = 1024
     ffn_hidden_size: Optional[int] = None  # default 4*hidden
+    tensor_model_parallel_size: int = 1
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     init_method_std: float = 0.02
@@ -110,6 +177,11 @@ class GPTConfig:
     remat: bool = False
     remat_policy: Any = None
     remat_names: Optional[Tuple[str, ...]] = None
+    # Megatron-LM sequence parallelism (LayerNorms, dropout and residuals
+    # on sequence shards; tp > 1), and its ring-decomposed gather and
+    # reduce-scatter under the GEMMs (needs sequence_parallel)
+    sequence_parallel: bool = False
+    tp_comm_overlap: bool = False
 
     @property
     def ffn(self) -> int:
@@ -160,16 +232,20 @@ class _Layer(nn.Module):
         # output layers scaled by sqrt(2 * layers), as in the reference
         out_init = init_method_normal(
             cfg.init_method_std / math.sqrt(2.0 * cfg.num_layers))
+        tp = dict(world_size=cfg.tensor_model_parallel_size,
+                  sequence_parallel=cfg.sequence_parallel, seq_axis=1,
+                  tp_comm_overlap=cfg.tp_comm_overlap, params_dtype=dt,
+                  device=device)
         self.ln1 = _Norm(h, dt, device)
-        self.qkv = ColumnParallelLinear(h, 3 * h, init_method=init,
-                                        params_dtype=dt, device=device)
-        self.proj = RowParallelLinear(h, h, init_method=out_init,
-                                      params_dtype=dt, device=device)
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                        init_method=init, **tp)
+        self.proj = RowParallelLinear(h, h, input_is_parallel=True,
+                                      init_method=out_init, **tp)
         self.ln2 = _Norm(h, dt, device)
-        self.fc1 = ColumnParallelLinear(h, cfg.ffn, init_method=init,
-                                        params_dtype=dt, device=device)
-        self.fc2 = RowParallelLinear(cfg.ffn, h, init_method=out_init,
-                                     params_dtype=dt, device=device)
+        self.fc1 = ColumnParallelLinear(h, cfg.ffn, gather_output=False,
+                                        init_method=init, **tp)
+        self.fc2 = RowParallelLinear(cfg.ffn, h, input_is_parallel=True,
+                                     init_method=out_init, **tp)
 
 
 class _Embedding(nn.Module):
@@ -178,7 +254,8 @@ class _Embedding(nn.Module):
         self.word = VocabParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size,
             init_method=init_method_normal(cfg.init_method_std),
-            params_dtype=cfg.params_dtype, device=device)
+            params_dtype=cfg.params_dtype,
+            world_size=cfg.tensor_model_parallel_size, device=device)
         self.position = nn.Parameter(torch.empty(
             cfg.max_position_embeddings, cfg.hidden_size,
             dtype=cfg.params_dtype, device=device))
@@ -202,6 +279,15 @@ class GPTModel(nn.Module):
         cfg = config
         if cfg.hidden_size % cfg.num_attention_heads:
             raise ValueError("hidden_size must divide num_attention_heads")
+        if cfg.num_attention_heads % cfg.tensor_model_parallel_size:
+            raise ValueError("heads must divide tp size")
+        if cfg.sequence_parallel and cfg.tensor_model_parallel_size <= 1:
+            raise ValueError("sequence_parallel requires tp > 1")
+        if cfg.tp_comm_overlap and not cfg.sequence_parallel:
+            raise ValueError(
+                "tp_comm_overlap requires sequence_parallel=True: only the "
+                "SP gather->GEMM / GEMM->reduce-scatter pairs are dependent "
+                "collectives (plain-TP collectives already overlap)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.remat_policy = _resolve_remat(cfg)
@@ -237,8 +323,13 @@ class GPTModel(nn.Module):
 
     def _ln(self, p: _Norm, x: torch.Tensor) -> torch.Tensor:
         # bf16 activations, fp32 LN params -> params cast, bf16 out
+        weight, bias = p.weight, p.bias
+        if self.cfg.sequence_parallel:
+            # on a sequence shard: the grads are summed over the group
+            weight = copy_to_tensor_model_parallel_region(weight)
+            bias = copy_to_tensor_model_parallel_region(bias)
         out = fused_layer_norm_affine(
-            x, p.weight.to(x.dtype), p.bias.to(x.dtype),
+            x, weight.to(x.dtype), bias.to(x.dtype),
             self.cfg.hidden_size, eps=self.cfg.layernorm_epsilon,
             use_kernel=self.cfg.use_kernel)
         # not in the selective save-list: recomputing a LayerNorm is one
@@ -246,18 +337,20 @@ class GPTModel(nn.Module):
         return self._tag(out, "ln_out")
 
     def _split_heads(self, qkv: torch.Tensor):
-        """``(..., 3*hidden)`` -> q, k, v ``(..., heads, head_dim)``. The
-        layout is per-head interleaved: each head's ``[q|k|v]`` sits
-        together, so the reshape comes before the split."""
+        """``(..., 3*hidden/tp)`` -> q, k, v ``(..., heads/tp,
+        head_dim)``: this rank's heads. The layout is per-head
+        interleaved: each head's ``[q|k|v]`` sits together, so the
+        reshape comes before the split."""
         cfg = self.cfg
-        qkv = qkv.reshape(*qkv.shape[:-1], cfg.num_attention_heads,
-                          3 * cfg.head_dim)
+        local_heads = cfg.num_attention_heads // cfg.tensor_model_parallel_size
+        qkv = qkv.reshape(*qkv.shape[:-1], local_heads, 3 * cfg.head_dim)
         return qkv.split(cfg.head_dim, dim=-1)
 
     def _attention(self, lp: _Layer, x: torch.Tensor, attn_seed=None,
                    collect_kv: bool = False, bias=None):
-        b, s, _ = x.shape
         qkv, _ = lp.qkv(x)
+        # under SP the ColumnParallel input gather restores the sequence
+        b, s, _ = qkv.shape
         qkv = self._tag(qkv, "qkv_out")
         q, k, v = (t.transpose(1, 2) for t in self._split_heads(qkv))
         rate = self.cfg.attention_dropout if attn_seed is not None else 0.0
@@ -299,11 +392,19 @@ class GPTModel(nn.Module):
     def embed(self, tokens: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Word plus position embedding, summed in fp32 and cast; with a
-        ``generator``, embedding dropout at the hidden rate."""
+        ``generator``, embedding dropout at the hidden rate. Under
+        sequence parallelism: this rank's sequence shard, its dropout
+        from a rank-folded generator."""
+        cfg = self.cfg
         h = self.embedding.word(tokens)
         pos = self.embedding.position[: tokens.shape[1]]
-        h = (h + pos).to(self.cfg.compute_dtype)
-        return dropout(h, self.cfg.hidden_dropout, generator)
+        h = (h + pos).to(cfg.compute_dtype)
+        if cfg.sequence_parallel:
+            h = scatter_to_sequence_parallel_region(h, TENSOR_AXIS,
+                                                    seq_axis=1)
+            if generator is not None and cfg.hidden_dropout > 0.0:
+                generator = _fold_tensor_rank(generator)
+        return dropout(h, cfg.hidden_dropout, generator)
 
     def transform(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
@@ -313,23 +414,93 @@ class GPTModel(nn.Module):
         wrapped by the remat policy. With a ``generator`` and a non-zero
         dropout rate: train-mode dropout, one attention seed per layer
         drawn first (the reference's ``_layer_rngs``), then the hidden
-        masks layer by layer (the same masks under every policy)."""
+        masks layer by layer (the same masks under every policy). At
+        tp > 1 the seeds come from a rank-folded generator, and under
+        sequence parallelism the hidden masks too; there ``x`` is this
+        rank's sequence shard and the result the gathered sequence."""
         cfg = self.cfg
+        if cfg.tp_comm_overlap:
+            self.record_tp_overlap(tuple(x.shape))
         if cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0:
             generator = None
         seeds = [None] * len(self.layers)
         if generator is not None:
+            seed_gen = generator
+            if cfg.tensor_model_parallel_size > 1:
+                seed_gen = _fold_tensor_rank(generator)
             seeds = torch.randint(0, 2 ** 31 - 1, (len(self.layers),),
-                                  generator=generator,
-                                  device=generator.device).tolist()
+                                  generator=seed_gen,
+                                  device=seed_gen.device).tolist()
+            if cfg.sequence_parallel:
+                generator = _fold_tensor_rank(generator)
         layer_fn = self.remat_policy.wrap(self._layer)
         for lp, seed in zip(self.layers, seeds):
             x = layer_fn(lp, x, seed, generator, bias=bias)
-        return self._ln(self.final_ln, x)
+        x = self._ln(self.final_ln, x)
+        if cfg.sequence_parallel:
+            # the whole sequence for the tied head, whose backward sums
+            # the gradient over the group first: keep this rank's slice
+            x = gather_from_sequence_parallel_region(
+                x, TENSOR_AXIS, seq_axis=1, invariant=True)
+        return x
+
+    def tp_overlap_fwd_bytes(self, shard_shape: Tuple[int, ...]) -> int:
+        """A rank's forward ring bytes for one pass through the layer
+        stack on a ``(b, s / tp, h)`` activation shard (the
+        ``tp/collective_bytes`` accounting): two Column rings (qkv, fc1)
+        carrying the activation dtype and two Row rings (proj, fc2)
+        carrying the fp32 partial sum, ``tp - 1`` hops each, a layer. The
+        backward rings move the same chunk counts with fp32 payloads."""
+        cfg = self.cfg
+        tp = cfg.tensor_model_parallel_size
+        shard = math.prod(shard_shape)
+        col_bytes = shard * torch.empty(
+            (), dtype=cfg.compute_dtype).element_size()
+        row_bytes = shard * 4
+        return cfg.num_layers * (tp - 1) * (2 * col_bytes + 2 * row_bytes)
+
+    def record_tp_overlap(self, shard_shape: Tuple[int, ...],
+                          passes: int = 1) -> None:
+        """``tp/overlap_chunks`` (mean) and ``tp/collective_bytes`` (sum)
+        into the open :mod:`~apex_tpu_torch.observability.ingraph`
+        collector, once a layer-stack pass; nothing without one.
+        ``passes``: layer-stack passes a step."""
+        from apex_tpu_torch.observability import ingraph
+        if not ingraph.recording():
+            return
+        dev = self.final_ln.weight.device
+        ingraph.record("tp/overlap_chunks", torch.tensor(
+            float(self.cfg.tensor_model_parallel_size), device=dev),
+            reduce="mean")
+        ingraph.record("tp/collective_bytes", torch.tensor(
+            float(passes * self.tp_overlap_fwd_bytes(shard_shape)),
+            device=dev), reduce="sum")
+
+    def param_specs(self) -> dict:
+        """Each parameter's tensor-axis shard dim by name
+        (:func:`tp_shard_dim`): the reference's ``PartitionSpec`` tree,
+        for a port state dict."""
+        return {name: tp_shard_dim(name) for name, _ in
+                self.named_parameters()}
+
+    def sp_grad_sync(self, grads: dict) -> dict:
+        """Megatron-LM all-reduces the grads of the sequence-parallel
+        parameters (the LayerNorms) in a pass of its own, since torch's
+        autograd leaves per-rank partials. Here the LayerNorm parameters
+        enter their region through copy-to-region, whose backward sums
+        over the tensor group, so ``loss.backward()`` already leaves them
+        summed and this is the reference's no-op, kept for its training
+        loop's call sequence."""
+        return grads
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied output embedding: the word embedding cast to the
-        activation dtype, products accumulated in fp32, fp32 logits."""
+        activation dtype, products accumulated in fp32, fp32 logits; at
+        tp > 1 this rank's vocab shard of them (the hidden state enters
+        the region through copy-to-region: its gradient is summed over
+        the group)."""
+        if self.cfg.tensor_model_parallel_size > 1:
+            x = copy_to_tensor_model_parallel_region(x)
         w = self.embedding.word.weight.to(x.dtype)
         return torch.matmul(x.float(), w.float().t())
 
@@ -369,10 +540,12 @@ class GPTModel(nn.Module):
         appends the new token at ``append_block_ids``/``append_offsets``.
 
         The cache is updated in place (the port's counterpart of the
-        reference's donated cache) and returned for API parity."""
+        reference's donated cache) and returned for API parity. The
+        cached legs refuse tp > 1 and sequence parallelism."""
         if kv_cache is None:
             return self.logits(self.transform(self.embed(tokens, generator),
                                               generator))
+        self._require_cacheable()
         if isinstance(kv_cache, PagedKVCache):
             if block_row is not None:
                 return self._paged_prefill_forward(
@@ -392,25 +565,42 @@ class GPTModel(nn.Module):
         """LM loss, an fp32 scalar: the mean per-token softmax
         cross-entropy of the logits against ``targets`` (every token id
         counts: ``padding_idx=None``), or its ``loss_mask``-weighted mean.
-        A ``generator`` turns on train-mode dropout."""
-        return self._lm_loss(self(tokens, generator=generator), targets,
-                             loss_mask)
+        A ``generator`` turns on train-mode dropout. At tp > 1 the
+        cross-entropy is vocab-parallel over the tensor group, and every
+        rank gets the same loss."""
+        return self._lm_loss(
+            self(tokens, generator=generator), targets, loss_mask,
+            vocab_parallel=self.cfg.tensor_model_parallel_size > 1)
 
     @staticmethod
     def _lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-                 loss_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 loss_mask: Optional[torch.Tensor],
+                 vocab_parallel: bool = False) -> torch.Tensor:
         """Per-token softmax cross-entropy of ``logits`` against
-        ``targets`` (``padding_idx=None``), fp32, averaged over the tokens
-        or over ``loss_mask``'s weight."""
-        per_tok = softmax_cross_entropy_loss(
-            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
-            padding_idx=None, half_to_float=True).reshape(targets.shape)
+        ``targets`` (``padding_idx=None``; with ``vocab_parallel``, of
+        this rank's vocab shard of them over the tensor group), fp32,
+        averaged over the tokens or over ``loss_mask``'s weight."""
+        if vocab_parallel:
+            per_tok = vocab_parallel_cross_entropy(logits, targets)
+        else:
+            per_tok = softmax_cross_entropy_loss(
+                logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                padding_idx=None, half_to_float=True).reshape(targets.shape)
         if loss_mask is not None:
             mask = loss_mask.to(per_tok.dtype)
             return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return per_tok.mean()
 
     # -- serving: KV-cached prefill/decode ----------------------------------
+
+    def _require_cacheable(self) -> None:
+        cfg = self.cfg
+        if cfg.tensor_model_parallel_size != 1 or cfg.sequence_parallel:
+            raise NotImplementedError(
+                "the KV-cached serving path runs tp=1, as the "
+                "reference's does; got tp="
+                f"{cfg.tensor_model_parallel_size}, sequence_parallel="
+                f"{cfg.sequence_parallel}")
 
     def _prefill_kv(self, tokens, prompt_len, last_logit_only: bool):
         """The prefill's causal forward over ``tokens (1, P)``: returns
@@ -588,6 +778,7 @@ class GPTModel(nn.Module):
         counts). A dense cache reads ``kv_cache.lengths``; a paged one
         takes the host's tables and cursors, as the decode leg, and
         copies the copy-on-write pairs first."""
+        self._require_cacheable()
         if tokens.dim() != 2:
             raise ValueError(f"verify tokens must be (max_seqs, Q), got "
                              f"{tuple(tokens.shape)}")

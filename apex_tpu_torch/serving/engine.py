@@ -85,6 +85,7 @@ class ServingEngine:
                  cache_dtype=torch.bfloat16, top_k: int = 0,
                  rng_seed: int = 0, quarantine: bool = False,
                  speculate_k: int = 0, device="cuda"):
+        model._require_cacheable()
         cfg = model.cfg
         if max_len > cfg.max_position_embeddings:
             raise ValueError(

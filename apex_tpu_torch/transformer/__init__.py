@@ -1,12 +1,15 @@
-"""Megatron-style model-parallel toolkit of the port: the
-tp=1 layers, RNG tracker and vocab-parallel cross-entropy, the grad
-scaler, the fused scale-mask softmax (also as ``functional``, as the
-reference aliases it), the enums, and ``parallel_state``, the process
-groups of the (pipe, data, context, tensor) mesh. ``pipeline_parallel``,
-``context_parallel`` and ``expert_parallel`` come with queue item A5c."""
+"""Megatron-style model-parallel toolkit of the port: tensor
+parallelism (the mappings, the sharded layers, the ring collective
+matmuls, the RNG tracker and vocab-parallel cross-entropy), the
+sequence-parallel regions of ``context_parallel``, the grad scaler, the
+fused scale-mask softmax (also as ``functional``, as the reference
+aliases it), the enums, and ``parallel_state``, the process groups of the
+(pipe, data, context, tensor) mesh. ``pipeline_parallel``,
+``expert_parallel`` and context parallelism's attention come with queue
+item A5c."""
 
 from apex_tpu_torch.transformer import (  # noqa: F401
-    amp, parallel_state, tensor_parallel)
+    amp, context_parallel, parallel_state, tensor_parallel)
 from apex_tpu_torch.transformer.enums import (  # noqa: F401
     AttnMaskType, AttnType, LayerType, ModelType)
 from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
@@ -14,6 +17,6 @@ from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
 # the `functional` namespace (reference:apex/transformer/functional)
 from apex_tpu_torch.ops import fused_softmax as functional  # noqa: F401
 
-__all__ = ["amp", "functional", "parallel_state", "tensor_parallel",
-           "AttnMaskType",
-           "AttnType", "LayerType", "ModelType", "FusedScaleMaskSoftmax"]
+__all__ = ["amp", "context_parallel", "functional", "parallel_state",
+           "tensor_parallel", "AttnMaskType", "AttnType", "LayerType",
+           "ModelType", "FusedScaleMaskSoftmax"]

@@ -20,10 +20,11 @@ it) the data axis goes outermost over the nodes and tensor, pipeline and
 context stay inside a node, as :func:`_dcn_device_grid` gives it
 (the reference's rule by process).
 
-Only the data axis carries traffic in this slice (data parallelism and
-ZeRO); tp, pp and cp above 1 build their groups while the layers that
-would use them raise, naming queue items A5b (tensor and sequence
-parallelism) and A5c (pipelines and context parallelism).
+The data axis carries data parallelism and ZeRO; the tensor axis the
+tensor- and sequence-parallel layers, their mappings and the ring
+collective matmuls. pp and cp above 1 build their groups, while what
+would use them (pipelines and context parallelism, queue item A5c) is not
+ported yet.
 """
 
 from __future__ import annotations

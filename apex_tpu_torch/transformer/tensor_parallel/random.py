@@ -1,4 +1,4 @@
-"""Model-parallel RNG streams and activation checkpointing at tp=1, the
+"""Model-parallel RNG streams and activation checkpointing, the
 counterpart of ``apex_tpu/transformer/tensor_parallel/random.py``.
 
 Reference: ``reference:apex/transformer/tensor_parallel/random.py`` --
@@ -21,7 +21,9 @@ synchronizing read a fork.
 
 ``model_parallel_seed(seed, tensor_rank, data_rank)`` seeds the default
 stream with ``seed`` and the model-parallel stream with ``seed + 2718 +
-tensor_rank``, as the reference does. The JAX package folds ``data_rank``
+tensor_rank``, as the reference does; ``tensor_rank`` defaults to this
+rank's tensor rank when a mesh is installed
+(:mod:`~apex_tpu_torch.transformer.parallel_state`), else 0. The JAX package folds ``data_rank``
 into the default stream with ``fold_in``; the port seeds it with
 ``(seed + (data_rank + 1) * 0x9E3779B97F4A7C15) mod 2**63`` (a
 golden-ratio stride, distinct for every rank). The streams' bits differ
@@ -125,8 +127,14 @@ def model_parallel_seed(seed: int, tensor_rank: Optional[int] = None,
     """``model_parallel_cuda_manual_seed`` (:200-230): resets the global
     tracker onto ``device`` with the default stream at ``seed`` (or the
     ``data_rank`` derivation of the module docstring) and the
-    model-parallel stream at ``seed + 2718 + tensor_rank``."""
+    model-parallel stream at ``seed + 2718 + tensor_rank`` (by default
+    the installed mesh's tensor rank)."""
     device = resolve_device(device)
+    if tensor_rank is None:
+        from apex_tpu_torch.transformer import parallel_state
+        tensor_rank = (parallel_state.get_tensor_model_parallel_rank()
+                       if parallel_state.model_parallel_is_initialized()
+                       else 0)
     tracker = get_rng_tracker()
     tracker.reset()
     tracker.device = device
@@ -135,7 +143,7 @@ def model_parallel_seed(seed: int, tensor_rank: Optional[int] = None,
         base = (seed + (int(data_rank) + 1) * _DATA_RANK_STRIDE) % 2 ** 63
     tracker.add("default", base)
     tracker.add(_MODEL_PARALLEL_RNG_TRACKER_NAME,
-                seed + _TENSOR_SEED_OFFSET + int(tensor_rank or 0))
+                seed + _TENSOR_SEED_OFFSET + int(tensor_rank))
 
 
 def checkpoint(function: Callable) -> Callable:

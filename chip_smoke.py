@@ -351,7 +351,24 @@ non-zero and prints no result. Phases, each fatal on failure:
    ResNet-50 BN shape (2 x 128 x 64 x 56 x 56, and 96 + 160 images)
    against the whole batch on one rank within ``TOL_SYNCBN``; the gloo
    times printed as gloo over loopback, no multi-GPU speed;
-26. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+26. ``tp_gpt``: tensor parallelism at tp 2, two processes on the card
+   over gloo as in 25 (the ring's hops staged through host tensors, as
+   ``collective_matmul`` does on gloo): GPT-small from seed 0 cut by
+   ``_bridge.split_tp_state``, 4 x 1024 (rank 0's batch through
+   ``broadcast_data``), bf16 over fp32 params, ``FusedAdam`` and
+   ``DynamicLossScale`` with the finite flag reduced over the tensor
+   group; three legs (plain TP, SP, SP with ``tp_comm_overlap``) of 3
+   steps each: step 0's loss within ``TOL_TP_LOSS`` and its grads leaf by
+   leaf within ``TOL_TP_GRAD`` of the one-rank tp = 1 step on the same
+   weights and batch, SP and overlap against plain TP within the same
+   limits, each rank's launches (12 of each flash kernel, 25 of each
+   LayerNorm kernel a step), ``tp/collective_bytes`` against
+   ``tp_overlap_fwd_bytes`` and the bytes the forward's hops moved, the
+   host-clock step ms (gloo over loopback); a 2-layer d-64 fp32 model's
+   overlap loss and grads bit for bit its fused SP ones; a NaN in rank
+   1's grads skipping the step on both ranks; B1-B3 at 6 local heads
+   ``(4, 6, 1024, 64)`` against their plain versions;
+27. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -3973,6 +3990,7 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
         return loss.detach(), finite, grads
 
     step.generator = gen
+    step.model = model
     step.params = params
     step.opt_state = opt_state
     step.carry = carry
@@ -7545,9 +7563,9 @@ def zero_gpt(torch, kern, card: str) -> tuple:
     return launches, l_z, b_z, zopt._layout.total
 
 
-def _rank_setup():
-    """A two-rank body's start: the kernels the parent built, the mesh,
-    the parent's precision settings."""
+def _rank_setup(tp: int = 1):
+    """A two-rank body's start: the kernels the parent built, the mesh
+    (``tp`` ranks a tensor group), the parent's precision settings."""
     import torch
     from apex_tpu_torch import _kernels as kern
     from apex_tpu_torch.transformer import parallel_state as ps
@@ -7555,8 +7573,10 @@ def _rank_setup():
     kern.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not ps.model_parallel_is_initialized():
-        ps.initialize_model_parallel()
+    if (not ps.model_parallel_is_initialized()
+            or ps.get_tensor_model_parallel_world_size() != tp):
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tp)
     return torch, kern
 
 
@@ -7841,6 +7861,297 @@ def dist_ranks(torch, kern, card: str, zero_losses, zero_bytes,
     return launches
 
 
+# -- tensor parallelism: two ranks on the card over gloo --------------------
+TP_WORLD = 2
+TP_BATCH = 4               # 4 x 1024, the same batch on both ranks
+TP_STEPS = 3
+TP_LR = 1e-4
+TP_LEGS = {"plain": (False, False), "sp": (True, False),
+           "overlap": (True, True)}
+# tp = 2 against the one-rank tp = 1 step on the same weights and batch,
+# bf16 compute: each Row layer's partial products are rounded to bf16
+# before the sum (the reference's order), the whole products after it,
+# so the two differ by a bf16 rounding of each partial; the loss is the
+# mean of 4096 token losses. Grads as in TOL_TRAIN_GRAD: the worst leaf's
+# ||got - want|| / ||want||
+TOL_TP_LOSS = 2e-3
+TOL_TP_GRAD = 3e-2
+# the 2-layer d-64 fp32 model whose overlap path must equal its fused SP
+# path bit for bit (2 x 128 tokens)
+TP_FP32 = dict(vocab_size=512, hidden_size=64, num_layers=2,
+               num_attention_heads=4, max_position_embeddings=128)
+TP_HEADS = (TP_BATCH, 12 // TP_WORLD, 1024, 64)   # B1-B3 at 6 local heads
+
+
+def _leaf_norms(torch, got: dict, want: dict) -> dict:
+    """``{name: (||got - want||^2, ||want||^2)}`` as floats."""
+    return {n: (float(((got[n].float() - w.float()) ** 2).sum()),
+                float((w.float() ** 2).sum())) for n, w in want.items()}
+
+
+def _worst_leaf(per_rank) -> tuple:
+    """The worst leaf's relative norm over the ranks' ``_leaf_norms`` (a
+    shard's squares summed over the ranks: the gathered leaf's norm)."""
+    return max((math.sqrt(sum(r[n][0] for r in per_rank)
+                          / max(sum(r[n][1] for r in per_rank), 1e-60)), n)
+               for n in per_rank[0])
+
+
+def rank_tp(ref_path: str) -> dict:
+    """A rank of the tensor group: GPT-small's shards from seed 0, three
+    legs of ``TP_STEPS`` steps on the batch rank 0 broadcasts, step 0's
+    grads against the tp = 1 step's (``ref_path``) and the plain leg's,
+    the overlap leg's metrics and hop bytes, a NaN step, and the fp32
+    bit-for-bit check of the ring."""
+    torch, kern = _rank_setup(TP_WORLD)
+    import numpy as np
+    import torch.distributed as dist
+    from apex_tpu_torch._bridge import split_tp_state
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.observability import ingraph
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        broadcast_data, collective_matmul)
+
+    rank = dist.get_rank()
+    ref = torch.load(ref_path, map_location="cuda")
+    cfg, init_state, _ = gpt_small_setup(torch)
+    mine = ref["tokens"] if rank == 0 else torch.zeros_like(ref["tokens"])
+    tokens = broadcast_data(["tokens"], {"tokens": mine})["tokens"]
+    shard = split_tp_state(init_state, cfg, TP_WORLD, rank)
+    want = split_tp_state(ref["grads"], cfg, TP_WORLD, rank)
+    out = {"tokens": int(tokens.sum()), "legs": {}}
+    del init_state, ref
+    # the ring's hops, counted (the library's own hop, wrapped)
+    hops = {"bytes": 0}
+    real_hop = collective_matmul._Ring.hop
+
+    def counted_hop(ring, t):
+        hops["bytes"] += t.numel() * t.element_size()
+        return real_hop(ring, t)
+
+    collective_matmul._Ring.hop = counted_hop
+
+    def poison(grads):
+        if poison.on and rank == 1:
+            grads["layers.0.fc1.weight"][0, 0] = float("nan")
+        return grads
+
+    poison.on = False
+    base = None
+    for leg, (sp, ov) in TP_LEGS.items():
+        lcfg = dataclasses.replace(cfg, tensor_model_parallel_size=TP_WORLD,
+                                   sequence_parallel=sp, tp_comm_overlap=ov)
+        step = gpt_trainer(torch, lcfg, shard, tokens, TP_LR,
+                           grad_sync=poison, finite_axes=("tensor",))
+        launches = {}
+        hops["bytes"] = 0
+        losses, times, grads0 = timed_steps(
+            torch, kern, step, TP_STEPS, f"tp_gpt rank {rank} {leg}",
+            launches)
+        res = {"losses": [float(x) for x in losses],
+               "ms": median_ms(times), "launches": launches,
+               "ref": _leaf_norms(torch, grads0, want),
+               "hop_bytes_step": hops["bytes"] / TP_STEPS}
+        if base is None:
+            base = {n: g.detach().clone() for n, g in grads0.items()}
+        else:
+            res["plain"] = _leaf_norms(torch, grads0, base)
+        del grads0
+        if ov:
+            shard_shape = (TP_BATCH, TRAIN_ATTN[1] // TP_WORLD,
+                           cfg.hidden_size)
+            hops["bytes"] = 0
+            with torch.no_grad(), ingraph.collecting() as col:
+                step.model.loss(tokens, tokens)
+                metrics = col.freeze().as_floats()
+            res["fwd_hop_bytes"] = hops["bytes"]
+            res["metrics"] = metrics
+            res["fwd_bytes"] = step.model.tp_overlap_fwd_bytes(shard_shape)
+            # a NaN in rank 1's grads: both ranks skip
+            before = {n: p.detach().clone() for n, p in step.params.items()}
+            scale = float(step.carry["ls"].loss_scale)
+            count = int(step.opt_state.step)
+            poison.on = True
+            _, finite, _ = step()
+            poison.on = False
+            res["nan_step"] = {
+                "finite": bool(finite),
+                "scale": (scale, float(step.carry["ls"].loss_scale)),
+                "kept": all(torch.equal(p.detach(), before[n])
+                            for n, p in step.params.items()),
+                "count": (count, int(step.opt_state.step))}
+            del before
+        out["legs"][leg] = res
+        del step
+        torch.cuda.empty_cache()
+    del base, want, shard
+
+    # fp32 at tp 2: the ring against the fused SP path, bit for bit
+    small = GPTConfig(compute_dtype=torch.float32,
+                      tensor_model_parallel_size=TP_WORLD,
+                      sequence_parallel=True, **TP_FP32)
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, TP_FP32["vocab_size"], (2, 128))).to("cuda")
+    runs = []
+    for ov in (False, True):
+        m = GPTModel(dataclasses.replace(small, tp_comm_overlap=ov),
+                     device="cuda").init(torch.Generator().manual_seed(0))
+        loss = m.loss(toks, toks)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad for n, p in
+                                     m.named_parameters()}))
+    (l_f, g_f), (l_o, g_o) = runs
+    out["fp32_same"] = {"loss": bool(torch.equal(l_f, l_o))}
+    out["fp32_same"].update({n: bool(torch.equal(g_f[n], g_o[n]))
+                             for n in g_f})
+    out["fp32_max_diff"] = max(float((g_f[n] - g_o[n]).abs().max())
+                               for n in g_f)
+    collective_matmul._Ring.hop = real_hop
+    del runs, g_f, g_o
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_local_heads(torch, fa, kern, card: str) -> None:
+    """B1-B3 at a tp = 2 rank's attention shape ``TP_HEADS`` (GPT-small's
+    6 local heads, bf16, causal) against their plain versions, with the
+    limits of ``check_flash_train``."""
+    b, h, s, d = TP_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    tol = tol_for(torch, torch.bfloat16)
+    out_k, lse_k = kern.flash_fwd(q, k, v, True, scale)
+    out_p, lse_p = fa._flash_fwd_plain(q, k, v, True, scale)
+    errs = {"flash_fwd": close(torch, [(out_k, out_p)], tol, fwd_slack(
+        torch, fa, q, k, v, True, scale))}
+    compare_lse(torch, lse_k, lse_p, TOL_LSE, "flash_fwd at 6 local heads")
+    delta = (do.float() * out_p.float()).sum(dim=-1)
+    args = (q, k, v, do, lse_p, delta, True, scale)
+    errs["flash_bwd_dq"] = close(torch, [(kern.flash_bwd_dq(*args),
+                                          fa._flash_bwd_dq_plain(*args))],
+                                 tol)
+    dk_k, dv_k = kern.flash_bwd_dkv(*args)
+    dk_p, dv_p = fa._flash_bwd_dkv_plain(*args)
+    errs["flash_bwd_dkv"] = close(torch, [(dk_k, dk_p), (dv_k, dv_p)], tol)
+    torch.cuda.synchronize()
+    for kname, (err, share) in errs.items():
+        check(share <= 1, f"{kname} at {TP_HEADS}: err {err:.3g}, "
+                          f"{share:.3g} x the limit {tol}")
+    print(f"tp_gpt: B1-B3 at a rank's attention shape {TP_HEADS} (bf16, "
+          f"causal) against their plain versions, max_abs_err and share of "
+          f"the limit {tol}: " + ", ".join(
+              f"{kname} {err:.3g}, {share:.3g}"
+              for kname, (err, share) in errs.items()) + f" [{card}]")
+
+
+def tp_gpt(torch, fa, kern, card: str) -> dict:
+    """Tensor parallelism at tp 2: the one-rank tp = 1 reference step,
+    B1-B3 at the local heads, then ``rank_tp`` on two processes of the
+    card over gloo (a correctness leg: its times are gloo over loopback,
+    no speed of anything multi-GPU). Returns both ranks' launches."""
+    import shutil
+    import tempfile
+    from apex_tpu_torch.parallel._spawn import RankPool
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    tokens = tokens[:TP_BATCH].contiguous()
+    step = gpt_trainer(torch, cfg, init_state, tokens, TP_LR)
+    ref_loss, _, grads = step()
+    ref_loss = float(ref_loss)
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ref_path = f"{store}/ref.pt"
+    torch.save({"tokens": tokens.cpu(),
+                "grads": {n: g.detach().cpu() for n, g in grads.items()}},
+               ref_path)
+    del step, grads, init_state
+    torch.cuda.empty_cache()
+    check_local_heads(torch, fa, kern, card)
+
+    t0 = time.perf_counter()
+    pool = RankPool(TP_WORLD, backend="gloo", device="cuda",
+                    pg_timeout=DIST_TIMEOUT)
+    try:
+        start_s = time.perf_counter() - t0
+        outs = pool.run(rank_tp, ref_path, timeout=DIST_TIMEOUT)
+    finally:
+        pool.close()
+        shutil.rmtree(store, ignore_errors=True)
+    check(all(o["tokens"] == int(tokens.sum()) for o in outs),
+          "tp_gpt: broadcast_data did not hand rank 1 rank 0's batch")
+    launches = {}
+    for out in outs:
+        for leg in TP_LEGS:
+            add_counts(launches, out["legs"][leg]["launches"])
+    print(f"tp_gpt: GPT-small at tp {TP_WORLD}, {TP_WORLD} processes on "
+          f"one card over gloo (the ring's hops staged through host "
+          f"tensors), {TP_BATCH} x {TRAIN_ATTN[1]} from broadcast_data, "
+          f"{TP_STEPS} steps a leg; limits: loss {TOL_TP_LOSS}, grads "
+          f"{TOL_TP_GRAD} (worst leaf's relative norm); pool started in "
+          f"{start_s:.1f} s [{card}]")
+    for leg in TP_LEGS:
+        legs = [o["legs"][leg] for o in outs]
+        l0 = legs[0]["losses"]
+        check(all(r["losses"] == l0 for r in legs),
+              f"tp_gpt {leg}: the ranks' losses differ: "
+              f"{[r['losses'] for r in legs]}")
+        g_err, g_leaf = _worst_leaf([r["ref"] for r in legs])
+        check(abs(l0[0] - ref_loss) <= TOL_TP_LOSS and g_err <= TOL_TP_GRAD,
+              f"tp_gpt {leg}: step 0's loss {l0[0]} against tp = 1's "
+              f"{ref_loss}, grads {g_leaf} {g_err:.3g}")
+        line = (f"tp_gpt {leg}: losses {l0}; step 0 against the tp = 1 "
+                f"step: loss {l0[0]:.6f} vs {ref_loss:.6f} (|diff| "
+                f"{abs(l0[0] - ref_loss):.3g}), grads worst leaf {g_leaf} "
+                f"{g_err:.4g}")
+        if "plain" in legs[0]:
+            p_err, p_leaf = _worst_leaf([r["plain"] for r in legs])
+            p_loss = outs[0]["legs"]["plain"]["losses"][0]
+            check(abs(l0[0] - p_loss) <= TOL_TP_LOSS and p_err <= TOL_TP_GRAD,
+                  f"tp_gpt {leg} against plain TP: loss {l0[0]} vs "
+                  f"{p_loss}, grads {p_leaf} {p_err:.3g}")
+            line += (f"; against plain TP: loss |diff| "
+                     f"{abs(l0[0] - p_loss):.3g}, grads worst leaf {p_leaf} "
+                     f"{p_err:.4g}")
+        line += (f"; launches a rank over {TP_STEPS} steps "
+                 f"{[r['launches'] for r in legs]}; step "
+                 f"{[round(r['ms'], 1) for r in legs]} ms by rank (host "
+                 f"clock, gloo over loopback), ring hops "
+                 f"{legs[0]['hop_bytes_step']:.0f} bytes a step [{card}]")
+        print(line)
+    for r, out in enumerate(outs):
+        ov = out["legs"]["overlap"]
+        got = ov["metrics"].get("tp/collective_bytes")
+        check(got == ov["fwd_bytes"] == ov["fwd_hop_bytes"]
+              and ov["metrics"].get("tp/overlap_chunks") == TP_WORLD,
+              f"tp_gpt rank {r}: tp/collective_bytes {got}, "
+              f"tp_overlap_fwd_bytes {ov['fwd_bytes']}, the forward's hops "
+              f"{ov['fwd_hop_bytes']} bytes, metrics {ov['metrics']}")
+        nan = ov["nan_step"]
+        check(not nan["finite"] and nan["kept"]
+              and nan["count"][0] == nan["count"][1]
+              and nan["scale"][1] == 0.5 * nan["scale"][0],
+              f"tp_gpt rank {r}: a NaN in rank 1's grads did not skip the "
+              f"step: {nan}")
+        same = out["fp32_same"]
+        check(all(same.values()),
+              f"tp_gpt rank {r}: the fp32 overlap path differs from the "
+              f"fused SP path: {[n for n, v in same.items() if not v]}, "
+              f"max |diff| {out['fp32_max_diff']:.3g}")
+    ov = outs[0]["legs"]["overlap"]
+    print(f"tp_gpt overlap: tp/collective_bytes "
+          f"{ov['metrics']['tp/collective_bytes']:.0f} = "
+          f"tp_overlap_fwd_bytes {ov['fwd_bytes']} = the bytes the "
+          f"forward's ring hops moved {ov['fwd_hop_bytes']} (a rank); a NaN "
+          f"in rank 1's grads: both ranks' flag false, params and step "
+          f"count kept, the scale {ov['nan_step']['scale'][0]:g} -> "
+          f"{ov['nan_step']['scale'][1]:g}; a 2-layer d-64 fp32 model at tp "
+          f"{TP_WORLD}: the overlap path's loss and "
+          f"{len(outs[0]['fp32_same']) - 1} grads bit for bit the fused SP "
+          f"path's on both ranks [{card}]")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
                  top: int = 8) -> tuple:
     """Device busy time of ``fn`` in a ``profile_window`` (CUDA activity
@@ -7991,6 +8302,8 @@ def main() -> None:
     ranks = dist_ranks(torch, kern, card, zero_losses, zero_bytes,
                        zero_total)
     lap("dist_ranks")
+    tp_ranks = tp_gpt(torch, fa, kern, card)
+    lap("tp_gpt")
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -8012,7 +8325,9 @@ def main() -> None:
           f"the tp=1 layer and logits {tp1}, GPT-small under DDP at world "
           f"1 ({DDP_STEPS} + 2 profiled steps, the accumulation window) "
           f"{ddp}, under ZeRO at world 1 ({ZERO_STEPS} steps) {zero}, the "
-          f"two ranks' DDP, ZeRO and overflow steps {ranks}")
+          f"two ranks' DDP, ZeRO and overflow steps {ranks}, the two tensor "
+          f"ranks' steps ({len(TP_LEGS)} legs x {TP_STEPS} steps, then a "
+          f"skipped one) {tp_ranks}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
@@ -8023,7 +8338,7 @@ def main() -> None:
                                small_training, remat_legs, config_training,
                                resnet, bert, lamb, legs, big, long,
                                speech, retina, sparse, tp1, ddp, zero,
-                               ranks)
+                               ranks, tp_ranks)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):

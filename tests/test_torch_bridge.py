@@ -72,11 +72,17 @@ def test_bf16_leaves_without_extension_dtype_come_back_as_bits():
 
 
 def test_tp_shard_dim_must_be_one():
+    """A tp = 1 model takes shard 0 of a stacked leaf; a rank past the
+    stack raises."""
     tree = _jax_params(jnp.float32)
-    tree["embedding"]["word"]["weight"] = np.concatenate(
-        [tree["embedding"]["word"]["weight"]] * 2)
-    with pytest.raises(ValueError, match="tp=1"):
-        params_from_jax(tree, GPTConfig(**SIZES))
+    word = tree["embedding"]["word"]["weight"]
+    tree["embedding"]["word"]["weight"] = np.concatenate([word, word + 1])
+    sd = params_from_jax(tree, GPTConfig(**SIZES))
+    np.testing.assert_array_equal(sd["embedding.word.weight"].numpy(),
+                                  word[0])
+    with pytest.raises(ValueError, match="no shard 1"):
+        params_from_jax(_jax_params(jnp.float32), GPTConfig(**SIZES),
+                        tp_rank=1)
 
 
 def test_init_law_follows_reference():

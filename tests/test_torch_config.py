@@ -10,11 +10,13 @@
   the same weights gives the same loss (1e-5); FusedAdam/AdamW/SGD with
   the config's hyperparameters, ``flat=True`` wrapping;
 - the errors: the reference's ``ValueError`` for unknown names, a bad
-  ``zero`` and ZeRO on SGD; ``NotImplementedError`` naming the queue item
-  for what is not ported (a model at tp/pp/cp > 1, sequence parallelism,
-  ``ddp_bucket_bytes="auto"`` under ZeRO and fastpath, health,
-  microbatches, samplers). ZeRO, ``fastpath`` and the mesh themselves:
-  ``tests/test_torch_zero.py`` and ``tests/test_torch_parallel_state.py``.
+  ``zero`` and ZeRO on SGD, and sequence parallelism or its overlap at
+  tp = 1 (both packages); ``NotImplementedError`` naming the queue item
+  for what is not ported (a model at pp/cp > 1, ``ddp_bucket_bytes=
+  "auto"`` under ZeRO and fastpath, health, microbatches, samplers); a
+  GPT at tp 2 building on two gloo ranks. ZeRO, ``fastpath`` and the
+  mesh themselves: ``tests/test_torch_zero.py`` and
+  ``tests/test_torch_parallel_state.py``.
 """
 
 import json
@@ -170,22 +172,57 @@ def test_errors_match_the_reference():
     (lambda: tcfg.TrainConfig(optimizer=tcfg.OptimizerConfig(
         name="lamb", zero=1), ddp_bucket_bytes="auto").build_optimizer(),
      "A7b"),
-    (lambda: tcfg.TrainConfig(parallel=tcfg.ParallelConfig(
-        tensor_model_parallel_size=2)).build_model(device="cpu"), "A5"),
+    (None, "tp builds"),
     (lambda: tcfg.TrainConfig(parallel=tcfg.ParallelConfig(
         pipeline_model_parallel_size=2)).build_model(device="cpu"), "A5"),
     (lambda: tcfg.TrainConfig(parallel=tcfg.ParallelConfig(
         context_parallel_size=2)).build_model(device="cpu"), "A5"),
-    (lambda: tcfg.TrainConfig(model=tcfg.ModelConfig(
-        sequence_parallel=True)).build_model(device="cpu"), "A5"),
-    (lambda: tcfg.TrainConfig(model=tcfg.ModelConfig(
-        tp_comm_overlap=True)).build_model(device="cpu"), "A5"),
+    (None, "sequence_parallel requires tp > 1"),
+    (None, "tp_comm_overlap requires sequence_parallel=True"),
     (lambda: tcfg.TrainConfig().fastpath().build_optimizer(), "A7b"),
     (lambda: tcfg.TrainConfig().build_health(), "A7"),
     (lambda: tcfg.TrainConfig().build_microbatch_calculator(2), "A5"),
     (lambda: tcfg.TrainConfig().build_sampler(64, 0, 0, 2), "A5"),
 ], ids=["zero", "lamb", "tp", "pp", "cp", "sp",
         "overlap", "fastpath", "health", "microbatches", "sampler"])
-def test_unported_pieces_raise_naming_their_queue_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def test_unported_pieces_raise_naming_their_queue_item(make, item, request):
+    """What is not ported raises ``NotImplementedError`` naming its queue
+    item. Tensor and sequence parallelism are ported: at tp 2 the GPT
+    builds on two CPU gloo ranks with its shards, and sequence parallelism
+    or its overlap at tp = 1 raise the reference's ``ValueError``, in both
+    packages."""
+    case = request.node.callspec.id
+    if case == "tp":
+        _tp2_builds()
+    elif case in ("sp", "overlap"):
+        flag = {"sp": "sequence_parallel", "overlap": "tp_comm_overlap"}
+        for mod in (jcfg, tcfg):
+            c = mod.TrainConfig(model=mod.ModelConfig(**{flag[case]: True}))
+            with pytest.raises(ValueError, match=item):
+                c.build_model() if mod is jcfg else c.build_model(
+                    device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            make()
+
+
+def _tp2_builds():
+    import _torch_tp_ranks as R
+    from apex_tpu_torch.parallel._spawn import RankPool, children_alive
+    cfg = tcfg.TrainConfig(
+        model=tcfg.ModelConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                               num_attention_heads=4,
+                               max_position_embeddings=16),
+        parallel=tcfg.ParallelConfig(tensor_model_parallel_size=2))
+    pool = RankPool(2, device="cpu")
+    try:
+        outs = pool.run(R.config_build, cfg.to_dict(), 1 << 20)
+    finally:
+        pids = pool.pids()
+        pool.close()
+    assert not children_alive(pids)
+    for out in outs:
+        tp, sp, ov, shapes = out["config"]
+        assert (tp, sp, ov) == (2, False, False)
+        assert shapes["layers.0.fc1.weight"] == (64, 32)
+        assert shapes["layers.0.fc2.weight"] == (32, 64)

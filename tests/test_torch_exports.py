@@ -23,16 +23,9 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "transformer": {"A5c": {"pipeline_parallel", "context_parallel",
-                            "expert_parallel"}},
-    "transformer.tensor_parallel": {"A5b": {
-        "all_gather_matmul", "matmul_reduce_scatter", "broadcast_data",
-        "broadcast_from_tensor_parallel_rank0",
-        "copy_to_tensor_model_parallel_region",
-        "gather_from_tensor_model_parallel_region",
-        "reduce_from_tensor_model_parallel_region",
-        "scatter_to_tensor_model_parallel_region", "MemoryBuffer",
-        "RingMemBuffer", "allocate_mem_buff"}},
+    "transformer": {"A5c": {"pipeline_parallel", "expert_parallel"}},
+    "transformer.context_parallel": {"A5c": {"ring_attention",
+                                             "ulysses_attention"}},
     "serving": {"A6": {"CheckpointWatcher", "watch_checkpoints"}},
     "elastic": {"A6": {"AsyncCheckpointer", "DrainInterrupt",
                        "ElasticRunner", "FitResult", "Heartbeat",
@@ -62,12 +55,18 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "transformer.tensor_parallel", "transformer.amp", "RNN",
             "contrib.sparsity", "elastic", "config", "remat",
             "transformer.parallel_state", "parallel.distributed",
-            "optimizers.distributed_fused")
+            "optimizers.distributed_fused", "transformer.context_parallel")
 # the modules A5a added, each importable with JAX and the JAX package
 # blocked
 A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
                "parallel.distributed", "optimizers.distributed_fused",
                "training")
+# and the modules A5b added
+A5B_MODULES = ("transformer.tensor_parallel.mappings",
+               "transformer.context_parallel",
+               "transformer.tensor_parallel.collective_matmul",
+               "transformer.tensor_parallel.data",
+               "transformer.tensor_parallel.memory")
 # subpackages of the JAX package the port does not have yet
 UNPORTED_SUBPACKAGES = {"utils": "A7a", "checkpoint": "A6", "pyprof": "A7b",
                         "reparameterization": "not queued"}
@@ -151,7 +150,7 @@ def test_contrib_lazy_names_match_the_reference():
         port.nothing_here
 
 
-@pytest.mark.parametrize("module", A5A_MODULES)
+@pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES)
 def test_a5a_modules_import_without_jax(module):
     code = (
         "import sys\n"

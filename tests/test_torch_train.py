@@ -16,7 +16,8 @@
 Tiny config: 2 layers, hidden 64, 4 heads, vocab 97, 128 positions; the JAX
 side runs its Pallas flash kernels in interpret mode. Tolerances: fp32 1e-5
 on losses and 1e-6 (absolute, on values up to ~0.2) on grads and optimizer
-state (summation order only), 5e-5 on params after 5 Adam steps (see the
+state (summation order only); after 5 Adam steps 5e-5 on params whose
+grads stay above a rounding floor, lr a step on the rest (see the
 trajectory test); bf16 compute 3% of each leaf's largest
 magnitude (bf16 rounds at other places in the two frameworks: a few bf16
 ulps, one ulp being 0.4%).
@@ -285,10 +286,29 @@ def test_select_tree_and_all_finite():
 # (g) a 5-step fp32 train trajectory
 # ---------------------------------------------------------------------------
 
-def test_five_step_fp32_trajectory_matches_jax():
+TRAJ_STEPS = 5
+TRAJ_LR = 1e-3
+# a grad element at or below this share of its leaf's largest magnitude is
+# at rounding level: the two sides' reduction orders differ there in
+# relative terms, and Adam's division by the element's own running rms
+# turns that into a step that differs by up to ~lr
+GRAD_FLOOR = 1e-6
+
+
+def _trajectory(step_offset: int = 0):
+    """Five fp32 steps of the tiny GPT on the JAX step (composed as
+    ``bench.py::_gpt_train_step``) and the port's, from one init; the port
+    optimizer's step count starts at ``step_offset`` (a nonzero offset is
+    a wrong bias correction). Returns ``(port params, JAX params, losses
+    (port, JAX) by step, grads by step, port step count)``, the trees in
+    the JAX layout; each step's grads are ``(the port's, JAX's at the
+    port's params, JAX's on its own trajectory)``: once an element's grad
+    has fallen to rounding level the two trajectories part by up to ~lr
+    there, which moves the later grads around it by more than the grad
+    limit, so the port's grads are held to JAX's at the same params."""
     jm, jp, cfg = _models("float32")
     tokens = _tokens(3)
-    jopt, jsc = JaxAdam(lr=1e-3), JaxScale(init_scale=2.0 ** 12)
+    jopt, jsc = JaxAdam(lr=TRAJ_LR), JaxScale(init_scale=2.0 ** 12)
     jstate, jls = jopt.init(jp), jsc.init()
     jtok = jnp.asarray(tokens)
 
@@ -302,30 +322,80 @@ def test_five_step_fp32_trajectory_matches_jax():
         new_ls = jsc.update(ls, finite)
         params, opt_state = jopt.step(grads, opt_state, params,
                                       grads_finite=finite)
-        return params, opt_state, new_ls, scaled / ls.loss_scale
+        return params, opt_state, new_ls, scaled / ls.loss_scale, grads
 
     all_finite_j = functools.partial(jax_all_finite, observe=None)
+    jgrad = jax.jit(jax.grad(lambda p: jm.loss(p, jtok, jtok)))
     pm = _port_model(cfg, jp)
     params = dict(pm.named_parameters())
-    popt, psc = FusedAdam(lr=1e-3), DynamicLossScale(init_scale=2.0 ** 12)
+    popt, psc = FusedAdam(lr=TRAJ_LR), DynamicLossScale(init_scale=2.0 ** 12)
     state, ls = popt.init(params), psc.init(device="cpu")
+    state.step.fill_(step_offset)
     ttok = torch.from_numpy(tokens)
-    for _ in range(5):
-        jp, jstate, jls, jloss = jstep(jp, jstate, jls)
+    losses, grads = [], []
+    for _ in range(TRAJ_STEPS):
+        same_point = jgrad(params_to_numpy(pm.state_dict(), cfg))
+        jp, jstate, jls, jloss, jgrads = jstep(jp, jstate, jls)
         pm.zero_grad(set_to_none=True)
         loss = pm.loss(ttok, ttok)
         (loss * ls.loss_scale).backward()
-        grads = psc.unscale(ls, {n: p.grad for n, p in params.items()})
-        finite = all_finite(grads)
+        g = psc.unscale(ls, {n: p.grad for n, p in params.items()})
+        finite = all_finite(g)
         ls = psc.update(ls, finite)
-        popt.step(grads, state, params, grads_finite=finite)
-        np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
-    assert int(state.step) == int(jstate.step) == 5
-    # Adam divides each grad by its own running rms, so a grad at rounding
-    # level (where the two sides' reduction orders differ in relative
-    # terms) moves its element by up to ~lr: hold params to 5% of lr
-    _assert_trees_close(params_to_numpy(pm.state_dict(), cfg), jp,
-                        atol=5e-5)
+        popt.step(g, state, params, grads_finite=finite)
+        losses.append((loss.item(), float(jloss)))
+        grads.append((params_to_numpy(g, cfg), same_point, jgrads))
+    assert int(jstate.step) == TRAJ_STEPS
+    return (params_to_numpy(pm.state_dict(), cfg), jp, losses, grads,
+            int(state.step))
+
+
+def _param_errors(got, ref, grads):
+    """The worst ``|port - JAX|`` after the steps over every parameter
+    element whose JAX grad stayed above ``GRAD_FLOOR`` of its leaf's
+    largest magnitude at every step, and the worst over the rest."""
+    steady, floor = 0.0, 0.0
+    for path, r in jax.tree_util.tree_leaves_with_path(ref):
+        g, keep = got, None
+        for key in path:
+            g = g[key.key]
+        for _, _, jg in grads:
+            for key in path:
+                jg = jg[key.key]
+            jg = np.abs(np.asarray(jg, np.float32))
+            above = jg > GRAD_FLOOR * jg.max()
+            keep = above if keep is None else keep & above
+        diff = np.abs(np.asarray(g, np.float32) - np.asarray(r, np.float32))
+        steady = max(steady, float(diff[keep].max(initial=0.0)))
+        floor = max(floor, float(diff[~keep].max(initial=0.0)))
+    return steady, floor
+
+
+def test_five_step_fp32_trajectory_matches_jax():
+    """Each step's loss (1e-5) against JAX's, and every grad leaf (1e-6)
+    against JAX's at the same params; after five steps every parameter
+    element whose JAX grad stayed above the rounding floor at 5e-5, and
+    the elements whose grad fell to it at ``lr`` a step, the law Adam
+    gives them."""
+    got, ref, losses, grads, steps = _trajectory()
+    assert steps == TRAJ_STEPS
+    for port_loss, jax_loss in losses:
+        np.testing.assert_allclose(port_loss, jax_loss, atol=1e-5)
+    for port_grads, same_point, _ in grads:
+        _assert_trees_close(port_grads, same_point, atol=1e-6)
+    steady, floor = _param_errors(got, ref, grads)
+    assert steady <= 5e-5, steady
+    assert floor <= TRAJ_LR * TRAJ_STEPS, floor
+
+
+def test_five_step_trajectory_check_catches_a_wrong_bias_correction():
+    """The trajectory check fails a port whose Adam counts its steps from
+    1 (every bias correction one step late): the elements with steady
+    grads move ~25% of lr less at step 1."""
+    got, ref, _, grads, steps = _trajectory(step_offset=1)
+    assert steps == TRAJ_STEPS + 1
+    steady, _ = _param_errors(got, ref, grads)
+    assert steady > 5e-5, steady
 
 
 # ---------------------------------------------------------------------------
