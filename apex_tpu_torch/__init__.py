@@ -21,7 +21,10 @@ vocab-parallel cross-entropy (:mod:`apex_tpu_torch.transformer`). Across
 ranks of ``torch.distributed`` it lays out the reference's process groups
 (:mod:`apex_tpu_torch.transformer.parallel_state`) and trains with data
 parallelism and ZeRO-1 (:mod:`apex_tpu_torch.parallel`,
-:mod:`apex_tpu_torch.optimizers`). Public entry points default to
+:mod:`apex_tpu_torch.optimizers`), tensor and sequence parallelism
+(:mod:`apex_tpu_torch.transformer.tensor_parallel`) and pipelines
+(:mod:`apex_tpu_torch.transformer.pipeline_parallel`), all three at once
+in :class:`apex_tpu_torch.training.GPTHybridTrainer`. Public entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
 
 The subpackages resolve on first attribute access, as the reference's do

@@ -21,6 +21,20 @@ tree is told from a GPT one by its token-type table
 through a ``uint16`` view, since ``torch.from_numpy`` refuses numpy's bf16
 extension dtype.
 
+Pipeline parallelism: ``pipeline_layers`` gives the global layers of a
+pipeline rank's chunks (chunk ``c`` on rank ``d`` is global stage ``c *
+pp + d``), ``split_pipeline_state`` cuts a state dict into a rank's stage
+(``"<j>.<layer leaf>"``, or ``"<c>.<j>.<layer leaf>"`` with chunks, the
+names of the ``nn.ModuleList`` ``GPTModel.stage_fn`` gives) and the shared
+parameters (``embedding.*``, ``final_ln.*``, the names of the trainer's
+``nn.ModuleDict``), and ``join_pipeline_state`` is its inverse.
+``hybrid_state_from_jax`` takes one rank's stage and shared state dicts
+(and, with an optimizer state, its Adam moments) from the JAX
+``GPTHybridTrainer`` state, whose stage leaves are stacked ``(pp, per,
+...)`` (``(chunks, pp, per, ...)`` with chunks), composing with the tensor
+shards of ``params_from_jax``; ``stack_hybrid_state`` restacks every
+rank's pair into that layout.
+
 ``resnet_params_from_jax`` and ``resnet_params_to_numpy`` do the same for
 ResNet-50: the ``ResNet50.init`` params and ``BatchNormState`` trees
 become one state dict of :class:`apex_tpu_torch.models.resnet.ResNet50`
@@ -56,13 +70,15 @@ the inverse.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_numpy", "stack_tp_params",
-           "split_tp_state", "resnet_params_from_jax",
+           "split_tp_state", "pipeline_layers", "split_pipeline_state",
+           "join_pipeline_state", "hybrid_state_from_jax",
+           "stack_hybrid_state", "resnet_params_from_jax",
            "resnet_params_to_numpy", "mlp_params_from_jax",
            "module_params_from_jax", "optimizer_state_from_jax",
            "rnn_params_from_jax", "rnn_params_to_numpy",
@@ -210,6 +226,115 @@ def split_tp_state(state_dict, cfg, tp: int, rank: int
         part = t if dim is None else t.chunk(tp, dim)[rank]
         out[name] = part.detach().clone()
     return out
+
+
+def pipeline_layers(num_layers: int, pp: int, pp_rank: int,
+                    chunks: int = 1) -> List[List[int]]:
+    """The global layer indices of each chunk of pipeline rank
+    ``pp_rank``: chunk ``c`` is global stage ``c * pp + pp_rank`` of ``pp
+    * chunks`` equal stages."""
+    stages = pp * chunks
+    if num_layers % stages:
+        raise ValueError(f"{num_layers} layers do not split into {stages} "
+                         "equal stages")
+    per = num_layers // stages
+    return [list(range((c * pp + pp_rank) * per,
+                       (c * pp + pp_rank + 1) * per)) for c in range(chunks)]
+
+
+def _stage_name(c: int, j: int, leaf: str, chunks: int) -> str:
+    return f"{j}.{leaf}" if chunks == 1 else f"{c}.{j}.{leaf}"
+
+
+def split_pipeline_state(state_dict, cfg, pp: int, pp_rank: int,
+                         chunks: int = 1):
+    """``(stage, shared)`` state dicts of pipeline rank ``pp_rank`` from a
+    GPT state dict (one tensor rank's): the rank's layers renamed by
+    their place in its stage, and the embedding and final LayerNorm."""
+    layer_of = {i: (c, j) for c, ids in enumerate(
+        pipeline_layers(cfg.num_layers, pp, pp_rank, chunks))
+        for j, i in enumerate(ids)}
+    stage, shared = {}, {}
+    for name, t in state_dict.items():
+        if name.startswith("layers."):
+            _, i, leaf = name.split(".", 2)
+            if int(i) in layer_of:
+                stage[_stage_name(*layer_of[int(i)], leaf, chunks)] = t
+        else:
+            shared[name] = t
+    return stage, shared
+
+
+def join_pipeline_state(stages, shared, cfg, pp: int, chunks: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """A GPT state dict from every pipeline rank's stage state dict (in
+    rank order) and the shared one: the inverse of
+    :func:`split_pipeline_state`."""
+    out = dict(shared)
+    for rank, stage in enumerate(stages):
+        ids = pipeline_layers(cfg.num_layers, pp, rank, chunks)
+        for name, t in stage.items():
+            parts = name.split(".", 1 if chunks == 1 else 2)
+            c, j, leaf = ((0, *parts) if chunks == 1 else parts)
+            out[f"layers.{ids[int(c)][int(j)]}.{leaf}"] = t
+    return out
+
+
+def _hybrid_tree(stage_stack, shared, num_layers: int, chunks: int) -> dict:
+    """The ``GPTModel.init`` tree from a hybrid trainer's stacked stage
+    leaves (``(pp, per, ...)`` or ``(chunks, pp, per, ...)``, whose
+    leading dims flatten into the global layer order) and shared params."""
+    lead = 2 if chunks == 1 else 3
+    layers = {k: {leaf: np.asarray(a).reshape(num_layers,
+                                              *np.shape(a)[lead:])
+                  for leaf, a in node.items()}
+              for k, node in stage_stack.items()}
+    return {"embedding": shared["embedding"], "final_ln": shared["final_ln"],
+            "layers": layers}
+
+
+def hybrid_state_from_jax(stage_stack, shared, cfg, pp: int, pp_rank: int,
+                          tp_rank: int = 0, chunks: int = 1,
+                          opt_state=None):
+    """One rank's ``(stage, shared)`` state dicts (CPU tensors) from the
+    JAX ``GPTHybridTrainer`` state with numpy leaves: ``stage_stack`` with
+    leaves ``(pp, per, ...)`` (``(chunks, pp, per, ...)`` with chunks),
+    ``shared`` the embedding and final LayerNorm; the tensor shards are
+    rank ``tp_rank``'s. With ``opt_state`` (a JAX ``AdamState`` over
+    ``(stage_stack, shared)``) also the port's ``AdamState`` over the
+    trainer's parameter tree ``(stage, shared)``, moments under the same
+    names."""
+    def cut(stack, sh):
+        tree = _hybrid_tree(stack, sh, cfg.num_layers, chunks)
+        return split_pipeline_state(params_from_jax(tree, cfg, tp_rank),
+                                    cfg, pp, pp_rank, chunks)
+
+    stage, sh = cut(stage_stack, shared)
+    if opt_state is None:
+        return stage, sh
+    from apex_tpu_torch.optimizers import AdamState
+    return stage, sh, AdamState(
+        step=torch.tensor(int(np.asarray(opt_state.step)),
+                          dtype=torch.int32),
+        exp_avg=cut(*opt_state.exp_avg), exp_avg_sq=cut(*opt_state.exp_avg_sq))
+
+
+def stack_hybrid_state(states, cfg, pp: int, tp: int = 1, chunks: int = 1):
+    """The JAX ``GPTHybridTrainer`` layout ``(stage_stack, shared)``
+    (numpy leaves) from every rank's ``(stage, shared)`` state dicts
+    (or grads, or moments), ``states[pp_rank][tp_rank]``; the shared
+    leaves are pipeline rank 0's."""
+    full = [join_pipeline_state([states[p][t][0] for p in range(pp)],
+                                states[0][t][1], cfg, pp, chunks)
+            for t in range(tp)]
+    tree = stack_tp_params(full, cfg)
+    lead = (chunks, pp) if chunks > 1 else (pp,)
+    per = cfg.num_layers // (pp * chunks)
+    stack = {k: {leaf: a.reshape(*lead, per, *a.shape[1:])
+                 for leaf, a in node.items()}
+             for k, node in tree["layers"].items()}
+    return stack, {"embedding": tree["embedding"],
+                   "final_ln": tree["final_ln"]}
 
 
 _BN_STATE = ("running_mean", "running_var", "num_batches_tracked")

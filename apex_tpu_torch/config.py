@@ -12,12 +12,16 @@ process groups (:mod:`apex_tpu_torch.transformer.parallel_state`), and
 
 A GPT model builds at tensor parallelism above 1, with sequence
 parallelism and its comm overlap, on the tensor group of the installed
-mesh (:meth:`TrainConfig.initialize_mesh` first). What needs an unported
-piece raises ``NotImplementedError`` naming its queue item: a model at
-pipeline or context parallelism above 1, the microbatch calculator and
-the samplers (A5c); the health watchdog (A7a); ``ddp_bucket_bytes=
-"auto"``, which pyprof's roofline tuner resolves (A7b). Unknown names
-raise the reference's ``ValueError``.
+mesh (:meth:`TrainConfig.initialize_mesh` first), and at pipeline
+parallelism above 1, where it holds every layer and
+:class:`~apex_tpu_torch.training.GPTHybridTrainer` cuts out a rank's
+stage. :meth:`TrainConfig.build_microbatch_calculator` and
+:meth:`TrainConfig.build_sampler` build the reference's calculator and
+Megatron samplers. What needs an unported piece raises
+``NotImplementedError`` naming its queue item: a model at context
+parallelism above 1 (A5d); the health watchdog (A7a);
+``ddp_bucket_bytes="auto"``, which pyprof's roofline tuner resolves
+(A7b). Unknown names raise the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -187,13 +191,11 @@ class TrainConfig:
                                    ddp_bucket_bytes=bucket_bytes)
 
     # -- builders -----------------------------------------------------------
-    def _no_pipeline(self) -> None:
-        p = self.parallel
-        for name, size in (("pipeline", p.pipeline_model_parallel_size),
-                           ("context", p.context_parallel_size)):
-            if size > 1:
-                raise _unported(f"a model at {name} parallelism (size "
-                                f"{size})", "A5c")
+    def _no_context_parallel(self) -> None:
+        size = self.parallel.context_parallel_size
+        if size > 1:
+            raise _unported(f"a model at context parallelism (size {size})",
+                            "A5d")
 
     def build_policy(self):
         from apex_tpu_torch.amp import get_policy
@@ -210,8 +212,10 @@ class TrainConfig:
         """The model on ``device`` (default the card), parameters
         allocated and not initialized: call its ``init(generator)`` or load
         a state dict. A GPT at tensor parallelism above 1 holds this
-        rank's shards of the installed mesh's tensor group."""
-        self._no_pipeline()
+        rank's shards of the installed mesh's tensor group; at pipeline
+        parallelism above 1 it holds every layer (a rank's stage is cut
+        out by ``GPTModel.stage_fn``)."""
+        self._no_context_parallel()
         pol = self.build_policy()
         m = self.model
         if m.name == "gpt":
@@ -295,12 +299,34 @@ class TrainConfig:
         raise _unported("the numerics watchdog (HealthConfig)", "A7a")
 
     def build_microbatch_calculator(self, data_parallel_size: int):
-        raise _unported("the microbatch calculator", "A5c")
+        """The microbatch calculator of this batch config (constant, or
+        ramped by ``rampup_batch_size``)."""
+        from apex_tpu_torch.transformer.pipeline_parallel.microbatches \
+            import build_num_microbatches_calculator
+        ram = (list(self.batch.rampup_batch_size)
+               if self.batch.rampup_batch_size else None)
+        return build_num_microbatches_calculator(
+            rank=0, rampup_batch_size=ram,
+            global_batch_size=self.batch.global_batch_size,
+            micro_batch_size=self.batch.micro_batch_size,
+            data_parallel_size=data_parallel_size)
 
     def build_sampler(self, total_samples: int, consumed_samples: int,
                       data_parallel_rank: int, data_parallel_size: int,
                       shuffle: bool = False):
-        raise _unported("the Megatron pretraining samplers", "A5c")
+        """A Megatron pretraining sampler whose local minibatch is
+        ``global_batch_size / data_parallel_size``, shuffled with
+        ``shuffle``."""
+        from apex_tpu_torch.transformer._data import (
+            MegatronPretrainingRandomSampler, MegatronPretrainingSampler)
+        local = self.batch.global_batch_size // data_parallel_size
+        cls = (MegatronPretrainingRandomSampler if shuffle
+               else MegatronPretrainingSampler)
+        return cls(total_samples=total_samples,
+                   consumed_samples=consumed_samples,
+                   local_minibatch_size=local,
+                   data_parallel_rank=data_parallel_rank,
+                   data_parallel_size=data_parallel_size)
 
     def initialize_mesh(self, devices=None):
         """:func:`~apex_tpu_torch.transformer.parallel_state.

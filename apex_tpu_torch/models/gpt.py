@@ -75,7 +75,14 @@ come from a generator folded with the tensor rank, and so do the hidden
 and embedding masks under sequence parallelism (each rank drops its own
 shard); without it the hidden masks are the caller's, the same on every
 rank. The serving legs refuse tp > 1 and sequence parallelism, as the
-reference does. Still to come: the pipeline split.
+reference does.
+
+Pipeline parallelism: :meth:`GPTModel.stage_fn` cuts the layer stack into
+equal stages (a rank's stage is an ``nn.ModuleList`` of its layers) and
+:meth:`GPTModel.pipeline_fns` adds the pipelined embedding (global stage
+0) and the final LayerNorm, tied head and LM loss (the last stage) over
+the shared parameters, for the schedules of
+:mod:`apex_tpu_torch.transformer.pipeline_parallel.schedules`.
 """
 
 from __future__ import annotations
@@ -395,9 +402,13 @@ class GPTModel(nn.Module):
         ``generator``, embedding dropout at the hidden rate. Under
         sequence parallelism: this rank's sequence shard, its dropout
         from a rank-folded generator."""
+        return self._embed(self.embedding, tokens, generator)
+
+    def _embed(self, embedding: _Embedding, tokens: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
-        h = self.embedding.word(tokens)
-        pos = self.embedding.position[: tokens.shape[1]]
+        h = embedding.word(tokens)
+        pos = embedding.position[: tokens.shape[1]]
         h = (h + pos).to(cfg.compute_dtype)
         if cfg.sequence_parallel:
             h = scatter_to_sequence_parallel_region(h, TENSOR_AXIS,
@@ -499,9 +510,13 @@ class GPTModel(nn.Module):
         tp > 1 this rank's vocab shard of them (the hidden state enters
         the region through copy-to-region: its gradient is summed over
         the group)."""
+        return self._logits(self.embedding.word.weight, x)
+
+    def _logits(self, word_weight: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tensor_model_parallel_size > 1:
             x = copy_to_tensor_model_parallel_region(x)
-        w = self.embedding.word.weight.to(x.dtype)
+        w = word_weight.to(x.dtype)
         return torch.matmul(x.float(), w.float().t())
 
     def forward(self, tokens: torch.Tensor, kv_cache=None, slot=None,
@@ -590,6 +605,84 @@ class GPTModel(nn.Module):
             mask = loss_mask.to(per_tok.dtype)
             return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return per_tok.mean()
+
+    # -- pipeline integration -----------------------------------------------
+
+    def stage_fn(self, num_stages: int):
+        """``(stage, split_params)`` for the pipeline schedules: the layer
+        stack cut into ``num_stages`` equal stages; the embedding and the
+        head stay outside (:meth:`pipeline_fns`). ``stage(stage_params, x,
+        stage_idx)`` runs each layer of ``stage_params`` (a sequence of
+        this model's layers) on ``x`` with no dropout, each wrapped by the
+        remat policy; ``split_params(model)`` gives the ``num_stages``
+        stages of a model's layers (or of a sequence of layers), each an
+        ``nn.ModuleList`` sharing the layers' parameters. Raises, as the
+        reference does, when ``num_stages`` does not divide the layers,
+        and under sequence parallelism at ``num_stages > 1``."""
+        if self.cfg.num_layers % num_stages:
+            raise ValueError(
+                f"num_layers ({self.cfg.num_layers}) must be divisible by "
+                f"num_stages ({num_stages})")
+        if self.cfg.sequence_parallel and num_stages > 1:
+            raise NotImplementedError(
+                "sequence_parallel does not compose with a real pipeline "
+                "split yet: the inter-stage activations would cross the "
+                "pipe axis as sequence shards and the shared LN grads "
+                "would skip sp_grad_sync. num_stages == 1 (the hybrid "
+                "trainer at pp=1) is supported — embed scatters and the "
+                "head gathers, mirroring transform()")
+        per = self.cfg.num_layers // num_stages
+        layer_fn = self.remat_policy.wrap(self._layer)
+
+        def stage(stage_params, x: torch.Tensor, stage_idx) -> torch.Tensor:
+            for lp in stage_params:
+                x = layer_fn(lp, x)
+            return x
+
+        def split_params(model) -> list:
+            layers = getattr(model, "layers", model)
+            return [nn.ModuleList(layers[s * per:(s + 1) * per])
+                    for s in range(num_stages)]
+
+        return stage, split_params
+
+    def pipeline_fns(self, num_stages: int, targets: torch.Tensor):
+        """The whole model as a pipeline: global stage 0 embeds the tokens,
+        the last stage runs the final LayerNorm, the tied head and the LM
+        loss, the layer stages lie between (upstream's pre_process and
+        post_process). The embedding and the final LayerNorm are shared
+        over the pipeline: the schedules sum their grads over the group
+        (the tied embedding's two contributions, from the first and the
+        last stage).
+
+        ``targets``: ``(M, mb, seq)`` labels, microbatch ``m``'s loss
+        against ``targets[m]``. Returns ``(stage_fn, embed_fn,
+        head_loss_fn, split_params, shared_of)`` for the schedules'
+        ``shared_params``/``embed_fn``: feed token microbatches ``(M, mb,
+        seq)`` as the batch; ``shared_of(model)`` is ``{"embedding",
+        "final_ln"}`` of a model. At tp > 1 the loss is vocab-parallel
+        cross-entropy; under sequence parallelism (one stage) the head
+        gathers the sequence after the final LayerNorm, as
+        :meth:`transform` does."""
+        stage, split_params = self.stage_fn(num_stages)
+
+        def shared_of(model) -> dict:
+            return {"embedding": model.embedding, "final_ln": model.final_ln}
+
+        def embed_fn(shared: dict, tokens: torch.Tensor) -> torch.Tensor:
+            return self._embed(shared["embedding"], tokens)
+
+        def head_loss_fn(shared: dict, y: torch.Tensor, m) -> torch.Tensor:
+            x = self._ln(shared["final_ln"], y)
+            if self.cfg.sequence_parallel:
+                x = gather_from_sequence_parallel_region(
+                    x, TENSOR_AXIS, seq_axis=1, invariant=True)
+            logits = self._logits(shared["embedding"].word.weight, x)
+            return self._lm_loss(
+                logits, targets[m], None,
+                vocab_parallel=self.cfg.tensor_model_parallel_size > 1)
+
+        return stage, embed_fn, head_loss_fn, split_params, shared_of
 
     # -- serving: KV-cached prefill/decode ----------------------------------
 

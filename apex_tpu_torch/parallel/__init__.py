@@ -11,7 +11,7 @@
 - the ``LARC`` re-export (it lives with the optimizers).
 
 The reference's ``spatial`` halo exchange comes with context
-parallelism (queue item A5c).
+parallelism (queue item A5d).
 """
 
 from typing import List, Optional

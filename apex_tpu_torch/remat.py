@@ -181,8 +181,10 @@ class RematPolicy:
         return self.names if self.names is not None else SELECTIVE_SAVE
 
     def wrap(self, fn: Callable) -> Callable:
-        """``fn`` under this policy (``fn`` itself for ``none``). Without
-        grad mode the wrapped function is ``fn``'s plain call."""
+        """``fn`` under this policy (``fn`` itself for ``none``): a layer
+        function, or a pipeline stage ``fn(params, x, stage_idx)`` (the
+        schedules' ``remat`` flag), whatever its arguments. Without grad
+        mode the wrapped function is ``fn``'s plain call."""
         if self.mode == "none":
             return fn
         if self.mode == "full":
@@ -209,8 +211,8 @@ class RematPolicy:
         ``value``: ``None`` | mode string | bool | :class:`RematPolicy`.
         ``legacy_bool``: the deprecated ``remat: bool`` config field,
         consulted only when ``value`` is None: ``True`` maps to ``full``
-        with a :class:`DeprecationWarning`. A bool passed as ``value`` maps
-        silently.
+        with a :class:`DeprecationWarning`. A bool passed as ``value`` (the
+        pipeline schedules' ``remat`` flag) maps silently.
         """
         if isinstance(value, cls):
             return value

@@ -4,12 +4,14 @@ matmuls, the RNG tracker and vocab-parallel cross-entropy), the
 sequence-parallel regions of ``context_parallel``, the grad scaler, the
 fused scale-mask softmax (also as ``functional``, as the reference
 aliases it), the enums, and ``parallel_state``, the process groups of the
-(pipe, data, context, tensor) mesh. ``pipeline_parallel``,
-``expert_parallel`` and context parallelism's attention come with queue
-item A5c."""
+(pipe, data, context, tensor) mesh, and ``pipeline_parallel``, the
+schedules, stage hops and microbatch calculators (its names resolve on
+first access). ``expert_parallel`` and context parallelism's attention
+come with queue item A5d."""
 
 from apex_tpu_torch.transformer import (  # noqa: F401
-    amp, context_parallel, parallel_state, tensor_parallel)
+    amp, context_parallel, parallel_state, pipeline_parallel,
+    tensor_parallel)
 from apex_tpu_torch.transformer.enums import (  # noqa: F401
     AttnMaskType, AttnType, LayerType, ModelType)
 from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
@@ -18,5 +20,5 @@ from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
 from apex_tpu_torch.ops import fused_softmax as functional  # noqa: F401
 
 __all__ = ["amp", "context_parallel", "functional", "parallel_state",
-           "tensor_parallel", "AttnMaskType", "AttnType", "LayerType",
+           "pipeline_parallel", "tensor_parallel", "AttnMaskType", "AttnType", "LayerType",
            "ModelType", "FusedScaleMaskSoftmax"]

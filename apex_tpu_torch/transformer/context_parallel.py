@@ -29,7 +29,7 @@ the same gradients.
 The reference's layout is ``(s, b, h)``, so ``seq_axis`` defaults to 0;
 the port's models pass 1. A sequence the group does not divide raises
 ``ValueError``. ``ring_attention`` and ``ulysses_attention`` come with
-context parallelism (queue item A5c).
+context parallelism (queue item A5d).
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ context stay inside a node, as :func:`_dcn_device_grid` gives it
 
 The data axis carries data parallelism and ZeRO; the tensor axis the
 tensor- and sequence-parallel layers, their mappings and the ring
-collective matmuls. pp and cp above 1 build their groups, while what
-would use them (pipelines and context parallelism, queue item A5c) is not
-ported yet.
+collective matmuls; the pipe axis the pipeline schedules' stage hops and
+the shared parameters' grad sum. cp above 1 builds its groups, while
+what would use them (context parallelism's attention, queue item A5d) is
+not ported yet.
 """
 
 from __future__ import annotations

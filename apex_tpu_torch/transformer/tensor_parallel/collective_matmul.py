@@ -41,14 +41,11 @@ cuBLAS a whole-sequence product and the ring's chunk products can differ
 in the last bit, as the kernel is chosen by the row count.
 
 **Transport.** A hop is one ``torch.distributed.batch_isend_irecv`` of a
-send to the next rank and a receive from the previous one. On NCCL the
-hop sends the tensor where it lies. Gloo has no point-to-point path for
-CUDA tensors: its send and receive hand the device pointer to the
-socket, and the process dies (``writev ... Bad address``, torch
-2.11.0+cu128 on an H100). So on a gloo group a CUDA tensor's hop is
-staged through host tensors: copied to the host, sent, received into a
-host tensor and copied back. The choice is made by the group's backend,
-before any send.
+send to the next rank and a receive from the previous one, through
+:func:`apex_tpu_torch.parallel._p2p.exchange`, which the pipeline's stage
+hops share: on NCCL the tensor is sent where it lies, and on a gloo group
+a CUDA tensor is staged through host tensors (gloo has no
+point-to-point path for CUDA tensors).
 """
 
 from __future__ import annotations
@@ -58,6 +55,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from apex_tpu_torch.parallel._p2p import exchange
 from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     all_gather, reduce_scatter, tensor_group)
@@ -76,18 +74,10 @@ class _Ring:
         ranks: List[int] = dist.get_process_group_ranks(group)
         self.next = ranks[(self.rank + 1) % self.size]
         self.prev = ranks[(self.rank - 1) % self.size]
-        self.staged = dist.get_backend(group) == "gloo"
 
     def hop(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the next rank; the previous rank's ``t``."""
-        staged = self.staged and t.is_cuda
-        send = t.detach().to("cpu") if staged else t.detach().contiguous()
-        recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, self.next, self.group),
-               dist.P2POp(dist.irecv, recv, self.prev, self.group)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return recv.to(t.device) if staged else recv
+        return exchange([(t, self.next)], [(t, self.prev)], self.group)[0]
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor, w_axis: int) -> torch.Tensor:

@@ -368,7 +368,32 @@ non-zero and prints no result. Phases, each fatal on failure:
    overlap loss and grads bit for bit its fused SP ones; a NaN in rank
    1's grads skipping the step on both ranks; B1-B3 at 6 local heads
    ``(4, 6, 1024, 64)`` against their plain versions;
-27. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+27. ``pp_gpt``: pipeline parallelism at pp 2, two processes on the card
+   over gloo as in 25 (the stage hops staged through host tensors):
+   GPT-small from seed 0, 6 layers a stage, ``train``'s 8 x 1024 batch as
+   4 microbatches of 2 x 1024 with the embedding on the first stage and
+   the final LayerNorm, tied head and loss on the last (``GPTModel.
+   pipeline_fns``): step 0's loss and every grad leaf of 1F1B against the
+   one-rank ``forward_backward_no_pipelining`` on the same weights (the
+   leaves bit for bit counted, any gap within ``TOL_TRAIN_*``), the
+   all-forward order and the interleaved schedule (2 chunks a rank, 4
+   stages of 3 layers) against it and bit for bit against 1F1B by
+   digest; each rank's peak memory under 1F1B and the all-forward order
+   at M 4 and 8 (1F1B's within ``PP_PEAK_SLACK``, the all-forward
+   order's growing by ``PP_GROWTH_SHARE`` of 4 more microbatches'
+   graphs at least); each run's launches against the schedule's (24 of
+   B1-B3 a rank a step, 48 and 52 of B7/B8); 3 steps of ``FusedAdam``
+   and ``DynamicLossScale`` with the finite flag over the pipeline group,
+   the host-clock step ms (gloo over loopback), and a NaN in rank 1's
+   grads skipping both ranks;
+28. ``hybrid_gpt``: ``GPTHybridTrainer`` from a ``TrainConfig`` (O2, adam)
+   at tp 2 x pp 2 x dp 1, four processes on the card over gloo:
+   GPT-small from seed 0, 2 microbatches of 2 x 1024 (``tp_gpt``'s
+   batch): step 0's loss and grads against the one-rank tp = 1 step on
+   the same weights and batch within ``TOL_TP_*``, every rank's losses
+   over 2 steps equal, the launches a rank a step (12 of B1-B3, 24 and 26
+   of B7/B8), the step ms, and a NaN in rank 1's grads skipping all four;
+29. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -7563,9 +7588,10 @@ def zero_gpt(torch, kern, card: str) -> tuple:
     return launches, l_z, b_z, zopt._layout.total
 
 
-def _rank_setup(tp: int = 1):
-    """A two-rank body's start: the kernels the parent built, the mesh
-    (``tp`` ranks a tensor group), the parent's precision settings."""
+def _rank_setup(tp: int = 1, pp: int = 1):
+    """A rank body's start: the kernels the parent built, the mesh (``tp``
+    ranks a tensor group, ``pp`` a pipeline group), the parent's precision
+    settings."""
     import torch
     from apex_tpu_torch import _kernels as kern
     from apex_tpu_torch.transformer import parallel_state as ps
@@ -7574,9 +7600,10 @@ def _rank_setup(tp: int = 1):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if (not ps.model_parallel_is_initialized()
-            or ps.get_tensor_model_parallel_world_size() != tp):
+            or ps.get_tensor_model_parallel_world_size() != tp
+            or ps.get_pipeline_model_parallel_world_size() != pp):
         ps.destroy_model_parallel()
-        ps.initialize_model_parallel(tp)
+        ps.initialize_model_parallel(tp, pp)
     return torch, kern
 
 
@@ -8152,6 +8179,561 @@ def tp_gpt(torch, fa, kern, card: str) -> dict:
     return launches
 
 
+# -- pipeline parallelism: ranks on the card over gloo ----------------------
+PP_WORLD = 2
+PP_MICRO = (4, 2)          # M microbatches of 2 x 1024: train's 8 x 1024
+PP_MICRO_LONG = 8          # the memory check's second M (16 x 1024)
+PP_STEPS = 3
+PP_LR = 1e-4
+PP_SCALE = 2.0 ** 12       # the loss scale of train's step
+PP_CHUNKS = 2              # the interleaved leg: 4 stages of 3 layers
+# 1F1B's peak memory on a rank at M 8 against M 4: as many microbatches in
+# flight (pp - rank), so only the token tensors of 4 more microbatches
+# (16 KiB each) and the allocator's rounding may add. The all-forward
+# order keeps every microbatch's graph, so its peak must grow by at
+# least half of what 4 more microbatches' graphs take (one microbatch's:
+# the two orders' peaks at M 4 apart, over the microbatches they hold
+# apart)
+PP_PEAK_SLACK = 64 << 20
+PP_GROWTH_SHARE = 0.5
+# the hybrid trainer: tp 2 x pp 2 x dp 1 (four ranks), M 2 microbatches of
+# 2 x 1024 (tp_gpt's 4 x 1024), 2 steps; held to the tp = 1 step within
+# TOL_TP_LOSS and TOL_TP_GRAD
+HYBRID_TP, HYBRID_PP = 2, 2
+HYBRID_MICRO = (2, 2)
+HYBRID_STEPS = 2
+
+
+def pp_launches(L: int, stages: int, rank: int, chunks: int, M: int) -> dict:
+    """A pipeline rank's launches for one forward and backward of ``M``
+    microbatches: each of its layers runs each flash kernel once a
+    microbatch and each LayerNorm kernel twice, the last stage the final
+    LayerNorm too (no recompute)."""
+    layers = L // (stages * chunks) * chunks
+    last = stages - 1 == rank
+    ln = M * (2 * layers + int(last))
+    return {"flash_fwd": M * layers, "flash_bwd_dq": M * layers,
+            "flash_bwd_dkv": M * layers, "ln_fwd": ln, "ln_bwd": ln}
+
+
+def check_pp_counts(counts: dict, want: dict, what: str) -> None:
+    for name, n in want.items():
+        check(counts[name] == n,
+              f"{what}: {name} launched {counts[name]} times, not {n}")
+
+
+def _grads_by_name(torch, sg, shg, ids) -> dict:
+    """The schedule's chunk grads (``"<j>.<leaf>"``, chunk by chunk) and
+    shared grads under the model's parameter names."""
+    out = {}
+    for c, grads in enumerate(sg):
+        for name, g in grads.items():
+            j, leaf = name.split(".", 1)
+            out[f"layers.{ids[c][int(j)]}.{leaf}"] = g
+    for name, g in shg.items():
+        if isinstance(g, dict):
+            out.update({f"{name}.{k}": v for k, v in g.items()})
+        else:
+            out[name] = g
+    return out
+
+
+def _compare(torch, got: dict, want: dict) -> dict:
+    """``{name: (bit for bit, ||got - want|| / ||want||, max |got -
+    want|, sha256 of got's bytes)}`` over ``got``'s names."""
+    out = {}
+    for n, g in got.items():
+        w = want[n].to(g.device, torch.float32)
+        d = g.float() - w
+        out[n] = (bool(torch.equal(g.float(), w)),
+                  float(d.norm() / w.norm().clamp(min=1e-30)),
+                  float(d.abs().max()),
+                  hashlib.sha256(g.detach().float().cpu().numpy().tobytes()
+                                 ).hexdigest())
+    return out
+
+
+def rank_pp(ref_path: str) -> dict:
+    """A pipeline rank of GPT-small at pp 2 (seed 0, 6 layers a stage):
+    step 0's 1F1B grads against the one-rank schedule's (``ref_path``),
+    the all-forward order and the interleaved schedule against 1F1B, the
+    peak memory of both orders at M 4 and 8, ``PP_STEPS`` training steps
+    (FusedAdam, DynamicLossScale) and a NaN step."""
+    torch, kern = _rank_setup(pp=PP_WORLD)
+    import numpy as np
+    import torch.distributed as dist
+    from apex_tpu_torch._bridge import pipeline_layers
+    from apex_tpu_torch.amp import DynamicLossScale, all_finite
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as sc
+    from torch.utils._pytree import tree_leaves
+
+    rank = dist.get_rank()
+    # on the host: the peaks below are the schedules' own
+    ref = torch.load(ref_path, map_location="cpu")
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    model = GPTModel(cfg, device="cuda")
+    model.load_state_dict(init_state)
+    del init_state
+    L = cfg.num_layers
+    M, mb = PP_MICRO
+    seq = tokens.shape[1]
+    batches = {M: tokens.reshape(M, mb, seq), PP_MICRO_LONG: torch.from_numpy(
+        np.random.RandomState(1).randint(0, cfg.vocab_size, (
+            PP_MICRO_LONG, mb, seq))).to("cuda")}
+    out = {"runs": {}, "launches": {}}
+
+    def run(name: str, chunks: int, memory_efficient: bool, m: int):
+        toks = batches[m]
+        stage, embed_fn, head_fn, split, shared_of = model.pipeline_fns(
+            PP_WORLD * chunks, toks)
+        stages = split(model)
+        mine = [stages[c * PP_WORLD + rank] for c in range(chunks)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        if chunks == 1:
+            loss, (sg, shg) = \
+                sc.forward_backward_pipelining_without_interleaving(
+                    stage, toks, mine[0], loss_fn=head_fn,
+                    shared_params=shared_of(model), embed_fn=embed_fn,
+                    grad_scale=PP_SCALE, memory_efficient=memory_efficient)
+            sg = [sg]
+        else:
+            loss, (sg, shg) = sc.forward_backward_pipelining_with_interleaving(
+                stage, toks, mine, loss_fn=head_fn, num_model_chunks=chunks,
+                shared_params=shared_of(model), embed_fn=embed_fn,
+                grad_scale=PP_SCALE, memory_efficient=memory_efficient)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(kern.LAUNCHES)
+        check_pp_counts(counts, pp_launches(L, PP_WORLD, rank, chunks, m),
+                        f"pp_gpt rank {rank} {name}")
+        add_counts(out["launches"], counts)
+        out["runs"][name] = {"loss": float(loss), "ms": ms,
+                             "peak": torch.cuda.max_memory_allocated(),
+                             "counts": counts}
+        return float(loss), _grads_by_name(
+            torch, sg, shg, pipeline_layers(L, PP_WORLD, rank, chunks))
+
+    # each order's grads against the one-rank schedule's, with digests
+    # (the interleaved leg holds other layers than 1F1B's on a rank)
+    out["ref_loss"] = float(ref["loss"])
+    for name, chunks, efficient in (("1f1b", 1, True),
+                                    ("allfwd", 1, False),
+                                    ("interleaved", PP_CHUNKS, True)):
+        _, g = run(name, chunks, efficient, M)
+        out[name] = _compare(torch, g, ref["grads"])
+        del g
+    del ref
+    run("1f1b_long", 1, True, PP_MICRO_LONG)
+    run("allfwd_long", 1, False, PP_MICRO_LONG)
+    torch.cuda.empty_cache()
+
+    # training steps on this rank's stage (the other stage's layers to
+    # the meta device) and the shared params
+    stage_fn, embed_fn, head_fn, split, shared_of = model.pipeline_fns(
+        PP_WORLD, batches[M])
+    stages = split(model)
+    stages[1 - rank].to("meta")
+    mine, shared = stages[rank], shared_of(model)
+    params = (dict(mine.named_parameters()),
+              {k: dict(m.named_parameters()) for k, m in shared.items()})
+    opt, scaler = FusedAdam(lr=PP_LR), DynamicLossScale(init_scale=PP_SCALE)
+    state, carry = opt.init(params), {"ls": scaler.init(device="cuda")}
+
+    def step(poison: bool = False):
+        ls = carry["ls"]
+        loss, grads = sc.forward_backward_pipelining_without_interleaving(
+            stage_fn, batches[M], mine, loss_fn=head_fn,
+            shared_params=shared, embed_fn=embed_fn,
+            grad_scale=ls.loss_scale)
+        if poison and rank == 1:
+            next(iter(grads[0].values())).view(-1)[0] = float("nan")
+        finite = all_finite(grads, axis_names=("pipe",))
+        carry["ls"] = scaler.update(ls, finite)
+        opt.step(grads, state, params, grads_finite=finite)
+        return loss, finite
+
+    losses, times = [], []
+    for i in range(PP_STEPS):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        loss, finite = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(kern.LAUNCHES)
+        check_pp_counts(counts, pp_launches(L, PP_WORLD, rank, 1, M),
+                        f"pp_gpt rank {rank} step {i}")
+        check(bool(finite) and bool(torch.isfinite(loss)),
+              f"pp_gpt rank {rank} step {i}: loss {float(loss)} or grads "
+              "not finite")
+        add_counts(out["launches"], counts)
+        losses.append(float(loss))
+    out["losses"], out["ms"] = losses, median_ms(times)
+    before = [p.detach().clone() for p in tree_leaves(params)]
+    scale, count = float(carry["ls"].loss_scale), int(state.step)
+    kern.reset_launches()
+    _, finite = step(poison=True)
+    add_counts(out["launches"], kern.LAUNCHES)
+    out["nan"] = {"finite": bool(finite),
+                  "scale": (scale, float(carry["ls"].loss_scale)),
+                  "kept": all(torch.equal(a, b.detach()) for a, b in
+                              zip(before, tree_leaves(params))),
+                  "count": (count, int(state.step))}
+    del model, mine, shared, params, state, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def _peak_mib(run: dict) -> float:
+    return run["peak"] / 2 ** 20
+
+
+def pp_gpt(torch, kern, card: str) -> dict:
+    """Pipeline parallelism at pp 2: the one-rank schedule's step 0 (the
+    reference), then ``rank_pp`` on two processes of the card over gloo
+    (a correctness leg: its times are gloo over loopback and one card, no
+    speed of anything multi-GPU). Returns both ranks' launches."""
+    import shutil
+    import tempfile
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.parallel._spawn import RankPool
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as sc
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    M, mb = PP_MICRO
+    model = GPTModel(cfg, device="cuda")
+    model.load_state_dict(init_state)
+    del init_state
+    toks = tokens.reshape(M, mb, tokens.shape[1])
+    loss, grads = sc.forward_backward_no_pipelining(
+        lambda p, t: model.loss(t, t), toks, dict(model.named_parameters()),
+        grad_scale=PP_SCALE)
+    store = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    ref_path = f"{store}/ref.pt"
+    torch.save({"loss": loss.cpu(),
+                "grads": {n: g.detach().cpu() for n, g in grads.items()}},
+               ref_path)
+    del model, grads
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pool = RankPool(PP_WORLD, backend="gloo", device="cuda",
+                    pg_timeout=DIST_TIMEOUT)
+    try:
+        start_s = time.perf_counter() - t0
+        outs = pool.run(rank_pp, ref_path, timeout=DIST_TIMEOUT)
+    finally:
+        pool.close()
+        shutil.rmtree(store, ignore_errors=True)
+    launches = {}
+    for out in outs:
+        add_counts(launches, out["launches"])
+    print(f"pp_gpt: GPT-small at pp {PP_WORLD} "
+          f"({cfg.num_layers // PP_WORLD} layers a stage), "
+          f"{PP_WORLD} processes on one card over gloo (the stage hops "
+          f"staged through host tensors), {M} microbatches of {mb} x "
+          f"{tokens.shape[1]}, bf16 over fp32 params, grad scale "
+          f"{PP_SCALE:g}; limits: loss {TOL_TRAIN_LOSS}, grads "
+          f"{TOL_TRAIN_GRAD} (each leaf's relative norm); pool started in "
+          f"{start_s:.1f} s [{card}]")
+    ref_loss = outs[0]["ref_loss"]
+    l0 = {o["runs"]["1f1b"]["loss"] for o in outs}
+    check(len(l0) == 1, f"pp_gpt: the ranks' losses differ: {l0}")
+    (l0,) = l0
+    digests = {}
+    for key in ("1f1b", "allfwd", "interleaved"):
+        rows = [r for o in outs for r in o[key].items()]
+        check(len({n for n, _ in rows}) == len(gpt_leaf_names()),
+              f"pp_gpt {key}: {len({n for n, _ in rows})} grad leaves")
+        stage = [v for n, v in rows if n.startswith("layers.")]
+        shared = [(n, v) for n, v in rows if not n.startswith("layers.")]
+        worst = max(v[1] for _, v in rows)
+        check(worst <= TOL_TRAIN_GRAD,
+              f"pp_gpt {key} against the one-rank schedule: grads "
+              f"{sorted(rows, key=lambda r: -r[1][1])[:3]}")
+        digests[key] = {}
+        for n, v in rows:
+            digests[key].setdefault(n, set()).add(v[3])
+        by_name: dict = {}
+        for n, v in shared:
+            by_name.setdefault(n, []).append(v)
+        line = (f"pp_gpt {key} against the one-rank schedule: stage leaves "
+                f"bit for bit {sum(v[0] for v in stage)} of {len(stage)} "
+                f"(worst relative norm {max(v[1] for v in stage):.3g}, max "
+                f"|diff| {max(v[2] for v in stage):.3g}); shared leaves on "
+                f"both ranks " + ", ".join(
+                    f"{n} " + ("bit for bit" if all(v[0] for v in vs) else
+                               f"{max(v[1] for v in vs):.3g} (max |diff| "
+                               f"{max(v[2] for v in vs):.3g})")
+                    for n, vs in by_name.items()))
+        if key != "1f1b":
+            same = sum(digests[key][n] == digests["1f1b"][n]
+                       for n in digests["1f1b"])
+            line += (f"; against 1F1B's grads: {same} of "
+                     f"{len(digests['1f1b'])} leaves bit for bit")
+            got = {o["runs"][key]["loss"] for o in outs}
+            check(all(abs(x - l0) <= TOL_TRAIN_LOSS for x in got),
+                  f"pp_gpt {key}: loss {got} against 1F1B's {l0}")
+        print(line + f" [{card}]")
+    check(all(len(d) == 1 for d in digests["1f1b"].values()),
+          "pp_gpt: the pipeline ranks' shared grads differ")
+    check(abs(l0 - ref_loss) <= TOL_TRAIN_LOSS,
+          f"pp_gpt: step 0's loss {l0} against the one-rank {ref_loss}")
+    print(f"pp_gpt: step 0's loss {l0!r} against the one-rank schedule's "
+          f"{ref_loss!r} (|diff| {abs(l0 - ref_loss):.3g}); the all-forward"
+          f" order {outs[0]['runs']['allfwd']['loss']!r}, interleaved at "
+          f"{PP_CHUNKS} chunks a rank "
+          f"{outs[0]['runs']['interleaved']['loss']!r} [{card}]")
+    M2 = PP_MICRO_LONG
+    for r, o in enumerate(outs):
+        runs = o["runs"]
+        grow_1f1b = runs["1f1b_long"]["peak"] - runs["1f1b"]["peak"]
+        grow_all = runs["allfwd_long"]["peak"] - runs["allfwd"]["peak"]
+        held = M - min(PP_WORLD - r, M)
+        per_mb = (runs["allfwd"]["peak"] - runs["1f1b"]["peak"]) / max(held, 1)
+        check(grow_1f1b <= PP_PEAK_SLACK
+              and grow_all >= PP_GROWTH_SHARE * (M2 - M) * per_mb > 0,
+              f"pp_gpt rank {r}: peak MiB 1F1B {_peak_mib(runs['1f1b'])} -> "
+              f"{_peak_mib(runs['1f1b_long'])}, all-forward "
+              f"{_peak_mib(runs['allfwd'])} -> "
+              f"{_peak_mib(runs['allfwd_long'])}")
+        print(f"pp_gpt rank {r}: peak memory (torch.cuda.max_memory_"
+              f"allocated, MiB) at M {M} and {M2}: 1F1B "
+              f"{_peak_mib(runs['1f1b']):.1f} -> "
+              f"{_peak_mib(runs['1f1b_long']):.1f} (+{grow_1f1b / 2**20:.1f},"
+              f" slack {PP_PEAK_SLACK / 2**20:.0f}), all-forward "
+              f"{_peak_mib(runs['allfwd']):.1f} -> "
+              f"{_peak_mib(runs['allfwd_long']):.1f} "
+              f"(+{grow_all / 2**20:.1f}; a microbatch's graph "
+              f"{per_mb / 2**20:.1f}); launches a step "
+              f"{runs['1f1b']['counts']} (interleaved "
+              f"{runs['interleaved']['counts']}); schedule ms (host clock, "
+              f"gloo over loopback) 1F1B {runs['1f1b']['ms']:.1f} (the "
+              f"first call, warm-up included), all-forward "
+              f"{runs['allfwd']['ms']:.1f}, interleaved "
+              f"{runs['interleaved']['ms']:.1f} [{card}]")
+    for r, o in enumerate(outs):
+        nan = o["nan"]
+        check(o["losses"] == outs[0]["losses"],
+              f"pp_gpt: the ranks' step losses differ "
+              f"{[x['losses'] for x in outs]}")
+        check(not nan["finite"] and nan["kept"]
+              and nan["count"][0] == nan["count"][1]
+              and nan["scale"][1] == 0.5 * nan["scale"][0],
+              f"pp_gpt rank {r}: a NaN in rank 1's grads did not skip the "
+              f"step: {nan}")
+    nan = outs[0]["nan"]
+    print(f"pp_gpt: {PP_STEPS} steps (FusedAdam lr {PP_LR}, "
+          f"DynamicLossScale): losses {outs[0]['losses']} on both ranks; "
+          f"step ms by rank {[round(o['ms'], 1) for o in outs]} (host "
+          f"clock, gloo over loopback); a NaN in rank 1's grads: both "
+          f"ranks' flag false, params and step count kept, the scale "
+          f"{nan['scale'][0]:g} -> {nan['scale'][1]:g} [{card}]")
+    return launches
+
+
+def gpt_leaf_names() -> list:
+    """GPT-small's parameter names (4 embedding and final LayerNorm
+    leaves, 12 a layer)."""
+    names = ["embedding.word.weight", "embedding.position",
+             "final_ln.weight", "final_ln.bias"]
+    return names + [f"layers.{i}.{m}.{leaf}"
+                    for i in range(GPT_SMALL["num_layers"])
+                    for m in ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
+                    for leaf in ("weight", "bias")]
+
+
+def hybrid_config():
+    """GPT-small through ``TrainConfig`` at tp 2 x pp 2: O2 (bf16 compute,
+    fp32 params), Adam at lr ``TP_LR`` with no weight decay."""
+    from apex_tpu_torch.config import (BatchConfig, ModelConfig,
+                                       OptimizerConfig, ParallelConfig,
+                                       TrainConfig)
+    M, mb = HYBRID_MICRO
+    return TrainConfig(
+        model=ModelConfig(name="gpt", **GPT_SMALL),
+        parallel=ParallelConfig(tensor_model_parallel_size=HYBRID_TP,
+                                pipeline_model_parallel_size=HYBRID_PP),
+        batch=BatchConfig(global_batch_size=M * mb, micro_batch_size=mb),
+        optimizer=OptimizerConfig(name="adam", lr=TP_LR, weight_decay=0.0),
+        opt_level="O2")
+
+
+def rank_hybrid(ref_path: str) -> dict:
+    """A rank of ``GPTHybridTrainer`` at tp 2 x pp 2 from seed 0: step 0's
+    grads (the trainer's schedule on its initial state) against the tp = 1
+    step's cut to this rank, ``HYBRID_STEPS`` steps with their launches,
+    and a NaN in global rank 1's grads."""
+    torch, kern = _rank_setup()
+    import torch.distributed as dist
+    from apex_tpu_torch._bridge import (pipeline_layers, split_pipeline_state,
+                                        split_tp_state)
+    from apex_tpu_torch.training import GPTHybridTrainer
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as sc
+    from torch.utils._pytree import tree_leaves
+
+    cfg = hybrid_config()
+    ps.destroy_model_parallel()
+    mesh = cfg.initialize_mesh()
+    rank = dist.get_rank()
+    tp_rank = ps.get_tensor_model_parallel_rank()
+    pp_rank = ps.get_pipeline_model_parallel_rank()
+    trainer = GPTHybridTrainer(cfg, mesh, init_scale=PP_SCALE, device="cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    ref = torch.load(ref_path, map_location="cuda")
+    M, mb = HYBRID_MICRO
+    tokens = ref["tokens"].to("cuda").reshape(M, mb, -1)
+    mcfg = trainer.model.cfg
+    want = split_tp_state(ref["grads"], mcfg, HYBRID_TP, tp_rank)
+    del ref
+    stage_fn, embed_fn, head_fn, _, _ = trainer.model.pipeline_fns(
+        HYBRID_PP, tokens)
+    kern.reset_launches()
+    loss0, (sg, shg) = sc.forward_backward_pipelining_without_interleaving(
+        stage_fn, tokens, state[0], loss_fn=head_fn, shared_params=state[1],
+        embed_fn=embed_fn, grad_scale=state[3].loss_scale)
+    torch.cuda.synchronize()
+    out = {"launches": dict(kern.LAUNCHES), "loss0": float(loss0),
+           "coords": (pp_rank, tp_rank)}
+    got = _grads_by_name(torch, [sg], shg, pipeline_layers(
+        mcfg.num_layers, HYBRID_PP, pp_rank))
+    out["ref"] = _leaf_norms(torch, got, {n: want[n] for n in got})
+    del got, want, sg, shg
+    step = trainer.jit_train_step()
+    losses, times, counts = [], [], []
+    for i in range(HYBRID_STEPS):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        loss, *state = step(*state, tokens, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(dict(kern.LAUNCHES))
+        add_counts(out["launches"], kern.LAUNCHES)
+        check_pp_counts(counts[-1], pp_launches(
+            mcfg.num_layers, HYBRID_PP, pp_rank, 1, M),
+            f"hybrid_gpt rank {rank} step {i}")
+        losses.append(float(loss))
+    out.update(losses=losses, counts=counts, ms=[1e3 * t for t in times])
+    # a NaN in global rank 1's grads: every rank skips
+    real = sc._Run.grads
+
+    def poisoned(run):
+        chunks, shared = real(run)
+        if dist.get_rank() == 1:
+            next(iter(chunks[0].values())).view(-1)[0] = float("nan")
+        return chunks, shared
+
+    before = [p.detach().clone() for p in tree_leaves(
+        trainer.param_tree(state[0], state[1]))]
+    scale, count = float(state[3].loss_scale), int(state[2].step)
+    sc._Run.grads = poisoned
+    try:
+        kern.reset_launches()
+        _, *state = step(*state, tokens, tokens)
+        add_counts(out["launches"], kern.LAUNCHES)
+    finally:
+        sc._Run.grads = real
+    out["nan"] = {"scale": (scale, float(state[3].loss_scale)),
+                  "count": (count, int(state[2].step)),
+                  "kept": all(torch.equal(a, b.detach()) for a, b in zip(
+                      before, tree_leaves(trainer.param_tree(state[0],
+                                                             state[1]))))}
+    del trainer, state, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_gpt(torch, kern, card: str) -> dict:
+    """``GPTHybridTrainer`` at tp 2 x pp 2 on four processes of the card
+    over gloo (a correctness leg, no multi-GPU speed): the tp = 1 step on
+    the same weights and batch as the reference, then ``rank_hybrid``.
+    Returns the four ranks' launches."""
+    import shutil
+    import tempfile
+    from apex_tpu_torch.parallel._spawn import RankPool
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    M, mb = HYBRID_MICRO
+    tokens = tokens[:M * mb].contiguous()
+    step = gpt_trainer(torch, cfg, init_state, tokens, TP_LR)
+    ref_loss, _, grads = step()
+    ref_loss = float(ref_loss)
+    store = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    ref_path = f"{store}/ref.pt"
+    torch.save({"tokens": tokens.cpu(),
+                "grads": {n: g.detach().cpu() for n, g in grads.items()}},
+               ref_path)
+    del step, grads, init_state
+    torch.cuda.empty_cache()
+
+    world = HYBRID_TP * HYBRID_PP
+    t0 = time.perf_counter()
+    pool = RankPool(world, backend="gloo", device="cuda",
+                    pg_timeout=DIST_TIMEOUT)
+    try:
+        start_s = time.perf_counter() - t0
+        outs = pool.run(rank_hybrid, ref_path, timeout=DIST_TIMEOUT)
+    finally:
+        pool.close()
+        shutil.rmtree(store, ignore_errors=True)
+    launches = {}
+    for out in outs:
+        add_counts(launches, out["launches"])
+    l0 = {o["loss0"] for o in outs}
+    check(len(l0) == 1, f"hybrid_gpt: the ranks' step-0 losses differ {l0}")
+    (l0,) = l0
+    # each leaf's squares summed over the ranks that hold it (its tensor
+    # shards; the shared leaves' pipeline replicas count alike above and
+    # below the line)
+    sums: dict = {}
+    for o in outs:
+        for n, (d, w) in o["ref"].items():
+            a, b = sums.get(n, (0.0, 0.0))
+            sums[n] = (a + d, b + w)
+    g_err, g_leaf = max((math.sqrt(d / max(w, 1e-60)), n)
+                        for n, (d, w) in sums.items())
+    check(len(sums) == len(gpt_leaf_names()),
+          f"hybrid_gpt: {len(sums)} grad leaves came back")
+    check(abs(l0 - ref_loss) <= TOL_TP_LOSS and g_err <= TOL_TP_GRAD,
+          f"hybrid_gpt: step 0's loss {l0} against tp = 1's {ref_loss}, "
+          f"grads {g_leaf} {g_err:.3g}")
+    check(all(o["losses"] == outs[0]["losses"] for o in outs)
+          and abs(outs[0]["losses"][0] - l0) <= TOL_TP_LOSS,
+          f"hybrid_gpt: the ranks' losses {[o['losses'] for o in outs]} "
+          f"(step 0's schedule {l0})")
+    for r, o in enumerate(outs):
+        nan = o["nan"]
+        check(nan["kept"] and nan["count"][0] == nan["count"][1]
+              and nan["scale"][1] == 0.5 * nan["scale"][0],
+              f"hybrid_gpt rank {r}: a NaN in rank 1's grads did not skip "
+              f"the step: {nan}")
+    print(f"hybrid_gpt: GPTHybridTrainer from TrainConfig (O2, adam lr "
+          f"{TP_LR}) at tp {HYBRID_TP} x pp {HYBRID_PP} x dp 1, {world} "
+          f"processes on one card over gloo, {M} microbatches of {mb} x "
+          f"{tokens.shape[1]}; step 0 against the tp = 1 step on the same "
+          f"weights and batch: loss {l0!r} vs {ref_loss!r} (|diff| "
+          f"{abs(l0 - ref_loss):.3g}, tol {TOL_TP_LOSS}), grads worst leaf "
+          f"{g_leaf} {g_err:.4g} (tol {TOL_TP_GRAD}); losses "
+          f"{outs[0]['losses']} on every rank; pool started in "
+          f"{start_s:.1f} s [{card}]")
+    for o in outs:
+        print(f"hybrid_gpt rank (pp, tp) {o['coords']}: launches a step "
+              f"{o['counts'][0]}; step ms {[round(t, 1) for t in o['ms']]} "
+              f"(host clock, gloo over loopback) [{card}]")
+    nan = outs[0]["nan"]
+    print(f"hybrid_gpt: a NaN in rank 1's grads: every rank's params and "
+          f"step count kept, the scale {nan['scale'][0]:g} -> "
+          f"{nan['scale'][1]:g} on all {world} [{card}]")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
                  top: int = 8) -> tuple:
     """Device busy time of ``fn`` in a ``profile_window`` (CUDA activity
@@ -8304,6 +8886,10 @@ def main() -> None:
     lap("dist_ranks")
     tp_ranks = tp_gpt(torch, fa, kern, card)
     lap("tp_gpt")
+    pp_ranks = pp_gpt(torch, kern, card)
+    lap("pp_gpt")
+    hybrid_ranks = hybrid_gpt(torch, kern, card)
+    lap("hybrid_gpt")
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -8327,7 +8913,10 @@ def main() -> None:
           f"{ddp}, under ZeRO at world 1 ({ZERO_STEPS} steps) {zero}, the "
           f"two ranks' DDP, ZeRO and overflow steps {ranks}, the two tensor "
           f"ranks' steps ({len(TP_LEGS)} legs x {TP_STEPS} steps, then a "
-          f"skipped one) {tp_ranks}")
+          f"skipped one) {tp_ranks}, the two pipeline ranks' schedules and "
+          f"steps ({PP_STEPS} and a skipped one) {pp_ranks}, the hybrid "
+          f"trainer's four ranks ({HYBRID_STEPS} steps and a skipped one) "
+          f"{hybrid_ranks}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
@@ -8338,7 +8927,7 @@ def main() -> None:
                                small_training, remat_legs, config_training,
                                resnet, bert, lamb, legs, big, long,
                                speech, retina, sparse, tp1, ddp, zero,
-                               ranks, tp_ranks)
+                               ranks, tp_ranks, pp_ranks, hybrid_ranks)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):

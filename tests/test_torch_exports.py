@@ -5,8 +5,8 @@ For every package the port has, the JAX package's ``__all__`` (for
 ``observability``, which has none, its public names) less the port's is
 exactly the set listed here by the queue item that ports it (ROADMAP.md,
 queue A: A5a process groups and data parallelism, A5b tensor and
-sequence parallelism, A5c pipelines and the rest, A6 the run loop, A7a
-observability); every name in a port ``__all__`` exists. A bare
+sequence parallelism, A5c pipelines, A5d expert and context parallelism's
+attention, A6 the run loop, A7a observability); every name in a port ``__all__`` exists. A bare
 ``import apex_tpu_torch`` imports no subpackage and builds no kernel, then
 each subpackage resolves on first attribute access, and the reference's
 unported subpackages raise ``AttributeError``.
@@ -23,8 +23,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "transformer": {"A5c": {"pipeline_parallel", "expert_parallel"}},
-    "transformer.context_parallel": {"A5c": {"ring_attention",
+    "transformer": {"A5d": {"expert_parallel"}},
+    "transformer.context_parallel": {"A5d": {"ring_attention",
                                              "ulysses_attention"}},
     "serving": {"A6": {"CheckpointWatcher", "watch_checkpoints"}},
     "elastic": {"A6": {"AsyncCheckpointer", "DrainInterrupt",
@@ -55,7 +55,8 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "transformer.tensor_parallel", "transformer.amp", "RNN",
             "contrib.sparsity", "elastic", "config", "remat",
             "transformer.parallel_state", "parallel.distributed",
-            "optimizers.distributed_fused", "transformer.context_parallel")
+            "optimizers.distributed_fused", "transformer.context_parallel",
+            "transformer.pipeline_parallel", "transformer._data")
 # the modules A5a added, each importable with JAX and the JAX package
 # blocked
 A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
@@ -67,6 +68,14 @@ A5B_MODULES = ("transformer.tensor_parallel.mappings",
                "transformer.tensor_parallel.collective_matmul",
                "transformer.tensor_parallel.data",
                "transformer.tensor_parallel.memory")
+# and the modules A5c added
+A5C_MODULES = ("transformer.pipeline_parallel",
+               "transformer.pipeline_parallel.microbatches",
+               "transformer.pipeline_parallel.utils",
+               "transformer.pipeline_parallel.p2p_communication",
+               "transformer.pipeline_parallel.schedules",
+               "transformer._data", "transformer._data.batchsampler",
+               "parallel._p2p")
 # subpackages of the JAX package the port does not have yet
 UNPORTED_SUBPACKAGES = {"utils": "A7a", "checkpoint": "A6", "pyprof": "A7b",
                         "reparameterization": "not queued"}
@@ -150,7 +159,7 @@ def test_contrib_lazy_names_match_the_reference():
         port.nothing_here
 
 
-@pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES)
+@pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES + A5C_MODULES)
 def test_a5a_modules_import_without_jax(module):
     code = (
         "import sys\n"
