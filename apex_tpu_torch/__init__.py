@@ -24,14 +24,18 @@ parallelism and ZeRO-1 (:mod:`apex_tpu_torch.parallel`,
 :mod:`apex_tpu_torch.optimizers`), tensor and sequence parallelism
 (:mod:`apex_tpu_torch.transformer.tensor_parallel`) and pipelines
 (:mod:`apex_tpu_torch.transformer.pipeline_parallel`), all three at once
-in :class:`apex_tpu_torch.training.GPTHybridTrainer`. Public entry points default to
+in :class:`apex_tpu_torch.training.GPTHybridTrainer`, with context
+parallelism's ring and Ulysses attention, the expert-parallel MoE and the
+height-sharded convolution beside them, and checkpoints that resume bit
+for bit (:mod:`apex_tpu_torch.checkpoint`, with the asynchronous writer
+and the ZeRO reshard of :mod:`apex_tpu_torch.elastic`). Public entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
 
 The subpackages resolve on first attribute access, as the reference's do
 (``apex_tpu/__init__.py:32-44``): ``import apex_tpu_torch`` imports none
 of them, builds no kernel and needs no card. The reference's
-``utils``, ``checkpoint``, ``pyprof`` and ``reparameterization`` are not
-ported, and raise ``AttributeError`` here.
+``utils``, ``pyprof`` and ``reparameterization`` are not ported, and
+raise ``AttributeError`` here.
 """
 
 import importlib as _importlib
@@ -41,7 +45,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = (
     "amp", "optimizers", "normalization", "ops", "parallel", "transformer",
     "contrib", "fp16_utils", "models", "multi_tensor_apply", "RNN",
-    "config", "observability", "remat", "serving", "elastic",
+    "config", "observability", "remat", "serving", "elastic", "checkpoint",
 )
 
 

@@ -62,6 +62,10 @@ global arrays. The flat order is the parameter tree's leaf order: the two
 packages agree when the tree flattens alike in both (JAX sorts dict keys,
 torch keeps their order, so build the port's dicts with sorted keys).
 
+``moe_params_from_jax`` carries the JAX ``ExpertParallelMLP.init`` tree
+(router ``(E, h)``, experts ``wi``, ``bi``, ``wo``, ``bo`` stacked over E)
+into the port's, the experts cut to one rank's ``E / ep`` of them.
+
 ``rnn_params_from_jax`` turns the JAX ``ApexRNN.init`` dict (``l0``,
 ``l0_rev``, ... each holding ``w_ih``, ``w_hh``, ...) into the port
 ``ApexRNN``'s state dict (``l0.w_ih``, ...); ``rnn_params_to_numpy`` is
@@ -82,7 +86,8 @@ __all__ = ["params_from_jax", "params_to_numpy", "stack_tp_params",
            "resnet_params_to_numpy", "mlp_params_from_jax",
            "module_params_from_jax", "optimizer_state_from_jax",
            "rnn_params_from_jax", "rnn_params_to_numpy",
-           "zero_state_from_jax", "zero_state_to_numpy"]
+           "zero_state_from_jax", "zero_state_to_numpy",
+           "moe_params_from_jax"]
 
 _LINEARS = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -515,3 +520,19 @@ def zero_state_to_numpy(states) -> dict:
                 getattr(st, field), torch.Tensor) else getattr(st, field),
                 np.float32) for st in states])
     return out
+
+
+def moe_params_from_jax(tree: dict, ep: int = 1, rank: int = 0,
+                        device="cpu") -> dict:
+    """The port's ``ExpertParallelMLP`` parameters from the JAX tree with
+    numpy leaves: the router whole, and rank ``rank`` of ``ep``'s experts
+    (rows ``rank * E / ep`` to ``(rank + 1) * E / ep`` of each stacked
+    leaf), bit for bit."""
+    E = np.asarray(tree["router"]["weight"]).shape[0]
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over ep={ep}")
+    lo, hi = rank * E // ep, (rank + 1) * E // ep
+    return {"router": {"weight": _to_torch(
+                tree["router"]["weight"]).to(device)},
+            "experts": {k: _to_torch(np.asarray(tree["experts"][k])[lo:hi])
+                        .to(device) for k in ("wi", "bi", "wo", "bo")}}

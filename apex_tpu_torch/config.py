@@ -17,9 +17,12 @@ parallelism above 1, where it holds every layer and
 :class:`~apex_tpu_torch.training.GPTHybridTrainer` cuts out a rank's
 stage. :meth:`TrainConfig.build_microbatch_calculator` and
 :meth:`TrainConfig.build_sampler` build the reference's calculator and
-Megatron samplers. What needs an unported piece raises
-``NotImplementedError`` naming its queue item: a model at context
-parallelism above 1 (A5d); the health watchdog (A7a);
+Megatron samplers. At context parallelism above 1 only the mesh gains the
+context axis, as in the reference: the model builds as at cp 1, and its
+caller attends over the context group with
+:mod:`apex_tpu_torch.transformer.context_parallel`. What needs an
+unported piece raises ``NotImplementedError`` naming its queue item: the
+health watchdog (A7a);
 ``ddp_bucket_bytes="auto"``, which pyprof's roofline tuner resolves
 (A7b). Unknown names raise the reference's ``ValueError``.
 """
@@ -191,12 +194,6 @@ class TrainConfig:
                                    ddp_bucket_bytes=bucket_bytes)
 
     # -- builders -----------------------------------------------------------
-    def _no_context_parallel(self) -> None:
-        size = self.parallel.context_parallel_size
-        if size > 1:
-            raise _unported(f"a model at context parallelism (size {size})",
-                            "A5d")
-
     def build_policy(self):
         from apex_tpu_torch.amp import get_policy
         half = (torch.bfloat16 if self.half_dtype == "bfloat16"
@@ -215,7 +212,6 @@ class TrainConfig:
         rank's shards of the installed mesh's tensor group; at pipeline
         parallelism above 1 it holds every layer (a rank's stage is cut
         out by ``GPTModel.stage_fn``)."""
-        self._no_context_parallel()
         pol = self.build_policy()
         m = self.model
         if m.name == "gpt":

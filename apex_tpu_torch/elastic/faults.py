@@ -17,14 +17,25 @@ decode or verify steps, 1-based):
 - ``flood={step: n}``: the driving loop submits ``n`` extra requests
   right before that step (:meth:`~FaultPlan.flood_n`).
 
+**Checkpoint faults**, read by
+:class:`~apex_tpu_torch.elastic.ckpt.AsyncCheckpointer` through
+:meth:`~FaultPlan.on_save_attempt` (its ``fault_hook``) and
+:meth:`~FaultPlan.after_save`:
+
+- ``save_errors={step: n}``: the first ``n`` serialization attempts of
+  the checkpoint at ``step`` raise a transient ``OSError``, which the
+  checkpointer retries with backoff;
+- ``slow_save_s=t``: every attempt sleeps ``t`` seconds first;
+- ``tear_after_step=K``: once the checkpoint at ``K`` commits, its
+  COMMITTED marker is removed, the picture of a writer killed mid-save;
+  a restore falls back past it with a warning.
+
 Plans are seeded (:meth:`~FaultPlan.sample`,
 :meth:`~FaultPlan.sample_serving` draw from ``numpy.random.RandomState``,
 never from the clock).
 
-The training hooks (``before_step``: SIGTERM and SIGKILL at a step;
-``on_save_attempt``: transient save errors and slow saves;
-``after_save``: a torn checkpoint) need the port's checkpointing and
-multi-process runtime, queued as A6; until then they raise
+``before_step`` (SIGTERM and SIGKILL at a step) needs the port's elastic
+runner and multi-process launcher, queued as A6b; until then it raises
 ``NotImplementedError``.
 """
 
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, Optional
 
@@ -39,8 +51,9 @@ import numpy as np
 
 __all__ = ["FaultPlan"]
 
-_A6 = ("FaultPlan's training hooks need the port's checkpointing and "
-       "elastic runner (ROADMAP queue A6), which are not ported yet")
+_A6B = ("FaultPlan.before_step needs the port's elastic runner and "
+        "multi-process launcher (ROADMAP queue A6b), which are not ported "
+        "yet")
 
 
 @dataclasses.dataclass
@@ -59,15 +72,28 @@ class FaultPlan:
     flood: Dict[int, int] = dataclasses.field(default_factory=dict)
     seed: Optional[int] = None  # provenance when built by sample*()
 
-    # -- training hooks (A6) ----------------------------------------------
+    # -- training hooks ---------------------------------------------------
     def before_step(self, step: int) -> None:
-        raise NotImplementedError(_A6)
+        raise NotImplementedError(_A6B)
 
     def on_save_attempt(self, step: int, attempt: int) -> None:
-        raise NotImplementedError(_A6)
+        """The checkpointer's fault hook, called before serialization
+        attempt ``attempt`` (0-based) of the checkpoint at ``step``."""
+        if self.slow_save_s > 0.0:
+            time.sleep(self.slow_save_s)
+        if attempt < int(self.save_errors.get(step, 0)):
+            raise OSError(
+                f"injected transient save fault (step {step}, attempt "
+                f"{attempt})")
 
     def after_save(self, step: int, path: str) -> None:
-        raise NotImplementedError(_A6)
+        """After the checkpoint at ``step`` commits in ``path``: tears the
+        scripted one by removing its COMMITTED marker."""
+        if self.tear_after_step is not None and step == self.tear_after_step:
+            from apex_tpu_torch.checkpoint import _COMMIT_FILE
+            marker = os.path.join(path, _COMMIT_FILE)
+            if os.path.exists(marker):
+                os.remove(marker)
 
     # -- serving hooks ----------------------------------------------------
     def before_decode(self, step: int) -> None:

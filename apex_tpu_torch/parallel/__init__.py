@@ -8,10 +8,10 @@
 - :func:`convert_syncbn_model`: local BN to synced BN through a module
   tree; :func:`create_syncbn_process_group`: BN groups of a size, as
   ``axis_index_groups``;
-- the ``LARC`` re-export (it lives with the optimizers).
-
-The reference's ``spatial`` halo exchange comes with context
-parallelism (queue item A5d).
+- the ``LARC`` re-export (it lives with the optimizers);
+- :func:`halo_exchange` and :func:`spatial_conv2d`, the height-sharded
+  SAME convolution of :mod:`apex_tpu_torch.parallel.spatial`, imported
+  here and left out of ``__all__``, as the reference does.
 """
 
 from typing import List, Optional
@@ -21,6 +21,8 @@ from torch import nn
 from apex_tpu_torch.optimizers.larc import LARC  # noqa: F401
 from apex_tpu_torch.parallel.distributed import (  # noqa: F401
     DistributedDataParallel, Reducer, allreduce_grads)
+from apex_tpu_torch.parallel.spatial import (  # noqa: F401
+    halo_exchange, spatial_conv2d)
 from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     BatchNormState, SyncBatchNorm, sync_batch_norm)
 

@@ -13,7 +13,9 @@ continuous slot batcher (:class:`~apex_tpu_torch.serving.scheduler
 .SlotScheduler`) emitting the ``serve/*`` metric family, with typed
 :class:`~apex_tpu_torch.serving.resilience.Rejection` s, the SLO-driven
 :class:`~apex_tpu_torch.serving.resilience.BrownoutPolicy`, deadlines,
-cancel, drain, weight swaps and the quarantine engines' poison check. The
+cancel, drain, weight swaps (also from a training run's newest committed
+checkpoint: :class:`~apex_tpu_torch.serving.resilience.CheckpointWatcher`)
+and the quarantine engines' poison check. The
 request-trace and SLO types are re-exported for wiring convenience.
 """
 
@@ -29,7 +31,9 @@ from apex_tpu_torch.serving.cache import (AdmitPlan, BlockAllocator,
                                           paged_block_bytes, store_roundtrip)
 from apex_tpu_torch.serving.engine import PagedServingEngine, ServingEngine
 from apex_tpu_torch.serving.resilience import (REJECTION_REASONS,
-                                               BrownoutPolicy, Rejection)
+                                               BrownoutPolicy,
+                                               CheckpointWatcher, Rejection,
+                                               watch_checkpoints)
 from apex_tpu_torch.serving.sampling import sample_tokens, verify_tokens
 from apex_tpu_torch.serving.scheduler import (Completion, DraftSource,
                                               NGramDraftSource, Request,
@@ -42,4 +46,5 @@ __all__ = ["KVCache", "cache_bytes_per_slot", "store_roundtrip",
            "sample_tokens", "verify_tokens", "Completion", "Request",
            "SlotScheduler", "DraftSource", "NGramDraftSource",
            "RequestRecord", "RequestTrace", "chrome_request_trace",
-           "SLOTarget", "SLOTracker", "SLOViolationError", "BrownoutPolicy"]
+           "SLOTarget", "SLOTracker", "SLOViolationError", "BrownoutPolicy",
+           "CheckpointWatcher", "watch_checkpoints"]

@@ -1,26 +1,25 @@
-"""Serving resilience: typed admission rejections and SLO-driven brownout.
+"""Serving resilience: typed admission rejections, SLO-driven brownout and
+serving from a live training run's checkpoints.
 
-Counterpart of ``Rejection``, ``REJECTION_REASONS`` and ``BrownoutPolicy``
-in ``apex_tpu/serving/resilience.py``. :class:`Rejection` is what
+Counterpart of ``apex_tpu/serving/resilience.py``. :class:`Rejection` is what
 :meth:`~apex_tpu_torch.serving.scheduler.SlotScheduler.submit` returns,
 instead of a request id, for a request it will not enqueue:
 ``queue_full`` at the ``max_queue`` bound, ``shed`` by a brownout,
 ``draining`` during a drain, ``pool_exhausted`` for a paged engine whose
 pool could never hold the prompt. :class:`BrownoutPolicy` sits between the
 SLO tracker and admission: past a burn rate it sheds new requests or caps
-their ``max_new_tokens``.
-
-The reference's ``CheckpointWatcher`` and ``watch_checkpoints`` (a live
-training run's latest committed checkpoint swapped into the engine) need
-the port's checkpoint module and are not ported yet.
+their ``max_new_tokens``. :class:`CheckpointWatcher` rolls an engine's
+weights onto the newest committed checkpoint of a training run
+(:mod:`apex_tpu_torch.checkpoint`) through ``swap_params``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional
 
-__all__ = ["Rejection", "REJECTION_REASONS", "BrownoutPolicy"]
+__all__ = ["Rejection", "REJECTION_REASONS", "BrownoutPolicy",
+           "CheckpointWatcher", "watch_checkpoints"]
 
 # the closed vocabulary of submit()-time rejections. Bad input (an empty or
 # oversized prompt, a non-positive deadline, a duplicate in-flight id)
@@ -83,3 +82,59 @@ class BrownoutPolicy:
         if self.cap_max_new_tokens is None:
             return max_new_tokens
         return min(max_new_tokens, self.cap_max_new_tokens)
+
+
+class CheckpointWatcher:
+    """Serve while training: roll ``engine``'s weights onto the newest
+    COMMITTED checkpoint step under ``run_dir``.
+
+    :meth:`poll` costs one directory listing when nothing changed; when a
+    newer committed step appears it restores onto ``target`` (default:
+    the engine's own state dict, the params-only checkpoint a serving
+    deployment publishes), applies ``extract`` (for a checkpoint whose
+    state nests the model's state dict in larger trainer state: pass the
+    full-state ``target`` and ``extract=lambda state: state[...]``) and
+    calls ``engine.swap_params``. A torn directory is never named by
+    ``latest_step``, so the watcher cannot roll onto a half-written
+    checkpoint. Each rollover ticks ``serve/swaps`` on ``registry``
+    (default the process registry)."""
+
+    def __init__(self, engine, run_dir: str, *, target: Any = None,
+                 extract: Optional[Callable[[Any], Any]] = None,
+                 registry=None):
+        from apex_tpu_torch.observability.registry import get_registry
+
+        self.engine = engine
+        self.run_dir = run_dir
+        self.target = target
+        self.extract = extract
+        self.registry = registry if registry is not None \
+            else get_registry()
+        self.step: Optional[int] = None  # last step swapped in
+
+    def poll(self) -> Optional[int]:
+        """Swap in the newest committed step if it is newer than the last
+        one swapped; returns that step, or None when nothing changed (no
+        checkpoint yet included)."""
+        from apex_tpu_torch.checkpoint import latest_step, restore_checkpoint
+
+        step = latest_step(self.run_dir)
+        if step is None or (self.step is not None and step <= self.step):
+            return None
+        target = self.target
+        if target is None:
+            target = self.engine.model.state_dict()
+        state, _ = restore_checkpoint(self.run_dir, target, step=step)
+        params = self.extract(state) if self.extract is not None else state
+        self.engine.swap_params(params)
+        self.step = step
+        self.registry.counter("serve/swaps").inc()
+        return step
+
+
+def watch_checkpoints(engine, run_dir: str, **kw) -> CheckpointWatcher:
+    """A :class:`CheckpointWatcher` that has polled once (rolling onto the
+    newest committed step if one exists)."""
+    watcher = CheckpointWatcher(engine, run_dir, **kw)
+    watcher.poll()
+    return watcher

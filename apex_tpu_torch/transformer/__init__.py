@@ -6,12 +6,13 @@ fused scale-mask softmax (also as ``functional``, as the reference
 aliases it), the enums, and ``parallel_state``, the process groups of the
 (pipe, data, context, tensor) mesh, and ``pipeline_parallel``, the
 schedules, stage hops and microbatch calculators (its names resolve on
-first access). ``expert_parallel`` and context parallelism's attention
-come with queue item A5d."""
+first access), context parallelism's ring and Ulysses attention
+(``context_parallel``) and ``expert_parallel``, the expert-sharded MoE
+MLP."""
 
 from apex_tpu_torch.transformer import (  # noqa: F401
-    amp, context_parallel, parallel_state, pipeline_parallel,
-    tensor_parallel)
+    amp, context_parallel, expert_parallel, parallel_state,
+    pipeline_parallel, tensor_parallel)
 from apex_tpu_torch.transformer.enums import (  # noqa: F401
     AttnMaskType, AttnType, LayerType, ModelType)
 from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
@@ -19,6 +20,7 @@ from apex_tpu_torch.ops.fused_softmax import FusedScaleMaskSoftmax  # noqa: F401
 # the `functional` namespace (reference:apex/transformer/functional)
 from apex_tpu_torch.ops import fused_softmax as functional  # noqa: F401
 
-__all__ = ["amp", "context_parallel", "functional", "parallel_state",
+__all__ = ["amp", "context_parallel", "expert_parallel", "functional",
+           "parallel_state",
            "pipeline_parallel", "tensor_parallel", "AttnMaskType", "AttnType", "LayerType",
            "ModelType", "FusedScaleMaskSoftmax"]

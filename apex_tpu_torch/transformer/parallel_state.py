@@ -23,9 +23,8 @@ context stay inside a node, as :func:`_dcn_device_grid` gives it
 The data axis carries data parallelism and ZeRO; the tensor axis the
 tensor- and sequence-parallel layers, their mappings and the ring
 collective matmuls; the pipe axis the pipeline schedules' stage hops and
-the shared parameters' grad sum. cp above 1 builds its groups, while
-what would use them (context parallelism's attention, queue item A5d) is
-not ported yet.
+the shared parameters' grad sum; the context axis ring and Ulysses
+attention (:mod:`apex_tpu_torch.transformer.context_parallel`).
 """
 
 from __future__ import annotations

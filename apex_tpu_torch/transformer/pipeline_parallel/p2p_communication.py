@@ -9,8 +9,9 @@ the next (or previous) rank of this rank's pipeline group and a receive
 from the other, posted as one ``batch_isend_irecv`` batch through
 :func:`apex_tpu_torch.parallel._p2p.exchange`, which stages CUDA tensors
 through host tensors on a gloo group. :func:`rotate_forward` and
-:func:`rotate_backward` are autograd functions whose backward is the
-reverse rotation (the transpose of the reference's ``ppermute``).
+:func:`rotate_backward` are :func:`apex_tpu_torch.parallel._p2p.rotate`
+over the pipe group, whose backward is the reverse rotation (the
+transpose of the reference's ``ppermute``).
 
 The schedules post their hops through :func:`exchange_stages`, which
 takes pipeline ranks and skips an empty batch. Two ranks post their
@@ -27,7 +28,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch.parallel._p2p import exchange
+from apex_tpu_torch.parallel._p2p import exchange, rotate
 from apex_tpu_torch.transformer.parallel_state import PIPE_AXIS, resolve_axis
 
 __all__ = [
@@ -60,35 +61,20 @@ def exchange_stages(pipe: _Pipe,
 
 
 def _rotate(x: torch.Tensor, step: int) -> torch.Tensor:
-    pipe = _Pipe()
-    if pipe.size == 1:
-        return x.detach().clone()
-    return exchange_stages(pipe, [(x, (pipe.rank + step) % pipe.size)],
-                           [(x, (pipe.rank - step) % pipe.size)])[0]
-
-
-class _Rotate(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, step):
-        ctx.step = step
-        return _rotate(x, step)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _rotate(g, -ctx.step), None
+    return rotate((x,), resolve_axis(PIPE_AXIS), step)[0]
 
 
 def rotate_forward(x: torch.Tensor) -> torch.Tensor:
     """Every stage sends ``x`` to the next stage and receives the previous
     stage's (wrapping: stage 0 receives the last stage's):
     ``send_forward`` and ``recv_forward`` of the reference."""
-    return _Rotate.apply(x, 1)
+    return _rotate(x, 1)
 
 
 def rotate_backward(g: torch.Tensor) -> torch.Tensor:
     """``send_backward`` and ``recv_backward``: ``g`` goes to the previous
     stage, the next stage's comes in."""
-    return _Rotate.apply(g, -1)
+    return _rotate(g, -1)
 
 
 # the reference's upstream names

@@ -393,7 +393,48 @@ non-zero and prints no result. Phases, each fatal on failure:
    the same weights and batch within ``TOL_TP_*``, every rank's losses
    over 2 steps equal, the launches a rank a step (12 of B1-B3, 24 and 26
    of B7/B8), the step ms, and a NaN in rank 1's grads skipping all four;
-29. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+29. ``cp_attention``: context parallelism at cp 2, two processes on the
+   card over gloo (the ring's k/v hops and the all-to-alls staged through
+   host tensors): the long-context shape ``(8, 12, 4096, 64)`` bf16,
+   causal, 2048 positions a rank; ``ring_attention`` (remat on) and
+   ``ulysses_attention`` forward and backward, each rank's output and
+   q/k/v grads against the one-rank ``flash_attention`` on the whole
+   sequence (the kernel) and its plain twin within ``TOL_CP``; B1-B3
+   launches a rank (Ulysses: 1 + 2 a call, the ring none), host-clock ms,
+   peak MiB a rank, bytes a hop and an all-to-all;
+30. ``ep_spatial`` on the same two processes: ``ExpertParallelMLP`` at
+   GPT-small's widths (768, ffn 3072), 8 experts, capacity 1.25, 8 x 1024
+   tokens a rank, fp32 and bf16: output, aux loss and grads against the
+   same two shards routed on one process each (a one-rank group, all 8
+   experts; the expert grads summed over the ranks) within ``TOL_MOE``,
+   output and aux against ``moe_dense`` (top-1 routing and each expert's
+   FFN per token in fp32, written apart from the layer) within
+   ``TOL_MOE_DENSE``, the tokens dropped, the host-clock ms;
+   ``spatial_conv2d`` at
+   ResNet-50's 3x3 shapes (32 x 56 x 56 x 64 at stride 1, the
+   128-channel stride-2 conv) over a height split in two against the
+   dense ``F.conv2d`` (forward, input and weight grads) within
+   ``TOL_SPATIAL``; and ZeRO-1 (``zero_config``) at dp 2: 2 steps, then
+   ``save_checkpoint`` of the state;
+31. ``checkpoint_resume``: GPT-small as ``train`` builds it (8 x 1024,
+   ``FusedAdam``, ``DynamicLossScale``, bf16 compute over fp32 params,
+   dropout from an ``RNGStatesTracker`` stream at the last step): 5 steps
+   straight against 3 steps, ``save_checkpoint`` (``fp32_on_disk``,
+   ``keep_last=1``), a fresh model, optimizer, scaler and tracker,
+   ``restore_checkpoint`` and 2 more: every loss and every leaf bit for
+   bit; the same through ``AsyncCheckpointer`` under ``FaultPlan(
+   save_errors={3: 1}, tear_after_step=5)`` (``keep_last=2``; steps 4 and
+   5 run while the writer writes step 3): the retry counted, the restore
+   falling back past the torn step 5 with the warning, bit for bit again,
+   the snapshot ms on the step thread against the serialize ms off it
+   and the bytes; the dp 2 ZeRO checkpoint of 30 restored at world 1
+   through ``reshard_zero_state``: each rank's shard bit for bit, and the
+   master's natural flat vector at dp 1 bit for bit the fp32 params the
+   ZeRO run gathered after its steps;
+   ``watch_checkpoints`` on a dense ``ServingEngine`` rolls onto the
+   committed step (``serve/swaps`` 1), and its greedy stream equals that
+   of an engine built on the restored weights;
+32. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -3970,7 +4011,7 @@ def grad_rel(torch, got: dict, want: dict) -> tuple:
 
 def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
                 opt_wrap=None, grad_sync=None, optimizer=None,
-                finite_axes=None):
+                finite_axes=None, tracker_seed=None):
     """A step function of ``bench.py::_gpt_train_step``'s training step on
     a ``GPTModel(cfg)`` loaded from ``init_state``: ``GPTModel.loss`` on
     ``tokens`` (the targets too), backward of the scaled loss, unscale,
@@ -3978,14 +4019,21 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
     ``FusedAdam(lr).step`` with the skip (``opt_wrap(FusedAdam(lr))`` with
     ``opt_wrap``; ``optimizer`` in place of ``FusedAdam(lr)``); with a
     dropout rate in ``cfg``, the masks from a generator on the card seeded
-    0. ``grad_sync`` maps the scaled grads before the unscale (DDP's
+    0, or with ``tracker_seed`` from an ``RNGStatesTracker`` stream on the
+    card seeded so, at a step called with ``dropout=True`` only.
+    ``grad_sync`` maps the scaled grads before the unscale (DDP's
     ``sync_gradients``), and ``finite_axes`` reduces the finite flag
     across ranks. The step returns ``(loss, finite, unscaled grads)``;
     ``step.params`` are the model's parameters, ``step.opt_state`` the
-    optimizer's state and ``step.carry["ls"]`` the loss-scale state."""
+    optimizer's state and ``step.carry["ls"]`` the loss-scale state;
+    ``step.state()`` is the tree a checkpoint holds, ``step.load(tree)``
+    puts a restored one back."""
     from apex_tpu_torch.amp import DynamicLossScale, all_finite
     from apex_tpu_torch.models import GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.tensor_parallel.random import (
+        RNGStatesTracker)
+    from torch.utils._pytree import tree_leaves
 
     model = GPTModel(cfg, device="cuda")
     model.load_state_dict(init_state)
@@ -3997,13 +4045,19 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
     scaler = DynamicLossScale(init_scale=2.0 ** 12)
     carry = {"ls": scaler.init(device="cuda")}
     rate = max(cfg.hidden_dropout, cfg.attention_dropout)
-    gen = torch.Generator(device="cuda").manual_seed(0) if rate else None
+    tracker = None
+    if tracker_seed is not None:
+        tracker = RNGStatesTracker(device="cuda")
+        tracker.add("model-parallel-rng", tracker_seed)
+    gen = torch.Generator(device="cuda").manual_seed(0) \
+        if rate and tracker is None else None
 
-    def step():
+    def step(dropout: bool = False):
         ls = carry["ls"]
         for p in params.values():
             p.grad = None
-        loss = model.loss(tokens, tokens, generator=gen)
+        g = tracker.make_key() if tracker is not None and dropout else gen
+        loss = model.loss(tokens, tokens, generator=g)
         (loss * ls.loss_scale).backward()
         grads = {n: p.grad for n, p in params.items()}
         if grad_sync is not None:
@@ -4014,11 +4068,32 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
         opt.step(grads, opt_state, params, grads_finite=finite)
         return loss.detach(), finite, grads
 
+    def state():
+        tree = {"params": params, "opt": opt_state, "ls": carry["ls"]}
+        if tracker is not None:
+            tree["rng"] = tracker.get_states()
+        return tree
+
+    def load(tree):
+        # in place, so ``step.opt_state`` stays the live state (and no
+        # closure refers to ``step``: a cycle would keep the model alive
+        # past ``del step`` until the collector runs)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(tree["params"][n])
+            for dst, src in zip(tree_leaves(opt_state),
+                                tree_leaves(tree["opt"])):
+                dst.copy_(src)
+        carry["ls"] = tree["ls"]
+        if tracker is not None:
+            tracker.set_states(tree["rng"])
+
     step.generator = gen
     step.model = model
     step.params = params
     step.opt_state = opt_state
     step.carry = carry
+    step.state, step.load = state, load
     return step
 
 
@@ -7588,10 +7663,10 @@ def zero_gpt(torch, kern, card: str) -> tuple:
     return launches, l_z, b_z, zopt._layout.total
 
 
-def _rank_setup(tp: int = 1, pp: int = 1):
+def _rank_setup(tp: int = 1, pp: int = 1, cp: int = 1):
     """A rank body's start: the kernels the parent built, the mesh (``tp``
-    ranks a tensor group, ``pp`` a pipeline group), the parent's precision
-    settings."""
+    ranks a tensor group, ``pp`` a pipeline group, ``cp`` a context
+    group), the parent's precision settings."""
     import torch
     from apex_tpu_torch import _kernels as kern
     from apex_tpu_torch.transformer import parallel_state as ps
@@ -7601,9 +7676,10 @@ def _rank_setup(tp: int = 1, pp: int = 1):
     torch.backends.cudnn.allow_tf32 = False
     if (not ps.model_parallel_is_initialized()
             or ps.get_tensor_model_parallel_world_size() != tp
-            or ps.get_pipeline_model_parallel_world_size() != pp):
+            or ps.get_pipeline_model_parallel_world_size() != pp
+            or ps.get_context_parallel_world_size() != cp):
         ps.destroy_model_parallel()
-        ps.initialize_model_parallel(tp, pp)
+        ps.initialize_model_parallel(tp, pp, context_parallel_size=cp)
     return torch, kern
 
 
@@ -8734,6 +8810,658 @@ def hybrid_gpt(torch, kern, card: str) -> dict:
     return launches
 
 
+# -- context, expert and spatial parallelism; checkpoints -------------------
+CP_WORLD = 2
+CP_SEED = 20
+# ring and Ulysses against the one-rank kernel and its plain twin, relative
+# norm of each of out, dq, dk, dv (bf16 in and out): a bf16 rounding of
+# each output is ~2**-9 of its norm, the kernel's bf16 tensor-core
+# backward ~3e-3 from the fp32 plain one (TOL_LONG_DQKV's 1e-2 allows it)
+TOL_CP = 1e-2
+MOE = dict(hidden_size=768, ffn_hidden_size=3072, num_experts=8,
+           capacity_factor=1.25)
+MOE_TOKENS = 8 * 1024
+MOE_AUX_WEIGHT = 0.01
+# against the one-process routing, relative norm: fp32 the same math with
+# GEMMs batched otherwise; bf16 a rounding of the slots and outputs
+TOL_MOE = {"float32": 1e-5, "bfloat16": 1e-2}
+# ||out - dense|| / ||dense|| against moe_dense in fp32: bf16 rounds the
+# expert weights, the FFN's hidden and the output (the CPU tests' bf16
+# limit)
+TOL_MOE_DENSE = {"float32": 1e-5, "bfloat16": 2e-2}
+# (N, H, W, C_in, C_out, stride): ResNet-50's 3x3 at res2 and the
+# 128-channel stride-2 conv of res3's first block
+SPATIAL_CONVS = ((32, 56, 56, 64, 64, 1), (32, 56, 56, 128, 128, 2))
+# fp32 convolutions on the shards and halos against the dense one (TF32
+# off), relative norm: cuDNN may pick other algorithms and sum in another
+# order. The output and input grads sum 3 x 3 x C terms; the weight grad
+# sums N x H x W (100352 at res2, two shards' partials added), whose
+# rounding grows as the square root of the count, ~2e-5 of its norm
+TOL_SPATIAL = {"out": 1e-5, "dx": 1e-5, "dw": 1e-4}
+CKPT_STEPS = 5             # straight; saves at CKPT_SAVE_AT
+CKPT_SAVE_AT = 3
+CKPT_DROPOUT_STEP = 4      # the last step draws dropout from the tracker
+ZERO_CKPT_STEPS = 2
+WATCH_ENGINE = dict(max_seqs=2, max_len=256, prefill_len=128)
+WATCH_PROMPTS = (100, 37)
+WATCH_NEW = 16
+
+
+def _rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+def rank_cp() -> dict:
+    """A rank's ``ring_attention`` (remat on) and ``ulysses_attention`` at
+    cp 2 on its 2048 positions of the long-context shape, causal, bf16,
+    forward and backward, each run twice (the second timed); its output
+    and q/k/v grads against the one-rank kernel and plain twin on the
+    whole sequence (comparisons not counted)."""
+    torch, kern = _rank_setup(cp=CP_WORLD)
+    import torch.distributed as dist
+    from apex_tpu_torch.ops.flash_attention import flash_attention
+    from apex_tpu_torch.transformer.context_parallel import (
+        ring_attention, ulysses_attention)
+
+    rank = dist.get_rank()
+    b, h, s, d = LONG_SHAPE
+    n = s // CP_WORLD
+    gen = torch.Generator(device="cuda").manual_seed(CP_SEED)
+    q, k, v, dy = (torch.randn(LONG_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    mine = slice(rank * n, (rank + 1) * n)
+    out = {"launches": {"ring": {}, "ulysses": {}}}
+
+    def run(what, fn):
+        xs = [t[:, :, mine].contiguous().requires_grad_(True)
+              for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        o = fn(*xs, "context", causal=True)
+        o.backward(dy[:, :, mine])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        add_counts(out["launches"][what], kern.LAUNCHES)
+        return ([o.detach()] + [x.grad for x in xs], ms,
+                torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    runs = {}
+    for what, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        run(what, fn)
+        runs[what] = run(what, fn)
+    # the references on the whole sequence, this rank's slice of them
+    refs = {}
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*xs, causal=True)
+    o.backward(dy)
+    refs["kernel"] = [t[:, :, mine] for t in [o.detach()]
+                      + [x.grad for x in xs]]
+    plain = [torch.empty_like(t) for t in (q, q, k, v)]
+    for i in range(b):
+        xs = [t[i:i + 1].clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention(*xs, causal=True, use_kernel=False)
+        o.backward(dy[i:i + 1])
+        for dst, src in zip(plain, [o.detach()] + [x.grad for x in xs]):
+            dst[i:i + 1] = src
+    refs["plain"] = [t[:, :, mine] for t in plain]
+    names = ("out", "dq", "dk", "dv")
+    for what, (got, ms, peak) in runs.items():
+        out[what] = {"ms": ms, "peak_mib": peak, "errs": {
+            ref: {nm: (_rel(torch, g, w), max_err(torch, g, w))
+                  for nm, g, w in zip(names, got, want)}
+            for ref, want in refs.items()}}
+    chunk = nbytes_of(k[:, :, mine])
+    out["hop_bytes"] = 2 * chunk                      # k and v a hop
+    out["a2a_bytes"] = chunk * (CP_WORLD - 1) // CP_WORLD   # sent a tensor
+    del q, k, v, dy, refs, plain, runs, xs, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_dense(torch, params: dict, x, num_experts: int,
+              capacity_factor: float, **_) -> tuple:
+    """The reference's dense check, written apart from the layer: ``x``'s
+    tokens routed top-1 by the fp32 softmax of the router, each expert's
+    FFN (its tanh-gelu by the formula) in fp32 on the first ``C`` tokens
+    it gets, later ones left at 0. Returns ``(out, aux, dropped)``."""
+    n, E = x.shape[0], num_experts
+    C = max(1, math.ceil(n * capacity_factor / E))
+    xf = x.float()
+    gates = torch.softmax(xf @ params["router"]["weight"].float().T, -1)
+    expert = gates.argmax(-1)
+    gate = gates.gather(1, expert[:, None])[:, 0]
+    w = {k: v.float() for k, v in params["experts"].items()}
+    out, dropped = torch.zeros_like(xf), 0
+    for e in range(E):
+        mine = (expert == e).nonzero()[:, 0]
+        dropped += max(int(mine.numel()) - C, 0)
+        mine = mine[:C]
+        h1 = xf[mine] @ w["wi"][e].T + w["bi"][e]
+        h1 = 0.5 * h1 * (1 + torch.tanh(math.sqrt(2 / math.pi)
+                                        * (h1 + 0.044715 * h1 ** 3)))
+        out[mine] = gate[mine, None] * (h1 @ w["wo"][e].T + w["bo"][e])
+    frac = torch.bincount(expert, minlength=E).float() / n
+    return out, E * torch.sum(frac * gates.mean(0)), dropped
+
+
+def rank_ep_spatial(zero_dir: str) -> dict:
+    """A rank's ``ExpertParallelMLP`` (fp32, bf16) against its tokens
+    routed on one process over a one-rank group and against
+    :func:`moe_dense`, ``spatial_conv2d`` at
+    ``SPATIAL_CONVS`` against the dense conv, then ZeRO-1 at dp 2 for
+    ``ZERO_CKPT_STEPS`` steps and ``save_checkpoint`` into ``zero_dir``."""
+    torch, kern = _rank_setup()
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from apex_tpu_torch.checkpoint import save_checkpoint
+    from apex_tpu_torch.optimizers._flatten import ravel
+    from apex_tpu_torch.parallel.spatial import spatial_conv2d
+    from apex_tpu_torch.transformer.expert_parallel import ExpertParallelMLP
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # every rank makes every group, in one order
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    out = {"moe": {}, "spatial": [], "launches": {}}
+    E = MOE["num_experts"]
+    lo, hi = rank * E // world, (rank + 1) * E // world
+    for dtype in (torch.float32, torch.bfloat16):
+        full = ExpertParallelMLP(**MOE).init(torch.Generator().manual_seed(7),
+                                             device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+        x = torch.randn(MOE_TOKENS, MOE["hidden_size"], generator=gen,
+                        device="cuda").to(dtype)
+        res = {}
+        for what, group, experts in (("ep", dist.group.WORLD, slice(lo, hi)),
+                                     ("ep", dist.group.WORLD, slice(lo, hi)),
+                                     ("one", solo, slice(None))):
+            layer = ExpertParallelMLP(**MOE, axis_name=group)
+            params = {"router": {"weight": full["router"]["weight"].clone()
+                                 .requires_grad_(True)},
+                      "experts": {k: v[experts].clone().requires_grad_(True)
+                                  for k, v in full["experts"].items()}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = layer(params, x)
+            (y.float().square().sum() + MOE_AUX_WEIGHT * aux).backward()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            with torch.no_grad():
+                dropped = MOE_TOKENS - int(layer._route(params, x)[0].sum())
+            res[what] = (y.detach(), aux.detach(), params, dropped, ms)
+        (y, aux, p, dropped, ms), (y1, aux1, p1, dropped1, ms1) = \
+            res["ep"], res["one"]
+        experts = {k: v.grad.contiguous() for k, v in p1["experts"].items()}
+        for g in experts.values():
+            dist.all_reduce(g)
+        errs = {"out": _rel(torch, y, y1),
+                "aux": abs(float(aux) - float(aux1)),
+                "router": _rel(torch, p["router"]["weight"].grad,
+                               p1["router"]["weight"].grad)}
+        for key, g in experts.items():
+            errs[key] = _rel(torch, p["experts"][key].grad, g[lo:hi])
+        with torch.no_grad():
+            y_d, aux_d, dropped_d = moe_dense(torch, full, x, **MOE)
+        dense = {"out": _rel(torch, y.float(), y_d),
+                 "aux": abs(float(aux) - float(aux_d))}
+        out["moe"][str(dtype).split(".")[-1]] = {
+            "errs": errs, "dense": dense,
+            "dropped": (dropped, dropped1, dropped_d), "ms": ms,
+            "ms_one": ms1, "aux": float(aux)}
+        del full, res, p, p1, experts, x, y, y1, y_d
+        torch.cuda.empty_cache()
+
+    for N, H, W, cin, cout, stride in SPATIAL_CONVS:
+        gen = torch.Generator(device="cuda").manual_seed(H + cin + stride)
+        x = torch.randn(N, H, W, cin, generator=gen, device="cuda")
+        w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.05
+        oh, ow = -(-H // stride), -(-W // stride)
+        dy = torch.randn(N, oh, ow, cout, generator=gen, device="cuda")
+        rows, orows = H // world, oh // world
+        got = []
+        for _ in range(2):          # the second timed
+            xs = x[:, rank * rows:(rank + 1) * rows].clone() \
+                .requires_grad_(True)
+            ws = w.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = spatial_conv2d(xs, ws, dist.group.WORLD, stride=stride)
+            o.backward(dy[:, rank * orows:(rank + 1) * orows])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got = [o.detach(), xs.grad, ws.grad.contiguous()]
+        dist.all_reduce(got[2])
+        xd, wd = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ph = max((oh - 1) * stride + 3 - H, 0)
+        pw = max((ow - 1) * stride + 3 - W, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xc = F.pad(xd.permute(0, 3, 1, 2),
+                   (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        od = F.conv2d(xc, wd.permute(3, 2, 0, 1), stride=stride) \
+            .permute(0, 2, 3, 1)
+        od.backward(dy)
+        torch.cuda.synchronize()
+        ms_dense = 1e3 * (time.perf_counter() - t0)
+        want = [od.detach()[:, rank * orows:(rank + 1) * orows],
+                xd.grad[:, rank * rows:(rank + 1) * rows], wd.grad]
+        out["spatial"].append({
+            "shape": (N, H, W, cin, cout, stride), "ms": ms,
+            "ms_dense": ms_dense,
+            "errs": {nm: _rel(torch, g, w_) for nm, g, w_ in
+                     zip(("out", "dx", "dw"), got, want)}})
+        del x, w, dy, got, want, xd, wd, od, xc
+        torch.cuda.empty_cache()
+
+    # ZeRO-1 at dp 2, saved for checkpoint_resume to read at world 1
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    per = tokens.shape[0] // world
+    zopt = zero_config().build_optimizer()
+    step = gpt_trainer(torch, cfg, init_state,
+                       tokens[rank * per:(rank + 1) * per], 1e-4,
+                       optimizer=zopt, finite_axes="data")
+    timed_steps(torch, kern, step, ZERO_CKPT_STEPS, f"rank {rank} zero ckpt",
+                out["launches"])
+    st = step.opt_state
+    lay = zopt._layout
+    # the run's own fp32 params in leaf order: what the natural vector of
+    # the resharded master must be
+    params_digest = tree_digest(torch, ravel(step.params, lay)[:lay.total])
+    t0 = time.perf_counter()
+    save_checkpoint(zero_dir, {"opt": st}, ZERO_CKPT_STEPS,
+                    host_state={"world": world,
+                                "total": zopt._layout.total,
+                                "bucket_bytes": ZERO_BUCKET_BYTES})
+    out["zero"] = {"save_s": time.perf_counter() - t0,
+                   "shard": st.master.numel(), "params": params_digest,
+                   "digests": {f: tree_digest(torch, getattr(st, f))
+                               for f in ("master", "exp_avg", "exp_avg_sq")}}
+    del step, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_cp_ep(torch, kern, card: str, zero_dir: str) -> tuple:
+    """``cp_attention`` and ``ep_spatial``: two processes on the card over
+    gloo (correctness legs; their times are gloo over loopback, no
+    multi-GPU speed). Returns ``(cp launches, ep launches, zero leg)``."""
+    from apex_tpu_torch.parallel._spawn import RankPool
+
+    t0 = time.perf_counter()
+    pool = RankPool(CP_WORLD, backend="gloo", device="cuda",
+                    pg_timeout=DIST_TIMEOUT)
+    try:
+        start_s = time.perf_counter() - t0
+        cp = pool.run(rank_cp, timeout=DIST_TIMEOUT)
+        cp_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ep = pool.run(rank_ep_spatial, zero_dir, timeout=DIST_TIMEOUT)
+        ep_s = time.perf_counter() - t1
+    finally:
+        pool.close()
+    cp_launches = {}
+    for r, o in enumerate(cp):
+        ulysses = o["launches"]["ulysses"]
+        add_counts(cp_launches, ulysses)
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(ulysses.get(name, 0) == 2,
+                  f"cp_attention rank {r}: Ulysses launched {name} "
+                  f"{ulysses.get(name, 0)} times in 2 calls, not 2")
+        check(sum(o["launches"]["ring"].values()) == 0,
+              f"cp_attention rank {r}: the ring launched "
+              f"{o['launches']['ring']}")
+        for what in ("ring", "ulysses"):
+            for ref, errs in o[what]["errs"].items():
+                worst = max(e[0] for e in errs.values())
+                check(worst <= TOL_CP,
+                      f"cp_attention rank {r}: {what} against the one-rank "
+                      f"{ref}: {errs} (tol {TOL_CP})")
+    for what in ("ring", "ulysses"):
+        for ref in ("kernel", "plain"):
+            errs = {nm: max(o[what]["errs"][ref][nm][0] for o in cp)
+                    for nm in ("out", "dq", "dk", "dv")}
+            print(f"cp_attention: {what} at cp {CP_WORLD}, "
+                  f"{LONG_SHAPE} bf16 causal, {LONG_SHAPE[2] // CP_WORLD} "
+                  f"positions a rank, against the one-rank {ref} on the "
+                  f"whole sequence: relative norm (worst rank) "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (tol {TOL_CP}); max |diff| "
+                  + ", ".join(f"{k} {max(o[what]['errs'][ref][k][1] for o in cp):.3g}"
+                              for k in errs) + f" [{card}]")
+        print(f"cp_attention: {what} forward + backward "
+              f"{[round(o[what]['ms'], 1) for o in cp]} ms by rank (host "
+              f"clock, second call, gloo over loopback), peak "
+              f"{[round(o[what]['peak_mib'], 1) for o in cp]} MiB by rank; "
+              + (f"B1-B3 launches a rank {cp[0]['launches']['ulysses']} "
+                 "over 2 calls"
+                 if what == "ulysses" else "no port kernel launched")
+              + f" [{card}]")
+    print(f"cp_attention: {cp[0]['hop_bytes']} bytes a ring hop (k and v "
+          f"chunks), {cp[0]['a2a_bytes']} bytes a rank sends in one "
+          f"all-to-all of a {LONG_SHAPE[:2] + (LONG_SHAPE[2] // CP_WORLD,)
+                             + LONG_SHAPE[3:]} bf16 shard; pool started in "
+          f"{start_s:.1f} s [{card}]")
+
+    for r, o in enumerate(ep):
+        for dt, m in o["moe"].items():
+            worst = max(v for k, v in m["errs"].items() if k != "aux")
+            check(worst <= TOL_MOE[dt] and m["errs"]["aux"] <= 1e-6
+                  and m["dense"]["out"] <= TOL_MOE_DENSE[dt]
+                  and m["dense"]["aux"] <= 1e-6
+                  and len(set(m["dropped"])) == 1,
+                  f"ep_spatial rank {r}: MoE {dt} against one-process "
+                  f"routing {m['errs']} (tol {TOL_MOE[dt]}), against the "
+                  f"dense reference {m['dense']} (tol {TOL_MOE_DENSE[dt]}), "
+                  f"dropped (ep, one process, dense) {m['dropped']}")
+        for c in o["spatial"]:
+            check(all(e <= TOL_SPATIAL[k] for k, e in c["errs"].items()),
+                  f"ep_spatial rank {r}: spatial_conv2d {c['shape']} "
+                  f"against the dense conv {c['errs']} (tol {TOL_SPATIAL})")
+    for dt in ("float32", "bfloat16"):
+        ms = [o["moe"][dt] for o in ep]
+        print(f"ep_spatial: ExpertParallelMLP {MOE} at ep {CP_WORLD}, "
+              f"{MOE_TOKENS} tokens a rank, {dt}: against the same shards "
+              f"routed on one process, worst rank's relative norm "
+              + ", ".join(f"{k} {max(m['errs'][k] for m in ms):.3g}"
+                          for k in ms[0]["errs"])
+              + f" (tol {TOL_MOE[dt]}; aux as |diff|); against the dense "
+              f"per-expert fp32 reference, worst rank's out relative norm "
+              f"{max(m['dense']['out'] for m in ms):.3g} (tol "
+              f"{TOL_MOE_DENSE[dt]}), aux |diff| "
+              f"{max(m['dense']['aux'] for m in ms):.3g}; tokens dropped by "
+              f"rank {[m['dropped'][0] for m in ms]}; aux "
+              f"{[round(m['aux'], 5) for m in ms]}; forward + backward "
+              f"{[round(m['ms'], 1) for m in ms]} ms by rank (host clock, "
+              f"second call, gloo over loopback) against "
+              f"{[round(m['ms_one'], 1) for m in ms]} routed on one process "
+              f"[{card}]")
+    for i, shape in enumerate(SPATIAL_CONVS):
+        cs = [o["spatial"][i] for o in ep]
+        print(f"ep_spatial: spatial_conv2d (N, H, W, C_in, C_out, stride) "
+              f"{shape} fp32 over 2 height shards against the dense "
+              f"F.conv2d: worst relative norm "
+              + ", ".join(f"{k} {max(c['errs'][k] for c in cs):.3g}"
+                          for k in ("out", "dx", "dw"))
+              + f" (tol {TOL_SPATIAL}); forward + backward "
+              f"{[round(c['ms'], 2) for c in cs]} ms by rank (host clock, "
+              f"halos over gloo) against {cs[0]['ms_dense']:.2f} ms dense on "
+              f"one rank [{card}]")
+    ep_launches = {}
+    for o in ep:
+        add_counts(ep_launches, o["launches"])
+    zero = {"shard": ep[0]["zero"]["shard"],
+            "params": [o["zero"]["params"] for o in ep],
+            "digests": [o["zero"]["digests"] for o in ep],
+            "save_s": [o["zero"]["save_s"] for o in ep]}
+    print(f"cp_attention + ep_spatial: wall seconds cp_attention {cp_s:.1f} "
+          f"(the pool's start included), ep_spatial {ep_s:.1f} (the ZeRO "
+          f"steps and their save included)")
+    return cp_launches, ep_launches, zero
+
+
+def ckpt_steps(torch, kern, step, steps, what: str, launches: dict) -> list:
+    """Steps ``steps`` (indices of the straight run) of ``step``, dropout
+    at ``CKPT_DROPOUT_STEP``, each one's launches checked and added."""
+    losses = []
+    for i in steps:
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        loss, finite, _ = step(i == CKPT_DROPOUT_STEP)
+        torch.cuda.synchronize()
+        check_gpt_counts(dict(kern.LAUNCHES), f"{what} step {i}")
+        check(bool(finite), f"{what} step {i}: grads not finite")
+        add_counts(launches, kern.LAUNCHES)
+        losses.append(float(loss))
+    return losses
+
+
+def tree_digest(torch, tree) -> str:
+    """sha256 over every leaf's dtype, shape and bits, in tree order."""
+    from torch.utils._pytree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(t).encode())
+    return h.hexdigest()
+
+
+def checkpoint_resume(torch, kern, card: str, root: str, zero: dict) -> dict:
+    """GPT-small resumed bit for bit through ``save_checkpoint`` and
+    ``AsyncCheckpointer`` under a ``FaultPlan``, the dp 2 ZeRO checkpoint
+    restored at world 1 through ``reshard_zero_state``, and
+    ``watch_checkpoints`` on a dense engine. Returns the launches of the
+    training steps and of the watcher's engine."""
+    import os
+    import warnings
+    import numpy as np
+    from apex_tpu_torch.checkpoint import (all_steps, read_host_state,
+                                           restore_checkpoint,
+                                           save_checkpoint, torn_steps)
+    from apex_tpu_torch.elastic import AsyncCheckpointer, FaultPlan
+    from apex_tpu_torch.elastic.reshard import reshard_zero_state, to_natural
+    from apex_tpu_torch.observability import MetricsRegistry
+    from apex_tpu_torch.optimizers import ZeroAdamState
+
+    cfg, init_state, tokens = gpt_small_setup(torch)
+    launches = {}
+    before, after = range(CKPT_SAVE_AT), range(CKPT_SAVE_AT, CKPT_STEPS)
+    drop_cfg = dataclasses.replace(cfg, hidden_dropout=TRAIN_DROPOUT,
+                                   attention_dropout=TRAIN_DROPOUT)
+
+    def ckpt_trainer(tracker_seed: int):
+        """``gpt_trainer``'s step with dropout at ``TRAIN_DROPOUT`` from
+        a tracker stream seeded ``tracker_seed``, at the steps that ask."""
+        return gpt_trainer(torch, drop_cfg, init_state, tokens, 1e-4,
+                           tracker_seed=tracker_seed)
+
+    def fresh():
+        step = ckpt_trainer(99)
+        with torch.no_grad():
+            for p in step.model.parameters():
+                p.zero_()
+        return step
+
+    straight = ckpt_trainer(1234)
+    want = ckpt_steps(torch, kern, straight, range(CKPT_STEPS),
+                      "checkpoint_resume straight", launches)
+    want_digest = tree_digest(torch, straight.state())
+    del straight
+    torch.cuda.empty_cache()
+
+    # the synchronous save and restore
+    sync_dir = os.path.join(root, "sync")
+    run = ckpt_trainer(1234)
+    got = ckpt_steps(torch, kern, run, before, "checkpoint_resume", launches)
+    t0 = time.perf_counter()
+    save_checkpoint(sync_dir, run.state(), CKPT_SAVE_AT, fp32_on_disk=True,
+                    host_state={"step": CKPT_SAVE_AT}, keep_last=1)
+    save_s = time.perf_counter() - t0
+    del run
+    resumed = fresh()
+    t0 = time.perf_counter()
+    tree, host = restore_checkpoint(sync_dir, resumed.state())
+    resumed.load(tree)
+    restore_s = time.perf_counter() - t0
+    got += ckpt_steps(torch, kern, resumed, after, "checkpoint_resume "
+                      "restored", launches)
+    digest = tree_digest(torch, resumed.state())
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(sync_dir) for f in fs)
+    check(got == want and digest == want_digest
+          and host == {"step": CKPT_SAVE_AT},
+          f"checkpoint_resume: losses {got} against the straight run's "
+          f"{want}, leaves {'alike' if digest == want_digest else 'differ'}")
+    print(f"checkpoint_resume: GPT-small (8 x 1024, FusedAdam, "
+          f"DynamicLossScale, bf16 compute over fp32 params, dropout "
+          f"{TRAIN_DROPOUT} from the tracker at step {CKPT_DROPOUT_STEP}): "
+          f"{CKPT_STEPS} steps straight against {CKPT_SAVE_AT}, "
+          f"save_checkpoint (fp32_on_disk, keep_last=1) in {save_s:.2f} s, "
+          f"a fresh model, optimizer, scaler and tracker, restore_checkpoint "
+          f"in {restore_s:.2f} s, {CKPT_STEPS - CKPT_SAVE_AT} more: losses "
+          f"{got} bit for bit, every leaf bit for bit (sha256 "
+          f"{digest[:16]}); {ckpt_bytes} bytes on disk (host clock, the "
+          f"machine's temporary directory, warm) [{card}]")
+    del resumed, tree
+    torch.cuda.empty_cache()
+
+    # the asynchronous writer under a fault plan
+    async_dir = os.path.join(root, "async")
+    plan = FaultPlan(save_errors={CKPT_SAVE_AT: 1}, tear_after_step=CKPT_STEPS)
+    reg = MetricsRegistry()
+    ck = AsyncCheckpointer(async_dir, keep_last=2, retry_backoff_s=0.05,
+                           registry=reg, fault_hook=plan.on_save_attempt,
+                           after_save=plan.after_save)
+    run = ckpt_trainer(1234)
+    got = ckpt_steps(torch, kern, run, before, "checkpoint_resume async",
+                     launches)
+    t0 = time.perf_counter()
+    ck.save(run.state(), CKPT_SAVE_AT, host_state={"step": CKPT_SAVE_AT})
+    snap_ms = 1e3 * (time.perf_counter() - t0)
+    # the run goes on, writing its params and state in place, while the
+    # writer serializes step CKPT_SAVE_AT's snapshot
+    got += ckpt_steps(torch, kern, run, after, "checkpoint_resume async",
+                      launches)
+    ck.save(run.state(), CKPT_STEPS, host_state={"step": CKPT_STEPS})
+    ck.drain()
+    snap = reg.snapshot()
+    steps, torn = all_steps(async_dir), torn_steps(async_dir)
+    check(got == want and snap["ckpt/retries"] == 1
+          and snap["ckpt/saves"] == 2 and steps == [CKPT_SAVE_AT]
+          and torn == [CKPT_STEPS],
+          f"checkpoint_resume async: losses {got} against {want}, metrics "
+          f"{snap}, committed {steps}, torn {torn}")
+    del run
+    resumed = fresh()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tree, host = restore_checkpoint(async_dir, resumed.state())
+    warned = [str(w.message) for w in caught
+              if f"[{CKPT_STEPS}]" in str(w.message)]
+    resumed.load(tree)
+    got = want[:CKPT_SAVE_AT] + ckpt_steps(
+        torch, kern, resumed, after, "checkpoint_resume async restored",
+        launches)
+    digest = tree_digest(torch, resumed.state())
+    check(got == want and digest == want_digest and len(warned) == 1
+          and host == {"step": CKPT_SAVE_AT},
+          f"checkpoint_resume async: after the torn step, losses {got} "
+          f"against {want}, leaves "
+          f"{'alike' if digest == want_digest else 'differ'}, warnings "
+          f"{[str(w.message) for w in caught]}")
+    print(f"checkpoint_resume: AsyncCheckpointer under FaultPlan("
+          f"save_errors={{{CKPT_SAVE_AT}: 1}}, tear_after_step={CKPT_STEPS})"
+          f": snapshot {snap_ms:.1f} ms on the step thread against serialize "
+          f"{snap['ckpt/save_ms_sum'] / max(snap['ckpt/save_ms_count'], 1):.1f}"
+          f" ms a save off it (ckpt/save_ms, {snap['ckpt/save_ms_count']:.0f}"
+          f" saves), ckpt/bytes {snap['ckpt/bytes']:.0f} over 2 saves, "
+          f"ckpt/retries {snap['ckpt/retries']:.0f}, ckpt/saves "
+          f"{snap['ckpt/saves']:.0f}; steps {CKPT_SAVE_AT + 1}-{CKPT_STEPS} "
+          f"ran while step {CKPT_SAVE_AT} was written; committed {steps}, "
+          f"torn {torn}; the restore warned \"{warned[0][:60]}...\" and "
+          f"resumed at step {CKPT_SAVE_AT}: losses and every leaf bit for "
+          f"bit the straight run's [{card}]")
+    del resumed, tree
+
+    # ZeRO-1 at dp 2, restored at world 1
+    zero_dir = os.path.join(root, "zero")
+    step_z, host = read_host_state(zero_dir)
+    total, bb, dp_old = host["total"], host["bucket_bytes"], host["world"]
+    shard = zero["shard"]
+    like = ZeroAdamState(
+        step=torch.zeros((), dtype=torch.int32), bucket_stamp=0,
+        **{f: torch.empty(shard * dp_old, device="meta")
+           for f in ("master", "exp_avg", "exp_avg_sq")})
+    t0 = time.perf_counter()
+    tree, _ = restore_checkpoint(zero_dir, {"opt": like})
+    glob = tree["opt"]
+    shards_ok = all(
+        tree_digest(torch, getattr(glob, f).chunk(dp_old)[r]) == d[f]
+        for r, d in enumerate(zero["digests"]) for f in d)
+    one = reshard_zero_state(glob, total=total, dp_old=dp_old, dp_new=1,
+                             bucket_bytes=bb)
+    # the master's natural vector on the new grid against the fp32 params
+    # the ZeRO run gathered itself (by the optimizer's own layout code)
+    natural = tree_digest(torch, to_natural(one.master, total, 1, bb))
+    natural_ok = set(zero["params"]) == {natural}
+    reshard_s = time.perf_counter() - t0
+    check(shards_ok and natural_ok and int(one.step) == ZERO_CKPT_STEPS
+          and one.bucket_stamp == bb and step_z == ZERO_CKPT_STEPS,
+          f"checkpoint_resume: ZeRO dp {dp_old} -> 1: shards "
+          f"{'alike' if shards_ok else 'differ'}, master's natural vector "
+          f"{'alike' if natural_ok else 'differ'}, step {int(one.step)}")
+    print(f"checkpoint_resume: ZeRO-1 (zero_config, {bb}-byte buckets) at "
+          f"dp {dp_old} over gloo, {ZERO_CKPT_STEPS} steps, saved by both "
+          f"ranks in {[round(x, 2) for x in zero['save_s']]} s; restored at "
+          f"world 1 as the {dp_old} shards' concatenation ({shard} elements "
+          f"each, bit for bit each rank's), reshard_zero_state to dp 1: the "
+          f"master's natural flat vector bit for bit the ZeRO run's own fp32 "
+          f"params after its {ZERO_CKPT_STEPS} steps in leaf order ({total} "
+          f"elements, sha256 {natural[:16]}); restore and reshard "
+          f"{reshard_s:.1f} s "
+          f"(host clock) [{card}]")
+    del tree, glob, one
+
+    # the serving watcher on the synchronous leg's checkpoint
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.serving import ServingEngine, watch_checkpoints
+    from torch.utils._pytree import tree_map
+    target = tree_map(lambda t: t.to("meta") if isinstance(t, torch.Tensor)
+                      and t.is_floating_point() else t,
+                      fresh().state())
+    torch.cuda.empty_cache()
+    prompts = [np.random.RandomState(n).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for n in WATCH_PROMPTS]
+
+    def stream(engine):
+        toks = np.array([engine.prefill(p, i) for i, p in
+                         enumerate(prompts)], np.int64)
+        out = [toks.tolist()]
+        temps = np.zeros(len(prompts), np.float32)
+        active = np.ones(len(prompts), bool)
+        for _ in range(WATCH_NEW - 1):
+            toks = np.asarray(engine.decode(toks, temps, active)).astype(
+                np.int64)
+            out.append(toks.tolist())
+        return out
+
+    engine = ServingEngine(GPTModel(cfg, device="cuda"), init_state,
+                           device="cuda", **WATCH_ENGINE)
+    before_swap = stream(engine)
+    reg = MetricsRegistry()
+    kern.reset_launches()
+    watcher = watch_checkpoints(engine, sync_dir, target=target,
+                                extract=lambda s: s["params"], registry=reg)
+    engine.release_slot(0)
+    engine.release_slot(1)
+    served = stream(engine)
+    torch.cuda.synchronize()
+    add_counts(launches, kern.LAUNCHES)
+    tree, _ = restore_checkpoint(sync_dir, target)
+    ref = stream(ServingEngine(GPTModel(cfg, device="cuda"),
+                               tree["params"], device="cuda", **WATCH_ENGINE))
+    check(watcher.step == CKPT_SAVE_AT and reg.snapshot()["serve/swaps"] == 1
+          and served == ref and watcher.poll() is None,
+          f"checkpoint_resume: the watcher at step {watcher.step}, "
+          f"serve/swaps {reg.snapshot().get('serve/swaps')}, its stream "
+          f"{'equals' if served == ref else 'differs from'} the restored "
+          f"engine's")
+    print(f"checkpoint_resume: watch_checkpoints on a dense ServingEngine "
+          f"{WATCH_ENGINE} (bf16 cache) rolled onto committed step "
+          f"{watcher.step} (serve/swaps 1, a second poll a no-op): its "
+          f"greedy stream of {WATCH_NEW} tokens for prompts of "
+          f"{list(WATCH_PROMPTS)} equals that of an engine built on the "
+          f"restored weights ({'and differs from' if before_swap != served else 'the same as'}"
+          f" the stream before the swap) [{card}]")
+    return launches
+
+
 def profile_step(torch, what: str, fn, card: str, iters: int = 5,
                  top: int = 8) -> tuple:
     """Device busy time of ``fn`` in a ``profile_window`` (CUDA activity
@@ -8890,6 +9618,12 @@ def main() -> None:
     lap("pp_gpt")
     hybrid_ranks = hybrid_gpt(torch, kern, card)
     lap("hybrid_gpt")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        cp_ranks, ep_ranks, zero_ckpt = dist_cp_ep(
+            torch, kern, card, f"{root}/zero")
+        lap("cp_attention + ep_spatial")
+        resume = checkpoint_resume(torch, kern, card, root, zero_ckpt)
+        lap("checkpoint_resume")
     rows.append(dbias_row)
     print(f"launches on the main paths: serving {serving}, small serving "
           f"(d 16) {small_serving}, paged serving "
@@ -8916,7 +9650,10 @@ def main() -> None:
           f"skipped one) {tp_ranks}, the two pipeline ranks' schedules and "
           f"steps ({PP_STEPS} and a skipped one) {pp_ranks}, the hybrid "
           f"trainer's four ranks ({HYBRID_STEPS} steps and a skipped one) "
-          f"{hybrid_ranks}")
+          f"{hybrid_ranks}, the two context ranks' Ulysses calls (2 a rank) "
+          f"{cp_ranks}, the two ZeRO ranks' steps before their checkpoint "
+          f"({ZERO_CKPT_STEPS} a rank) {ep_ranks}, the resumed GPT-small "
+          f"steps and the watcher's engine {resume}")
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
@@ -8927,7 +9664,8 @@ def main() -> None:
                                small_training, remat_legs, config_training,
                                resnet, bert, lamb, legs, big, long,
                                speech, retina, sparse, tp1, ddp, zero,
-                               ranks, tp_ranks, pp_ranks, hybrid_ranks)
+                               ranks, tp_ranks, pp_ranks, hybrid_ranks,
+                               cp_ranks, ep_ranks, resume)
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):

@@ -174,8 +174,7 @@ def test_errors_match_the_reference():
      "A7b"),
     (None, "tp builds"),
     (None, "pp builds"),
-    (lambda: tcfg.TrainConfig(parallel=tcfg.ParallelConfig(
-        context_parallel_size=2)).build_model(device="cpu"), "A5d"),
+    (None, "cp builds"),
     (None, "sequence_parallel requires tp > 1"),
     (None, "tp_comm_overlap requires sequence_parallel=True"),
     (lambda: tcfg.TrainConfig().fastpath().build_optimizer(), "A7b"),
@@ -192,8 +191,10 @@ def test_unported_pieces_raise_naming_their_queue_item(make, item, request):
     packages. Pipelines are ported: at pp 2 the GPT builds with every
     layer (the trainer cuts a rank's stage), and the microbatch
     calculator and the samplers build as the JAX package's do
-    (``tests/test_torch_microbatches.py`` holds them to it); context
-    parallelism raises naming A5d."""
+    (``tests/test_torch_microbatches.py`` holds them to it). Context
+    parallelism is ported: at cp 2 the GPT builds with cp 1's parameters
+    (only the mesh gains the context axis, as in the reference;
+    ``tests/test_torch_context_parallel.py`` holds the groups to JAX's)."""
     case = request.node.callspec.id
     if case == "tp":
         _tp2_builds()
@@ -205,6 +206,17 @@ def test_unported_pieces_raise_naming_their_queue_item(make, item, request):
             parallel=tcfg.ParallelConfig(pipeline_model_parallel_size=2)
         ).build_model(device="cpu")
         assert len(model.layers) == 4
+    elif case == "cp":
+        def build(cp):
+            return tcfg.TrainConfig(
+                model=tcfg.ModelConfig(vocab_size=64, hidden_size=32,
+                                       num_layers=2, num_attention_heads=4,
+                                       max_position_embeddings=16),
+                parallel=tcfg.ParallelConfig(context_parallel_size=cp)
+            ).build_model(device="cpu")
+        shapes = [{n: tuple(p.shape) for n, p in build(cp).named_parameters()}
+                  for cp in (2, 1)]
+        assert shapes[0] == shapes[1] and len(shapes[0]) > 0
     elif case == "microbatches":
         got = tcfg.TrainConfig().build_microbatch_calculator(2)
         want = jcfg.TrainConfig().build_microbatch_calculator(2)

@@ -4,9 +4,8 @@ and resolve lazily.
 For every package the port has, the JAX package's ``__all__`` (for
 ``observability``, which has none, its public names) less the port's is
 exactly the set listed here by the queue item that ports it (ROADMAP.md,
-queue A: A5a process groups and data parallelism, A5b tensor and
-sequence parallelism, A5c pipelines, A5d expert and context parallelism's
-attention, A6 the run loop, A7a observability); every name in a port ``__all__`` exists. A bare
+queue A: A6b the elastic run loop and launcher, A7a observability);
+every name in a port ``__all__`` exists. A bare
 ``import apex_tpu_torch`` imports no subpackage and builds no kernel, then
 each subpackage resolves on first attribute access, and the reference's
 unported subpackages raise ``AttributeError``.
@@ -23,16 +22,10 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "transformer": {"A5d": {"expert_parallel"}},
-    "transformer.context_parallel": {"A5d": {"ring_attention",
-                                             "ulysses_attention"}},
-    "serving": {"A6": {"CheckpointWatcher", "watch_checkpoints"}},
-    "elastic": {"A6": {"AsyncCheckpointer", "DrainInterrupt",
-                       "ElasticRunner", "FitResult", "Heartbeat",
-                       "LaunchReport", "LocalLauncher", "PrefetchingIterator",
-                       "RoundResult", "ShardedIndexIterator", "host_snapshot",
-                       "owned_copy", "snapshot_nbytes",
-                       "token_batch_fetcher"}},
+    "elastic": {"A6b": {"DrainInterrupt", "ElasticRunner", "FitResult",
+                        "Heartbeat", "LaunchReport", "LocalLauncher",
+                        "PrefetchingIterator", "RoundResult",
+                        "ShardedIndexIterator", "token_batch_fetcher"}},
     "observability": {"A7a": {
         "AttributionDiff", "BenchHistory", "ChromeTraceSink", "DriftShift",
         "FleetAggregator", "FleetPublisher", "HealthConfig", "HealthMonitor",
@@ -56,7 +49,10 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "contrib.sparsity", "elastic", "config", "remat",
             "transformer.parallel_state", "parallel.distributed",
             "optimizers.distributed_fused", "transformer.context_parallel",
-            "transformer.pipeline_parallel", "transformer._data")
+            "transformer.pipeline_parallel", "transformer._data",
+            "checkpoint", "transformer.expert_parallel", "parallel.spatial",
+            "elastic.ckpt", "elastic.reshard", "elastic.faults",
+            "serving.resilience")
 # the modules A5a added, each importable with JAX and the JAX package
 # blocked
 A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
@@ -76,8 +72,12 @@ A5C_MODULES = ("transformer.pipeline_parallel",
                "transformer.pipeline_parallel.schedules",
                "transformer._data", "transformer._data.batchsampler",
                "parallel._p2p")
+# and the modules A5d and A6a added
+A5D_A6A_MODULES = ("transformer.expert_parallel", "parallel.spatial",
+                   "checkpoint", "elastic", "elastic.ckpt", "elastic.reshard",
+                   "elastic.faults", "serving.resilience")
 # subpackages of the JAX package the port does not have yet
-UNPORTED_SUBPACKAGES = {"utils": "A7a", "checkpoint": "A6", "pyprof": "A7b",
+UNPORTED_SUBPACKAGES = {"utils": "A7a", "pyprof": "A7b",
                         "reparameterization": "not queued"}
 
 
@@ -159,7 +159,8 @@ def test_contrib_lazy_names_match_the_reference():
         port.nothing_here
 
 
-@pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES + A5C_MODULES)
+@pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES + A5C_MODULES
+                         + A5D_A6A_MODULES)
 def test_a5a_modules_import_without_jax(module):
     code = (
         "import sys\n"

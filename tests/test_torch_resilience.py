@@ -776,7 +776,7 @@ def test_fault_plan_sampling_validation(call, kw, match):
             getattr(cls, call)(**kw)
 
 
-def test_fault_plan_hooks(clock):
+def test_fault_plan_hooks(clock, tmp_path):
     plan = FaultPlan(poison_logits={3: 1}, slow_decode_s=0.25,
                      flood={2: 6})
     assert plan.poison_slot(3) == 1 and plan.poison_slot(2) is None
@@ -785,10 +785,25 @@ def test_fault_plan_hooks(clock):
     assert clock.t == 0.25
     FaultPlan().before_decode(1)
     assert clock.t == 0.25
-    for hook, args in (("before_step", (1,)), ("on_save_attempt", (1, 0)),
-                       ("after_save", (1, "/x"))):
-        with pytest.raises(NotImplementedError, match="A6"):
-            getattr(plan, hook)(*args)
+    with pytest.raises(NotImplementedError, match="A6b"):
+        plan.before_step(1)
+    # the checkpoint hooks act: transient errors, the slow save, the tear
+    saving = FaultPlan(save_errors={2: 2}, slow_save_s=0.5,
+                       tear_after_step=3)
+    for attempt in (0, 1):
+        with pytest.raises(OSError, match=f"step 2, attempt {attempt}"):
+            saving.on_save_attempt(2, attempt)
+    saving.on_save_attempt(2, 2)
+    saving.on_save_attempt(1, 0)
+    assert clock.t == 0.25 + 4 * 0.5
+    path = tmp_path / "step_00000003"
+    path.mkdir()
+    (path / "COMMITTED").write_text("ok\n")
+    saving.after_save(2, str(path))
+    assert (path / "COMMITTED").exists()
+    saving.after_save(3, str(path))
+    assert not (path / "COMMITTED").exists()
+    plan.after_save(3, str(path))       # no tear scripted: nothing to do
 
 
 def _slow(ns, eng, clock):

@@ -13,7 +13,8 @@ the JAX package's ``apex_tpu.contrib.sparsity`` on the CPU.
   step forced to overflow) against the JAX one, every pruned entry exactly
   0 after each step;
 - masks through a ``torch.save`` round trip (the reference's checkpoint
-  test goes through ``apex_tpu.checkpoint``, which is queue item A6), the
+  test goes through ``apex_tpu.checkpoint``; the port's checkpoint files
+  are ``torch.save`` files too, ``tests/test_torch_checkpoint.py``), the
   lazy ``contrib.sparsity``, ``ASP.prune`` in place and ``permute=True``.
 
 Tolerance: masks and permutations exact; the trajectory within 1e-6 of
