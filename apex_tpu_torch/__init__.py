@@ -27,15 +27,20 @@ parallelism and ZeRO-1 (:mod:`apex_tpu_torch.parallel`,
 in :class:`apex_tpu_torch.training.GPTHybridTrainer`, with context
 parallelism's ring and Ulysses attention, the expert-parallel MoE and the
 height-sharded convolution beside them, and checkpoints that resume bit
-for bit (:mod:`apex_tpu_torch.checkpoint`, with the asynchronous writer
-and the ZeRO reshard of :mod:`apex_tpu_torch.elastic`). Public entry points default to
+for bit (:mod:`apex_tpu_torch.checkpoint`), and the elastic runtime of
+:mod:`apex_tpu_torch.elastic`: the asynchronous writer, the ZeRO
+reshard, the preemption-safe run loop over seeded resumable data, and
+the multi-process launcher that restarts and shrinks a gang
+(:mod:`apex_tpu_torch.parallel.multiproc`,
+:mod:`apex_tpu_torch.observability.fleet`,
+:mod:`apex_tpu_torch.utils`). Public entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
 
 The subpackages resolve on first attribute access, as the reference's do
 (``apex_tpu/__init__.py:32-44``): ``import apex_tpu_torch`` imports none
-of them, builds no kernel and needs no card. The reference's
-``utils``, ``pyprof`` and ``reparameterization`` are not ported, and
-raise ``AttributeError`` here.
+of them, builds no kernel and needs no card. The reference's ``pyprof``
+and ``reparameterization`` are not ported, and raise ``AttributeError``
+here.
 """
 
 import importlib as _importlib
@@ -46,6 +51,7 @@ _LAZY_SUBMODULES = (
     "amp", "optimizers", "normalization", "ops", "parallel", "transformer",
     "contrib", "fp16_utils", "models", "multi_tensor_apply", "RNN",
     "config", "observability", "remat", "serving", "elastic", "checkpoint",
+    "utils",
 )
 
 

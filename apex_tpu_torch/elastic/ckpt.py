@@ -47,11 +47,6 @@ __all__ = ["AsyncCheckpointer", "host_snapshot", "owned_copy",
            "snapshot_nbytes"]
 
 
-def _rank() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
-
-
 def host_snapshot(state: Any) -> Any:
     """``state`` with every tensor copied to an owned CPU tensor, after
     the card has finished the work that produced it: a consistent cut of
@@ -121,7 +116,8 @@ class AsyncCheckpointer:
     what it owns; the COMMITTED protocol is fenced by barriers there).
     The threaded split refuses such a world. The interface
     (save/drain/metrics) is the same in both modes. ``host_id`` defaults
-    to the ``torch.distributed`` rank (0 without a group).
+    to :func:`apex_tpu_torch.parallel.multiproc.process_id`, as the
+    reference's does.
     Collective saves never retry (``max_retries`` is ignored):
     an asymmetric transient failure would have one rank re-entering the
     begin barrier while its peers wait in the arrays barrier — a gang
@@ -169,7 +165,8 @@ class AsyncCheckpointer:
         self.retry_backoff_cap_s = retry_backoff_cap_s
         self.retry_jitter = retry_jitter
         if host_id is None:
-            host_id = _rank()
+            from apex_tpu_torch.parallel.multiproc import process_id
+            host_id = process_id()
         self.host_id = int(host_id)
         self.collective = collective
         self.fault_hook = fault_hook

@@ -34,9 +34,19 @@ Plans are seeded (:meth:`~FaultPlan.sample`,
 :meth:`~FaultPlan.sample_serving` draw from ``numpy.random.RandomState``,
 never from the clock).
 
-``before_step`` (SIGTERM and SIGKILL at a step) needs the port's elastic
-runner and multi-process launcher, queued as A6b; until then it raises
-``NotImplementedError``.
+**Training faults**, read by
+:class:`~apex_tpu_torch.elastic.runner.ElasticRunner` through
+:meth:`~FaultPlan.before_step`:
+
+- ``sigterm_at_step=K``: a real ``SIGTERM`` to this process right before
+  step ``K`` (the preemption signal; the runner's
+  :class:`~apex_tpu_torch.utils.AutoResume` latches it, drains, saves and
+  stops);
+- ``kill_process={rank: K}``: ``SIGKILL`` (no drain, no final save)
+  right before step ``K``, only in the process whose
+  :func:`~apex_tpu_torch.parallel.multiproc.process_id` is ``rank``: the
+  death the launcher must detect and shrink past. After a shrink the
+  survivors are ranks ``0..world-1``, so key it on a rank above 0.
 """
 
 from __future__ import annotations
@@ -44,17 +54,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import time
 from typing import Dict, Optional
 
 import numpy as np
 
 __all__ = ["FaultPlan"]
-
-_A6B = ("FaultPlan.before_step needs the port's elastic runner and "
-        "multi-process launcher (ROADMAP queue A6b), which are not ported "
-        "yet")
-
 
 @dataclasses.dataclass
 class FaultPlan:
@@ -74,7 +80,19 @@ class FaultPlan:
 
     # -- training hooks ---------------------------------------------------
     def before_step(self, step: int) -> None:
-        raise NotImplementedError(_A6B)
+        """The runner's hook, called before step ``step`` runs: a real
+        ``SIGTERM`` to this process at ``sigterm_at_step`` (through the
+        signal machinery, so the :class:`~apex_tpu_torch.utils.AutoResume`
+        handler is what runs), and ``SIGKILL`` at a ``kill_process`` entry
+        whose rank is this process's
+        :func:`~apex_tpu_torch.parallel.multiproc.process_id`."""
+        if self.kill_process:
+            from apex_tpu_torch.parallel.multiproc import process_id
+            k = self.kill_process.get(process_id())
+            if k is not None and step == k:
+                os.kill(os.getpid(), signal.SIGKILL)
+        if self.sigterm_at_step is not None and step == self.sigterm_at_step:
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def on_save_attempt(self, step: int, attempt: int) -> None:
         """The checkpointer's fault hook, called before serialization

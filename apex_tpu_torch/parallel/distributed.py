@@ -284,13 +284,29 @@ class DistributedDataParallel:
             self.allreduce_always_fp32, self.gradient_average,
             self.axis_index_groups, bucket_bytes=self.bucket_bytes)
 
-    def value_and_grad(self, loss_fn, has_aux: bool = False):
+    def value_and_grad(self, loss_fn, argnums: int = 0,
+                       has_aux: bool = False, **vag_kwargs):
         """``fn(params, *args, **kwargs) -> (value, grads)`` (``((value,
         aux), grads)`` with ``has_aux``), the grads already synced (or
         not, with ``delay_allreduce``). ``params`` is a tree of leaf
         tensors that require grad; the grads are ``torch.autograd.grad``
         of the value, in the tree of ``params`` (zeros for a leaf the
-        loss does not read), and nothing accumulates into ``.grad``."""
+        loss does not read), and nothing accumulates into ``.grad``.
+
+        The reference passes any ``jax.value_and_grad`` keyword on. Of
+        those, ``argnums=0`` (the params) and ``has_aux`` have a torch
+        meaning; another ``argnums``, ``holomorphic``, ``allow_int`` or
+        ``reduce_axes`` raises ``TypeError`` naming it."""
+        if isinstance(argnums, bool) or argnums != 0:
+            raise TypeError(
+                f"DistributedDataParallel.value_and_grad: argnums="
+                f"{argnums!r} has no torch meaning here; the grads are "
+                "taken with respect to the first argument (argnums=0)")
+        for key in vag_kwargs:
+            raise TypeError(
+                f"DistributedDataParallel.value_and_grad: the "
+                f"jax.value_and_grad keyword {key!r} has no torch meaning "
+                "(only argnums=0 and has_aux are taken)")
 
         def wrapped(params, *args, **kwargs):
             out = loss_fn(params, *args, **kwargs)

@@ -187,13 +187,22 @@ class _Linear(nn.Module):
 class ColumnParallelLinear(_Linear):
     """``Y = X A^T + b`` with ``A`` sharded along its output features;
     ``forward`` returns ``(out, bias)`` like the reference, the bias
-    ``None`` unless ``skip_bias_add``."""
+    ``None`` unless ``skip_bias_add``.
+
+    ``no_async_tensor_model_parallel_allreduce`` and
+    ``gradient_accumulation_fusion`` are accepted and do nothing, as in
+    the reference (its ``layers.py:22-26``): the input grad's all-reduce
+    is issued by autograd, and accumulating into a ``main_grad`` is the
+    optimizer loop's concern. They keep the reference's positional
+    order."""
 
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
                  gather_output: bool = True,
                  init_method: Optional[Callable] = None,
                  skip_bias_add: bool = False, params_dtype=torch.float32,
                  world_size: Optional[int] = None,
+                 no_async_tensor_model_parallel_allreduce: bool = False,
+                 gradient_accumulation_fusion: bool = False,
                  sequence_parallel: bool = False, seq_axis: int = 1,
                  tp_comm_overlap: bool = False, device="cuda"):
         super().__init__(input_size, output_size, bias, init_method,

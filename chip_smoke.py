@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA GPU.
 
-Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
-card and ``nvcc`` (the kernels are built from ``apex_tpu_torch/csrc`` on
-first use); without a card, or without the package beside it, it exits
-non-zero and prints no result. Phases, each fatal on failure:
+Run from the repository root: ``python3 chip_smoke.py [group ...]``. It
+needs one CUDA card and ``nvcc`` (the kernels are built from
+``apex_tpu_torch/csrc`` on first use); without a card, or without the
+package beside it, it exits non-zero and prints no result. With no
+argument it runs every group of phases; named groups run alone, after
+the build and the kernel checks (1-3 below), which run in every call:
+``serving`` (4-7), ``serving_host`` (8-10), ``training`` (11-17),
+``models`` (18-22), ``dist`` (23-31) and ``elastic`` (32-33); an unknown
+name exits non-zero. A call without ``training`` takes B6's row of the
+kernels line from ``long_context``'s kernel checks and timings alone.
+Every call ends with the phases' wall seconds, the card's line, the
+kernels line (launches summed over the groups that ran) and the result
+line. Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels, timed (and each source's nvcc), and print the
@@ -335,13 +344,17 @@ non-zero and prints no result. Phases, each fatal on failure:
    bit, step ms, buckets and bytes reduced a step, the NCCL kernels'
    launches and device ms in a profile; ``accumulate_gradients`` over 2
    microbatches of 4 x 1024 against the window by hand, bit for bit;
-24. ``zero_gpt`` (NCCL at world 1): the step with the ZeRO-1 Adam that
+24. ``zero_gpt`` (NCCL at world 1): the step, at ``DIST_LAYERS`` (2)
+   layers of GPT-small's widths (as 25 and 30's ZeRO ranks: the
+   references they are held to), with the ZeRO-1 Adam that
    ``TrainConfig(zero=1, ddp_bucket_bytes=4 MiB)`` builds against
    ``FusedAdam``, in turns: 5 losses within ``TOL_ZERO_LOSS``, step ms,
    optimizer-state bytes a rank;
 25. ``dist_ranks``: two processes on the card over gloo (CUDA tensors; the
    kernels built above, loaded by each rank;
-   ``apex_tpu_torch.parallel._spawn.RankPool``): DDP at 4 x 1024 a rank
+   ``apex_tpu_torch.parallel._spawn.RankPool``, one pool of two ranks
+   for 25-27 and 29-30; GPT-small's widths at ``DIST_LAYERS`` layers):
+   DDP at 4 x 1024 a rank
    against the world-1 step at 8 x 1024 within ``TOL_TRAIN_*``, both
    ranks' grads alike; ZeRO at world 2 (a rank's shard half of world 1's,
    its moments after step 0 within ``TOL_ZERO_MOMENTS`` of Adam's on the
@@ -353,7 +366,9 @@ non-zero and prints no result. Phases, each fatal on failure:
    times printed as gloo over loopback, no multi-GPU speed;
 26. ``tp_gpt``: tensor parallelism at tp 2, two processes on the card
    over gloo as in 25 (the ring's hops staged through host tensors, as
-   ``collective_matmul`` does on gloo): GPT-small from seed 0 cut by
+   ``collective_matmul`` does on gloo): GPT-small's widths at
+   ``TP_LAYERS`` (2) layers (26-28 run a cut depth: gloo stages every
+   hop through the host) from seed 0 cut by
    ``_bridge.split_tp_state``, 4 x 1024 (rank 0's batch through
    ``broadcast_data``), bf16 over fp32 params, ``FusedAdam`` and
    ``DynamicLossScale`` with the finite flag reduced over the tensor
@@ -361,8 +376,8 @@ non-zero and prints no result. Phases, each fatal on failure:
    steps each: step 0's loss within ``TOL_TP_LOSS`` and its grads leaf by
    leaf within ``TOL_TP_GRAD`` of the one-rank tp = 1 step on the same
    weights and batch, SP and overlap against plain TP within the same
-   limits, each rank's launches (12 of each flash kernel, 25 of each
-   LayerNorm kernel a step), ``tp/collective_bytes`` against
+   limits, each rank's launches (one of each flash kernel a layer, two
+   of each LayerNorm kernel a layer and the final one, a step), ``tp/collective_bytes`` against
    ``tp_overlap_fwd_bytes`` and the bytes the forward's hops moved, the
    host-clock step ms (gloo over loopback); a 2-layer d-64 fp32 model's
    overlap loss and grads bit for bit its fused SP ones; a NaN in rank
@@ -370,29 +385,31 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``(4, 6, 1024, 64)`` against their plain versions;
 27. ``pp_gpt``: pipeline parallelism at pp 2, two processes on the card
    over gloo as in 25 (the stage hops staged through host tensors):
-   GPT-small from seed 0, 6 layers a stage, ``train``'s 8 x 1024 batch as
+   GPT-small's widths at ``PP_LAYERS`` (4) layers from seed 0, 2 a
+   stage, ``train``'s 8 x 1024 batch as
    4 microbatches of 2 x 1024 with the embedding on the first stage and
    the final LayerNorm, tied head and loss on the last (``GPTModel.
    pipeline_fns``): step 0's loss and every grad leaf of 1F1B against the
    one-rank ``forward_backward_no_pipelining`` on the same weights (the
    leaves bit for bit counted, any gap within ``TOL_TRAIN_*``), the
    all-forward order and the interleaved schedule (2 chunks a rank, 4
-   stages of 3 layers) against it and bit for bit against 1F1B by
+   stages of 1 layer) against it and bit for bit against 1F1B by
    digest; each rank's peak memory under 1F1B and the all-forward order
    at M 4 and 8 (1F1B's within ``PP_PEAK_SLACK``, the all-forward
    order's growing by ``PP_GROWTH_SHARE`` of 4 more microbatches'
-   graphs at least); each run's launches against the schedule's (24 of
-   B1-B3 a rank a step, 48 and 52 of B7/B8); 3 steps of ``FusedAdam``
+   graphs at least); each run's launches against the schedule's
+   (``pp_launches``); 3 steps of ``FusedAdam``
    and ``DynamicLossScale`` with the finite flag over the pipeline group,
    the host-clock step ms (gloo over loopback), and a NaN in rank 1's
    grads skipping both ranks;
 28. ``hybrid_gpt``: ``GPTHybridTrainer`` from a ``TrainConfig`` (O2, adam)
    at tp 2 x pp 2 x dp 1, four processes on the card over gloo:
-   GPT-small from seed 0, 2 microbatches of 2 x 1024 (``tp_gpt``'s
-   batch): step 0's loss and grads against the one-rank tp = 1 step on
-   the same weights and batch within ``TOL_TP_*``, every rank's losses
-   over 2 steps equal, the launches a rank a step (12 of B1-B3, 24 and 26
-   of B7/B8), the step ms, and a NaN in rank 1's grads skipping all four;
+   GPT-small's widths at ``HYBRID_LAYERS`` (2) layers from seed 0, 2
+   microbatches of 2 x 1024 (``tp_gpt``'s batch): step 0's loss and
+   grads against the one-rank tp = 1 step on the same weights and batch
+   within ``TOL_TP_*``, every rank's losses over 2 steps equal, the
+   launches a rank a step (``pp_launches``), the step ms, and a NaN in
+   rank 1's grads skipping all four;
 29. ``cp_attention``: context parallelism at cp 2, two processes on the
    card over gloo (the ring's k/v hops and the all-to-alls staged through
    host tensors): the long-context shape ``(8, 12, 4096, 64)`` bf16,
@@ -414,7 +431,8 @@ non-zero and prints no result. Phases, each fatal on failure:
    ResNet-50's 3x3 shapes (32 x 56 x 56 x 64 at stride 1, the
    128-channel stride-2 conv) over a height split in two against the
    dense ``F.conv2d`` (forward, input and weight grads) within
-   ``TOL_SPATIAL``; and ZeRO-1 (``zero_config``) at dp 2: 2 steps, then
+   ``TOL_SPATIAL``; and ZeRO-1 (``zero_config``, ``DIST_LAYERS``
+   layers) at dp 2: 2 steps, then
    ``save_checkpoint`` of the state;
 31. ``checkpoint_resume``: GPT-small as ``train`` builds it (8 x 1024,
    ``FusedAdam``, ``DynamicLossScale``, bf16 compute over fp32 params,
@@ -434,7 +452,34 @@ non-zero and prints no result. Phases, each fatal on failure:
    ``watch_checkpoints`` on a dense ``ServingEngine`` rolls onto the
    committed step (``serve/swaps`` 1), and its greedy stream equals that
    of an engine built on the restored weights;
-32. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+32. ``elastic`` E1 (NCCL at world 1 in this process): GPT-small at full
+   width through ``TrainConfig`` (O2, adam) as ``GPTHybridTrainer`` at tp
+   = pp = dp = 1 under ``ElasticRunner`` (``save_interval`` 2), fed by
+   ``ShardedIndexIterator`` -> ``PrefetchingIterator(device="cuda")`` ->
+   ``token_batch_fetcher`` over a seeded token array, 8 x 1024 tokens a
+   step: 6 straight steps; in a fresh directory a ``FaultPlan(
+   sigterm_at_step=3, slow_save_s=0.5)`` preemption (step 2's save still
+   being written) and a fresh runner to step 6, whose losses, params,
+   optimizer state, loss scale (sha256) and data cursor must equal the
+   straight run's bit for bit, ``restored_from`` 3; each run's launches
+   (B1-B3 12 a step, B7/B8 25); ``resume/restore_ms`` and the ``ckpt/*``
+   metrics; then (at 2 layers of its widths) a second SIGTERM during the
+   slowed drain of step 3's save raising ``DrainInterrupt``, step 2 the
+   latest COMMITTED one;
+33. ``elastic`` E2: the port's ``LocalLauncher(num_processes=2,
+   min_processes=1, max_restarts=1)`` over ``chip_smoke.py
+   --elastic-worker`` (two processes sharing the card over gloo;
+   GPT-small's widths at 2 layers, ZeRO-1 Adam at dp 2) with ``FaultPlan(
+   kill_process={1: 3})``, 4 steps: rank 1 SIGKILLed at step 3 twice,
+   the gang shrunk to world 1, the survivor restoring the dp 2 checkpoint at dp 1
+   (``FitResult.resharded``) and finishing; the ``LaunchReport``, each
+   round's wall seconds, the first round's postmortem naming rank 1
+   (``heartbeat_dead``), the aggregator's merged ``train/steps``; then in
+   this process the same restore replayed from the same checkpoint (its
+   losses and final state bit for bit the survivor's) and an
+   uninterrupted dp 1 run from step 0 (the post-shrink losses within
+   ``TOL_SHRINK_LOSS``);
+34. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -7414,6 +7459,10 @@ TOL_ZERO_LOSS = 5e-6
 # stepped on its own rank's grads by the grads' spread across ranks
 TOL_ZERO_MOMENTS = 1e-6
 DIST_WORLD = 2
+# zero_gpt, dist_ranks' DDP and ZeRO ranks and ep_spatial's ZeRO ranks run
+# GPT-small's widths at this depth (gloo stages every reduction through
+# the host; the checks are the same at any depth)
+DIST_LAYERS = 2
 DIST_TIMEOUT = 600.0       # seconds a call of the two ranks may take
 # this torch's gloo takes CUDA tensors in all_reduce (sum, min, max),
 # reduce_scatter_tensor and all_gather_into_tensor, async too (probed on
@@ -7431,13 +7480,14 @@ SYNCBN_UNEVEN = (96, 160)
 TOL_SYNCBN = 1e-5
 
 
-def gpt_small_setup(torch):
-    """GPT-small's config, ``train``'s init state (seed 0) and tokens
-    (8 x 1024 from ``RandomState(0)``)."""
+def gpt_small_setup(torch, layers: int = None):
+    """GPT-small's config (at ``layers`` layers of its widths when given:
+    the multi-process legs' cut depth), ``train``'s init state (seed 0)
+    and tokens (8 x 1024 from ``RandomState(0)``)."""
     import numpy as np
     from apex_tpu_torch.models import GPTConfig, GPTModel
 
-    cfg = GPTConfig(**GPT_SMALL)
+    cfg = GPTConfig(**gpt_small_at(layers))
     batch, seq = TRAIN_BH[0], TRAIN_ATTN[1]
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq))).to("cuda")
@@ -7446,18 +7496,26 @@ def gpt_small_setup(torch):
     return cfg, init_state, tokens
 
 
-def check_gpt_counts(counts: dict, what: str, passes: int = 1) -> None:
+def gpt_small_at(layers: int = None) -> dict:
+    """GPT-small's widths at ``layers`` layers (all 12 when None)."""
+    return dict(GPT_SMALL, num_layers=layers or GPT_SMALL["num_layers"])
+
+
+def check_gpt_counts(counts: dict, what: str, passes: int = 1,
+                     layers: int = None) -> None:
     """A GPT-small training step's launches: 12 of each flash kernel and
-    25 of each LayerNorm kernel a forward and backward."""
-    L = GPT_SMALL["num_layers"]
+    25 of each LayerNorm kernel a forward and backward (``layers`` and
+    ``2 * layers + 1`` at a cut depth)."""
+    L = layers or GPT_SMALL["num_layers"]
+    ln = LN_PER_GPT_PASS if layers is None else 2 * layers + 1
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(counts[name] == passes * L,
               f"{what}: {name} launched {counts[name]} times, not "
               f"{passes * L}")
     for name in ("ln_fwd", "ln_bwd"):
-        check(counts[name] == passes * LN_PER_GPT_PASS,
+        check(counts[name] == passes * ln,
               f"{what}: {name} launched {counts[name]} times, not "
-              f"{passes * LN_PER_GPT_PASS}")
+              f"{passes * ln}")
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -7465,8 +7523,10 @@ def add_counts(total: dict, counts: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
+
+
 def timed_steps(torch, kern, step, n: int, what: str, launches=None,
-                passes: int = 1) -> tuple:
+                passes: int = 1, layers: int = None) -> tuple:
     """``n`` synchronized steps: their losses, host-clock seconds and the
     first step's unscaled grads; each step's launches checked and added
     into ``launches``."""
@@ -7479,7 +7539,7 @@ def timed_steps(torch, kern, step, n: int, what: str, launches=None,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = dict(kern.LAUNCHES)
-        check_gpt_counts(counts, f"{what} step {i}", passes)
+        check_gpt_counts(counts, f"{what} step {i}", passes, layers)
         check(bool(finite) and bool(torch.isfinite(loss)),
               f"{what} step {i}: loss {float(loss)} or grads not finite")
         if launches is not None:
@@ -7626,7 +7686,7 @@ def zero_gpt(torch, kern, card: str) -> tuple:
     from apex_tpu_torch.observability import ingraph
     from apex_tpu_torch.optimizers import DistributedFusedAdam
 
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, DIST_LAYERS)
     zopt = zero_config().build_optimizer()
     check(isinstance(zopt, DistributedFusedAdam)
           and zopt.bucket_bytes == ZERO_BUCKET_BYTES,
@@ -7639,7 +7699,8 @@ def zero_gpt(torch, kern, card: str) -> tuple:
         with ingraph.collecting() as col:
             losses, times, _ = timed_steps(torch, kern, step, ZERO_STEPS,
                                            f"zero_gpt {what}",
-                                           launches if opt else None)
+                                           launches if opt else None,
+                                           layers=DIST_LAYERS)
             metrics = col.freeze().as_floats()
         legs[what] = ([float(x) for x in losses], times,
                       state_bytes(torch, step.opt_state), metrics)
@@ -7651,7 +7712,8 @@ def zero_gpt(torch, kern, card: str) -> tuple:
     check(err <= TOL_ZERO_LOSS, f"zero_gpt: ZeRO losses {l_z} against "
                                 f"FusedAdam's {l_a}: {err:.3g} > "
                                 f"{TOL_ZERO_LOSS}")
-    print(f"zero_gpt: GPT-small with TrainConfig(zero=1, ddp_bucket_bytes="
+    print(f"zero_gpt: GPT-small's widths at {DIST_LAYERS} layers with "
+          f"TrainConfig(zero=1, ddp_bucket_bytes="
           f"{ZERO_BUCKET_BYTES}) over NCCL at world 1: losses {l_z}, "
           f"FusedAdam's {l_a}, max |diff| {err:.3g} (tol {TOL_ZERO_LOSS}"
           f"{', bit for bit' if err == 0 else ''}); median step "
@@ -7700,7 +7762,7 @@ def rank_ddp() -> dict:
     from apex_tpu_torch.parallel.distributed import DEFAULT_BUCKET_BYTES
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, DIST_LAYERS)
     rows = tokens.shape[0] // world
     ddp = DistributedDataParallel(bucket_bytes=DEFAULT_BUCKET_BYTES)
     step = gpt_trainer(torch, cfg, init_state,
@@ -7708,7 +7770,8 @@ def rank_ddp() -> dict:
                        grad_sync=ddp.sync_gradients)
     launches = {}
     losses, times, grads = timed_steps(torch, kern, step, 2,
-                                       f"rank {rank} ddp", launches)
+                                       f"rank {rank} ddp", launches,
+                                       layers=DIST_LAYERS)
     out = {"losses": [float(x) for x in losses], "launches": launches,
            "ms": 1e3 * times[1], "digest": _grads_digest(grads)}
     raw = {n: torch.randn_like(p) for n, p in step.params.items()}
@@ -7767,7 +7830,7 @@ def rank_zero() -> dict:
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, DIST_LAYERS)
     rows = tokens.shape[0] // dist.get_world_size()
     poison = {"on": False}
 
@@ -7784,12 +7847,14 @@ def rank_zero() -> dict:
                        grad_sync=sync, optimizer=zopt, finite_axes="data")
     launches = {}
     losses, times, grads = timed_steps(torch, kern, step, 1,
-                                       f"rank {rank} zero", launches)
+                                       f"rank {rank} zero", launches,
+                                       layers=DIST_LAYERS)
     st = step.opt_state
     moments = zero_moments_err(torch, zopt, grads, st)
     del grads
     more, more_times, _ = timed_steps(torch, kern, step, ZERO_STEPS - 1,
-                                      f"rank {rank} zero, later", launches)
+                                      f"rank {rank} zero, later", launches,
+                                      layers=DIST_LAYERS)
     losses, times = losses + more, times + more_times
     out = {"losses": [float(x) for x in losses], "launches": launches,
            "ms": median_ms(times), "state_bytes": state_bytes(torch, st),
@@ -7868,9 +7933,9 @@ def rank_syncbn() -> dict:
 
 
 def dist_ranks(torch, kern, card: str, zero_losses, zero_bytes,
-               zero_total: int) -> dict:
-    """Two processes on the one card over gloo (CUDA tensors; a
-    correctness leg: its times are gloo over loopback, not a speed of
+               zero_total: int, pool) -> dict:
+    """``pool``'s two processes on the one card over gloo (CUDA tensors;
+    a correctness leg: its times are gloo over loopback, not a speed of
     anything multi-GPU): DDP on 4 x 1024 a rank against the world-1 step
     on 8 x 1024 (the averaged loss within ``TOL_TRAIN_LOSS``, the grads
     within ``TOL_TRAIN_GRAD``, both ranks' grads bit for bit alike); ZeRO
@@ -7880,22 +7945,13 @@ def dist_ranks(torch, kern, card: str, zero_losses, zero_bytes,
     both ranks skip; ``SyncBatchNorm`` at a ResNet-50 BN shape, even and
     uneven, against the whole batch within ``TOL_SYNCBN``. Returns both
     ranks' launches."""
-    from apex_tpu_torch.parallel._spawn import RankPool
-
     print(f"dist_ranks: {DIST_WORLD} processes on one card over gloo; "
           f"this torch's gloo takes CUDA tensors in "
           f"{', '.join(GLOO_CUDA_OPS)}, so no check falls back to world 1;"
           f" times below are gloo over loopback [{card}]")
-    t0 = time.perf_counter()
-    pool = RankPool(DIST_WORLD, backend="gloo", device="cuda",
-                    pg_timeout=DIST_TIMEOUT)
-    try:
-        start_s = time.perf_counter() - t0
-        ddp = pool.run(rank_ddp, timeout=DIST_TIMEOUT)
-        zero = pool.run(rank_zero, timeout=DIST_TIMEOUT)
-        bn = pool.run(rank_syncbn, timeout=DIST_TIMEOUT)
-    finally:
-        pool.close()
+    ddp = pool.run(rank_ddp, timeout=DIST_TIMEOUT)
+    zero = pool.run(rank_zero, timeout=DIST_TIMEOUT)
+    bn = pool.run(rank_syncbn, timeout=DIST_TIMEOUT)
     launches = {}
     for out in ddp + zero:
         add_counts(launches, out["launches"])
@@ -7908,14 +7964,15 @@ def dist_ranks(torch, kern, card: str, zero_losses, zero_bytes,
     check(abs(loss - full) <= TOL_TRAIN_LOSS and g_err <= TOL_TRAIN_GRAD,
           f"dist_ranks: two-rank DDP loss {loss} against the one-rank "
           f"step's {full}, grads {g_leaf} {g_err:.3g}")
-    print(f"dist_ranks: DDP over gloo, 2 x {TRAIN_BH[0] // DIST_WORLD} x "
+    print(f"dist_ranks: DDP over gloo (GPT-small's widths at {DIST_LAYERS} "
+          f"layers), 2 x {TRAIN_BH[0] // DIST_WORLD} x "
           f"{TRAIN_ATTN[1]}: mean loss {loss:.6f} against the world-1 step's"
           f" {full:.6f} on 8 x {TRAIN_ATTN[1]} (|diff| {abs(loss - full):.3g},"
           f" tol {TOL_TRAIN_LOSS}); averaged grads against it, worst leaf "
           f"{g_leaf}: {g_err:.4g} (tol {TOL_TRAIN_GRAD}); both ranks' grads "
           f"bit for bit alike; step {ddp[0]['ms']:.1f} ms, the bucketed "
-          f"sync alone {ddp[0]['sync_ms']:.1f} ms (gloo over loopback); pool "
-          f"started in {start_s:.1f} s [{card}]")
+          f"sync alone {ddp[0]['sync_ms']:.1f} ms (gloo over loopback) "
+          f"[{card}]")
 
     losses = [sum(o["losses"][i] for o in zero) / DIST_WORLD
               for i in range(ZERO_STEPS)]
@@ -7984,6 +8041,13 @@ TOL_TP_GRAD = 3e-2
 TP_FP32 = dict(vocab_size=512, hidden_size=64, num_layers=2,
                num_attention_heads=4, max_position_embeddings=128)
 TP_HEADS = (TP_BATCH, 12 // TP_WORLD, 1024, 64)   # B1-B3 at 6 local heads
+# the tensor, pipeline and hybrid legs run GPT-small's widths at a cut
+# depth (gloo stages every hop through the host: fewer layers, fewer
+# copies), every check the same; the pipeline keeps 4 for the
+# interleaved leg's 4 stages
+TP_LAYERS = 2
+PP_LAYERS = 4
+HYBRID_LAYERS = 2
 
 
 def _leaf_norms(torch, got: dict, want: dict) -> dict:
@@ -8017,7 +8081,7 @@ def rank_tp(ref_path: str) -> dict:
 
     rank = dist.get_rank()
     ref = torch.load(ref_path, map_location="cuda")
-    cfg, init_state, _ = gpt_small_setup(torch)
+    cfg, init_state, _ = gpt_small_setup(torch, TP_LAYERS)
     mine = ref["tokens"] if rank == 0 else torch.zeros_like(ref["tokens"])
     tokens = broadcast_data(["tokens"], {"tokens": mine})["tokens"]
     shard = split_tp_state(init_state, cfg, TP_WORLD, rank)
@@ -8050,7 +8114,7 @@ def rank_tp(ref_path: str) -> dict:
         hops["bytes"] = 0
         losses, times, grads0 = timed_steps(
             torch, kern, step, TP_STEPS, f"tp_gpt rank {rank} {leg}",
-            launches)
+            launches, layers=TP_LAYERS)
         res = {"losses": [float(x) for x in losses],
                "ms": median_ms(times), "launches": launches,
                "ref": _leaf_norms(torch, grads0, want),
@@ -8149,16 +8213,15 @@ def check_local_heads(torch, fa, kern, card: str) -> None:
               for kname, (err, share) in errs.items()) + f" [{card}]")
 
 
-def tp_gpt(torch, fa, kern, card: str) -> dict:
+def tp_gpt(torch, fa, kern, card: str, pool) -> dict:
     """Tensor parallelism at tp 2: the one-rank tp = 1 reference step,
-    B1-B3 at the local heads, then ``rank_tp`` on two processes of the
-    card over gloo (a correctness leg: its times are gloo over loopback,
+    B1-B3 at the local heads, then ``rank_tp`` on ``pool``'s two
+    processes of the card over gloo (a correctness leg: its times are gloo over loopback,
     no speed of anything multi-GPU). Returns both ranks' launches."""
     import shutil
     import tempfile
-    from apex_tpu_torch.parallel._spawn import RankPool
 
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, TP_LAYERS)
     tokens = tokens[:TP_BATCH].contiguous()
     step = gpt_trainer(torch, cfg, init_state, tokens, TP_LR)
     ref_loss, _, grads = step()
@@ -8172,14 +8235,9 @@ def tp_gpt(torch, fa, kern, card: str) -> dict:
     torch.cuda.empty_cache()
     check_local_heads(torch, fa, kern, card)
 
-    t0 = time.perf_counter()
-    pool = RankPool(TP_WORLD, backend="gloo", device="cuda",
-                    pg_timeout=DIST_TIMEOUT)
     try:
-        start_s = time.perf_counter() - t0
         outs = pool.run(rank_tp, ref_path, timeout=DIST_TIMEOUT)
     finally:
-        pool.close()
         shutil.rmtree(store, ignore_errors=True)
     check(all(o["tokens"] == int(tokens.sum()) for o in outs),
           "tp_gpt: broadcast_data did not hand rank 1 rank 0's batch")
@@ -8187,12 +8245,12 @@ def tp_gpt(torch, fa, kern, card: str) -> dict:
     for out in outs:
         for leg in TP_LEGS:
             add_counts(launches, out["legs"][leg]["launches"])
-    print(f"tp_gpt: GPT-small at tp {TP_WORLD}, {TP_WORLD} processes on "
+    print(f"tp_gpt: GPT-small's widths at {TP_LAYERS} layers, tp "
+          f"{TP_WORLD}, {TP_WORLD} processes on "
           f"one card over gloo (the ring's hops staged through host "
           f"tensors), {TP_BATCH} x {TRAIN_ATTN[1]} from broadcast_data, "
           f"{TP_STEPS} steps a leg; limits: loss {TOL_TP_LOSS}, grads "
-          f"{TOL_TP_GRAD} (worst leaf's relative norm); pool started in "
-          f"{start_s:.1f} s [{card}]")
+          f"{TOL_TP_GRAD} (worst leaf's relative norm) [{card}]")
     for leg in TP_LEGS:
         legs = [o["legs"][leg] for o in outs]
         l0 = legs[0]["losses"]
@@ -8262,7 +8320,7 @@ PP_MICRO_LONG = 8          # the memory check's second M (16 x 1024)
 PP_STEPS = 3
 PP_LR = 1e-4
 PP_SCALE = 2.0 ** 12       # the loss scale of train's step
-PP_CHUNKS = 2              # the interleaved leg: 4 stages of 3 layers
+PP_CHUNKS = 2              # the interleaved leg: 4 stages of 1 layer
 # 1F1B's peak memory on a rank at M 8 against M 4: as many microbatches in
 # flight (pp - rank), so only the token tensors of 4 more microbatches
 # (16 KiB each) and the allocator's rounding may add. The all-forward
@@ -8330,7 +8388,8 @@ def _compare(torch, got: dict, want: dict) -> dict:
 
 
 def rank_pp(ref_path: str) -> dict:
-    """A pipeline rank of GPT-small at pp 2 (seed 0, 6 layers a stage):
+    """A pipeline rank of GPT-small's widths at pp 2 (seed 0,
+    ``PP_LAYERS`` layers, half a stage):
     step 0's 1F1B grads against the one-rank schedule's (``ref_path``),
     the all-forward order and the interleaved schedule against 1F1B, the
     peak memory of both orders at M 4 and 8, ``PP_STEPS`` training steps
@@ -8348,7 +8407,7 @@ def rank_pp(ref_path: str) -> dict:
     rank = dist.get_rank()
     # on the host: the peaks below are the schedules' own
     ref = torch.load(ref_path, map_location="cpu")
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, PP_LAYERS)
     model = GPTModel(cfg, device="cuda")
     model.load_state_dict(init_state)
     del init_state
@@ -8469,18 +8528,17 @@ def _peak_mib(run: dict) -> float:
     return run["peak"] / 2 ** 20
 
 
-def pp_gpt(torch, kern, card: str) -> dict:
+def pp_gpt(torch, kern, card: str, pool) -> dict:
     """Pipeline parallelism at pp 2: the one-rank schedule's step 0 (the
-    reference), then ``rank_pp`` on two processes of the card over gloo
+    reference), then ``rank_pp`` on ``pool``'s two processes over gloo
     (a correctness leg: its times are gloo over loopback and one card, no
     speed of anything multi-GPU). Returns both ranks' launches."""
     import shutil
     import tempfile
     from apex_tpu_torch.models import GPTModel
-    from apex_tpu_torch.parallel._spawn import RankPool
     from apex_tpu_torch.transformer.pipeline_parallel import schedules as sc
 
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, PP_LAYERS)
     M, mb = PP_MICRO
     model = GPTModel(cfg, device="cuda")
     model.load_state_dict(init_state)
@@ -8497,26 +8555,20 @@ def pp_gpt(torch, kern, card: str) -> dict:
     del model, grads
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    pool = RankPool(PP_WORLD, backend="gloo", device="cuda",
-                    pg_timeout=DIST_TIMEOUT)
     try:
-        start_s = time.perf_counter() - t0
         outs = pool.run(rank_pp, ref_path, timeout=DIST_TIMEOUT)
     finally:
-        pool.close()
         shutil.rmtree(store, ignore_errors=True)
     launches = {}
     for out in outs:
         add_counts(launches, out["launches"])
-    print(f"pp_gpt: GPT-small at pp {PP_WORLD} "
+    print(f"pp_gpt: GPT-small's widths at {PP_LAYERS} layers, pp {PP_WORLD} "
           f"({cfg.num_layers // PP_WORLD} layers a stage), "
           f"{PP_WORLD} processes on one card over gloo (the stage hops "
           f"staged through host tensors), {M} microbatches of {mb} x "
           f"{tokens.shape[1]}, bf16 over fp32 params, grad scale "
           f"{PP_SCALE:g}; limits: loss {TOL_TRAIN_LOSS}, grads "
-          f"{TOL_TRAIN_GRAD} (each leaf's relative norm); pool started in "
-          f"{start_s:.1f} s [{card}]")
+          f"{TOL_TRAIN_GRAD} (each leaf's relative norm) [{card}]")
     ref_loss = outs[0]["ref_loss"]
     l0 = {o["runs"]["1f1b"]["loss"] for o in outs}
     check(len(l0) == 1, f"pp_gpt: the ranks' losses differ: {l0}")
@@ -8524,7 +8576,7 @@ def pp_gpt(torch, kern, card: str) -> dict:
     digests = {}
     for key in ("1f1b", "allfwd", "interleaved"):
         rows = [r for o in outs for r in o[key].items()]
-        check(len({n for n, _ in rows}) == len(gpt_leaf_names()),
+        check(len({n for n, _ in rows}) == len(gpt_leaf_names(PP_LAYERS)),
               f"pp_gpt {key}: {len({n for n, _ in rows})} grad leaves")
         stage = [v for n, v in rows if n.startswith("layers.")]
         shared = [(n, v) for n, v in rows if not n.startswith("layers.")]
@@ -8613,26 +8665,27 @@ def pp_gpt(torch, kern, card: str) -> dict:
     return launches
 
 
-def gpt_leaf_names() -> list:
-    """GPT-small's parameter names (4 embedding and final LayerNorm
-    leaves, 12 a layer)."""
+def gpt_leaf_names(layers: int) -> list:
+    """GPT-small's parameter names at ``layers`` layers (4 embedding and
+    final LayerNorm leaves, 12 a layer)."""
     names = ["embedding.word.weight", "embedding.position",
              "final_ln.weight", "final_ln.bias"]
     return names + [f"layers.{i}.{m}.{leaf}"
-                    for i in range(GPT_SMALL["num_layers"])
+                    for i in range(layers)
                     for m in ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
                     for leaf in ("weight", "bias")]
 
 
 def hybrid_config():
-    """GPT-small through ``TrainConfig`` at tp 2 x pp 2: O2 (bf16 compute,
+    """GPT-small's widths at ``HYBRID_LAYERS`` layers through
+    ``TrainConfig`` at tp 2 x pp 2: O2 (bf16 compute,
     fp32 params), Adam at lr ``TP_LR`` with no weight decay."""
     from apex_tpu_torch.config import (BatchConfig, ModelConfig,
                                        OptimizerConfig, ParallelConfig,
                                        TrainConfig)
     M, mb = HYBRID_MICRO
     return TrainConfig(
-        model=ModelConfig(name="gpt", **GPT_SMALL),
+        model=ModelConfig(name="gpt", **gpt_small_at(HYBRID_LAYERS)),
         parallel=ParallelConfig(tensor_model_parallel_size=HYBRID_TP,
                                 pipeline_model_parallel_size=HYBRID_PP),
         batch=BatchConfig(global_batch_size=M * mb, micro_batch_size=mb),
@@ -8735,7 +8788,7 @@ def hybrid_gpt(torch, kern, card: str) -> dict:
     import tempfile
     from apex_tpu_torch.parallel._spawn import RankPool
 
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, HYBRID_LAYERS)
     M, mb = HYBRID_MICRO
     tokens = tokens[:M * mb].contiguous()
     step = gpt_trainer(torch, cfg, init_state, tokens, TP_LR)
@@ -8775,7 +8828,7 @@ def hybrid_gpt(torch, kern, card: str) -> dict:
             sums[n] = (a + d, b + w)
     g_err, g_leaf = max((math.sqrt(d / max(w, 1e-60)), n)
                         for n, (d, w) in sums.items())
-    check(len(sums) == len(gpt_leaf_names()),
+    check(len(sums) == len(gpt_leaf_names(HYBRID_LAYERS)),
           f"hybrid_gpt: {len(sums)} grad leaves came back")
     check(abs(l0 - ref_loss) <= TOL_TP_LOSS and g_err <= TOL_TP_GRAD,
           f"hybrid_gpt: step 0's loss {l0} against tp = 1's {ref_loss}, "
@@ -9056,14 +9109,14 @@ def rank_ep_spatial(zero_dir: str) -> dict:
         torch.cuda.empty_cache()
 
     # ZeRO-1 at dp 2, saved for checkpoint_resume to read at world 1
-    cfg, init_state, tokens = gpt_small_setup(torch)
+    cfg, init_state, tokens = gpt_small_setup(torch, DIST_LAYERS)
     per = tokens.shape[0] // world
     zopt = zero_config().build_optimizer()
     step = gpt_trainer(torch, cfg, init_state,
                        tokens[rank * per:(rank + 1) * per], 1e-4,
                        optimizer=zopt, finite_axes="data")
     timed_steps(torch, kern, step, ZERO_CKPT_STEPS, f"rank {rank} zero ckpt",
-                out["launches"])
+                out["launches"], layers=DIST_LAYERS)
     st = step.opt_state
     lay = zopt._layout
     # the run's own fp32 params in leaf order: what the natural vector of
@@ -9083,24 +9136,17 @@ def rank_ep_spatial(zero_dir: str) -> dict:
     return out
 
 
-def dist_cp_ep(torch, kern, card: str, zero_dir: str) -> tuple:
-    """``cp_attention`` and ``ep_spatial``: two processes on the card over
-    gloo (correctness legs; their times are gloo over loopback, no
+def dist_cp_ep(torch, kern, card: str, zero_dir: str, pool) -> tuple:
+    """``cp_attention`` and ``ep_spatial``: ``pool``'s two processes on
+    the card over gloo (correctness legs; their times are gloo over loopback, no
     multi-GPU speed). Returns ``(cp launches, ep launches, zero leg)``."""
-    from apex_tpu_torch.parallel._spawn import RankPool
 
     t0 = time.perf_counter()
-    pool = RankPool(CP_WORLD, backend="gloo", device="cuda",
-                    pg_timeout=DIST_TIMEOUT)
-    try:
-        start_s = time.perf_counter() - t0
-        cp = pool.run(rank_cp, timeout=DIST_TIMEOUT)
-        cp_s = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        ep = pool.run(rank_ep_spatial, zero_dir, timeout=DIST_TIMEOUT)
-        ep_s = time.perf_counter() - t1
-    finally:
-        pool.close()
+    cp = pool.run(rank_cp, timeout=DIST_TIMEOUT)
+    cp_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ep = pool.run(rank_ep_spatial, zero_dir, timeout=DIST_TIMEOUT)
+    ep_s = time.perf_counter() - t1
     cp_launches = {}
     for r, o in enumerate(cp):
         ulysses = o["launches"]["ulysses"]
@@ -9141,8 +9187,7 @@ def dist_cp_ep(torch, kern, card: str, zero_dir: str) -> tuple:
     print(f"cp_attention: {cp[0]['hop_bytes']} bytes a ring hop (k and v "
           f"chunks), {cp[0]['a2a_bytes']} bytes a rank sends in one "
           f"all-to-all of a {LONG_SHAPE[:2] + (LONG_SHAPE[2] // CP_WORLD,)
-                             + LONG_SHAPE[3:]} bf16 shard; pool started in "
-          f"{start_s:.1f} s [{card}]")
+                             + LONG_SHAPE[3:]} bf16 shard [{card}]")
 
     for r, o in enumerate(ep):
         for dt, m in o["moe"].items():
@@ -9195,9 +9240,9 @@ def dist_cp_ep(torch, kern, card: str, zero_dir: str) -> tuple:
             "params": [o["zero"]["params"] for o in ep],
             "digests": [o["zero"]["digests"] for o in ep],
             "save_s": [o["zero"]["save_s"] for o in ep]}
-    print(f"cp_attention + ep_spatial: wall seconds cp_attention {cp_s:.1f} "
-          f"(the pool's start included), ep_spatial {ep_s:.1f} (the ZeRO "
-          f"steps and their save included)")
+    print(f"cp_attention + ep_spatial: wall seconds cp_attention {cp_s:.1f}"
+          f", ep_spatial {ep_s:.1f} (the ZeRO steps and their save "
+          f"included)")
     return cp_launches, ep_launches, zero
 
 
@@ -9495,7 +9540,552 @@ def _host_time(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def main() -> None:
+# -- the elastic group: ElasticRunner in this process, the launcher ---------
+ELASTIC_STEPS = 6
+ELASTIC_SAVE_INTERVAL = 2
+ELASTIC_MICRO = (1, 8)      # M microbatches of 8 x 1024: train's 8 x 1024
+ELASTIC_ROWS = 64           # the token array: 64 rows of 1025 tokens
+ELASTIC_DATA_SEED = 7       # the token array's RandomState
+ELASTIC_SAMPLER_SEED = 5    # ShardedIndexIterator's seed
+ELASTIC_PREEMPT_AT = 3
+# every save sleeps this long first (FaultPlan.slow_save_s), so the
+# preemption at step 3 lands while step 2's save is being written
+ELASTIC_SLOW_SAVE_S = 0.5
+ELASTIC_KEEP_LAST = 2
+# E2: GPT-small's widths at 2 layers (the gloo host copies of two ranks
+# sharing the card), ZeRO-1 Adam at dp 2, rank 1 killed before step 3
+E2_LAYERS = 2
+E2_KILL = {1: 3}
+E2_STEPS = 4
+E2_WORKER_FLAG = "--elastic-worker"
+E2_ENV = "CHIP_SMOKE_ELASTIC_JOB"
+E2_HEARTBEAT_TIMEOUT_S = 180.0
+E2_ROUND_TIMEOUT_S = 300.0
+E2_GRACE_S = 2.0
+# the post-shrink losses against an uninterrupted dp 1 run from step 0:
+# steps 1-2 ran at dp 2, whose grads are two half-batch grads averaged
+# over gloo (fp32 sums in another order than the full batch's), and Adam
+# carries that rounding on, so the limit is the DDP check's
+# ``TOL_TRAIN_LOSS``; the same restore replayed in this process is held
+# bit for bit
+TOL_SHRINK_LOSS = TOL_TRAIN_LOSS
+
+
+def elastic_config(layers: int = None, zero: bool = False, dp: int = 1):
+    """GPT-small (at ``layers`` layers of its widths when given) through
+    ``TrainConfig``: tp = pp = 1, O2, Adam at lr ``TP_LR`` without weight
+    decay, ZeRO-1 with ``ZERO_BUCKET_BYTES`` buckets when ``zero``."""
+    from apex_tpu_torch.config import (BatchConfig, ModelConfig,
+                                       OptimizerConfig, ParallelConfig,
+                                       TrainConfig)
+    M, rows = ELASTIC_MICRO
+    return TrainConfig(
+        model=ModelConfig(name="gpt", **gpt_small_at(layers)),
+        parallel=ParallelConfig(tensor_model_parallel_size=1,
+                                pipeline_model_parallel_size=1),
+        batch=BatchConfig(global_batch_size=M * rows,
+                          micro_batch_size=rows // dp),
+        optimizer=OptimizerConfig(name="adam", lr=TP_LR, weight_decay=0.0,
+                                  zero=1 if zero else "off"),
+        opt_level="O2", ddp_bucket_bytes=ZERO_BUCKET_BYTES if zero else None)
+
+
+def elastic_data(torch):
+    """The elastic legs' input: ``ShardedIndexIterator`` over a seeded
+    token array, prefetched to the card by ``PrefetchingIterator`` through
+    ``token_batch_fetcher`` (one global batch of ``ELASTIC_MICRO`` a step,
+    the same on every rank: a rank takes its data columns in the step)."""
+    import numpy as np
+    from apex_tpu_torch.elastic import (PrefetchingIterator,
+                                        ShardedIndexIterator,
+                                        token_batch_fetcher)
+    M, rows = ELASTIC_MICRO
+    seq = GPT_SMALL["max_position_embeddings"]
+    data = np.random.RandomState(ELASTIC_DATA_SEED).randint(
+        0, GPT_SMALL["vocab_size"], (ELASTIC_ROWS, seq + 1))
+    return PrefetchingIterator(
+        ShardedIndexIterator(ELASTIC_ROWS, M * rows,
+                             seed=ELASTIC_SAMPLER_SEED),
+        token_batch_fetcher(data, M, rows, seq), depth=2, device="cuda")
+
+
+def state_digests(torch, state) -> dict:
+    """sha256 of a trainer state's bytes: the params (the stage and
+    shared modules' state dicts), the optimizer state and the loss
+    scale."""
+    from torch import nn
+    from torch.utils._pytree import tree_leaves
+
+    def digest(leaves) -> str:
+        h = hashlib.sha256()
+        for x in leaves:
+            if isinstance(x, torch.Tensor):
+                h.update(x.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            else:
+                h.update(repr(x).encode())
+        return h.hexdigest()[:16]
+
+    params = [t for m in state[:2] if isinstance(m, nn.Module)
+              for t in m.state_dict().values()]
+    return {"params": digest(params), "optimizer": digest(
+        tree_leaves(state[2])), "loss_scale": digest(tree_leaves(state[3]))}
+
+
+def elastic_fit(torch, kern, cfg, mesh, directory: str, steps: int, *,
+                plan=None, checkpointer=None, registry=None,
+                final_save: bool = True, digests: bool = True) -> dict:
+    """One ``ElasticRunner.fit`` of a fresh ``GPTHybridTrainer`` (seed 0)
+    over ``elastic_data``: the result, the losses by step, the data
+    cursor, the registry's snapshot, the launches of the run and (with
+    ``digests``) the state's sha256s."""
+    from apex_tpu_torch.elastic import ElasticRunner
+    from apex_tpu_torch.observability.registry import MetricsRegistry
+    from apex_tpu_torch.training import GPTHybridTrainer
+
+    reg = registry if registry is not None else MetricsRegistry()
+    trainer = GPTHybridTrainer(cfg, mesh, init_scale=PP_SCALE, device="cuda")
+    data = elastic_data(torch)
+    losses = {}
+    runner = ElasticRunner(
+        trainer, data, directory, save_interval=ELASTIC_SAVE_INTERVAL,
+        keep_last=ELASTIC_KEEP_LAST, fault_plan=plan, registry=reg,
+        exit_on_preempt=False, checkpointer=checkpointer,
+        final_save=final_save,
+        on_step=lambda k, loss: losses.__setitem__(k, loss))
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.fit(steps, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"res": res, "losses": {k: float(v) for k, v in losses.items()},
+           "cursor": data.state_dict(), "metrics": reg.snapshot(),
+           "registry": reg, "launches": dict(kern.LAUNCHES),
+           "s": time.perf_counter() - t0,
+           "digests": state_digests(torch, res.state) if digests else None,
+           "runner": runner}
+    return out
+
+
+def check_elastic_counts(counts: dict, layers: int, steps: int,
+                         what: str) -> None:
+    M = ELASTIC_MICRO[0]
+    want = {k: steps * v for k, v in pp_launches(layers, 1, 0, 1,
+                                                  M).items()}
+    check_pp_counts(counts, want, what)
+
+
+def elastic_resume(torch, kern, card: str, root: str) -> dict:
+    """E1: GPT-small at full width under ``ElasticRunner`` (NCCL at world
+    1): ``ELASTIC_STEPS`` straight steps; in a fresh directory a
+    ``FaultPlan(sigterm_at_step=3, slow_save_s=...)`` preemption, then a
+    fresh runner to the end, bit for bit the straight run; then a second
+    SIGTERM during a slowed drain raising ``DrainInterrupt`` with the
+    previous COMMITTED step intact. Returns the runs' launches."""
+    import os
+    import shutil
+    import signal
+    from apex_tpu_torch.checkpoint import latest_step, read_host_state
+    from apex_tpu_torch.elastic import (AsyncCheckpointer, DrainInterrupt,
+                                        FaultPlan)
+    from apex_tpu_torch.observability.registry import MetricsRegistry
+
+    cfg = elastic_config()
+    mesh = cfg.initialize_mesh()
+    L = cfg.model.num_layers
+    launches: dict = {}
+
+    # the straight and resumed runs skip the final save: nothing reads it
+    straight = elastic_fit(torch, kern, cfg, mesh, f"{root}/straight",
+                           ELASTIC_STEPS, final_save=False)
+    check(not straight["res"].preempted
+          and straight["res"].step == ELASTIC_STEPS,
+          f"elastic E1: the straight run stopped at {straight['res']}")
+    check_elastic_counts(straight["launches"], L, ELASTIC_STEPS,
+                         "elastic E1 straight run")
+    add_counts(launches, straight["launches"])
+    shutil.rmtree(f"{root}/straight", ignore_errors=True)
+
+    plan = FaultPlan(sigterm_at_step=ELASTIC_PREEMPT_AT,
+                     slow_save_s=ELASTIC_SLOW_SAVE_S)
+    first = elastic_fit(torch, kern, cfg, mesh, f"{root}/run",
+                        ELASTIC_STEPS, plan=plan, digests=False)
+    check(first["res"].preempted
+          and first["res"].step == ELASTIC_PREEMPT_AT,
+          f"elastic E1: the SIGTERM at step {ELASTIC_PREEMPT_AT} gave "
+          f"{first['res']}")
+    check_elastic_counts(first["launches"], L, ELASTIC_PREEMPT_AT,
+                         "elastic E1 preempted run")
+    add_counts(launches, first["launches"])
+    second = elastic_fit(torch, kern, cfg, mesh, f"{root}/run",
+                         ELASTIC_STEPS, final_save=False)
+    res = second["res"]
+    check(not res.preempted and res.step == ELASTIC_STEPS
+          and res.restored_from == ELASTIC_PREEMPT_AT and not res.resharded,
+          f"elastic E1: the resumed run gave {res}")
+    check_elastic_counts(second["launches"], L,
+                         ELASTIC_STEPS - ELASTIC_PREEMPT_AT,
+                         "elastic E1 resumed run")
+    add_counts(launches, second["launches"])
+    later = {k: v for k, v in straight["losses"].items()
+             if k > ELASTIC_PREEMPT_AT}
+    same = {"losses": second["losses"] == later,
+            "state": second["digests"] == straight["digests"],
+            "cursor": second["cursor"] == straight["cursor"]}
+    check(all(same.values()),
+          f"elastic E1: preempt + resume against straight: {same}; losses "
+          f"{second['losses']} against {later}, digests "
+          f"{second['digests']} against {straight['digests']}, cursors "
+          f"{second['cursor']} against {straight['cursor']}")
+    m1, m2 = first["metrics"], second["metrics"]
+    save_hist = first["registry"].histogram("ckpt/save_ms")
+    m = cfg.model
+    print(f"elastic E1: GPT-small (vocab {m.vocab_size}, hidden "
+          f"{m.hidden_size}, {L} layers, {m.num_attention_heads} heads, "
+          f"{m.max_position_embeddings} positions), "
+          f"GPTHybridTrainer at tp = pp = dp = 1 (NCCL at world 1, O2, adam "
+          f"lr {TP_LR}) under ElasticRunner, ShardedIndexIterator -> "
+          f"PrefetchingIterator(device='cuda') -> token_batch_fetcher, "
+          f"{ELASTIC_MICRO[0] * ELASTIC_MICRO[1]} x "
+          f"{cfg.model.max_position_embeddings} tokens a step, save_interval "
+          f"{ELASTIC_SAVE_INTERVAL} [{card}]")
+    print(f"elastic E1: straight losses {straight['losses']} "
+          f"({straight['s']:.1f} s); SIGTERM at step {ELASTIC_PREEMPT_AT} "
+          f"(slow_save_s {ELASTIC_SLOW_SAVE_S}): preempted at step "
+          f"{first['res'].step}, losses {first['losses']}; resumed: "
+          f"restored_from {res.restored_from}, losses {second['losses']}; "
+          f"params, optimizer state, loss scale (sha256 "
+          f"{second['digests']}) and the data cursor {second['cursor']} bit "
+          f"for bit the straight run's; launches a run "
+          f"{[straight['launches'], first['launches'], second['launches']]}"
+          f" [{card}]")
+    print(f"elastic E1: resume/restore_ms {m2['resume/restore_ms']:.1f}, "
+          f"resume/restored_step {m2['resume/restored_step']:g}, "
+          f"resume/resumes {m2['resume/resumes']:g}; the preempted run's "
+          f"ckpt/save_ms count {save_hist.count} p50 "
+          f"{save_hist.percentile(50):.1f} max {save_hist._max:.1f} (the "
+          f"serialize wall a save, {ELASTIC_SLOW_SAVE_S} s of injected "
+          f"sleep in each), ckpt/bytes {m1['ckpt/bytes']:g}, ckpt/saves "
+          f"{m1['ckpt/saves']:g}, ckpt/retries {m1.get('ckpt/retries', 0):g},"
+          f" resume/preempt_exits {m1['resume/preempt_exits']:g}; the "
+          f"resumed run's ckpt/save_ms p50 "
+          f"{second['registry'].histogram('ckpt/save_ms').percentile(50):.1f}"
+          f" (no sleep) [{card}]")
+    del straight, first, second, res
+    shutil.rmtree(f"{root}/run", ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a second SIGTERM while the drain writes the final checkpoint, at
+    # E2's depth (the leg checks the signal path, not the model)
+    drain_cfg = elastic_config(E2_LAYERS)
+    drain_dir = f"{root}/drain"
+    fired = []
+
+    def hook(step, attempt):
+        if step == ELASTIC_PREEMPT_AT and not fired:
+            fired.append(step)
+            os.kill(os.getpid(), signal.SIGTERM)
+        plan.on_save_attempt(step, attempt)
+
+    reg = MetricsRegistry()
+    ck = AsyncCheckpointer(drain_dir, keep_last=ELASTIC_KEEP_LAST,
+                           registry=reg, fault_hook=hook)
+    prev = signal.getsignal(signal.SIGTERM)
+    interrupted = None
+    try:
+        elastic_fit(torch, kern, drain_cfg, mesh, drain_dir, ELASTIC_STEPS,
+                    plan=plan, checkpointer=ck, registry=reg, digests=False)
+    except DrainInterrupt as e:
+        interrupted = str(e)
+    committed = latest_step(drain_dir)
+    host_step = read_host_state(drain_dir)[1].get("step")
+    restored_handler = signal.getsignal(signal.SIGTERM) == prev
+    add_counts(launches, kern.LAUNCHES)
+    ck.drain()  # the abandoned writer thread, joined before going on
+    check(interrupted is not None and fired == [ELASTIC_PREEMPT_AT]
+          and committed == ELASTIC_PREEMPT_AT - 1
+          and host_step == ELASTIC_PREEMPT_AT - 1 and restored_handler,
+          f"elastic E1: a second SIGTERM during the drain: raised "
+          f"{interrupted!r}, fired {fired}, latest COMMITTED step "
+          f"{committed} (host.json step {host_step}), SIGTERM handler "
+          f"restored {restored_handler}")
+    print(f"elastic E1: a second SIGTERM during the slowed drain of step "
+          f"{ELASTIC_PREEMPT_AT}'s save ({E2_LAYERS} layers of GPT-small's "
+          f"widths): DrainInterrupt ({interrupted[:60]}"
+          f"...); the latest COMMITTED step then {committed} (host.json "
+          f"step {host_step}), the SIGTERM handler restored; launches "
+          f"{dict(kern.LAUNCHES)} [{card}]")
+    shutil.rmtree(drain_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def elastic_worker() -> None:
+    """A rank of E2, started by ``LocalLauncher`` as ``python3
+    chip_smoke.py --elastic-worker`` with the multiproc env block and
+    ``E2_ENV`` (the checkpoint and result directories, the steps, the
+    fault plan): ZeRO-1 GPT at ``E2_LAYERS`` layers under
+    ``ElasticRunner``, a heartbeat and a fleet snapshot a step, and a
+    JSON result per rank at the end."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import _kernels as kern
+    from apex_tpu_torch.elastic import ElasticRunner, FaultPlan, Heartbeat
+    from apex_tpu_torch.observability.fleet import FleetPublisher
+    from apex_tpu_torch.observability.registry import get_registry
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.training import GPTHybridTrainer
+
+    entered = time.time()
+    t0 = time.perf_counter()
+    job = json.loads(os.environ[E2_ENV])
+    info = multiproc.initialize_from_env(device="cuda")
+    check(info is not None, "elastic worker started without the "
+                            "multiproc env")
+    kern.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hb = Heartbeat(info.run_dir)
+    hb.beat(0)
+    reg = get_registry()
+    reg.counter("train/steps")
+    pub = FleetPublisher(info.run_dir, rank=info.process_id, registry=reg)
+    pub.publish(0, force=True)
+    cfg = elastic_config(E2_LAYERS, zero=True, dp=info.num_processes)
+    mesh = cfg.initialize_mesh()
+    trainer = GPTHybridTrainer(cfg, mesh, init_scale=PP_SCALE, device="cuda")
+    losses = {}
+
+    def on_step(k, loss):
+        losses[k] = float(loss)
+        hb.beat(k)
+
+    runner = ElasticRunner(
+        trainer, elastic_data(torch), job["ckpt"],
+        save_interval=ELASTIC_SAVE_INTERVAL, keep_last=3,
+        fault_plan=FaultPlan.from_json(job["fault"]), on_step=on_step,
+        exit_on_preempt=True, publisher=pub)
+    kern.reset_launches()
+    t1 = time.perf_counter()
+    res = runner.fit(job["steps"], generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    snap = reg.snapshot()
+    out = {"rank": info.process_id, "world": info.num_processes,
+           "backend": info.backend, "losses": losses, "step": res.step,
+           "restored_from": res.restored_from,
+           "resharded": bool(res.resharded),
+           "restore_ms": snap.get("resume/restore_ms"),
+           "launches": dict(kern.LAUNCHES),
+           "digests": state_digests(torch, res.state),
+           "entered": entered, "setup_s": t1 - t0, "fit_s": t2 - t1}
+    path = os.path.join(job["results"], f"w{info.num_processes}_rank"
+                        f"{info.process_id}.json")
+    os.makedirs(job["results"], exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    dist.destroy_process_group()
+
+
+def elastic_launch(torch, kern, card: str, root: str) -> dict:
+    """E2: the port's ``LocalLauncher(num_processes=2, min_processes=1,
+    max_restarts=1)`` over ``elastic_worker`` (two processes sharing the
+    card over gloo) with ``FaultPlan(kill_process={1: 3})``: rank 1 dies
+    at step 3, the gang restarts at world 2, dies again, shrinks to world
+    1, and the survivor restores the dp 2 checkpoint at dp 1 through the
+    reshard. Then, in this process (NCCL at world 1), the same restore
+    replayed from that checkpoint (bit for bit the survivor's losses) and
+    an uninterrupted dp 1 run from step 0 (within ``TOL_SHRINK_LOSS``).
+    Returns the launches of the survivor and the replays."""
+    import os
+    import shutil
+    from apex_tpu_torch.elastic import FaultPlan, LocalLauncher
+    from apex_tpu_torch.observability.registry import MetricsRegistry
+
+    run_dir = f"{root}/e2"
+    ckpt, results = f"{run_dir}/ckpt", f"{run_dir}/results"
+    job = {"ckpt": ckpt, "results": results, "steps": E2_STEPS,
+           "fault": FaultPlan(kill_process=E2_KILL).to_json()}
+    reg = MetricsRegistry()
+    launcher = LocalLauncher(
+        [sys.executable, os.path.abspath(__file__), E2_WORKER_FLAG],
+        num_processes=2, min_processes=1, max_restarts=1, run_dir=run_dir,
+        restart_backoff_s=0.05, heartbeat_timeout_s=E2_HEARTBEAT_TIMEOUT_S,
+        round_timeout_s=E2_ROUND_TIMEOUT_S, grace_s=E2_GRACE_S, poll_s=0.02,
+        env={E2_ENV: json.dumps(job)}, registry=reg)
+    round_s, round_at = [], []
+    real = launcher._run_round
+
+    def timed(world, index):
+        round_at.append(time.time())
+        t0 = time.perf_counter()
+        out = real(world, index)
+        round_s.append(time.perf_counter() - t0)
+        return out
+
+    launcher._run_round = timed
+    report = launcher.run()
+    rounds = [(r.world_size, r.cause, r.returncodes) for r in report.rounds]
+    if not report.succeeded:
+        for name in sorted(os.listdir(f"{run_dir}/logs")):
+            with open(f"{run_dir}/logs/{name}") as f:
+                print(f"elastic E2 {name}:\n{f.read()[-3000:]}",
+                      file=sys.stderr)
+    killed = -9
+    check(report.succeeded and report.world_size == 1
+          and report.restarts == 1 and report.shrinks == 1
+          and [r[1] for r in rounds] == ["exit", "exit", "ok"]
+          and all(r[2].get(1) == killed for r in rounds[:2]),
+          f"elastic E2: LaunchReport {report}")
+    with open(report.rounds[0].postmortem) as f:
+        pm = json.load(f)
+    ranks = pm["ranks"]
+    check(pm["culprit_rank"] == 1 and pm["culprit_reason"]
+          == "heartbeat_dead", f"elastic E2: the first round's postmortem "
+                               f"blames rank {pm['culprit_rank']} "
+                               f"({pm['culprit_reason']})")
+    with open(f"{results}/w1_rank0.json") as f:
+        survivor = json.load(f)
+    kill_at = E2_KILL[1]
+    restored = kill_at - kill_at % ELASTIC_SAVE_INTERVAL
+    check(survivor["resharded"] and survivor["restored_from"] == restored
+          and survivor["step"] == E2_STEPS,
+          f"elastic E2: the survivor {survivor}")
+    view = launcher.fleet.view()
+    merged_steps = view["counters"].get("train/steps", {}).get("total")
+    check(merged_steps == E2_STEPS - restored,
+          f"elastic E2: the aggregator's merged train/steps {merged_steps}")
+    print(f"elastic E2: LocalLauncher(num_processes=2, min_processes=1, "
+          f"max_restarts=1) over GPT-small's widths at {E2_LAYERS} layers, "
+          f"ZeRO-1 Adam (bucket {ZERO_BUCKET_BYTES} bytes), FaultPlan("
+          f"kill_process={E2_KILL}); LaunchReport: succeeded "
+          f"{report.succeeded}, world_size {report.world_size}, restarts "
+          f"{report.restarts}, shrinks {report.shrinks}, rounds (world, "
+          f"cause, exit codes) {rounds}; round seconds "
+          f"{[round(s, 1) for s in round_s]} [{card}]")
+    print(f"elastic E2: round 0's postmortem ({report.rounds[0].postmortem}"
+          f"): cause {pm['cause']}, culprit rank {pm['culprit_rank']} "
+          f"({pm['culprit_reason']}), ranks "
+          f"{[(r['rank'], r['returncode'], r['last_step']) for r in ranks]}"
+          f" (rank, exit code before teardown, last step); the "
+          f"aggregator's merged train/steps {merged_steps:g} on ranks "
+          f"{view['ranks']}; metrics elastic/restarts "
+          f"{reg.snapshot()['elastic/restarts']:g}, elastic/shrinks "
+          f"{reg.snapshot()['elastic/shrinks']:g}, elastic/world_size "
+          f"{reg.snapshot()['elastic/world_size']:g}")
+    print(f"elastic E2: the survivor (world 1, {survivor['backend']}) "
+          f"restored step {survivor['restored_from']} across dp 2 -> dp 1 "
+          f"(FitResult.resharded {survivor['resharded']}) in "
+          f"{survivor['restore_ms']:.1f} ms (resume/restore_ms, the "
+          f"reshard included), losses {survivor['losses']}, launches "
+          f"{survivor['launches']}; its round: "
+          f"{survivor['entered'] - round_at[-1]:.1f} s to start Python, "
+          f"torch and this script, {survivor['setup_s']:.1f} s to join the "
+          f"group and build the trainer, {survivor['fit_s']:.1f} s in fit "
+          f"[{card}]")
+
+    # this process, NCCL at world 1: the survivor's restore replayed from
+    # the same dp 2 checkpoint, and dp 1 from step 0
+    cfg = elastic_config(E2_LAYERS, zero=True)
+    mesh = cfg.initialize_mesh()
+    launches = dict(survivor["launches"])
+    replay_dir = f"{root}/e2_replay"
+    step_dir = f"step_{restored:08d}"
+    os.makedirs(replay_dir)
+    shutil.copytree(f"{ckpt}/{step_dir}", f"{replay_dir}/{step_dir}")
+    replay = elastic_fit(torch, kern, cfg, mesh, replay_dir, E2_STEPS,
+                         final_save=False)
+    add_counts(launches, replay["launches"])
+    straight = elastic_fit(torch, kern, cfg, mesh, f"{root}/e2_straight",
+                           E2_STEPS, final_save=False)
+    add_counts(launches, straight["launches"])
+    got = {int(k): v for k, v in survivor["losses"].items()}
+    err = max(abs(v - straight["losses"][k]) for k, v in got.items())
+    check(replay["res"].resharded and replay["losses"] == got
+          and replay["digests"] == survivor["digests"]
+          and err <= TOL_SHRINK_LOSS,
+          f"elastic E2: the survivor's losses {got} against the replayed "
+          f"restore's {replay['losses']} and the uninterrupted dp 1 run's "
+          f"{straight['losses']} ({err:.3g}); digests "
+          f"{survivor['digests']} against {replay['digests']}")
+    print(f"elastic E2: the same restore replayed in this process (NCCL at "
+          f"world 1, resharded {replay['res'].resharded}): losses and the "
+          f"final state bit for bit the survivor's; against an "
+          f"uninterrupted dp 1 run from step 0 (losses "
+          f"{straight['losses']}): max |diff| {err:.3g} over the "
+          f"post-shrink steps (tol {TOL_SHRINK_LOSS}: steps 1-2 averaged "
+          f"two half-batch grads over gloo) [{card}]")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.rmtree(replay_dir, ignore_errors=True)
+    shutil.rmtree(f"{root}/e2_straight", ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def elastic(torch, kern, card: str) -> dict:
+    """The elastic group: E1 and E2 (see the module docstring), NCCL at
+    world 1 in this process around both. Returns their launches."""
+    import tempfile
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state
+
+    launches: dict = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as root:
+        dist.init_process_group("nccl", init_method=f"file://{root}/nccl",
+                                rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            add_counts(launches, elastic_resume(torch, kern, card, root))
+            t1 = time.perf_counter()
+            parallel_state.destroy_model_parallel()
+            add_counts(launches, elastic_launch(torch, kern, card, root))
+            print(f"elastic: wall seconds E1 {t1 - t0:.1f}, E2 "
+                  f"{time.perf_counter() - t1:.1f}")
+        finally:
+            parallel_state.destroy_model_parallel()
+            dist.destroy_process_group()
+    return launches
+
+
+# the groups of phases ``python3 chip_smoke.py [group ...]`` runs (all of
+# them with no argument); the build and the kernel checks run in every
+# call
+GROUPS = ("serving", "serving_host", "training", "models", "dist",
+          "elastic")
+
+
+def dbias_row_alone(torch, fa, kern, card: str) -> dict:
+    """B6's row of the kernels line when ``long_context`` (the training
+    group) does not run: the four flash kernels against their plain
+    versions at the long-context shape and their times there, as
+    ``long_context`` takes them first."""
+    q, k, v, dy, ids, slopes0 = long_inputs(torch)
+    errs = check_long_kernels(torch, fa, kern, card, q, k, v, dy, ids,
+                              slopes0)
+    row, _ = time_long_kernels(torch, fa, kern, card, q, k, v, dy, ids,
+                               slopes0)
+    row["max_abs_err"] = max(errs["flash_dbias"], errs["flash_dbias_fold"])
+    del q, k, v, dy, ids
+    torch.cuda.empty_cache()
+    return row
+
+
+def parse_groups(argv) -> tuple:
+    """The groups named on the command line (all with none); an unknown
+    name exits non-zero before anything runs."""
+    unknown = [a for a in argv if a not in GROUPS]
+    if unknown:
+        print(f"chip_smoke: unknown group(s) {unknown}; the groups are "
+              f"{', '.join(GROUPS)}", file=sys.stderr)
+        sys.exit(2)
+    return tuple(g for g in GROUPS if g in argv) if argv else GROUPS
+
+
+def main(argv=None) -> None:
+    groups = parse_groups(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -9510,6 +10100,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"device: {card}")
+    print(f"groups: {', '.join(groups)}")
     # wall seconds a group of phases takes, printed before the last lines
     start = last = time.perf_counter()
     seconds = {}
@@ -9548,124 +10139,167 @@ def main() -> None:
     check_flash_dq(torch, fa, kern, card)
     check_flash_dbias(torch, fa, kern, card)
     lap("kernel checks")
-    serving, dense_times = serve(torch, kern, card)
-    small_serving = serve_small(torch, kern, card)
-    paged = serve_paged(torch, kern, card, dense_times)
-    spec, spec_cursors = serve_spec(torch, kern, card, paged=False)
-    paged_spec, paged_spec_cursors = serve_spec(torch, kern, card,
-                                                paged=True)
-    check_verify_kernels(torch, fa, cache_mod, kern, card, spec_cursors,
-                         paged_spec_cursors)
-    lap("serving")
-    model = spec_model(torch, torch.bfloat16)
-    goodput = serve_goodput(torch, kern, card, model)
-    chaos = serve_chaos(torch, kern, card, model)
-    host_cost_off(torch, card, model)
-    del model
-    torch.cuda.empty_cache()
-    lap("serving host layer")
-    training = train(torch, kern, card)
-    small_training = train_small(torch, kern, card)
-    remat_legs = train_remat(torch, kern, card)
-    torch.cuda.empty_cache()
-    lap("GPT training")
-    config_training = train_config(torch, kern, card)
-    lap("train_config")
-    resnet = train_resnet(torch, kern, card)
-    lap("train_resnet")
-    bert = train_bert(torch, kern, card)
-    lap("train_bert")
-    long, dbias_row = long_context(torch, fa, kern, card)
-    lap("long_context")
-    lamb = train_lamb(torch, kern, card)
-    lap("train_lamb")
-    legs = optim_legs(torch, kern, card)
-    lap("optim_legs")
-    big = transformer_ops(torch, fa, kern, card)
-    lap("transformer_ops")
-    speech = rnnt(torch, kern, card)
-    lap("rnnt")
-    retina = retinanet_head(torch, kern, card)
-    lap("retinanet_head")
-    sparse = asp_gpt(torch, kern, card)
-    lap("asp_gpt")
-    tp1 = tp1_gpt(torch, kern, card)
-    lap("tp1_gpt")
-    # data parallelism: NCCL at world 1 in this process (the kernels are
-    # built, so the two ranks of dist_ranks load them), then two ranks
-    import tempfile
-    import torch.distributed as dist
-    from apex_tpu_torch.transformer import parallel_state
-    torch.cuda.set_device(0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
-        dist.init_process_group("nccl", init_method=f"file://{store}/nccl",
-                                rank=0, world_size=1)
-        parallel_state.initialize_model_parallel()
-        ddp = ddp_gpt(torch, kern, card)
-        lap("ddp_gpt")
-        zero, zero_losses, zero_bytes, zero_total = zero_gpt(torch, kern,
-                                                             card)
-        lap("zero_gpt")
-        parallel_state.destroy_model_parallel()
-        dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    ranks = dist_ranks(torch, kern, card, zero_losses, zero_bytes,
-                       zero_total)
-    lap("dist_ranks")
-    tp_ranks = tp_gpt(torch, fa, kern, card)
-    lap("tp_gpt")
-    pp_ranks = pp_gpt(torch, kern, card)
-    lap("pp_gpt")
-    hybrid_ranks = hybrid_gpt(torch, kern, card)
-    lap("hybrid_gpt")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
-        cp_ranks, ep_ranks, zero_ckpt = dist_cp_ep(
-            torch, kern, card, f"{root}/zero")
-        lap("cp_attention + ep_spatial")
-        resume = checkpoint_resume(torch, kern, card, root, zero_ckpt)
-        lap("checkpoint_resume")
+    # (what ran, its launch counts), in the order the phases ran
+    paths = []
+    if "serving" in groups:
+        serving, dense_times = serve(torch, kern, card)
+        paths.append(("serving", serving))
+        paths.append(("small serving (d 16)", serve_small(torch, kern,
+                                                           card)))
+        paths.append(("paged serving", serve_paged(torch, kern, card,
+                                                   dense_times)))
+        spec, spec_cursors = serve_spec(torch, kern, card, paged=False)
+        paths.append(("speculative serving (plain and speculative legs)",
+                      spec))
+        paged_spec, paged_spec_cursors = serve_spec(torch, kern, card,
+                                                    paged=True)
+        paths.append(("paged speculative serving", paged_spec))
+        check_verify_kernels(torch, fa, cache_mod, kern, card, spec_cursors,
+                             paged_spec_cursors)
+        lap("serving")
+    if "serving_host" in groups:
+        model = spec_model(torch, torch.bfloat16)
+        paths.append(("serving under the SLO and the burst",
+                      serve_goodput(torch, kern, card, model)))
+        paths.append(("the chaos runs", serve_chaos(torch, kern, card,
+                                                    model)))
+        host_cost_off(torch, card, model)
+        del model
+        torch.cuda.empty_cache()
+        lap("serving host layer")
+    dbias_row = None
+    if "training" in groups:
+        paths.append((f"training ({TRAIN_STEPS} steps, then one with "
+                      "dropout)", train(torch, kern, card)))
+        paths.append((f"small training (d 8, {TRAIN_SMALL_STEPS} steps)",
+                      train_small(torch, kern, card)))
+        paths.append((f"the remat legs ({len(REMAT_LEGS)} x {REMAT_STEPS} "
+                      "steps, then 3 with dropout)",
+                      train_remat(torch, kern, card)))
+        torch.cuda.empty_cache()
+        lap("GPT training")
+        paths.append((f"TrainConfig training ({CONFIG_STEPS} steps)",
+                      train_config(torch, kern, card)))
+        lap("train_config")
+        paths.append((f"ResNet-50 training (bench_headline, "
+                      f"{HEADLINE_WARMUP + HEADLINE_STEPS} steps)",
+                      train_resnet(torch, kern, card)))
+        lap("train_resnet")
+        paths.append((f"BERT training ({BERT_STEPS} steps)",
+                      train_bert(torch, kern, card)))
+        lap("train_bert")
+        long, dbias_row = long_context(torch, fa, kern, card)
+        paths.append((f"long-context training ({LONG_STEPS} steps)", long))
+        lap("long_context")
+        paths.append((f"BERT with LAMB ({LAMB_STEPS} steps)",
+                      train_lamb(torch, kern, card)))
+        lap("train_lamb")
+        paths.append(("the optimizer legs' GPT pass",
+                      optim_legs(torch, kern, card)))
+        lap("optim_legs")
+    if "models" in groups:
+        paths.append(("the Transformer-big block (one forward and "
+                      "backward)", transformer_ops(torch, fa, kern, card)))
+        lap("transformer_ops")
+        paths.append(("the RNN-T steps", rnnt(torch, kern, card)))
+        lap("rnnt")
+        paths.append(("the RetinaNet head", retinanet_head(torch, kern,
+                                                           card)))
+        lap("retinanet_head")
+        paths.append((f"GPT-small under ASP ({ASP_STEPS} steps and an "
+                      "overflow step)", asp_gpt(torch, kern, card)))
+        lap("asp_gpt")
+        paths.append(("the tp=1 layer and logits", tp1_gpt(torch, kern,
+                                                           card)))
+        lap("tp1_gpt")
+    if "dist" in groups:
+        # data parallelism: NCCL at world 1 in this process (the kernels
+        # are built, so the two ranks of dist_ranks load them), then two
+        # ranks
+        import shutil
+        import tempfile
+        import torch.distributed as dist
+        from apex_tpu_torch.transformer import parallel_state
+        torch.cuda.set_device(0)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+            dist.init_process_group("nccl",
+                                    init_method=f"file://{store}/nccl",
+                                    rank=0, world_size=1)
+            parallel_state.initialize_model_parallel()
+            paths.append((f"GPT-small under DDP at world 1 ({DDP_STEPS} + 2 "
+                          "profiled steps, the accumulation window)",
+                          ddp_gpt(torch, kern, card)))
+            lap("ddp_gpt")
+            zero, zero_losses, zero_bytes, zero_total = zero_gpt(torch,
+                                                                 kern, card)
+            paths.append((f"under ZeRO at world 1 ({ZERO_STEPS} steps)",
+                          zero))
+            lap("zero_gpt")
+            parallel_state.destroy_model_parallel()
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        # one pool of two ranks for the two-rank legs (its processes start
+        # once), then the hybrid trainer's four
+        from apex_tpu_torch.parallel._spawn import RankPool
+        t0 = time.perf_counter()
+        pair = RankPool(2, backend="gloo", device="cuda",
+                        pg_timeout=DIST_TIMEOUT)
+        print(f"dist: a pool of two ranks on the card over gloo started in "
+              f"{time.perf_counter() - t0:.1f} s, shared by dist_ranks, "
+              f"tp_gpt, pp_gpt, cp_attention and ep_spatial")
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            paths.append(("the two ranks' DDP, ZeRO and overflow steps",
+                          dist_ranks(torch, kern, card, zero_losses,
+                                     zero_bytes, zero_total, pool=pair)))
+            lap("dist_ranks")
+            paths.append((f"the two tensor ranks' steps ({len(TP_LEGS)} "
+                          f"legs x {TP_STEPS} steps, then a skipped one)",
+                          tp_gpt(torch, fa, kern, card, pool=pair)))
+            lap("tp_gpt")
+            paths.append((f"the two pipeline ranks' schedules and steps "
+                          f"({PP_STEPS} and a skipped one)",
+                          pp_gpt(torch, kern, card, pool=pair)))
+            lap("pp_gpt")
+            cp_ranks, ep_ranks, zero_ckpt = dist_cp_ep(
+                torch, kern, card, f"{root}/zero", pool=pair)
+            paths.append(("the two context ranks' Ulysses calls (2 a "
+                          "rank)", cp_ranks))
+            paths.append((f"the two ZeRO ranks' steps before their "
+                          f"checkpoint ({ZERO_CKPT_STEPS} a rank)",
+                          ep_ranks))
+            lap("cp_attention + ep_spatial")
+            pair.close()
+            torch.cuda.empty_cache()
+            paths.append((f"the hybrid trainer's four ranks "
+                          f"({HYBRID_STEPS} steps and a skipped one)",
+                          hybrid_gpt(torch, kern, card)))
+            lap("hybrid_gpt")
+            paths.append(("the resumed GPT-small steps and the watcher's "
+                          "engine", checkpoint_resume(torch, kern, card,
+                                                      root, zero_ckpt)))
+            lap("checkpoint_resume")
+        finally:
+            pair.close()
+            shutil.rmtree(root, ignore_errors=True)
+    if "elastic" in groups:
+        paths.append((f"the elastic runs (E1: {ELASTIC_STEPS} straight, "
+                      f"{ELASTIC_PREEMPT_AT} preempted + "
+                      f"{ELASTIC_STEPS - ELASTIC_PREEMPT_AT} resumed, 3 "
+                      "drained; E2: the survivor's steps and this "
+                      "process's two replays)", elastic(torch, kern, card)))
+        lap("elastic")
+    if dbias_row is None:
+        dbias_row = dbias_row_alone(torch, fa, kern, card)
+        lap("B6 row")
     rows.append(dbias_row)
-    print(f"launches on the main paths: serving {serving}, small serving "
-          f"(d 16) {small_serving}, paged serving "
-          f"{paged}, speculative serving (plain and speculative legs) "
-          f"{spec}, paged speculative serving {paged_spec}, serving under "
-          f"the SLO and the burst {goodput}, the chaos runs {chaos}, training "
-          f"({TRAIN_STEPS} steps, then one with dropout) {training}, small "
-          f"training (d 8, {TRAIN_SMALL_STEPS} steps) {small_training}, the "
-          f"remat legs ({len(REMAT_LEGS)} x {REMAT_STEPS} steps, then 3 with "
-          f"dropout) {remat_legs}, TrainConfig training ({CONFIG_STEPS} "
-          f"steps) {config_training}, ResNet-50 training (bench_headline, "
-          f"{HEADLINE_WARMUP + HEADLINE_STEPS} steps) {resnet}, BERT "
-          f"training ({BERT_STEPS} steps) {bert}, BERT with LAMB "
-          f"({LAMB_STEPS} steps) {lamb}, the optimizer legs' GPT pass "
-          f"{legs}, the Transformer-big block (one forward and backward) "
-          f"{big}, long-context training ({LONG_STEPS} steps) {long}, the "
-          f"RNN-T steps {speech}, the RetinaNet head {retina}, GPT-small "
-          f"under ASP ({ASP_STEPS} steps and an overflow step) {sparse}, "
-          f"the tp=1 layer and logits {tp1}, GPT-small under DDP at world "
-          f"1 ({DDP_STEPS} + 2 profiled steps, the accumulation window) "
-          f"{ddp}, under ZeRO at world 1 ({ZERO_STEPS} steps) {zero}, the "
-          f"two ranks' DDP, ZeRO and overflow steps {ranks}, the two tensor "
-          f"ranks' steps ({len(TP_LEGS)} legs x {TP_STEPS} steps, then a "
-          f"skipped one) {tp_ranks}, the two pipeline ranks' schedules and "
-          f"steps ({PP_STEPS} and a skipped one) {pp_ranks}, the hybrid "
-          f"trainer's four ranks ({HYBRID_STEPS} steps and a skipped one) "
-          f"{hybrid_ranks}, the two context ranks' Ulysses calls (2 a rank) "
-          f"{cp_ranks}, the two ZeRO ranks' steps before their checkpoint "
-          f"({ZERO_CKPT_STEPS} a rank) {ep_ranks}, the resumed GPT-small "
-          f"steps and the watcher's engine {resume}")
+    print("launches on the main paths: " + ", ".join(
+        f"{what} {counts}" for what, counts in paths))
     for row in rows:
         # B6 runs as the fold on the bf16 paths, as flash_dbias elsewhere
         names = ((row["name"], "flash_dbias_fold")
                  if row["name"] == "flash_dbias" else (row["name"],))
-        row["launches"] = sum(path.get(name, 0) for path in
-                              (serving, small_serving, paged, spec,
-                               paged_spec, goodput, chaos, training,
-                               small_training, remat_legs, config_training,
-                               resnet, bert, lamb, legs, big, long,
-                               speech, retina, sparse, tp1, ddp, zero,
-                               ranks, tp_ranks, pp_ranks, hybrid_ranks,
-                               cp_ranks, ep_ranks, resume)
+        row["launches"] = sum(counts.get(name, 0) for _, counts in paths
                               for name in names)
         row["body"] = BODY.get(row["name"], "SIMT")
         if row["name"] in ("decode_attention", "paged_decode_attention"):
@@ -9692,4 +10326,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [E2_WORKER_FLAG]:
+        elastic_worker()
+    else:
+        main()

@@ -4,7 +4,7 @@ and resolve lazily.
 For every package the port has, the JAX package's ``__all__`` (for
 ``observability``, which has none, its public names) less the port's is
 exactly the set listed here by the queue item that ports it (ROADMAP.md,
-queue A: A6b the elastic run loop and launcher, A7a observability);
+queue A: A7a observability and the rest of utils);
 every name in a port ``__all__`` exists. A bare
 ``import apex_tpu_torch`` imports no subpackage and builds no kernel, then
 each subpackage resolves on first attribute access, and the reference's
@@ -22,25 +22,27 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "elastic": {"A6b": {"DrainInterrupt", "ElasticRunner", "FitResult",
-                        "Heartbeat", "LaunchReport", "LocalLauncher",
-                        "PrefetchingIterator", "RoundResult",
-                        "ShardedIndexIterator", "token_batch_fetcher"}},
     "observability": {"A7a": {
         "AttributionDiff", "BenchHistory", "ChromeTraceSink", "DriftShift",
-        "FleetAggregator", "FleetPublisher", "HealthConfig", "HealthMonitor",
-        "JSONLSink", "MetricsServer", "NonFiniteError", "NullReporter",
-        "PostmortemReport", "Regression", "RegressionDetector", "Span",
+        "HealthConfig", "HealthMonitor", "JSONLSink", "NonFiniteError",
+        "NullReporter", "Regression", "RegressionDetector", "Span",
         "StepReporter", "TensorBoardSink", "TreeStats", "attach_reporter",
         "check_replica_agreement", "chrome_trace_events", "costs",
         "detach_reporter", "detect_drift_shifts", "drain_spans",
-        "drift_series", "epoch_offset", "fleet", "flops_budget",
+        "drift_series", "epoch_offset", "flops_budget",
         "get_reporter", "install_compile_listeners", "memory_budget",
-        "merge_chrome_traces", "merge_registry_dicts", "mfu", "peak_flops",
+        "merge_chrome_traces", "mfu", "peak_flops",
         "perfwatch", "publish_drift", "report", "reset_compile_listeners",
         "runtime", "sample_memory_stats", "sinks", "span_recording",
         "spans_enabled", "tensor_stats", "trace",
         "uninstall_compile_listeners", "unit_direction"}},
+    # the reference's utils has no __all__: its public names, with the
+    # JAX shims imported first so the set does not hang on import order
+    "utils": {"A7a": {"Timer", "Timers", "device_fence", "profile_trace",
+                      "RankInfoFormatter", "get_logger", "rank_zero_only",
+                      "set_verbosity", "setup_logging", "timers",
+                      "logging"},
+              "not queued": {"compat", "vma", "hostmesh"}},
 }
 PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "normalization", "observability", "ops", "optimizers",
@@ -52,7 +54,9 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "transformer.pipeline_parallel", "transformer._data",
             "checkpoint", "transformer.expert_parallel", "parallel.spatial",
             "elastic.ckpt", "elastic.reshard", "elastic.faults",
-            "serving.resilience")
+            "serving.resilience", "parallel.multiproc", "utils",
+            "utils.autoresume", "elastic.data", "elastic.runner",
+            "elastic.launch", "observability.fleet")
 # the modules A5a added, each importable with JAX and the JAX package
 # blocked
 A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
@@ -76,9 +80,15 @@ A5C_MODULES = ("transformer.pipeline_parallel",
 A5D_A6A_MODULES = ("transformer.expert_parallel", "parallel.spatial",
                    "checkpoint", "elastic", "elastic.ckpt", "elastic.reshard",
                    "elastic.faults", "serving.resilience")
+# and the modules A6b and A6c added
+A6B_A6C_MODULES = ("parallel.multiproc", "utils", "utils.autoresume",
+                   "elastic.data", "elastic.runner", "elastic.launch",
+                   "observability.fleet")
 # subpackages of the JAX package the port does not have yet
-UNPORTED_SUBPACKAGES = {"utils": "A7a", "pyprof": "A7b",
-                        "reparameterization": "not queued"}
+UNPORTED_SUBPACKAGES = {"pyprof": "A7b", "reparameterization": "not queued"}
+# the JAX shims of the reference's utils, imported before its names are
+# read (test_exports_cover_the_reference_names)
+UTILS_SHIMS = ("compat", "vma", "hostmesh")
 
 
 def _reference_names(mod):
@@ -90,6 +100,9 @@ def _reference_names(mod):
 
 @pytest.mark.parametrize("package", PACKAGES)
 def test_exports_cover_the_reference_names(package):
+    if package == "utils":
+        for shim in UTILS_SHIMS:
+            importlib.import_module(f"apex_tpu.utils.{shim}")
     ref = importlib.import_module(f"apex_tpu.{package}")
     port = importlib.import_module(f"apex_tpu_torch.{package}")
     later = set().union(*UNPORTED.get(package, {}).values())
@@ -160,7 +173,7 @@ def test_contrib_lazy_names_match_the_reference():
 
 
 @pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES + A5C_MODULES
-                         + A5D_A6A_MODULES)
+                         + A5D_A6A_MODULES + A6B_A6C_MODULES)
 def test_a5a_modules_import_without_jax(module):
     code = (
         "import sys\n"
@@ -177,3 +190,35 @@ def test_a5a_modules_import_without_jax(module):
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _imported_modules(source: str) -> set:
+    """Every module an ``import`` or ``from ... import`` names in a source
+    (relative imports resolve inside the port)."""
+    import ast
+    out = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            out.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module)
+    return out
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    """Every module of the port, read as source (a lazy import inside a
+    function counts): none names ``jax``, ``jaxlib`` or ``apex_tpu``, nor
+    does ``chip_smoke.py``."""
+    def bad(name):
+        top = name.split(".")[0]
+        return top in ("jax", "jaxlib", "apex_tpu")
+
+    files = sorted((REPO / "apex_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    found = {str(p.relative_to(REPO)): sorted(
+        m for m in _imported_modules(p.read_text()) if bad(m))
+        for p in files}
+    assert {k: v for k, v in found.items() if v} == {}
+    assert _imported_modules("import jax.numpy as jnp\n"
+                             "def f():\n    from apex_tpu import x\n") == {
+        "jax.numpy", "apex_tpu"}

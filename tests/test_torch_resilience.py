@@ -785,8 +785,10 @@ def test_fault_plan_hooks(clock, tmp_path):
     assert clock.t == 0.25
     FaultPlan().before_decode(1)
     assert clock.t == 0.25
-    with pytest.raises(NotImplementedError, match="A6b"):
-        plan.before_step(1)
+    # no training fault scripted: the runner's hook does nothing (its
+    # signals are held against the reference in test_torch_elastic.py)
+    plan.before_step(1)
+    assert clock.t == 0.25
     # the checkpoint hooks act: transient errors, the slow save, the tear
     saving = FaultPlan(save_errors={2: 2}, slow_save_s=0.5,
                        tear_after_step=3)
