@@ -33,12 +33,16 @@ reshard, the preemption-safe run loop over seeded resumable data, and
 the multi-process launcher that restarts and shrinks a gang
 (:mod:`apex_tpu_torch.parallel.multiproc`,
 :mod:`apex_tpu_torch.observability.fleet`,
-:mod:`apex_tpu_torch.utils`). Public entry points default to
+:mod:`apex_tpu_torch.utils`), watched by the telemetry and numerics
+layer of :mod:`apex_tpu_torch.observability` (the step reporter and its
+sinks, timers and spans, compile and memory counters, the card's costs,
+the health watchdog, the bench history). Public entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch path.
 
 The subpackages resolve on first attribute access, as the reference's do
 (``apex_tpu/__init__.py:32-44``): ``import apex_tpu_torch`` imports none
-of them, builds no kernel and needs no card. The reference's ``pyprof``
+of them, builds no kernel and needs no card; ``get_logger`` and
+``setup_logging`` resolve the same way. The reference's ``pyprof``
 and ``reparameterization`` are not ported, and raise ``AttributeError``
 here.
 """
@@ -55,11 +59,20 @@ _LAZY_SUBMODULES = (
 )
 
 
+# the reference exports these at its top level (apex_tpu/__init__.py:26);
+# here they resolve on first access, like the subpackages
+_LAZY_NAMES = {"get_logger": "apex_tpu_torch.utils.logging",
+               "setup_logging": "apex_tpu_torch.utils.logging"}
+
+
 def __getattr__(name):
     if name in _LAZY_SUBMODULES:
         return _importlib.import_module(f"apex_tpu_torch.{name}")
+    if name in _LAZY_NAMES:
+        return getattr(_importlib.import_module(_LAZY_NAMES[name]), name)
     raise AttributeError(f"module 'apex_tpu_torch' has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(list(globals()) + list(_LAZY_SUBMODULES))
+    return sorted(list(globals()) + list(_LAZY_SUBMODULES)
+                  + list(_LAZY_NAMES))

@@ -73,7 +73,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -81,7 +81,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "flash_width", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dq_retaken", "flash_bwd_dkv",
            "flash_dbias", "dbias_folds", "decode_attention", "decode_splits",
            "decode_dim_ok", "paged_decode_attention", "ln_fwd", "ln_bwd",
-           "ln_bwd_ctas", "SOURCES",
+           "ln_bwd_ctas", "SOURCES", "BUILD_LISTENERS",
            "ID_TILE", "seg_tile_ranges", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
@@ -124,6 +124,10 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_dbias_fold": 0, "decode_attention": 0,
                             "paged_decode_attention": 0, "ln_fwd": 0,
                             "ln_bwd": 0}
+
+# callables(seconds) run after build() compiled the library, not when it
+# loaded one built before: observability.runtime's compile counters
+BUILD_LISTENERS: List[Callable[[float], None]] = []
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -272,10 +276,14 @@ def build() -> Tuple[ctypes.CDLL, float]:
             return _LIB, 0.0
         lib_path = _BUILD / f"libapex_tpu_torch_{_source_key()}.so"
         t0 = time.perf_counter()
-        if not lib_path.exists():
+        compiled = not lib_path.exists()
+        if compiled:
             _compile(lib_path)
         seconds = time.perf_counter() - t0
         _LIB = _bind(ctypes.CDLL(str(lib_path)))
+        if compiled:
+            for listener in list(BUILD_LISTENERS):
+                listener(seconds)
         return _LIB, seconds
 
 

@@ -14,9 +14,10 @@ Every scale update records ``amp/loss_scale``, ``amp/overflow_count`` and
 ``amp/skipped_steps`` into an open in-step collector
 (:mod:`apex_tpu_torch.observability.ingraph`); with none open it adds
 nothing. :func:`scaled_value_and_grad` is the functional ``amp.scale_loss``
-step. The reference's health observers on the grad tree wait for the
-health port (queue item A7); its "off" tier, the only one the port has,
-adds nothing. With ``axis_names`` (mesh axis names of
+step. :func:`all_finite` hands the tree it checks to the numerics
+watchdog (:func:`apex_tpu_torch.observability.health.observe_tree`, as
+``health/grads/*`` by default), which adds nothing unless a health policy
+is active and a collector is open. With ``axis_names`` (mesh axis names of
 :mod:`apex_tpu_torch.transformer.parallel_state`, or process groups) the
 finite flag is reduced with a MIN over each axis's group, so every rank
 keeps or skips the step together; an axis that is not bound raises
@@ -26,7 +27,7 @@ keeps or skips the step together; an axis that is not bound raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Sequence, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.distributed
@@ -34,6 +35,7 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
                                  tree_unflatten)
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.observability import health as _health
 from apex_tpu_torch.observability import ingraph as _metrics
 
 __all__ = ["LossScaleState", "DynamicLossScale", "StaticLossScale",
@@ -61,11 +63,20 @@ def _axis_list(axis_names) -> tuple:
 
 
 def all_finite(tree: Any,
-               axis_names: Union[None, str, Sequence[str]] = None
-               ) -> torch.Tensor:
+               axis_names: Union[None, str, Sequence[str]] = None,
+               observe: Optional[str] = "grads") -> torch.Tensor:
     """One boolean 0-d tensor: every floating leaf of ``tree`` is finite
     (the reference's fused finite-check; no host sync), reduced with a
-    MIN over the groups of ``axis_names`` when given."""
+    MIN over the groups of ``axis_names`` when given.
+
+    ``observe`` names the tree for the health watchdog: the amp grad
+    check's default ``"grads"`` gives an overflow step its per-leaf
+    attribution (``health/grads/*``). A caller checking a tree that is not
+    the gradients (``multi_tensor_apply``'s outputs) passes another name
+    or None, or its records would sum into, and misattribute,
+    ``health/grads/*``."""
+    if observe is not None:
+        _health.observe_tree(tree, observe)
     axes = _axis_list(axis_names)
     if axes:
         from apex_tpu_torch.transformer.parallel_state import resolve_axis

@@ -20,9 +20,10 @@ stage. :meth:`TrainConfig.build_microbatch_calculator` and
 Megatron samplers. At context parallelism above 1 only the mesh gains the
 context axis, as in the reference: the model builds as at cp 1, and its
 caller attends over the context group with
-:mod:`apex_tpu_torch.transformer.context_parallel`. What needs an
-unported piece raises ``NotImplementedError`` naming its queue item: the
-health watchdog (A7a);
+:mod:`apex_tpu_torch.transformer.context_parallel`.
+:meth:`TrainConfig.build_health` builds the numerics watchdog's
+:class:`~apex_tpu_torch.observability.health.HealthConfig`. What needs an
+unported piece raises ``NotImplementedError`` naming its queue item:
 ``ddp_bucket_bytes="auto"``, which pyprof's roofline tuner resolves
 (A7b). Unknown names raise the reference's ``ValueError``.
 """
@@ -123,7 +124,8 @@ class TrainConfig:
     opt_level: str = "O2"             # amp policy preset
     half_dtype: str = "bfloat16"
     seed: int = 1234
-    # the numerics watchdog (A7)
+    # the numerics watchdog (build_health): off | cheap | full, raise |
+    # dump | skip, reports in a row before it fires, where dumps go
     health_level: str = "off"
     health_on_nonfinite: str = "skip"
     health_consecutive: int = 1
@@ -292,7 +294,13 @@ class TrainConfig:
         return opt.FlatOptimizer(inner) if o.flat else inner
 
     def build_health(self):
-        raise _unported("the numerics watchdog (HealthConfig)", "A7a")
+        """The numerics-watchdog policy (level "off" by default, which
+        adds nothing to a step)."""
+        from apex_tpu_torch.observability.health import HealthConfig
+        return HealthConfig(level=self.health_level,
+                            on_nonfinite=self.health_on_nonfinite,
+                            consecutive=self.health_consecutive,
+                            dump_dir=self.health_dump_dir)
 
     def build_microbatch_calculator(self, data_parallel_size: int):
         """The microbatch calculator of this batch config (constant, or

@@ -85,7 +85,7 @@ def multi_tensor_scale(tree: Any, scale: Any) -> Tuple[Any, torch.Tensor]:
         return (x.to(torch.float32) * scale).to(x.dtype)
 
     out = tree_map(one, tree)
-    return out, all_finite(out)
+    return out, all_finite(out, observe=None)
 
 
 def multi_tensor_axpby(a: Any, x_tree: Any, b: Any, y_tree: Any,
@@ -101,7 +101,7 @@ def multi_tensor_axpby(a: Any, x_tree: Any, b: Any, y_tree: Any,
         return out.to(out_dtype or x.dtype)
 
     out = tree_map(one, x_tree, y_tree)
-    return out, all_finite(out)
+    return out, all_finite(out, observe=None)
 
 
 def tree_per_tensor_norms(tree: Any, ord: int = 2) -> Any:

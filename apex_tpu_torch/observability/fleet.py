@@ -42,6 +42,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+from apex_tpu_torch.observability.health import payload_nonfinite
 from apex_tpu_torch.observability.registry import (MetricsRegistry,
                                                    get_registry, json_float,
                                                    json_safe_float)
@@ -86,8 +87,9 @@ class FleetPublisher:
     :class:`~apex_tpu_torch.elastic.runner.ElasticRunner` does this when
     one is attached); ``min_interval_s`` throttles the disk writes so a
     fast step loop is not one ``os.replace`` per step. Called as a
-    function, ``publisher(step, payload)`` (the reference's step-reporter
-    hook seat; the reporter itself is queue item A7a), it keeps the
+    function, ``publisher(step, payload)`` (a
+    :class:`~apex_tpu_torch.observability.report.StepReporter` hook), it
+    keeps the
     payload's ``health/*`` entries for the next snapshot, so the
     supervisor sees the last numerics state of every rank without a
     second channel.
@@ -117,10 +119,10 @@ class FleetPublisher:
     def __call__(self, step: int, payload: Dict[str, float]) -> None:
         """Reporter-hook seat: keep the payload's numerics-health state
         and publish (throttled). ``amp/overflow_count`` rides along with
-        the ``health/*`` keys: it is the overflow signal the reference's
-        ``health.payload_nonfinite`` checks (queue item A7a), and the
-        postmortem's :func:`_health_nonfinite` reads it on the
-        snapshot."""
+        the ``health/*`` keys: it is the overflow signal
+        :func:`~apex_tpu_torch.observability.health.payload_nonfinite`
+        checks, and the postmortem's :func:`_health_nonfinite` reads it on
+        the snapshot."""
         health = {k: v for k, v in payload.items()
                   if k.startswith("health/") or k == "amp/overflow_count"}
         if health:
@@ -540,19 +542,17 @@ def _tail(path: str, max_bytes: int) -> str:
 
 
 def _health_nonfinite(health: Dict[str, Any]) -> bool:
-    """True when a rank's last health payload shows non-finite values —
-    the host-side twin of ``health.payload_nonfinite``, tolerant of the
-    strict-JSON string spellings the snapshot stores."""
+    """True when a rank's last health payload shows non-finite values:
+    :func:`~apex_tpu_torch.observability.health.payload_nonfinite` of the
+    snapshot's values, read back from the strict-JSON string spellings it
+    stores (values that do not parse are left out)."""
+    values = {}
     for key, value in health.items():
         try:
-            v = json_float(value)
+            values[key] = json_float(value)
         except (TypeError, ValueError):
             continue
-        if key.endswith("/nonfinite_count") and v > 0:
-            return True
-        if key == "amp/overflow_count" and v > 0:
-            return True
-    return False
+    return payload_nonfinite(values)
 
 
 @dataclasses.dataclass

@@ -28,8 +28,8 @@ import math
 import threading
 from typing import Any, Dict, Iterable, List, Optional
 
-from apex_tpu_torch.observability._common import trace_metadata
 from apex_tpu_torch.observability.registry import log_buckets
+from apex_tpu_torch.observability.trace import trace_metadata
 
 __all__ = ["RequestRecord", "RequestTrace", "chrome_request_trace",
            "LATENCY_BUCKETS_MS"]

@@ -17,10 +17,11 @@ selected on the device with ``torch.where``: no ``.item()`` per step.
 ``step`` records ``optim/grad_norm`` (:func:`global_grad_norm` of the grads
 it is handed) into an open in-step collector
 (:mod:`apex_tpu_torch.observability.ingraph`), thunked, so with none open
-the norm is never computed. The reference's health observers on the grads
-and the new params wait for the health port (queue item A7); the port's
-level is "off", whose reference tier adds nothing. ``as_optax`` (an optax
-shim) is not ported.
+the norm is never computed. At health level ``"full"``
+(:mod:`apex_tpu_torch.observability.health`) it also observes the grads
+as it consumes them (``health/optim_grads/*``) and the params after the
+skip (``health/params/*``); below that level, or with no collector open,
+the observers add nothing. ``as_optax`` (an optax shim) is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch.utils._pytree import TreeSpec, tree_leaves, tree_map
 from apex_tpu_torch.amp.scaler import select_tree
 from apex_tpu_torch.multi_tensor_apply.multi_tensor_apply import (
     tree_global_norm)
+from apex_tpu_torch.observability import health as _health
 from apex_tpu_torch.observability import ingraph as _metrics
 
 __all__ = ["OptimizerBase", "bias_correction", "step_zero",
@@ -94,6 +96,9 @@ class OptimizerBase:
              **kw) -> Tuple[Any, Any]:
         _metrics.record("optim/grad_norm", lambda: global_grad_norm(grads),
                         reduce="mean")
+        # the grads as this optimizer consumes them (after the unscale and
+        # the sync), named apart from amp's "grads"
+        _health.observe_tree(grads, "optim_grads", min_level="full")
         new_params, new_state = self._step(grads, state, params, **kw)
         if grads_finite is not None:
             # skip = old params AND old state (the step count does not
@@ -104,6 +109,9 @@ class OptimizerBase:
                             tree_leaves((new_params, new_state))):
             if isinstance(old, torch.Tensor):
                 old.copy_(new)
+        # the params after the skip: a growing health/params/abs_max is
+        # the earliest warning of an overflow to come
+        _health.observe_tree(params, "params", min_level="full")
         return params, state
 
 

@@ -32,9 +32,12 @@ buckets are issued after the backward.
 
 The ``ddp/*`` metrics are recorded into an open in-step collector
 (:mod:`apex_tpu_torch.observability.ingraph`) with the reference's
-values. The reference's replica-agreement watchdog on the synced grads
-(``observability.health``, level "full") comes with the health port
-(queue item A7a); at the port's level "off" it adds nothing.
+values. At health level ``"full"`` the synced grads go through the
+replica-agreement watchdog (:func:`apex_tpu_torch.observability.health.
+observe_replica_agreement`, ``health/ddp_grads/replica_divergence``):
+they are the same on every replica by construction. Subgroup reduces are
+exempt (their results differ between groups by design); below "full", or
+with no collector open, it adds nothing.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map
 
+from apex_tpu_torch.observability import health as _health
 from apex_tpu_torch.observability import ingraph as _metrics
 from apex_tpu_torch.transformer.parallel_state import (axis_columns,
                                                        resolve_axis)
@@ -197,7 +201,9 @@ def _bucketed_allreduce(grads: Any, axis_name: Any,
         work.wait()
     if post is not None:
         pieces = [b * post for b in pieces]
-    return unravel_parts(pieces, bounds, lay)
+    synced = unravel_parts(pieces, bounds, lay)
+    _health.observe_replica_agreement(synced, axis_name, name="ddp_grads")
+    return synced
 
 
 def allreduce_grads(grads: Any, axis_name: Any = "data",
@@ -246,7 +252,11 @@ def allreduce_grads(grads: Any, axis_name: Any = "data",
         elif pre != 1.0:
             x = x * pre
         out.append(x.to(g.dtype))
-    return spec.unflatten(out)
+    synced = spec.unflatten(out)
+    if axis_index_groups is None:
+        _health.observe_replica_agreement(synced, axis_name,
+                                          name="ddp_grads")
+    return synced
 
 
 class DistributedDataParallel:

@@ -53,7 +53,7 @@ what a bare scheduler's step launches and copies to the host once.
 The reference's ``run(no_recompile=True)`` wraps the loop in an XLA
 compile-storm guard. Its counterpart here is a CUDA-graph recapture
 guard, which comes with the graph capture of the serving steps (ROADMAP
-queue A7); until then ``run`` has no such keyword.
+queue A7b); until then ``run`` has no such keyword.
 """
 
 from __future__ import annotations

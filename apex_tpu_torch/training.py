@@ -105,9 +105,15 @@ class GPTHybridTrainer:
     in place and returns it (the port's counterpart of the reference's
     donated buffers).
 
-    Not ported: a health config above level ``"off"`` (queue item A7a;
-    the reference's default is off, which adds nothing), and the
-    donation self-check and ``attribution_report`` (A7b).
+    ``health`` is a :class:`~apex_tpu_torch.observability.health.
+    HealthConfig` (default: ``cfg.build_health()``, level "off"). Above
+    "off" the watchdog rides :meth:`train_step_with_metrics`: its
+    ``health/*`` metrics land in the step's metrics and, at "full", the
+    params' agreement across the data replicas is checked
+    (``health/params/replica_divergence``); :meth:`train_step` and level
+    "off" add nothing.
+
+    Not ported: the donation self-check and ``attribution_report`` (A7b).
     """
 
     def __init__(self, cfg, mesh=None, init_scale: float = 2.0 ** 8,
@@ -119,12 +125,7 @@ class GPTHybridTrainer:
         from apex_tpu_torch.transformer import parallel_state
         from apex_tpu_torch.transformer.amp import GradScaler
 
-        level = (cfg.health_level if health is None
-                 else getattr(health, "level", "off"))
-        if level != "off":
-            raise _unported(f"the numerics watchdog (health level "
-                            f"{level!r})", "A7a")
-        self.health = health
+        self.health = health if health is not None else cfg.build_health()
         bb = cfg.ddp_bucket_bytes
         if bb == "auto":
             raise _unported(
@@ -206,12 +207,13 @@ class GPTHybridTrainer:
     def train_step_with_metrics(self, stage, shared, opt_state, ls, tokens,
                                 targets):
         """:meth:`train_step` plus the step's telemetry (``amp/*``,
-        ``ddp/*``, ``pipeline/*``, ``optim/*``, ``tp/*``), reduced over
-        every axis of the mesh: ``(loss, stage, shared, opt_state, ls,
-        metrics)``. Without a collector :meth:`train_step` records
-        nothing."""
-        from apex_tpu_torch.observability import ingraph
-        with ingraph.collecting() as col:
+        ``ddp/*``, ``pipeline/*``, ``optim/*``, ``tp/*``, and ``health/*``
+        under the trainer's health policy, active around the collector),
+        reduced over every axis of the mesh: ``(loss, stage, shared,
+        opt_state, ls, metrics)``. Without a collector :meth:`train_step`
+        records nothing."""
+        from apex_tpu_torch.observability import health, ingraph
+        with health.activate(self.health), ingraph.collecting() as col:
             out = self._step_impl(stage, shared, opt_state, ls, tokens,
                                   targets)
             metrics = col.freeze()
@@ -251,6 +253,7 @@ class GPTHybridTrainer:
 
     def _step_impl(self, stage, shared, opt_state, ls, tokens, targets):
         from apex_tpu_torch.amp.scaler import all_finite
+        from apex_tpu_torch.observability import health
         from apex_tpu_torch.parallel.distributed import allreduce_grads
         from apex_tpu_torch.transformer.parallel_state import (DATA_AXIS,
                                                                 resolve_axis)
@@ -258,6 +261,10 @@ class GPTHybridTrainer:
             forward_backward_pipelining_without_interleaving)
 
         model, scaler = self.model, self.scaler
+        # level "full": the params enter the step the same on every data
+        # replica, so any divergence is silent replica corruption
+        health.observe_replica_agreement(self.param_tree(stage, shared),
+                                         DATA_AXIS, name="params")
         data = resolve_axis(DATA_AXIS)
         dp, dr = dist.get_world_size(data), dist.get_rank(data)
         num_micro, batch, seq = tokens.shape

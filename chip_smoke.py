@@ -8,8 +8,8 @@ package beside it, it exits non-zero and prints no result. With no
 argument it runs every group of phases; named groups run alone, after
 the build and the kernel checks (1-3 below), which run in every call:
 ``serving`` (4-7), ``serving_host`` (8-10), ``training`` (11-17),
-``models`` (18-22), ``dist`` (23-31) and ``elastic`` (32-33); an unknown
-name exits non-zero. A call without ``training`` takes B6's row of the
+``models`` (18-22), ``dist`` (23-31), ``elastic`` (32-33) and
+``observability`` (34-37); an unknown name exits non-zero. A call without ``training`` takes B6's row of the
 kernels line from ``long_context``'s kernel checks and timings alone.
 Every call ends with the phases' wall seconds, the card's line, the
 kernels line (launches summed over the groups that ran) and the result
@@ -479,7 +479,40 @@ line. Phases, each fatal on failure:
    losses and final state bit for bit the survivor's) and an
    uninterrupted dp 1 run from step 0 (the post-shrink losses within
    ``TOL_SHRINK_LOSS``);
-34. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
+34. ``observability`` O1: GPT-small's training step as ``train`` takes it
+   (8 x 1024, bf16 compute, FusedAdam, DynamicLossScale, ``all_finite``,
+   the skip) under ``ingraph.collecting()`` and ``health.activate(
+   HealthConfig(level))``: three trainers from one state at off, cheap and
+   full, a warm step then 3 each, the levels in turns, through one
+   ``StepReporter`` (``JSONLSink``, ``ChromeTraceSink``, ``Timers`` timing
+   the step with ``wait_for``, captured spans, a ``HealthConfig(full,
+   raise)`` hook, ``flops_per_step`` from ``bench.py``'s analytic count,
+   the compile listeners and ``sample_memory_stats`` each step): losses,
+   params and optimizer state bit for bit across the levels; off records
+   no ``health/*``, cheap the five ``health/grads/*`` keys (0 non-finite,
+   first leaf -1), full ``optim_grads`` and ``params`` too; ``perf/mfu``
+   equal to ``costs.mfu`` of the reporter's own step and time deltas;
+   ``memory/bytes_in_use/device0`` within ``OBS_MEM_SLACK`` of
+   ``memory_allocated()``; every JSONL line strict JSON; the trace's
+   spans the timer's stops. Then each level's launches a step under the
+   profiler (off launching what the bare step and the collector alone
+   launch), median step ms, and ``flops_budget`` (FlopCounterMode, blind
+   to the ctypes flash kernels) and ``memory_budget`` of a step;
+35. ``observability`` O2: an overflow planted in ``layers.5.fc1.weight``
+   (the loss gains ``sum(w) * inf``) at cheap: with ``on_nonfinite=
+   "raise"`` the skip keeps params and optimizer state (sha256), the
+   ``NonFiniteError`` and the strict-JSON crash dump name the leaf; with
+   ``"dump"`` and ``consecutive=2`` one overflow writes no dump, two in a
+   row write one;
+36. ``observability`` O3: ``utils.timers.profile_trace`` around two cheap
+   steps: the Chrome trace's kernel events of B1-B3 and B7/B8 equal to
+   the launch counter's over the same steps;
+37. ``observability`` O4: ``GPTHybridTrainer`` at tp = pp = dp = 1 (NCCL at
+   world 1, 2 layers of GPT-small's widths) with ``TrainConfig(
+   health_level="full")``: ``health/params/replica_divergence`` and
+   ``health/ddp_grads/replica_divergence`` 0.0, the losses the bits of
+   the same trainer at off;
+38. a ``kernels`` JSON line (each kernel's ``body``: ``mma.sync bf16 /
    SIMT fp32`` for the three flash kernels, ``SIMT, split over
    positions`` for the two decode kernels, which also list the head dims
    they take, the fold and the table route for ``flash_dbias``, whose
@@ -3672,6 +3705,15 @@ def strict_json(path: str) -> dict:
         return json.loads(f.read(), parse_constant=refuse)
 
 
+def strict_jsonl(path: str) -> list:
+    """A JSON-lines file, each line parsed as strict JSON."""
+    def refuse(name):
+        raise ValueError(f"{path}: non-standard JSON literal {name}")
+
+    with open(path) as f:
+        return [json.loads(line, parse_constant=refuse) for line in f]
+
+
 def chaos_leg(torch, kern, card: str, eng, k: int, what: str,
               dump_dir: str) -> dict:
     """``FaultPlan.sample_serving`` on a quarantine engine: the fault-free
@@ -4068,7 +4110,9 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
     card seeded so, at a step called with ``dropout=True`` only.
     ``grad_sync`` maps the scaled grads before the unscale (DDP's
     ``sync_gradients``), and ``finite_axes`` reduces the finite flag
-    across ranks. The step returns ``(loss, finite, unscaled grads)``;
+    across ranks. ``step(extra=f)`` adds ``f(params)`` to the objective
+    that is scaled and differentiated (a planted term), not to the loss
+    it returns. The step returns ``(loss, finite, unscaled grads)``;
     ``step.params`` are the model's parameters, ``step.opt_state`` the
     optimizer's state and ``step.carry["ls"]`` the loss-scale state;
     ``step.state()`` is the tree a checkpoint holds, ``step.load(tree)``
@@ -4097,13 +4141,14 @@ def gpt_trainer(torch, cfg, init_state: dict, tokens, lr: float,
     gen = torch.Generator(device="cuda").manual_seed(0) \
         if rate and tracker is None else None
 
-    def step(dropout: bool = False):
+    def step(dropout: bool = False, extra=None):
         ls = carry["ls"]
         for p in params.values():
             p.grad = None
         g = tracker.make_key() if tracker is not None and dropout else gen
         loss = model.loss(tokens, tokens, generator=g)
-        (loss * ls.loss_scale).backward()
+        objective = loss if extra is None else loss + extra(params)
+        (objective * ls.loss_scale).backward()
         grads = {n: p.grad for n, p in params.items()}
         if grad_sync is not None:
             grads = grad_sync(grads)
@@ -10050,11 +10095,486 @@ def elastic(torch, kern, card: str) -> dict:
     return launches
 
 
+# the observability group (A7a): GPT-small's training step (``train``'s:
+# 8 x 1024 tokens, bf16 compute, FusedAdam, DynamicLossScale) under the
+# telemetry stack and the numerics watchdog
+OBS_LEVELS = ("off", "cheap", "full")
+OBS_STEPS = 3              # steps a level after a warm one, levels in turns
+OBS_LR = 1e-4
+# O2's planted overflow: a mid-stack leaf, the whole of it inf
+OBS_PLANT = "layers.5.fc1.weight"
+# the allocator's bytes in use read by sample_memory_stats against
+# torch.cuda.memory_allocated() read just after it: nothing allocates
+# between the two, so they should agree to the byte; 1 MiB allowed
+OBS_MEM_SLACK = 1 << 20
+# the keys observe_tree records for a tree
+OBS_TREE_KEYS = ("nonfinite_count", "abs_max", "l2", "underflow_frac",
+                 "first_nonfinite_leaf")
+OBS_HYBRID_LAYERS = 2      # O4: GPTHybridTrainer at 2 layers of the widths
+OBS_HYBRID_STEPS = 2
+
+
+def gpt_flops_per_step(cfg, batch: int, seq: int, n_params: int) -> float:
+    """``bench.py``'s analytic count (:537-538): 6N + 12 L d seq a token."""
+    return batch * seq * (6.0 * n_params
+                          + 12.0 * cfg.num_layers * cfg.hidden_size * seq)
+
+
+def health_keys(payload: dict) -> set:
+    return {k for k in payload if k.startswith("health/")}
+
+
+def tree_keys(*trees) -> set:
+    return {f"health/{t}/{k}" for t in trees for k in OBS_TREE_KEYS}
+
+
+def obs_step(torch, health, ingraph, step, level, extra=None):
+    """One step of ``step`` under the policy at ``level`` (None: no policy)
+    and a collector: ``(loss, finite, metrics)``."""
+    cfg = None if level is None else health.HealthConfig(level=level)
+    with health.activate(cfg), ingraph.collecting() as col:
+        loss, finite, grads = step(extra=extra)
+        metrics = col.freeze()
+    del grads
+    return loss, finite, metrics
+
+
+def obs_training(torch, kern, card: str, tmp: str, setup) -> dict:
+    """O1: three trainers from one state, at off, cheap and full, a warm
+    step then ``OBS_STEPS`` steps each, the levels in turns, through one
+    ``StepReporter``; then each level's launches under the profiler and
+    the FLOP and memory budgets. Returns the launches."""
+    from apex_tpu_torch.observability import (ChromeTraceSink, JSONLSink,
+                                              MetricsRegistry, StepReporter,
+                                              costs, health, ingraph,
+                                              runtime)
+    from apex_tpu_torch.utils.timers import Timers
+
+    cfg, init_state, tokens = setup
+    batch, seq = tokens.shape
+    trainers = {lv: gpt_trainer(torch, cfg, init_state, tokens, OBS_LR)
+                for lv in OBS_LEVELS}
+    n_params = sum(p.numel() for p in trainers["off"].params.values())
+    flops = gpt_flops_per_step(cfg, batch, seq, n_params)
+    peak = costs.peak_flops()
+    reg = MetricsRegistry()
+    runtime.install_compile_listeners(reg)
+    timers = Timers()
+    watch = health.HealthConfig(level="full", on_nonfinite="raise",
+                                dump_dir=f"{tmp}/o1_dumps")
+    jsonl, chrome = f"{tmp}/o1.jsonl", f"{tmp}/o1_trace.json"
+    reporter = StepReporter(
+        [JSONLSink(jsonl), ChromeTraceSink(chrome)], registry=reg,
+        timers=timers, capture_spans=True, hooks=[watch.reporter_hook()],
+        flops_per_step=flops, peak_flops=peak)
+    launches: dict = {}
+    losses = {lv: [] for lv in OBS_LEVELS}
+    step_ms = {lv: [] for lv in OBS_LEVELS}
+    payloads, mfus, mem_gap = [], [], 0
+    n = 0
+    for i in range(1 + OBS_STEPS):
+        for lv in OBS_LEVELS:
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            with health.activate(health.HealthConfig(level=lv)), \
+                    ingraph.collecting() as col:
+                timers("step").start()
+                loss, finite, grads = trainers[lv]()
+                timers("step").stop(wait_for=loss)
+                metrics = col.freeze()
+            del grads
+            counts = dict(kern.LAUNCHES)
+            check_gpt_counts(counts, f"observability O1 {lv} step {i}")
+            add_counts(launches, counts)
+            check(bool(finite), f"observability O1 {lv} step {i}: "
+                                "grads not finite")
+            runtime.sample_memory_stats(reg)
+            allocated = torch.cuda.memory_allocated()
+            prev = reporter._last_report
+            payload = reporter.report(n, metrics=metrics)
+            now = reporter._last_report
+            if prev is not None:
+                want = costs.mfu(flops * (now[0] - prev[0]),
+                                 now[1] - prev[1], peak)
+                check(payload["perf/mfu"] == want,
+                      f"observability O1: perf/mfu {payload['perf/mfu']} "
+                      f"is not costs.mfu of the reporter's deltas {want}")
+                mfus.append(want)
+            gap = abs(payload["memory/bytes_in_use/device0"] - allocated)
+            mem_gap = max(mem_gap, gap)
+            check(gap <= OBS_MEM_SLACK,
+                  f"observability O1: memory/bytes_in_use/device0 "
+                  f"{payload['memory/bytes_in_use/device0']} against "
+                  f"memory_allocated() {allocated}")
+            have = health_keys(payload)
+            want_keys = {"off": set(), "cheap": tree_keys("grads"),
+                         "full": tree_keys("grads", "optim_grads",
+                                           "params")}[lv]
+            check(have == want_keys, f"observability O1 {lv}: health keys "
+                                     f"{sorted(have)}")
+            for tree in ("grads", "optim_grads", "params"):
+                if f"health/{tree}/nonfinite_count" in have:
+                    check(payload[f"health/{tree}/nonfinite_count"] == 0.0
+                          and payload[f"health/{tree}/first_nonfinite_leaf"]
+                          == -1.0, f"observability O1 {lv}: {tree} "
+                                   "reads non-finite")
+            losses[lv].append(loss)
+            if i:
+                step_ms[lv].append(payload["time/step_ms"])
+            payloads.append(payload)
+            n += 1
+    reporter.close()
+    for lv in OBS_LEVELS[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(losses[lv],
+                                                    losses["off"])),
+              f"observability O1: {lv}'s losses differ from off's")
+    digests = {lv: tree_digest(torch, (trainers[lv].params,
+                                       trainers[lv].opt_state))
+               for lv in OBS_LEVELS}
+    check(len(set(digests.values())) == 1,
+          f"observability O1: params and optimizer state differ across "
+          f"the levels {digests}")
+    lines = strict_jsonl(jsonl)
+    check(len(lines) == n and [ln["step"] for ln in lines] == list(range(n)),
+          f"observability O1: {len(lines)} JSONL lines for {n} reports")
+    doc = strict_json(chrome)
+    spans = [ev for ev in doc["traceEvents"] if ev["ph"] == "X"]
+    check([ev["args"]["step"] for ev in spans] == list(range(n))
+          and all(ev["name"] == "step" for ev in spans),
+          f"observability O1: {len(spans)} spans for {n} timer stops")
+    worst = max(abs(ev["dur"] / 1e3 - p["time/step_ms"]) / p["time/step_ms"]
+                for ev, p in zip(spans, payloads))
+    check(worst <= 1e-9, f"observability O1: a span's duration is "
+                         f"{worst:.3g} off its timer's stop")
+    first = losses["off"]
+    print(f"observability O1: {n} reports, losses bit for bit at off, cheap "
+          f"and full ({', '.join(f'{float(x):.6f}' for x in first)}), "
+          f"params and optimizer state sha256 {digests['off'][:16]} at "
+          f"each level; perf/mfu {min(mfus):.4f}-{max(mfus):.4f} against "
+          f"costs.mfu of the reporter's own deltas, equal; "
+          f"memory/bytes_in_use/device0 within {mem_gap} bytes of "
+          f"memory_allocated() (limit {OBS_MEM_SLACK}); {len(lines)} strict "
+          f"JSONL lines, {len(spans)} spans = the timer's stops (worst "
+          f"{worst:.2g} relative); torch/compiles "
+          f"{reg.snapshot().get('torch/compiles', 0.0):.0f} [{card}]")
+
+    # each level's launches a step under the profiler (CUDA activity; a
+    # probe trainer from the same state), against the bare step
+    probe = gpt_trainer(torch, cfg, init_state, tokens, OBS_LR)
+
+    def variant(level, collect):
+        def fn():
+            pol = None if level is None else health.HealthConfig(level=level)
+            with health.activate(pol):
+                if collect:
+                    with ingraph.collecting():
+                        probe()
+                else:
+                    probe()
+        return fn
+
+    variants = {"bare": variant(None, False),
+                "off, no collector": variant("off", False),
+                "collector, no policy": variant(None, True),
+                "off": variant("off", True), "cheap": variant("cheap", True),
+                "full": variant("full", True)}
+    seen, busy = {}, {}
+    for what, fn in variants.items():
+        fn()
+        torch.cuda.synchronize()
+        rows, _, _ = profile_window(torch, fn, 1, f"observability {what}")
+        seen[what] = round(sum(r[2] for r in rows))
+        busy[what] = sum(r[1] for r in rows)
+    check(seen["off, no collector"] == seen["bare"],
+          f"observability O1: level off with no collector launches "
+          f"{seen['off, no collector']}, the bare step {seen['bare']}")
+    check(seen["off"] == seen["collector, no policy"],
+          f"observability O1: level off in a collector launches "
+          f"{seen['off']}, the collector with no policy "
+          f"{seen['collector, no policy']}")
+    for lv in OBS_LEVELS:
+        ms = sorted(step_ms[lv])[len(step_ms[lv]) // 2]
+        print(f"observability O1 {lv}: median step {ms:.3f} ms (Timers, "
+              f"{OBS_STEPS} steps after a warm one), {seen[lv]} launches a "
+              f"step ({seen[lv] - seen['off']:+d} against off), device busy "
+              f"{busy[lv]:.3f} ms [{card}]")
+    print(f"observability O1: launches a step: bare {seen['bare']}, off with "
+          f"no collector {seen['off, no collector']}, a collector with no "
+          f"policy {seen['collector, no policy']}, off in it {seen['off']}")
+
+    # the budgets: FlopCounterMode over one probe step against bench.py's
+    # analytic count, and the step's measured memory
+    counted = costs.flops_budget(probe)
+    budget = costs.memory_budget(probe)
+    check(counted is not None and budget is not None,
+          "observability O1: a budget came back None on the card")
+    print(f"observability O1: flops_budget (FlopCounterMode) "
+          f"{counted:.6g} FLOPs a step against the analytic {flops:.6g} "
+          f"(6N + 12 L d seq a token, N {n_params}): ratio "
+          f"{counted / flops:.4f}; FlopCounterMode sees aten's GEMMs, not "
+          f"the ctypes flash kernels (B1-B3), whose attention FLOPs it "
+          f"leaves out; memory_budget peak {budget['peak_hbm_bytes']} "
+          f"bytes, temp {budget['temp_bytes']} [{card}]")
+    for name in kern.LAUNCHES:
+        launches.setdefault(name, 0)
+    del trainers, probe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obs_overflow(torch, kern, card: str, tmp: str, setup) -> dict:
+    """O2: an overflow planted in ``OBS_PLANT`` at level cheap: with
+    ``on_nonfinite="raise"`` the skip keeps every param, the
+    ``NonFiniteError`` and the strict-JSON crash dump name the leaf; with
+    ``"dump"`` and ``consecutive=2`` one overflow writes no dump and two in
+    a row write one. Returns the launches."""
+    from apex_tpu_torch.observability import (JSONLSink, MetricsRegistry,
+                                              StepReporter, health, ingraph)
+
+    cfg, init_state, tokens = setup
+    step = gpt_trainer(torch, cfg, init_state, tokens, OBS_LR)
+    inf = torch.tensor(float("inf"), device="cuda")
+
+    def plant(params):
+        # its gradient is inf in every element of the one leaf
+        return params[OBS_PLANT].sum() * inf
+
+    path = f"[{OBS_PLANT!r}]"
+    numel = step.params[OBS_PLANT].numel()
+    launches: dict = {}
+
+    def run(reporter, level_cfg, k, planted):
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        with health.activate(level_cfg), ingraph.collecting() as col:
+            loss, finite, grads = step(extra=plant if planted else None)
+            metrics = col.freeze()
+        del grads
+        counts = dict(kern.LAUNCHES)
+        check_gpt_counts(counts, f"observability O2 step {k}")
+        add_counts(launches, counts)
+        check(bool(finite) != planted, f"observability O2 step {k}: finite "
+                                       f"{bool(finite)}, planted {planted}")
+        return reporter.report(k, metrics=metrics)
+
+    raising = health.HealthConfig(level="cheap", on_nonfinite="raise",
+                                  dump_dir=f"{tmp}/o2_raise")
+    with StepReporter([JSONLSink(f"{tmp}/o2.jsonl")],
+                      registry=MetricsRegistry(),
+                      hooks=[raising.reporter_hook()]) as reporter:
+        run(reporter, raising, 0, False)
+        before = tree_digest(torch, (step.params, step.opt_state))
+        err = None
+        try:
+            run(reporter, raising, 1, True)
+        except health.NonFiniteError as e:
+            err = e
+        check(err is not None, "observability O2: the planted overflow "
+                               "raised no NonFiniteError")
+        after = tree_digest(torch, (step.params, step.opt_state))
+    check(before == after, "observability O2: the skipped step changed "
+                           "the params or the optimizer state")
+    check(err.dump.attribution == {"grads": path} and path in str(err),
+          f"observability O2: NonFiniteError names {err.dump.attribution}"
+          f" ({err}), not {path}")
+    counted = err.dump.metrics["health/grads/nonfinite_count"]
+    check(counted == numel, f"observability O2: {counted} non-finite, not "
+                            f"{numel}")
+    doc = strict_json(err.dump_path)
+    check(doc["attribution"] == {"grads": path} and doc["step"] == 1,
+          f"observability O2: the crash dump names {doc['attribution']}")
+
+    dumping = health.HealthConfig(level="cheap", on_nonfinite="dump",
+                                  consecutive=2, dump_dir=f"{tmp}/o2_dump")
+    hook = dumping.reporter_hook()
+    dumps = []
+    with StepReporter([], registry=MetricsRegistry(),
+                      hooks=[hook]) as reporter:
+        for k, planted in enumerate((True, False, True, True), start=2):
+            run(reporter, dumping, k, planted)
+            dumps.append(len(hook.dumps))
+    check(dumps == [0, 0, 0, 1], f"observability O2: dumps after each "
+                                 f"step {dumps}, not [0, 0, 0, 1]")
+    check(strict_json(hook.dumps[0])["attribution"] == {"grads": path},
+          "observability O2: the consecutive dump names another leaf")
+    # the stats of a leaf holding a NaN, an inf and a bf16 subnormal, on
+    # the card: the largest magnitude NaN (the multi-tensor norm
+    # propagates it), the counts exact
+    probe = torch.tensor([1.0, float("nan"), -2.0, float("inf"), 1e-39,
+                          0.0], device="cuda")
+    stats = health.tensor_stats({"a": probe, "b": probe.to(torch.bfloat16),
+                                 "c": probe[:1]})
+    got = (stats.abs_max.tolist(), stats.finite_count.tolist(),
+           stats.underflow_count.tolist(), float(stats.nonfinite_count()),
+           float(stats.first_nonfinite_index()))
+    check(math.isnan(got[0][0]) and math.isnan(got[0][1])
+          and got[0][2] == 1.0 and got[1:] == ([4, 4, 1], [0, 1, 0], 4.0,
+                                               0.0),
+          f"observability O2: tensor_stats of a planted leaf on the card "
+          f"{got}")
+    print(f"observability O2: an overflow planted in {OBS_PLANT} ({numel} "
+          f"elements, all inf): the skip kept params and optimizer state "
+          f"(sha256 {before[:16]} before and after), NonFiniteError "
+          f"'{str(err).split(';')[0]}', the dump names {doc['attribution']};"
+          f" at consecutive 2 the dumps after each step {dumps} [{card}]")
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the kernels a trace names for each launch counter (each wrapper launches
+# one such kernel; ln_bwd's column sums are a kernel of their own)
+TRACE_KERNELS = {"flash_fwd": ("flash_fwd",),
+                 "flash_bwd_dq": ("flash_bwd_dq",),
+                 "flash_bwd_dkv": ("flash_bwd_dkv",),
+                 "ln_fwd": ("ln_fwd_warp", "ln_fwd_block"),
+                 "ln_bwd": ("ln_bwd_warp", "ln_bwd_block")}
+
+
+def obs_profile(torch, kern, card: str, tmp: str, setup) -> dict:
+    """O3: ``utils.timers.profile_trace`` around two steps at level cheap
+    (primed, as every profiler window here); the Chrome trace's kernel
+    events of B1-B3 and B7/B8 against the launch counter over the same
+    steps. Returns the launches."""
+    from apex_tpu_torch.observability import health, ingraph
+    from apex_tpu_torch.utils.timers import profile_trace
+
+    cfg, init_state, tokens = setup
+    step = gpt_trainer(torch, cfg, init_state, tokens, OBS_LR)
+    obs_step(torch, health, ingraph, step, "cheap")      # warm
+    primer = torch.zeros(1, device="cuda")
+    for attempt in range(PROFILE_TRIES):
+        log_dir = f"{tmp}/o3_{attempt}"
+        torch.cuda.synchronize()
+        with profile_trace(log_dir):
+            for _ in range(PROFILE_PRIMERS):
+                primer.add_(1)
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            for _ in range(2):
+                obs_step(torch, health, ingraph, step, "cheap")
+            torch.cuda.synchronize()
+            counts = dict(kern.LAUNCHES)
+        with open(f"{log_dir}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        names = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
+        traced = {k: sum(any(p in nm for p in pats) for nm in names)
+                  for k, pats in TRACE_KERNELS.items()}
+        want = {k: counts[k] for k in TRACE_KERNELS}
+        if traced == want:
+            break
+        print(f"observability O3: trace {attempt + 1} of {PROFILE_TRIES} "
+              f"holds {traced} of the counted {want}")
+    check(traced == want, f"observability O3: {PROFILE_TRIES} traces "
+                          f"miss kernels: {traced} against {want}")
+    check_gpt_counts(counts, "observability O3 (two steps)", passes=2)
+    print(f"observability O3: profile_trace's Chrome trace over two cheap "
+          f"steps: {len(names)} kernel events; by name {traced}, equal to "
+          f"the launch counter [{card}]")
+    del step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def obs_hybrid(torch, kern, card: str, tmp: str, setup) -> dict:
+    """O4: ``GPTHybridTrainer`` at tp = pp = dp = 1 on a world-1 NCCL group,
+    ``TrainConfig(health_level="full")`` at ``OBS_HYBRID_LAYERS`` layers of
+    GPT-small's widths: the params' and the synced grads' replica
+    divergence 0.0, and the losses the bits of the same trainer at off.
+    Returns the launches."""
+    import torch.distributed as dist
+    from apex_tpu_torch.training import GPTHybridTrainer
+    from apex_tpu_torch.transformer import parallel_state
+
+    _, _, tokens = setup
+    batch = tokens[None]                      # (M 1, 8, 1024)
+    launches: dict = {}
+    losses, payloads = {}, {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            rank=0, world_size=1)
+    try:
+        for level in ("off", "full"):
+            cfg = dataclasses.replace(elastic_config(OBS_HYBRID_LAYERS),
+                                      health_level=level)
+            trainer = GPTHybridTrainer(cfg, cfg.initialize_mesh(),
+                                       init_scale=PP_SCALE, device="cuda")
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            losses[level], payloads[level] = [], []
+            for i in range(OBS_HYBRID_STEPS):
+                torch.cuda.synchronize()
+                kern.reset_launches()
+                loss, *state, metrics = trainer.train_step_with_metrics(
+                    *state, batch, batch)
+                torch.cuda.synchronize()
+                counts = dict(kern.LAUNCHES)
+                check_elastic_counts(counts, OBS_HYBRID_LAYERS, 1,
+                                     f"observability O4 {level} step {i}")
+                add_counts(launches, counts)
+                losses[level].append(loss.detach().clone())
+                payloads[level].append(metrics.as_floats())
+            del trainer, state
+            parallel_state.destroy_model_parallel()
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    check(all(torch.equal(a, b) for a, b in zip(losses["full"],
+                                                losses["off"])),
+          "observability O4: the losses at full differ from off's")
+    for p in payloads["off"]:
+        check(not health_keys(p), "observability O4: off recorded health/*")
+    for p in payloads["full"]:
+        check(p["health/params/replica_divergence"] == 0.0
+              and p["health/ddp_grads/replica_divergence"] == 0.0,
+              f"observability O4: replica divergence "
+              f"{p['health/params/replica_divergence']} (params), "
+              f"{p['health/ddp_grads/replica_divergence']} (ddp grads)")
+        check(tree_keys("grads", "optim_grads", "params")
+              <= health_keys(p), "observability O4: a tree's keys missing")
+    print(f"observability O4: GPTHybridTrainer (tp = pp = dp = 1, NCCL at "
+          f"world 1, {OBS_HYBRID_LAYERS} layers of GPT-small's widths) at "
+          f"health level full: health/params/replica_divergence 0.0 and "
+          f"health/ddp_grads/replica_divergence 0.0 at each of "
+          f"{OBS_HYBRID_STEPS} steps, {len(health_keys(payloads['full'][0]))}"
+          f" health keys; losses bit for bit off's "
+          f"({', '.join(f'{float(x):.6f}' for x in losses['off'])}) "
+          f"[{card}]")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def observability(torch, kern, card: str) -> list:
+    """The observability group: O1-O4 (the module docstring), each timed.
+    Returns ``(what, launches)`` of each leg, in order."""
+    import tempfile
+
+    paths = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        setup = gpt_small_setup(torch)
+        t = [time.perf_counter()]
+        for what, leg in (
+                (f"the telemetry stack's GPT-small steps (O1: 3 levels x "
+                 f"{1 + OBS_STEPS} steps)",
+                 obs_training),
+                ("the planted overflows (O2: 6 steps)", obs_overflow),
+                ("the profiled steps (O3: the 2 of the trace read)",
+                 obs_profile),
+                (f"the hybrid trainer at off and full (O4: 2 x "
+                 f"{OBS_HYBRID_STEPS} steps, {OBS_HYBRID_LAYERS} layers)",
+                 obs_hybrid)):
+            paths.append((what, leg(torch, kern, card, tmp, setup)))
+            t.append(time.perf_counter())
+        print("observability: wall seconds " + ", ".join(
+            f"O{i + 1} {b - a:.1f}" for i, (a, b) in enumerate(zip(t, t[1:])))
+            + f"; the group {t[-1] - t[0]:.1f}")
+    return paths
+
+
 # the groups of phases ``python3 chip_smoke.py [group ...]`` runs (all of
 # them with no argument); the build and the kernel checks run in every
 # call
 GROUPS = ("serving", "serving_host", "training", "models", "dist",
-          "elastic")
+          "elastic", "observability")
 
 
 def dbias_row_alone(torch, fa, kern, card: str) -> dict:
@@ -10289,6 +10809,9 @@ def main(argv=None) -> None:
                       "drained; E2: the survivor's steps and this "
                       "process's two replays)", elastic(torch, kern, card)))
         lap("elastic")
+    if "observability" in groups:
+        paths += observability(torch, kern, card)
+        lap("observability")
     if dbias_row is None:
         dbias_row = dbias_row_alone(torch, fa, kern, card)
         lap("B6 row")

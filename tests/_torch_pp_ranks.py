@@ -353,21 +353,20 @@ def trainer_nan(cfg_dict, seed, tokens, targets, nan_rank):
 
 
 def trainer_refusals(cfg_dict):
-    """The errors' types and texts: a health level above off (A7a), the
-    donation self-check and ``attribution_report`` (A7b),
+    """The errors' types and texts (None where the trainer builds): a
+    health policy at level "full" (builds) and a config's unknown health
+    level, the donation self-check and ``attribution_report`` (A7b),
     ``ddp_bucket_bytes="auto"`` (A7b), and a config whose pipeline size
     is not the mesh's."""
     import dataclasses
     from apex_tpu_torch.config import TrainConfig
+    from apex_tpu_torch.observability.health import HealthConfig
     from apex_tpu_torch.training import GPTHybridTrainer
-
-    class Health:
-        level = "basic"
 
     trainer, cfg = _trainer(cfg_dict)
     cases = {
-        "health": lambda: GPTHybridTrainer(cfg, device="cpu",
-                                           health=Health()),
+        "health": lambda: GPTHybridTrainer(
+            cfg, device="cpu", health=HealthConfig(level="full")),
         "health_cfg": lambda: GPTHybridTrainer(
             dataclasses.replace(cfg, health_level="basic"), device="cpu"),
         "verify_donation": lambda: trainer.jit_train_step(

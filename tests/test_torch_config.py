@@ -12,13 +12,14 @@
 - the errors: the reference's ``ValueError`` for unknown names, a bad
   ``zero`` and ZeRO on SGD, and sequence parallelism or its overlap at
   tp = 1 (both packages); ``NotImplementedError`` naming the queue item
-  for what is not ported (a model at pp/cp > 1, ``ddp_bucket_bytes=
-  "auto"`` under ZeRO and fastpath, health, microbatches, samplers); a
-  GPT at tp 2 building on two gloo ranks. ZeRO, ``fastpath`` and the
+  for what is not ported (``ddp_bucket_bytes="auto"`` under ZeRO and
+  fastpath); what has been ported since builds: a GPT at tp 2 on two gloo
+  ranks, at pp and cp 2, the health policy, microbatches, samplers. ZeRO, ``fastpath`` and the
   mesh themselves: ``tests/test_torch_zero.py`` and
   ``tests/test_torch_parallel_state.py``.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -178,7 +179,7 @@ def test_errors_match_the_reference():
     (None, "sequence_parallel requires tp > 1"),
     (None, "tp_comm_overlap requires sequence_parallel=True"),
     (lambda: tcfg.TrainConfig().fastpath().build_optimizer(), "A7b"),
-    (lambda: tcfg.TrainConfig().build_health(), "A7"),
+    (None, "health builds"),
     (None, "microbatches build"),
     (None, "sampler builds"),
 ], ids=["zero", "lamb", "tp", "pp", "cp", "sp",
@@ -194,7 +195,9 @@ def test_unported_pieces_raise_naming_their_queue_item(make, item, request):
     (``tests/test_torch_microbatches.py`` holds them to it). Context
     parallelism is ported: at cp 2 the GPT builds with cp 1's parameters
     (only the mesh gains the context axis, as in the reference;
-    ``tests/test_torch_context_parallel.py`` holds the groups to JAX's)."""
+    ``tests/test_torch_context_parallel.py`` holds the groups to JAX's).
+    The health policy is ported: ``build_health`` gives the JAX config's
+    ``HealthConfig`` fields, and a bad level raises its ``ValueError``."""
     case = request.node.callspec.id
     if case == "tp":
         _tp2_builds()
@@ -217,6 +220,15 @@ def test_unported_pieces_raise_naming_their_queue_item(make, item, request):
         shapes = [{n: tuple(p.shape) for n, p in build(cp).named_parameters()}
                   for cp in (2, 1)]
         assert shapes[0] == shapes[1] and len(shapes[0]) > 0
+    elif case == "health":
+        for kw in ({}, dict(health_level="full", health_on_nonfinite="raise",
+                            health_consecutive=3, health_dump_dir="d")):
+            got = tcfg.TrainConfig(**kw).build_health()
+            want = jcfg.TrainConfig(**kw).build_health()
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        for mod in (jcfg, tcfg):
+            with pytest.raises(ValueError, match="level must be one of"):
+                mod.TrainConfig(health_level="basic").build_health()
     elif case == "microbatches":
         got = tcfg.TrainConfig().build_microbatch_calculator(2)
         want = jcfg.TrainConfig().build_microbatch_calculator(2)

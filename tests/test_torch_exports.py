@@ -4,7 +4,7 @@ and resolve lazily.
 For every package the port has, the JAX package's ``__all__`` (for
 ``observability``, which has none, its public names) less the port's is
 exactly the set listed here by the queue item that ports it (ROADMAP.md,
-queue A: A7a observability and the rest of utils);
+queue A; the reference's JAX shims in utils are not queued);
 every name in a port ``__all__`` exists. A bare
 ``import apex_tpu_torch`` imports no subpackage and builds no kernel, then
 each subpackage resolves on first attribute access, and the reference's
@@ -22,27 +22,9 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 UNPORTED = {
-    "observability": {"A7a": {
-        "AttributionDiff", "BenchHistory", "ChromeTraceSink", "DriftShift",
-        "HealthConfig", "HealthMonitor", "JSONLSink", "NonFiniteError",
-        "NullReporter", "Regression", "RegressionDetector", "Span",
-        "StepReporter", "TensorBoardSink", "TreeStats", "attach_reporter",
-        "check_replica_agreement", "chrome_trace_events", "costs",
-        "detach_reporter", "detect_drift_shifts", "drain_spans",
-        "drift_series", "epoch_offset", "flops_budget",
-        "get_reporter", "install_compile_listeners", "memory_budget",
-        "merge_chrome_traces", "mfu", "peak_flops",
-        "perfwatch", "publish_drift", "report", "reset_compile_listeners",
-        "runtime", "sample_memory_stats", "sinks", "span_recording",
-        "spans_enabled", "tensor_stats", "trace",
-        "uninstall_compile_listeners", "unit_direction"}},
     # the reference's utils has no __all__: its public names, with the
     # JAX shims imported first so the set does not hang on import order
-    "utils": {"A7a": {"Timer", "Timers", "device_fence", "profile_trace",
-                      "RankInfoFormatter", "get_logger", "rank_zero_only",
-                      "set_verbosity", "setup_logging", "timers",
-                      "logging"},
-              "not queued": {"compat", "vma", "hostmesh"}},
+    "utils": {"not queued": {"compat", "vma", "hostmesh"}},
 }
 PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "normalization", "observability", "ops", "optimizers",
@@ -56,7 +38,11 @@ PACKAGES = ("amp", "fp16_utils", "models", "multi_tensor_apply",
             "elastic.ckpt", "elastic.reshard", "elastic.faults",
             "serving.resilience", "parallel.multiproc", "utils",
             "utils.autoresume", "elastic.data", "elastic.runner",
-            "elastic.launch", "observability.fleet")
+            "elastic.launch", "observability.fleet", "observability.health",
+            "observability.report", "observability.costs",
+            "observability.runtime", "observability.perfwatch",
+            "observability.sinks", "observability.trace", "utils.timers",
+            "utils.logging")
 # the modules A5a added, each importable with JAX and the JAX package
 # blocked
 A5A_MODULES = ("parallel._spawn", "transformer.parallel_state",
@@ -84,6 +70,12 @@ A5D_A6A_MODULES = ("transformer.expert_parallel", "parallel.spatial",
 A6B_A6C_MODULES = ("parallel.multiproc", "utils", "utils.autoresume",
                    "elastic.data", "elastic.runner", "elastic.launch",
                    "observability.fleet")
+# and the modules A7a added
+A7A_MODULES = ("observability", "observability.costs", "observability.trace",
+               "observability.sinks", "observability.report",
+               "observability.runtime", "observability.health",
+               "observability.perfwatch", "perfwatch", "utils.timers",
+               "utils.logging")
 # subpackages of the JAX package the port does not have yet
 UNPORTED_SUBPACKAGES = {"pyprof": "A7b", "reparameterization": "not queued"}
 # the JAX shims of the reference's utils, imported before its names are
@@ -173,7 +165,7 @@ def test_contrib_lazy_names_match_the_reference():
 
 
 @pytest.mark.parametrize("module", A5A_MODULES + A5B_MODULES + A5C_MODULES
-                         + A5D_A6A_MODULES + A6B_A6C_MODULES)
+                         + A5D_A6A_MODULES + A6B_A6C_MODULES + A7A_MODULES)
 def test_a5a_modules_import_without_jax(module):
     code = (
         "import sys\n"

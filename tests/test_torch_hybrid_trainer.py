@@ -334,14 +334,15 @@ def test_trainer_sequence_parallel_overlap_at_pp1_matches_jax(pools):
 
 def test_trainer_refusals(pools):
     """Sequence parallelism at pp 2 raises as the reference does; a
-    health level above off names A7a; the donation self-check,
+    health policy at level "full" builds, and an unknown health level
+    raises the reference's ``ValueError``; the donation self-check,
     ``attribution_report`` and ``ddp_bucket_bytes="auto"`` name A7b; a
     config whose pipeline size is not the mesh's raises."""
     cfg_dict, _, _ = _cfg(2, 2, 1)
     out = pools.run(4, R.trainer_refusals, cfg_dict)[0]
-    for case in ("health", "health_cfg"):
-        assert out[case][0] == "NotImplementedError" and "A7a" in \
-            out[case][1], out[case]
+    assert out["health"] is None, out["health"]
+    assert out["health_cfg"][0] == "ValueError" and \
+        "level must be one of" in out["health_cfg"][1], out["health_cfg"]
     for case in ("verify_donation", "attribution", "auto"):
         assert out[case][0] == "NotImplementedError" and "A7b" in \
             out[case][1], out[case]

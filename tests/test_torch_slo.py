@@ -21,8 +21,9 @@ from apex_tpu.observability import health as jax_health
 from apex_tpu.observability import registry as jax_registry
 from apex_tpu.observability import reqtrace as jax_reqtrace
 from apex_tpu.observability import slo as jax_slo
-from apex_tpu_torch.observability import _common
 from apex_tpu_torch.observability import health, registry, reqtrace, slo
+from apex_tpu_torch.observability import sinks as port_sinks
+from apex_tpu_torch.observability import trace as port_trace
 
 SIDES = {"jax": (jax_registry, jax_reqtrace, jax_slo, jax_health),
          "port": (registry, reqtrace, slo, health)}
@@ -117,22 +118,22 @@ def test_json_safe_float_and_back(value):
         assert math.copysign(1.0, p) == math.copysign(1.0, j) and p == j
     back_p, back_j = registry.json_float(p), jax_registry.json_float(j)
     assert (math.isnan(back_p) and math.isnan(back_j)) or back_p == back_j
-    assert (_common.json_safe_value(value)
+    assert (port_sinks.json_safe_value(value)
             == (p if not isinstance(p, float) else value))
 
 
 def test_json_safe_metrics_matches_sinks():
     from apex_tpu.observability.sinks import json_safe_metrics
     m = {"a": 1.0, "b": math.nan, "c": math.inf, "d": "text", "e": 3}
-    assert _common.json_safe_metrics(m) == json_safe_metrics(m)
+    assert port_sinks.json_safe_metrics(m) == json_safe_metrics(m)
 
 
 def test_trace_metadata_keys():
     from apex_tpu.observability.trace import trace_metadata
-    p, j = _common.trace_metadata(), trace_metadata()
+    p, j = port_trace.trace_metadata(), trace_metadata()
     assert p.keys() == j.keys() and p["clock"] == j["clock"]
     assert isinstance(p["epoch_offset_s"], float)
-    assert isinstance(_common.epoch_offset(), float)
+    assert isinstance(port_trace.epoch_offset(), float)
 
 
 # -- request records and the Chrome trace ------------------------------------
